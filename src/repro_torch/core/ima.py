@@ -11,6 +11,14 @@ reference's ``jnp.linspace``-based codebooks bit for bit: XLA computes
 reciprocal of ``num - 1`` and a fused multiply-add for the sum (the second
 sample fuses the other product), and the companding power is taken in
 f64 and rounded once.  Pinned for 2..64 codes by the CPU tests.
+
+The NLD activation codebooks (``activation_codebook``) sample the
+dendrite nonlinearities of ``DENDRITE_ACTIVATIONS`` on the same
+``linspace``.  They are numpy f32 functions written in the reference's
+operation order; ``sigmoid4`` is ``4 / (1 + exp(-x))`` with XLA's f32
+``exp`` (the Cephes polynomial with fused multiply-adds, ``_expf``), which
+is not correctly rounded and differs from ``np.exp`` by one ULP on some
+inputs.
 """
 
 from __future__ import annotations
@@ -63,6 +71,27 @@ def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
     return np.concatenate([out, [b]]).astype(f32)
 
 
+def _expf(x: np.ndarray) -> np.ndarray:
+    """f32 ``exp`` as XLA computes it on the CPU: the Cephes range
+    reduction and polynomial, every multiply-add fused, and subnormal
+    results flushed to zero."""
+    f32 = np.float32
+    x = np.clip(np.asarray(x, f32), f32(-104.0), f32(88.8))
+    n = np.floor(_fma32(x, f32(1.44269504088896341), f32(0.5)))
+    n = np.clip(n, f32(-127.0), f32(127.0)).astype(f32)
+    a = _fma32(f32(-0.693359375), n, x)
+    a = _fma32(f32(2.12194440e-4), n, a)
+    z = _fma32(a, f32(1.9875691500e-4), f32(1.3981999507e-3))
+    for c in (8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1,
+              5.0000001201e-1):
+        z = _fma32(z, a, f32(c))
+    z = _fma32(z, (a * a).astype(f32), a)
+    z = (f32(1.0) + z).astype(f32)
+    two_n = np.ldexp(f32(1.0), n.astype(np.int32)).astype(f32)
+    out = (z * two_n).astype(f32)
+    return np.where(out < np.finfo(f32).tiny, f32(0.0), out)
+
+
 def _codebook(levels: np.ndarray, in_lo: float, in_hi: float) -> RampCodebook:
     f32 = np.float32
     bounds = (f32(0.5) * (levels[1:] + levels[:-1]).astype(f32)).astype(f32)
@@ -87,6 +116,42 @@ def nlq_codebook(code_bits: int, in_lo: float, in_hi: float,
     mid, half = (in_hi + in_lo) / 2.0, (in_hi - in_lo) / 2.0
     levels = (f32(mid) + (f32(half) * comp).astype(f32)).astype(f32)
     return _codebook(levels, in_lo, in_hi)
+
+
+def quadratic(x: np.ndarray) -> np.ndarray:
+    """y = 0.5 x^2: the measured Fig. 7b activation."""
+    f32 = np.float32
+    return ((f32(0.5) * x).astype(f32) * x).astype(f32)
+
+
+def relu(x: np.ndarray) -> np.ndarray:
+    return np.maximum(x, np.float32(0.0))
+
+
+def sigmoid4(x: np.ndarray) -> np.ndarray:
+    """Saturating dendritic nonlinearity, ``4 * sigmoid(x)``."""
+    f32 = np.float32
+    sig = (f32(1.0) / (f32(1.0) + _expf(-x)).astype(f32)).astype(f32)
+    return (f32(4.0) * sig).astype(f32)
+
+
+DENDRITE_ACTIVATIONS = {
+    "quadratic": quadratic,
+    "relu": relu,
+    "sigmoid4": sigmoid4,
+}
+
+
+def activation_codebook(code_bits: int, f, in_lo: float,
+                        in_hi: float) -> RampCodebook:
+    """NL-activation ramp (Fig. 6a, NLD): the ramp decides on uniform input
+    steps and the LUT holds ``f`` at those steps, so the counter output
+    approximates ``f(x)``.  ``f`` maps an f32 numpy array to f32."""
+    f32 = np.float32
+    xs = _linspace_f32(in_lo, in_hi, 2 ** code_bits)
+    bounds = (f32(0.5) * (xs[1:] + xs[:-1]).astype(f32)).astype(f32)
+    return RampCodebook(torch.from_numpy(np.asarray(f(xs), f32)),
+                        torch.from_numpy(bounds), float(in_lo), float(in_hi))
 
 
 def ima_convert(x: torch.Tensor, cb: RampCodebook) -> torch.Tensor:

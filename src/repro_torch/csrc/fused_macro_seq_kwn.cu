@@ -33,19 +33,10 @@
 // same Threefry-2x32-20 words and reproduces the reference's f32 log (Cephes
 // with FMAs) and the C library's double-precision sinf/cosf, with IEEE
 // sqrtf and division; see repro_torch/core/f32math.py for the plain version.
+// That device code, the MAC, the KWN sweep and the LIF update are shared with
+// the NLD and stacked kernels (fused_macro_common.cuh).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kRowsPerCta = 4;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kTagIma = 0x494D4101u;
-constexpr uint32_t kTagSnl = 0x534E4C01u;
-constexpr float kTwoPiF = 0x1.921fb6p+2f;
-
-}  // namespace
+#include "fused_macro_common.cuh"
 
 extern "C" {
 
@@ -75,166 +66,7 @@ struct FmskParams {
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// Counter PRNG: Threefry-2x32-20 (repro/core/ctrprng.py).
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t c0, uint32_t c1,
-                                             uint32_t* o0, uint32_t* o1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = c0 + k0, x1 = c1 + k1;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[i % 2][j]) ^ x0;
-    }
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
-  }
-  *o0 = x0;
-  *o1 = x1;
-}
-
-__device__ __forceinline__ float unit_open(uint32_t bits) {
-  return ((float)(bits >> 8) + 0.5f) * 0x1p-24f;
-}
-
-// f32 log: the Cephes polynomial with fused multiply-adds (the reference's).
-__device__ float ref_logf(float x) {
-  int ei;
-  float m = frexpf(x, &ei);
-  float e = (float)ei;
-  const bool small = m < 0x1.6a09e6p-1f;
-  float t = (m - 1.0f) + (small ? m : 0.0f);
-  e = e - (small ? 1.0f : 0.0f);
-  const float x2 = t * t;
-  const float x3 = x2 * t;
-  float y = fmaf(t, 0x1.204376p-4f, -0x1.d7a370p-4f);
-  float y1 = fmaf(t, -0x1.fcba9ep-4f, 0x1.23d37ep-3f);
-  float y2 = fmaf(t, 0x1.999d58p-3f, -0x1.fffff8p-3f);
-  y = fmaf(y, t, 0x1.de4a34p-4f);
-  y1 = fmaf(y1, t, -0x1.555ca0p-3f);
-  y2 = fmaf(y2, t, 0x1.555554p-2f);
-  y = fmaf(y, x3, y1);
-  y = fmaf(y, x3, y2);
-  y = fmaf(y, x3, e * -0x1.bd0106p-13f);
-  t = t - 0.5f * x2;
-  t = t + y;
-  return fmaf(e, 0x1.63p-1f, t);
-}
-
-// sinf/cosf as the C library computes them: double-precision reduction and
-// polynomials, one rounding to f32.
-__constant__ uint32_t kInvPio4[24] = {
-    0xa2,       0xa2f9,     0xa2f983,   0xa2f9836e, 0xf9836e4e, 0x836e4e44,
-    0x6e4e4415, 0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757, 0xfc2757d1,
-    0x2757d1f5, 0x57d1f534, 0xd1f534dd, 0xf534ddc0, 0x34ddc0db, 0xddc0db62,
-    0xc0db6295, 0xdb629599, 0x6295993c, 0x95993c43, 0x993c4390, 0x3c439041};
-
-__device__ double reduce_large(uint32_t xi, int* np) {
-  const uint32_t* arr = &kInvPio4[(xi >> 26) & 15];
-  const int shift = (xi >> 23) & 7;
-  xi = (xi & 0xffffff) | 0x800000;
-  xi <<= shift;
-  uint64_t res0 = xi * arr[0];
-  const uint64_t res1 = (uint64_t)xi * arr[4];
-  const uint64_t res2 = (uint64_t)xi * arr[8];
-  res0 = (res2 >> 32) | (res0 << 32);
-  res0 += res1;
-  const uint64_t n = (res0 + (1ULL << 61)) >> 62;
-  res0 -= n << 62;
-  *np = (int)n;
-  return (double)(int64_t)res0 * 0x1.921FB54442D18p-62;
-}
-
-__device__ float ref_sincosf(float y, bool want_cos) {
-  const uint32_t bits = __float_as_uint(y);
-  const uint32_t top = (bits >> 20) & 0x7ff;
-  if (top < 0x398) return want_cos ? 1.0f : y;
-  const double x = (double)y;
-  double xr = x;
-  int n = 0, quad = 0;
-  if (top >= 0x3F4 && top < 0x42F) {
-    const double r = x * 0x1.45F306DC9C883p+23;
-    n = ((int32_t)r + 0x800000) >> 24;
-    xr = x - (double)n * 0x1.921FB54442D18p0;
-    quad = n;
-  } else if (top >= 0x42F) {
-    xr = reduce_large(bits, &n);
-    quad = n + (int)(bits >> 31);
-  }
-  const bool reduced = top >= 0x3F4;
-  const double sgn = (!reduced || ((quad & 3) == 0) || ((quad & 3) == 3))
-                         ? 1.0 : -1.0;
-  const bool neg_cos = reduced && (quad & 2);
-  const bool odd = want_cos ? ((n ^ 1) & 1) : (n & 1);
-  const double xs = xr * sgn;
-  const double x2 = xr * xr;
-  double out;
-  if (!odd) {
-    const double x3 = xs * x2;
-    const double s1 = 0x1.1107605230bc4p-7 + x2 * -0x1.994eb3774cf24p-13;
-    const double x7 = x3 * x2;
-    const double s = xs + x3 * -0x1.555545995a603p-3;
-    out = s + x7 * s1;
-  } else {
-    const double c0 = neg_cos ? -1.0 : 1.0;
-    const double c1 = neg_cos ? 0x1.ffffffd0c621cp-2 : -0x1.ffffffd0c621cp-2;
-    const double c2 = neg_cos ? -0x1.55553e1068f19p-5 : 0x1.55553e1068f19p-5;
-    const double c3 = neg_cos ? 0x1.6c087e89a359dp-10 : -0x1.6c087e89a359dp-10;
-    const double c4 = neg_cos ? -0x1.99343027bf8c3p-16 : 0x1.99343027bf8c3p-16;
-    const double x4 = x2 * x2;
-    const double cc2 = c3 + x2 * c4;
-    const double cc1 = c0 + x2 * c1;
-    const double x6 = x4 * x2;
-    const double c = cc1 + x4 * c2;
-    out = c + x6 * cc2;
-  }
-  return (float)out;
-}
-
-__device__ __forceinline__ float counter_normal(uint32_t seed, uint32_t step,
-                                                uint32_t row, uint32_t col) {
-  uint32_t b0, b1;
-  threefry2x32(seed, kTagIma ^ step, row, col, &b0, &b1);
-  const float r = sqrtf(-2.0f * ref_logf(unit_open(b0)));
-  const float theta = kTwoPiF * unit_open(b1);
-  return r * ref_sincosf(theta, true);
-}
-
-__device__ __forceinline__ float counter_sign(uint32_t seed, uint32_t step,
-                                              uint32_t row, uint32_t col) {
-  uint32_t b0, b1;
-  threefry2x32(seed, kTagSnl ^ step, row, col, &b0, &b1);
-  return (float)(b0 & 1u) * 2.0f - 1.0f;
-}
-
-struct NoiseModel {
-  float offset_lsb, sigma_lsb, inl_lsb, in_lo, in_span;
-  int n_codes;
-};
-
-// Fig. 7 error in code space: INL sinusoid + offset + Gaussian, rounded half
-// to even and clipped to the ripple counter (repro/core/ctrprng.py).
-__device__ __noinline__ int noisy_code(int ideal, float x, uint32_t seed,
-                                       uint32_t step, uint32_t row,
-                                       uint32_t col, NoiseModel nm) {
-  const float u = (x - nm.in_lo) / nm.in_span;
-  const float s = ref_sincosf(kTwoPiF * u, false);
-  const float g = counter_normal(seed, step, row, col);
-  const float eps = fmaf(nm.sigma_lsb, g, nm.offset_lsb);
-  const float pre = fmaf(nm.inl_lsb, s, (float)ideal) + eps;
-  const int code = (int)rintf(pre);
-  return min(max(code, 0), nm.n_codes - 1);
-}
+using namespace fm;
 
 // ---------------------------------------------------------------------------
 // The kernel: one warp per batch row, CPL columns per lane (c = lane + 32 j).
@@ -261,9 +93,9 @@ fmsk_kernel(const FmskParams p) {
   const uint32_t seed = (uint32_t)p.row_ctl[row * 3 + 0];
   const int32_t step0 = p.row_ctl[row * 3 + 1];
   const uint32_t rid = (uint32_t)p.row_ctl[row * 3 + 2];
-  const unsigned lanes_below = (1u << lane) - 1u;
   const NoiseModel nm = {p.offset_lsb, p.sigma_lsb, p.inl_lsb, p.in_lo,
                          p.in_span, p.n_codes};
+  const LifParams lp = {p.beta, p.v_th1, p.v_th2, p.v_reset, p.v_lim};
 
   float v[CPL], sc[CPL];
 #pragma unroll
@@ -279,69 +111,29 @@ fmsk_kernel(const FmskParams p) {
 #pragma unroll
     for (int j = 0; j < CPL; ++j) acc[j] = 0.0f;
     const int8_t* xr = p.x + ((size_t)t * p.m + row) * p.k_dim;
-    for (int kt = 0; kt < n_k; ++kt) {
-      if (p.activity != nullptr &&
-          p.activity[((size_t)t * n_i + tile_i) * n_k + kt] == 0)
-        continue;
-      for (int k0 = kt * p.bk; k0 < (kt + 1) * p.bk; k0 += 32) {
-        const int xv = xr[k0 + lane];
-        unsigned live = __ballot_sync(kFull, xv != 0);
-        while (live) {
-          const int b = __ffs(live) - 1;
-          live &= live - 1;
-          const float s = (float)__shfl_sync(kFull, xv, b);
-          const int8_t* mr = p.msb + (size_t)(k0 + b) * n;
-          const int8_t* lr = p.lsb + (size_t)(k0 + b) * n;
-#pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            const int c = lane + 32 * j;
-            if (c < n) {
-              const float w = p.ratio * (float)mr[c] + (float)lr[c];
-              acc[j] = acc[j] + s * w;
-            }
-          }
-        }
-      }
-    }
+    const int32_t* occ = p.activity == nullptr ? nullptr
+        : p.activity + ((size_t)t * n_i + tile_i) * n_k;
+    mac_events<CPL>(acc, xr, occ, p.k_dim, p.bk, p.msb, p.lsb, n, n, p.ratio,
+                    lane);
 
     // --- ramp codes (+ Fig. 7 counter noise), padded columns -> -1 --------
     int code[CPL];
-    int top = -1;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
       const int c = lane + 32 * j;
       int cd = -1;
       if (c < n && c < p.n_valid) {
-        cd = 0;
-        for (int i = 0; i < p.n_codes - 1; ++i) cd += acc[j] > s_bounds[i];
+        cd = ramp_code(acc[j], s_bounds, p.n_codes);
         if (p.noisy)
           cd = noisy_code(cd, acc[j], seed, (uint32_t)(step0 + t), rid,
                           (uint32_t)c, nm);
       }
       code[j] = cd;
-      top = max(top, cd);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      top = max(top, __shfl_xor_sync(kFull, top, off));
 
     // --- KWN: descending ramp, priority encoder in column order -----------
     bool win[CPL];
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) win[j] = false;
-    int found = 0, steps = -1;
-    for (int level = top; level >= 0 && found < p.k; --level) {
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        const int room = p.k - found;
-        const bool hit = code[j] == level;
-        const unsigned b = __ballot_sync(kFull, hit);
-        if (hit && __popc(b & lanes_below) < room) win[j] = true;
-        found += min(__popc(b), max(room, 0));
-      }
-      if (found >= p.k) steps = p.n_codes - 1 - level;
-    }
-    if (steps < 0) steps = p.n_codes - 1;
+    const int steps = kwn_sweep<CPL>(code, win, p.k, p.n_codes, lane);
 
     // --- LUT drive and LIF (Eq. 1) -------------------------------------
     const size_t base = ((size_t)t * p.m + row) * n;
@@ -359,11 +151,8 @@ fmsk_kernel(const FmskParams p) {
         nz = p.snl_amp * counter_sign(seed, (uint32_t)(step0 + t), rid,
                                       (uint32_t)c);
       }
-      float vn = maskf > 0.0f ? fmaf(p.beta, v[j], drive) : v[j];
-      if (p.use_snl && vn > p.v_th2 && vn < p.v_th1) vn = vn + nz;
-      vn = fminf(fmaxf(vn, -p.v_lim), p.v_lim);
-      const float spike = vn >= p.v_th1 ? 1.0f : 0.0f;
-      v[j] = spike > 0.0f ? p.v_reset : vn;
+      float spike;
+      v[j] = lif_update(v[j], drive, maskf > 0.0f, nz, p.use_snl, lp, &spike);
       p.spikes[base + c] = spike;
       p.mask[base + c] = maskf;
       if (p.mac != nullptr) p.mac[base + c] = acc[j];

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``repro_torch/csrc/*.cu``).
 
 Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, loaded with ``ctypes``.  Nothing is
-built at import time: ``library(name)`` builds on first use, into
-``build/repro_torch/`` at the root of the checkout, under a file name that
-carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+library with a plain C interface, loaded with ``ctypes``; the device code
+the kernels share is in ``csrc/*.cuh``.  Nothing is built at import time:
+``library(name)`` builds on first use, into ``build/repro_torch/`` at the
+root of the checkout, under a file name that carries a hash of the source,
+the headers and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  ``build_all`` starts one ``nvcc`` per
+source at once.
 
 Flags: ``-O3`` without ``--use_fast_math`` (IEEE division and square
 root), and ``-fmad=false``: the reference rounds after every multiply and
@@ -48,20 +50,28 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        src += hdr.read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{tag[:16]}.so"
 
 
-def _compile(name: str, out: Path) -> None:
+def _start(name: str, out: Path):
+    """Start ``nvcc`` for ``csrc/<name>.cu``; returns (process, temp path)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    BUILD_LOG[name] = proc.stdout
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish(name: str, out: Path, proc, tmp: Path) -> None:
+    """Wait for ``nvcc`` and move its library into place."""
+    log, _ = proc.communicate()
+    BUILD_LOG[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
+                           f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
 
 
@@ -71,19 +81,27 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         out = _target(name)
         if not out.exists():
-            _compile(name, out)
+            _finish(name, out, *_start(name, out))
         lib = ctypes.CDLL(str(out))
         _LOADED[name] = lib
     return lib
 
 
 def build_all() -> float:
-    """Build and load every source; returns the wall seconds it took.
-
-    One source so far, so they are built one after another; with more,
-    start one ``nvcc`` per source at once.
-    """
+    """Build every source that is not built yet, one ``nvcc`` per source
+    all started together, then load them; returns the wall seconds."""
     t0 = time.perf_counter()
-    for name in sources():
+    targets = {name: _target(name) for name in sources()}
+    running = {name: _start(name, out) for name, out in targets.items()
+               if name not in _LOADED and not out.exists()}
+    try:
+        for name, (proc, tmp) in running.items():
+            _finish(name, targets[name], proc, tmp)
+    finally:
+        for proc, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name in targets:
         library(name)
     return time.perf_counter() - t0

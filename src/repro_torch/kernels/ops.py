@@ -1,9 +1,11 @@
-"""Public wrappers around the fused kernel: padding, activity planning and
+"""Public wrappers around the fused kernels: padding, activity planning and
 the event-tensor input contract.  Counterpart of ``repro.kernels.ops``
-(the KWN sequence path).
+(the sequence paths: single-layer KWN and NLD, and the KWN stack).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,26 +65,53 @@ def fused_activity_map(xm: torch.Tensor, plan) -> torch.Tensor:
     return occ.any(dim=4).any(dim=2).to(torch.int32)
 
 
-def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None, *,
-                    k: int = 12, ratio: float = 2.0, drive_gain: float = 1.0,
+def _pad_cols(a: torch.Tensor, n: int, n_pad: int,
+              n_branches: int) -> torch.Tensor:
+    """Zero-pad the branch-major column axis (last) from J*n to J*n_pad."""
+    if n_pad == n:
+        return a
+    lead = a.shape[:-1]
+    branched = a.reshape(*lead, n_branches, n)
+    return F.pad(branched, (0, n_pad - n)).reshape(*lead, n_branches * n_pad)
+
+
+def _unpad_cols(a: torch.Tensor, n: int, n_pad: int,
+                n_branches: int) -> torch.Tensor:
+    """Inverse of ``_pad_cols`` for branch-major column outputs."""
+    if n_pad == n:
+        return a
+    lead = a.shape[:-1]
+    branched = a.reshape(*lead, n_branches, n_pad)
+    return branched[..., :n].reshape(*lead, n_branches * n)
+
+
+def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
+                    w_dend=None, *, mode: str = "kwn", k: int = 12,
+                    ratio: float = 2.0, drive_gain: float = 1.0,
                     beta: float = 0.9, v_th1: float = 1.0, v_th2: float = 0.6,
                     v_reset: float = 0.0, v_lim: float = 8.0,
                     use_snl: bool = True, ima_noise=None,
                     snl_amp: float = 0.0, activity=None,
                     mac_telemetry: bool = True, seed=0,
                     step_offset=0, row_ctl=None, device=None):
-    """Batched time-major fused KWN sequence; x (T, ..., K), v (..., N),
+    """Batched time-major fused sequence; x (T, ..., K), v (..., N),
     noise (T, ..., N) or None for the in-kernel counter noise.
+
+    ``mode="kwn"``: N columns, the KWN head with SNL.  ``mode="nld"``:
+    branch-major J*N columns, ``w_dend`` (J, N), the NLD head (no SNL, so
+    ``noise``, ``k``, ``v_th2``, ``use_snl`` and ``snl_amp`` are unused).
 
     Runs on ``device`` (default ``cuda``; ``"cpu"`` runs the plain
     version).  Pads the batch to the row tile, K to the K tile and a layer
     wider than one macro to whole column tiles (zero padding is
-    MAC-neutral; padded columns never win), builds the occupancy map
-    (or takes ``activity``) and pads ``row_ctl`` ((..., 3) int32
-    per-row ``[seed, step_offset, row_id]``), runs one launch and slices
-    the padding back off.
+    MAC-neutral; padded KWN columns never win; NLD pads each branch, so
+    the branch-major layout survives), builds the occupancy map (or takes
+    ``activity``) and pads ``row_ctl`` ((..., 3) int32 per-row ``[seed,
+    step_offset, row_id]``), runs one launch and slices the padding back
+    off.  The counter noise is keyed on logical columns, so padding never
+    moves a draw.
 
-    Returns (mac (T, ..., N) or None, v_out (..., N), spikes (T, ..., N),
+    Returns (mac (T, ..., NC) or None, v_out (..., N), spikes (T, ..., N),
     mask (T, ..., N), adc_steps (T, ...)).
     """
     dev = device_lib.resolve(device)
@@ -91,39 +120,67 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None, *,
     kdim = x.shape[-1]
     n = v.shape[-1]
     nc = msb.shape[-1]
-    if nc != n:
-        raise ValueError(f"KWN planes must have N columns: {nc} != {n}")
+    if mode == "nld":
+        if w_dend is None or nc % n:
+            raise ValueError(f"NLD needs w_dend and J*N columns: nc={nc} "
+                             f"n={n}")
+        n_branches = nc // n
+    elif mode == "kwn":
+        if nc != n:
+            raise ValueError(f"KWN planes must have N columns: {nc} != {n}")
+        n_branches = 1
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
     xm = torch.as_tensor(x).to(dev).reshape(t, -1, kdim)
     vm = torch.as_tensor(v).to(dev, torch.float32).reshape(-1, n)
     m0 = xm.shape[1]
-    plan = _fused.plan_tiles(m0, kdim, nc, n, t)
+    plan = _fused.plan_tiles(m0, kdim, nc, n, t, mode=mode,
+                             n_branches=n_branches)
     xm = F.pad(xm.to(torch.int8), (0, plan.k_pad - kdim, 0, plan.m_pad - m0))
     vm = F.pad(vm, (0, plan.n_pad - n, 0, plan.m_pad - m0))
     if activity is None:
         activity = fused_activity_map(xm, plan)
     else:
         activity = torch.as_tensor(activity).to(dev, torch.int32)
+    pad_k = (0, 0, 0, plan.k_pad - kdim)
+    msb_p, lsb_p = (
+        _pad_cols(F.pad(torch.as_tensor(a).to(dev, torch.int8), pad_k), n,
+                  plan.n_pad, n_branches).contiguous() for a in (msb, lsb))
+    scale_p = _pad_cols(
+        torch.as_tensor(scale).to(dev, torch.float32).reshape(-1), n,
+        plan.n_pad, n_branches).contiguous()
+    rc = None
+    if row_ctl is not None:
+        rc = torch.as_tensor(row_ctl).to(dev, torch.int32).reshape(-1, 3)
+        rc = F.pad(rc, (0, 0, 0, plan.m_pad - m0)).contiguous()
+    bounds = torch.as_tensor(boundaries).to(dev, torch.float32).contiguous()
+    lut = torch.as_tensor(levels).to(dev, torch.float32).contiguous()
+    if mode == "nld":
+        w_dend_p = F.pad(torch.as_tensor(w_dend).to(dev, torch.float32),
+                         (0, plan.n_pad - n))
+        mac, v_out, spikes, mask, steps = _fused.fused_macro_seq_nld(
+            xm.contiguous(), msb_p, lsb_p, bounds, lut, scale_p,
+            w_dend_p.contiguous(), vm.contiguous(), activity.contiguous(),
+            rc, ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
+            v_reset=v_reset, v_lim=v_lim, bm=plan.bm, bk=plan.bk,
+            logical_n=n, ima_noise=ima_noise, mac_telemetry=mac_telemetry,
+            seed=seed, step_offset=step_offset)
+        if mac is not None:
+            mac = _unpad_cols(mac[:, :m0], n, plan.n_pad, n_branches)
+            mac = mac.reshape(t, *lead, nc)
+        return (mac,
+                v_out[:m0, :n].reshape(*lead, n),
+                spikes[:, :m0, :n].reshape(t, *lead, n),
+                mask[:, :m0, :n].reshape(t, *lead, n),
+                steps[:, :m0, 0].reshape(t, *lead))
     nm = None
     if noise is not None:
         nm = torch.as_tensor(noise).to(dev, torch.float32).reshape(t, -1, n)
         nm = F.pad(nm, (0, plan.n_pad - n, 0, plan.m_pad - m0))
-    pad_planes = (0, plan.n_pad - n, 0, plan.k_pad - kdim)
-    msb_p = F.pad(torch.as_tensor(msb).to(dev, torch.int8), pad_planes)
-    lsb_p = F.pad(torch.as_tensor(lsb).to(dev, torch.int8), pad_planes)
-    scale_p = F.pad(torch.as_tensor(scale).to(dev, torch.float32).reshape(-1),
-                    (0, plan.n_pad - n))
-    rc = None
-    if row_ctl is not None:
-        rc = torch.as_tensor(row_ctl).to(dev, torch.int32).reshape(-1, 3)
-        rc = F.pad(rc, (0, 0, 0, plan.m_pad - m0))
     mac, v_out, spikes, mask, steps = _fused.fused_macro_seq(
-        xm.contiguous(), msb_p.contiguous(), lsb_p.contiguous(),
-        torch.as_tensor(boundaries).to(dev, torch.float32).contiguous(),
-        torch.as_tensor(levels).to(dev, torch.float32).contiguous(),
-        scale_p.contiguous(), vm.contiguous(),
-        None if nm is None else nm.contiguous(),
-        activity.contiguous(),
-        None if rc is None else rc.contiguous(),
+        xm.contiguous(), msb_p, lsb_p, bounds, lut, scale_p,
+        vm.contiguous(), None if nm is None else nm.contiguous(),
+        activity.contiguous(), rc,
         k=k, ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
         v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
         bm=plan.bm, bk=plan.bk, n_valid=plan.n_valid, ima_noise=ima_noise,
@@ -136,3 +193,113 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None, *,
             spikes[:, :m0, :n].reshape(t, *lead, n),
             mask[:, :m0, :n].reshape(t, *lead, n),
             steps[:, :m0, 0].reshape(t, *lead))
+
+
+class MultiSeqOut(NamedTuple):
+    """Outputs of the stacked sequence.  ``spikes`` / ``mask`` are the last
+    layer's; hidden layers surface only as telemetry: ``spike_counts``
+    (per layer (T, ...) row spike totals, for the SOP accounting) and
+    ``occupancy`` (per layer (T, row tiles) occupied K tiles), with
+    ``total_blocks`` the skipped-block ratio's denominator over all
+    layers."""
+
+    v_outs: tuple
+    spikes: torch.Tensor
+    mask: torch.Tensor
+    steps: tuple
+    spike_counts: tuple
+    occupancy: tuple
+    total_blocks: int
+
+
+def stack_operands(x, stack, vs, noises=None, *, ks, seeds=None,
+                   step_offset=0, device=None):
+    """The padded operands of one stacked launch on ``device``: (x (T,
+    m_pad, k_pad) int8, per-layer planes, membranes and noises, the
+    layer-0 occupancy map, ``ctl`` (L+1,) int32, the ``LayerSpec``s, layer
+    0's ``TilePlan``).  Only layer 0 is padded (rows to the row tile, K to
+    its K tile); deeper layers keep their exact widths, with K tiles of
+    ``min(k_dim, 256)``."""
+    dev = device_lib.resolve(device)
+    t = x.shape[0]
+    kdim = x.shape[-1]
+    n_layers = len(stack)
+    widths = [int(s[0].shape[-1]) for s in stack]
+    if len(ks) != n_layers:
+        raise ValueError(f"{len(ks)} winner counts for {n_layers} layers")
+    xm = torch.as_tensor(x).to(dev).reshape(t, -1, kdim)
+    m0 = xm.shape[1]
+    plan0 = _fused.plan_tiles(m0, kdim, widths[0], widths[0], t)
+    xm = F.pad(xm.to(torch.int8),
+               (0, plan0.k_pad - kdim, 0, plan0.m_pad - m0)).contiguous()
+    activity = fused_activity_map(xm, plan0).contiguous()
+    specs = []
+    for li in range(n_layers):
+        k_dim = plan0.k_pad if li == 0 else widths[li - 1]
+        specs.append(_fused.LayerSpec(
+            k_dim=k_dim, n=widths[li], k=int(ks[li]),
+            bk=plan0.bk if li == 0 else min(k_dim, _fused.DEFAULT_BK)))
+    pad_m = (0, 0, 0, plan0.m_pad - m0)
+    vs_p = [F.pad(torch.as_tensor(v).to(dev, torch.float32).reshape(-1, w),
+                  pad_m).contiguous() for v, w in zip(vs, widths)]
+    noises_p = None
+    if noises is not None:
+        noises_p = [F.pad(torch.as_tensor(nz).to(dev, torch.float32)
+                          .reshape(t, -1, w), pad_m).contiguous()
+                    for nz, w in zip(noises, widths)]
+    seeds = [0] * n_layers if seeds is None else [int(s) for s in seeds]
+    ctl = torch.tensor(seeds + [int(step_offset)], dtype=torch.int32,
+                       device=dev)
+    planes = []
+    for li, (msb, lsb, bounds, levels, scale) in enumerate(stack):
+        pad_k = (0, 0, 0, plan0.k_pad - kdim) if li == 0 else (0, 0, 0, 0)
+        planes.append(tuple(
+            [F.pad(torch.as_tensor(a).to(dev, torch.int8), pad_k)
+             .contiguous() for a in (msb, lsb)]
+            + [torch.as_tensor(a).to(dev, torch.float32).reshape(-1)
+               .contiguous() for a in (bounds, levels, scale)]))
+    return xm, planes, vs_p, noises_p, activity, ctl, tuple(specs), plan0
+
+
+def fused_macro_multi_seq(x, stack, vs, noises=None, *, ks,
+                          ratio: float = 2.0, drive_gain: float = 1.0,
+                          beta: float = 0.9, v_th1: float = 1.0,
+                          v_th2: float = 0.6, v_reset: float = 0.0,
+                          v_lim: float = 8.0, use_snl: bool = True,
+                          ima_noise=None, snl_amp: float = 0.0, seeds=None,
+                          step_offset=0, device=None) -> MultiSeqOut:
+    """L stacked KWN layers, batched: x (T, ..., K0), one launch.
+
+    stack: per-layer (msb, lsb, boundaries, levels, scale) with
+    (k_dim_l, n_l) planes, k_dim_l == n_{l-1} for l > 0; vs per-layer
+    (..., n_l) membranes; noises per-layer (T, ..., n_l) or None for the
+    counter streams; ks per-layer winner counts; seeds per-layer counter
+    seeds (zeros when None).
+
+    The operands are padded by ``stack_operands`` and the padding is
+    sliced back off.  Layer 0 gates on the host occupancy map, deeper
+    layers on the previous layer's spikes.
+    """
+    dev = device_lib.resolve(device)
+    t = x.shape[0]
+    lead = tuple(x.shape[1:-1])
+    widths = [int(s[0].shape[-1]) for s in stack]
+    xm, planes, vs_p, noises_p, activity, ctl, specs, plan0 = \
+        stack_operands(x, stack, vs, noises, ks=ks, seeds=seeds,
+                       step_offset=step_offset, device=dev)
+    m0 = int(np.prod(lead, dtype=np.int64))
+    v_outs, spikes, mask, steps, counts, occ = _fused.fused_macro_multi_seq(
+        xm, planes, vs_p, noises_p, activity, ctl, specs=specs,
+        ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
+        v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
+        bm=plan0.bm, ima_noise=ima_noise, snl_amp=snl_amp)
+    n_i = plan0.m_pad // plan0.bm
+    return MultiSeqOut(
+        v_outs=tuple(v[:m0].reshape(*lead, w)
+                     for v, w in zip(v_outs, widths)),
+        spikes=spikes[:, :m0].reshape(t, *lead, widths[-1]),
+        mask=mask[:, :m0].reshape(t, *lead, widths[-1]),
+        steps=tuple(s[:, :m0].reshape(t, *lead) for s in steps),
+        spike_counts=tuple(c[:, :m0].reshape(t, *lead) for c in counts),
+        occupancy=tuple(occ),
+        total_blocks=t * n_i * sum(spec.n_k for spec in specs))

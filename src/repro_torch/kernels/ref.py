@@ -1,11 +1,13 @@
-"""Plain PyTorch version of the fused seq-KWN macro kernel.
+"""Plain PyTorch versions of the fused macro kernels.
 
-Counterpart of ``repro.kernels.ref.fused_macro_seq_ref`` (KWN mode):
+Counterparts of ``repro.kernels.ref``: ``fused_macro_seq_ref`` (KWN mode,
 ``fused_head_ref`` / ``fused_macro_step_ref`` folded left over T, with
-``counter_snl_noise`` for the in-kernel SNL stream.  It is the function
-``kernels.fused_macro.fused_macro_seq`` computes for a CPU tensor, and the
-yardstick the CUDA kernel is held against on the card; it is never a
-fallback for a CUDA tensor.
+``counter_snl_noise`` for the in-kernel SNL stream),
+``fused_macro_seq_nld_ref`` (the NLD head) and
+``fused_macro_multi_seq_ref`` (the KWN stack, layer by layer).  Each is
+the function its wrapper in ``kernels.fused_macro`` computes for a CPU
+tensor, and the yardstick its CUDA kernel is held against on the card; it
+is never a fallback for a CUDA tensor.
 
 Beyond the JAX oracle it takes ``row_ctl`` ((M, 3) int32
 ``[seed, step_offset, row_id]`` per row, replacing the scalar seed/step
@@ -14,10 +16,12 @@ and past it are padding: they take code -1 and never win), so that it
 covers every operand the kernel accepts.
 
 Bitwise parity with the reference: MAC partials are small integers (exact
-in f32 in any order), KWN is compare/select, and the three places where
-rounding matters use the reference's arithmetic: the LIF update
-``beta * v + drive`` is one fused multiply-add, and the noise path runs
-through ``core.ctrprng`` / ``core.f32math``.
+in f32 in any order), KWN is compare/select, and the places where rounding
+matters use the reference's arithmetic: the LIF update ``beta * v +
+drive`` is one fused multiply-add, the NLD soma sum over branches is a
+chain of fused multiply-adds in branch order (XLA contracts
+``sum(act * w_dend)`` that way), and the noise path runs through
+``core.ctrprng`` / ``core.f32math``.
 """
 
 from __future__ import annotations
@@ -134,3 +138,122 @@ def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
         steps.append(st)
     return (torch.stack(macs) if mac_telemetry else None, v,
             torch.stack(spikes), torch.stack(masks), torch.stack(steps))
+
+
+def fused_macro_seq_nld_ref(x, msb, lsb, boundaries, levels, scale, w_dend,
+                            v, *, row_ctl, ratio: float = 2.0,
+                            drive_gain: float = 1.0, beta: float = 0.9,
+                            v_th1: float = 1.0, v_reset: float = 0.0,
+                            v_lim: float = 8.0, logical_n: int | None = None,
+                            ima_noise=None, mac_telemetry: bool = True):
+    """A whole NLD event sequence, step by step.
+
+    x (T, M, K) ternary, msb/lsb (K, J*N) int8 branch-major planes, scale
+    (J*N,), w_dend (J, N), v (M, N).  Per step: ``mac * scale``, the
+    activation ramp's codes (plus the counter noise on the logical column
+    ``j * logical_n + p``), the LUT, the soma sum ``sum_j act_j *
+    w_dend_j`` as a fused multiply-add chain in branch order, ``*
+    drive_gain``, then a dense LIF update without SNL.
+
+    Returns (mac (T, M, J*N) or None, v_out (M, N), spikes (T, M, N),
+    mask (T, M, N) all ones, adc_steps (T, M, 1) all ``n_codes - 1``).
+    """
+    t_steps, m = x.shape[0], x.shape[1]
+    n_branches, n = w_dend.shape
+    dev = x.device
+    n_codes = levels.shape[0]
+    logical_n = n if logical_n is None else logical_n
+    w = ratio * msb.float() + lsb.float()
+    bounds = boundaries.float().to(dev)
+    levels = levels.float().to(dev)
+    scale = scale.float().reshape(-1).to(dev)
+    w_dend = w_dend.float().to(dev)
+    rc = row_ctl.to(dev, torch.int64)
+    seeds, steps0, rows = rc[:, 0:1], rc[:, 1:2], rc[:, 2:3]
+    col = torch.arange(n_branches * n, device=dev, dtype=torch.int64)
+    lcol = ((col // n) * logical_n + col % n)[None, :]
+    ones = torch.ones((m, n), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    v = v.float()
+    macs, spikes = [], []
+    for t in range(t_steps):
+        mac = x[t].float() @ w
+        mac_f = mac * scale
+        codes = ramp_codes(mac_f, bounds)
+        if ima_noise is not None:
+            codes = ctrprng.noisy_ima_codes(codes, mac_f, rows, lcol, seeds,
+                                            steps0 + t, ima_noise, n_codes)
+        act = levels[codes.long()].reshape(m, n_branches, n)
+        drive = act[:, 0] * w_dend[0]
+        for j in range(1, n_branches):
+            drive = f32math.fma(act[:, j], w_dend[j], drive)
+        v, spk = lif_update(v, drive * drive_gain, ones, zeros, beta=beta,
+                            v_th1=v_th1, v_th2=v_th1, v_reset=v_reset,
+                            v_lim=v_lim, use_snl=False)
+        if mac_telemetry:
+            macs.append(mac)
+        spikes.append(spk)
+    spikes = torch.stack(spikes)
+    return (torch.stack(macs) if mac_telemetry else None, v, spikes,
+            torch.ones_like(spikes),
+            torch.full((t_steps, m, 1), n_codes - 1, dtype=torch.int32,
+                       device=dev))
+
+
+def _tile_occupancy(x: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
+    """Occupied K tiles per (step, row tile) of a (T, M, K) input: the
+    count of ``bk``-wide K tiles (ragged tail allowed) holding a non-zero
+    in some row of the ``bm``-row tile.  (T, M/bm) int32."""
+    t_steps, m, k_dim = x.shape
+    n_k = -(-k_dim // bk)
+    xp = torch.nn.functional.pad((x != 0).float(), (0, n_k * bk - k_dim))
+    occ = xp.reshape(t_steps, m // bm, bm, n_k, bk).amax(dim=(2, 4))
+    return occ.sum(-1).to(torch.int32)
+
+
+def fused_macro_multi_seq_ref(x, planes, v0s, noises, activity, ctl, *,
+                              specs, ratio: float = 2.0,
+                              drive_gain: float = 1.0, beta: float = 0.9,
+                              v_th1: float = 1.0, v_th2: float = 0.6,
+                              v_reset: float = 0.0, v_lim: float = 8.0,
+                              use_snl: bool = True, bm: int = 128,
+                              ima_noise=None, snl_amp: float = 0.0):
+    """L stacked KWN layers, layer by layer: layer l's spike stack is layer
+    l+1's input sequence, which computes the same values as the kernel's
+    step-major order (layer l+1 at step t reads only its own membrane and
+    layer l's step-t spikes).  Layer l's counters are
+    ``(ctl[l], ctl[L] + t, absolute row, column)``.
+
+    Returns what ``kernels.fused_macro.fused_macro_multi_seq`` returns:
+    (v_outs, spikes, mask, steps (L, T, M), counts (L, T, M),
+    occupancy (L, T, M/bm)); layer 0's occupancy counts the occupied
+    blocks of ``activity``, deeper layers' the K tiles of the previous
+    layer's spikes.
+    """
+    t_steps, m = x.shape[0], x.shape[1]
+    n_layers = len(specs)
+    ctl = [int(c) for c in ctl.reshape(-1).tolist()]
+    rows = torch.arange(m, dtype=torch.int32, device=x.device)
+    cur = x
+    v_outs, steps, counts, occ = [], [], [], []
+    spk = mask = None
+    for li, (spec, (msb, lsb, bounds, levels, scale)) in enumerate(
+            zip(specs, planes)):
+        rc = torch.stack([torch.full_like(rows, ctl[li]),
+                          torch.full_like(rows, ctl[n_layers]), rows], -1)
+        _, v_fin, spk, mask, st = fused_macro_seq_ref(
+            cur, msb, lsb, bounds, levels, scale, v0s[li],
+            None if noises is None else noises[li], row_ctl=rc, k=spec.k,
+            ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
+            v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
+            ima_noise=ima_noise, snl_amp=snl_amp, mac_telemetry=False)
+        if li == 0:
+            occ.append((activity > 0).sum(-1).to(torch.int32))
+        else:
+            occ.append(_tile_occupancy(cur, bm, spec.bk))
+        v_outs.append(v_fin)
+        steps.append(st[..., 0])
+        counts.append(spk.sum(-1))
+        cur = spk
+    return (tuple(v_outs), spk, mask, torch.stack(steps),
+            torch.stack(counts), torch.stack(occ))

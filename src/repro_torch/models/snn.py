@@ -1,15 +1,17 @@
-"""The paper's event SNN served through the fused macro kernel.
+"""The paper's event SNN served through the fused macro kernels.
 
-Counterpart of ``repro.models.snn`` for single-layer KWN inference:
-``SNNConfig``, ``init_params``, ``forward_silicon(fused="seq")`` and the
-streaming state behind the continuous-batching engine
-(``forward_silicon_stream`` with save/restore of one slot).  Training, the
-composed and per-step paths and NLD mode belong to later slices of the
-port and raise ``NotImplementedError``; layer stacks come with the
-multi-layer slice.
+Counterpart of ``repro.models.snn`` for inference: ``SNNConfig``,
+``init_params``, ``forward_silicon(fused="seq")`` in both modes (KWN and
+NLD) and for KWN layer stacks, and the streaming state behind the
+continuous-batching engine (``forward_silicon_stream`` with save/restore
+of one slot; single-layer KWN and NLD).  Training and the composed and
+per-step paths belong to a later slice of the port and raise
+``NotImplementedError``.
 
 JAX keys have no counterpart: the counter-PRNG seed word is an ``int``
 (``seed``); the reference derives it from its key (``snn._noise_seed``).
+A noisy stack takes one seed word per layer (``seeds``, the reference's
+``snn._noise_seeds``), derived from ``seed`` when not given.
 """
 
 from __future__ import annotations
@@ -22,13 +24,16 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.core import f32math
+from repro_torch.core import ctrprng, f32math
+from repro_torch.core import dendrite as dendrite_lib
 from repro_torch.core import ima as ima_lib
 from repro_torch.core import lif as lif_lib
 from repro_torch.core import macro as macro_lib
 from repro_torch.core import prbs as prbs_lib
 from repro_torch.core import ternary as ternary_lib
 from repro_torch.obs import trace as obs_trace
+
+_TAG_LAYER = 0x4C415952      # key lane of the derived per-layer seed words
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,52 +42,145 @@ class SNNConfig:
     n_hidden: int = 128           # the macro's 128 columns
     n_classes: int = 10
     n_steps: int = 20
-    mode: str = "kwn"             # kwn (nld: next slice)
+    mode: str = "kwn"             # kwn | nld
     k: int = 12                   # KWN winners
+    n_branches: int = 2           # NLD dendritic branches
+    activation: str = "quadratic"  # NLD activation f()
     code_bits: int = 5
     mac_range: float = 24.0       # NLQ full scale, in integer MAC units
+    dend_range: float = 4.0       # NLD branch-MAC full scale (float units)
     drive_gain: float = 0.25      # V_mem LSBs per unit drive
     beta: float = 0.9
     v_th1: float = 1.0
     v_th2: float = 0.6
     noise_amp: float = 0.05
     use_snl: bool = True
-    hidden_layers: tuple[int, ...] | None = None   # stacks: multi-layer slice
+    # KWN layer stack: widths of L chained macro layers (n_hidden is forced
+    # to the last width, which the readout reads) and per-layer winner
+    # counts (default: k for every layer).
+    hidden_layers: tuple[int, ...] | None = None
+    k_layers: tuple[int, ...] | None = None
+
+    def __post_init__(self):
+        if self.mode not in ("kwn", "nld"):
+            raise ValueError(f"unknown mode {self.mode!r}")
+        if self.hidden_layers is not None:
+            hl = tuple(int(h) for h in self.hidden_layers)
+            if not hl:
+                raise ValueError("hidden_layers must be a non-empty tuple")
+            if self.mode == "nld" and len(hl) > 1:
+                raise ValueError("multi-layer stacks are KWN-only; the NLD "
+                                 "stack is a roadmap follow-up")
+            object.__setattr__(self, "hidden_layers", hl)
+            object.__setattr__(self, "n_hidden", hl[-1])
+        if self.k_layers is not None:
+            kl = tuple(int(x) for x in self.k_layers)
+            if len(kl) != len(self.layer_widths):
+                raise ValueError(f"k_layers has {len(kl)} entries for "
+                                 f"{len(self.layer_widths)} layers")
+            object.__setattr__(self, "k_layers", kl)
+
+    @property
+    def layer_widths(self) -> tuple:
+        """Hidden-layer widths, the last one feeding the readout."""
+        return self.hidden_layers or (self.n_hidden,)
+
+    @property
+    def layer_k(self) -> tuple:
+        """Per-layer KWN winner counts."""
+        return self.k_layers or (self.k,) * len(self.layer_widths)
 
 
-def _check_supported(cfg: SNNConfig) -> None:
-    if cfg.mode != "kwn":
-        raise NotImplementedError("NLD mode is ported in the next slice "
-                                  "(the NLD head kernel)")
-    if cfg.hidden_layers is not None and len(cfg.hidden_layers) > 1:
-        raise NotImplementedError("layer stacks are ported in the "
-                                  "multi-layer slice")
+def _is_stack(cfg: SNNConfig) -> bool:
+    return len(cfg.layer_widths) > 1
 
 
 def init_params(cfg: SNNConfig, generator: torch.Generator,
                 device=None) -> dict:
-    """Random weights from ``generator`` (single-layer KWN): ``w_hid``
-    (n_in, n_hidden) and ``w_out`` (n_hidden, n_classes), on ``device``."""
-    _check_supported(cfg)
+    """Random weights from ``generator``, on ``device``: ``w_out``
+    (n_hidden, n_classes) and either ``w_hid`` (n_in, n_hidden), a
+    ``w_hid`` list (one (I_l, N_l) array per layer of a stack) or
+    ``dend`` (NLD ``DendriteParams``)."""
     dev = device_lib.resolve(device)
-    w_hid = torch.randn((cfg.n_in, cfg.n_hidden), generator=generator) \
-        / math.sqrt(cfg.n_in) * 3.0
-    w_out = torch.randn((cfg.n_hidden, cfg.n_classes), generator=generator) \
-        / math.sqrt(cfg.n_hidden)
-    return {"w_hid": w_hid.to(dev), "w_out": w_out.to(dev)}
+    widths = cfg.layer_widths
+    p = {}
+    if cfg.mode == "nld":
+        p["dend"] = dendrite_lib.dendrite_init(
+            generator, cfg.n_in, cfg.n_hidden, cfg.n_branches, device=dev)
+    else:
+        fan_ins = (cfg.n_in,) + widths[:-1]
+        w_hid = [(torch.randn((f_in, w), generator=generator)
+                  / math.sqrt(f_in) * 3.0).to(dev)
+                 for f_in, w in zip(fan_ins, widths)]
+        p["w_hid"] = w_hid if _is_stack(cfg) else w_hid[0]
+    p["w_out"] = (torch.randn((cfg.n_hidden, cfg.n_classes),
+                              generator=generator)
+                  / math.sqrt(cfg.n_hidden)).to(dev)
+    return p
+
+
+def params_to(p: dict, device) -> dict:
+    """``p`` with every array (also inside ``dend`` and a ``w_hid`` list)
+    as a tensor on ``device``."""
+    def put(a):
+        return torch.as_tensor(a).to(device)
+
+    out = {}
+    for name, w in p.items():
+        if isinstance(w, dendrite_lib.DendriteParams):
+            out[name] = dendrite_lib.DendriteParams(*(put(a) for a in w))
+        elif isinstance(w, (list, tuple)):
+            out[name] = [put(a) for a in w]
+        else:
+            out[name] = put(w)
+    return out
 
 
 def _macro_cfg(cfg: SNNConfig, noise) -> macro_lib.CIMMacroConfig:
-    return macro_lib.CIMMacroConfig(code_bits=cfg.code_bits,
-                                    mac_range=cfg.mac_range, ima_noise=noise)
+    """The macro config; the ramp's full scale is ``dend_range`` in NLD
+    mode (float branch-MAC units) and ``mac_range`` in KWN mode."""
+    return macro_lib.CIMMacroConfig(
+        code_bits=cfg.code_bits,
+        mac_range=cfg.mac_range if cfg.mode == "kwn" else cfg.dend_range,
+        ima_noise=noise)
 
 
 def pack_fused(p: dict, cfg: SNNConfig, noise=None
                ) -> macro_lib.FusedMacroWeights:
-    """Quantize ``w_hid`` onto the twin-cell grid and pack the operands."""
+    """The packed operands of a single-layer config: ``w_hid`` quantized
+    onto the twin-cell grid (KWN), or the branch weights of ``dend``
+    (NLD)."""
+    mcfg = _macro_cfg(cfg, noise)
+    if cfg.mode == "nld":
+        return macro_lib.pack_nld_weights(p["dend"], mcfg,
+                                          activation=cfg.activation)
     w_int, scale = ternary_lib.quantize_weights_3bit(p["w_hid"])
-    return macro_lib.pack_kwn_weights(w_int, scale.reshape(-1),
-                                      _macro_cfg(cfg, noise))
+    return macro_lib.pack_kwn_weights(w_int, scale.reshape(-1), mcfg)
+
+
+def pack_fused_stack(p: dict, cfg: SNNConfig, noise=None
+                     ) -> list[macro_lib.FusedMacroWeights]:
+    """The packed operands of every layer of a KWN stack."""
+    if not isinstance(p["w_hid"], (list, tuple)) \
+            or len(p["w_hid"]) != len(cfg.layer_widths):
+        raise ValueError(f"a {len(cfg.layer_widths)}-layer stack needs a "
+                         f"w_hid list with one array per layer")
+    w_ints, scales = [], []
+    for w in p["w_hid"]:
+        w_int, scale = ternary_lib.quantize_weights_3bit(w)
+        w_ints.append(w_int)
+        scales.append(scale.reshape(-1))
+    return macro_lib.pack_kwn_stack(w_ints, scales, _macro_cfg(cfg, noise))
+
+
+def layer_seeds(seed: int, n_layers: int) -> list[int]:
+    """Distinct per-layer counter seed words derived from ``seed``
+    (Threefry of (seed, layer tag) at counter (layer, 0))."""
+    out = []
+    for li in range(n_layers):
+        word, _ = ctrprng.threefry2x32(int(seed), _TAG_LAYER, li, 0)
+        out.append(int(word) & 0x7FFFFFFF)
+    return out
 
 
 def _lif(cfg: SNNConfig) -> dict:
@@ -92,68 +190,129 @@ def _lif(cfg: SNNConfig) -> dict:
                 use_snl=cfg.use_snl)
 
 
-def _skip_ratio(activity: torch.Tensor) -> torch.Tensor:
-    """``clip(1 - mean(map), 0, 1)`` in f32: an exact integer sum divided
-    by the block count (the reference's ``jnp.mean``)."""
-    frac = f32math.div(activity.float().sum(), activity.numel())
+def _skip_ratio(occupied: torch.Tensor, blocks: int) -> torch.Tensor:
+    """``clip(1 - occupied / blocks, 0, 1)`` in f32: an exact integer sum
+    divided by the block count (the reference's ``jnp.mean``)."""
+    frac = f32math.div(occupied.float().sum(), blocks)
     return torch.clamp(1.0 - frac, 0.0, 1.0)
+
+
+def _prbs_noise(b: int, t_steps: int, width: int, amp: float, dev):
+    """The clean-path SNL noise of a fresh LIF state (``lif_init``'s LFSR
+    word): ``b * width`` bits per step from one LFSR, (T, b, width)."""
+    s0 = torch.tensor([prbs_lib.lfsr_init(1)], device=dev)
+    _, bits = prbs_lib.draw(s0, t_steps * b * width)
+    return prbs_lib.bits_to_noise(bits[0], amp).reshape(t_steps, b, width)
 
 
 def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
                     noise: ima_lib.IMANoiseModel | None = None,
-                    fused: bool | str = "seq", device=None):
-    """Inference through the fused macro kernel: events (B, T, N_in) ->
+                    fused: bool | str = "seq", device=None, seeds=None):
+    """Inference through the fused macro kernels: events (B, T, N_in) ->
     (logits (B, classes), telemetry).
 
-    The whole sequence runs in one kernel launch (``fused="seq"``).  Clean,
-    the SNL noise is the PRBS-15 stream drawn ``B * n_hidden`` bits per
-    step from one LFSR; with ``noise`` (the Fig. 7 ``IMANoiseModel``) both
+    The whole sequence runs in one kernel launch (``fused="seq"``): the
+    KWN head (Eq. 1), the NLD head (Eq. 2, ``cfg.mode == "nld"``) or,
+    with ``cfg.hidden_layers``, the stacked KWN kernel.  Clean KWN, the
+    SNL noise is the PRBS-15 stream drawn ``B * width`` bits per step from
+    one LFSR per layer; with ``noise`` (the Fig. 7 ``IMANoiseModel``) both
     the IMA error and the SNL sign noise come from the counter PRNG keyed
-    on ``seed``.  Telemetry: per-request means over the actual sequence
-    length of ADC steps, LIF updates and SOPs, plus the activity plan's
-    skipped-block ratio.
+    on ``seed`` (a stack on ``seeds``, one word per layer, derived from
+    ``seed`` when omitted).  The NLD head has no SNL noise.  Telemetry:
+    per-request means over the actual sequence length of ADC steps, LIF
+    updates and SOPs, plus the activity plan's skipped-block ratio.
     """
     if fused is not True and fused != "seq":
         raise NotImplementedError(
             f"fused={fused!r}: only the time-major fused path ('seq') is "
             f"ported; the composed and per-step paths come with the "
             f"training slice")
-    _check_supported(cfg)
     dev = device_lib.resolve(device)
     ev = torch.as_tensor(events).to(dev, torch.float32)
+    p = params_to(p, dev)
+    if _is_stack(cfg):
+        return _forward_silicon_stack(p, ev, cfg, seed, noise, seeds)
     b, t_steps = ev.shape[0], ev.shape[1]
-    p = {name: torch.as_tensor(w).to(dev) for name, w in p.items()}
     fw = pack_fused(p, cfg, noise)
-    mcfg = _macro_cfg(cfg, noise)
     noisy = noise is not None
-    noise_amp = cfg.noise_amp if cfg.use_snl else 0.0
-    ima_kn = macro_lib.fused_kernel_noise(fw, mcfg)
+    snl_active = cfg.use_snl and cfg.mode == "kwn"
+    noise_amp = cfg.noise_amp if snl_active else 0.0
+    ima_kn = macro_lib.fused_kernel_noise(fw, _macro_cfg(cfg, noise))
     ev_t = ev.transpose(0, 1)                              # (T, B, N_in)
     activity = macro_lib.plan_activity(ev_t, fw, cfg.n_hidden)
-    st0 = lif_lib.lif_init((b, cfg.n_hidden), device=dev)
-    if noisy:
-        noise_t = None          # all noise is generated inside the kernel
-    elif cfg.use_snl:
-        s0 = torch.tensor([st0.prbs_state], device=dev)
-        _, bits = prbs_lib.draw(s0, t_steps * b * cfg.n_hidden)
-        noise_t = prbs_lib.bits_to_noise(bits[0], noise_amp).reshape(
-            t_steps, b, cfg.n_hidden)
+    v0 = lif_lib.lif_init((b, cfg.n_hidden), device=dev).v_mem
+    if noisy or cfg.mode == "nld":
+        noise_t = None          # counter streams, or no SNL at all (NLD)
+    elif snl_active:
+        noise_t = _prbs_noise(b, t_steps, cfg.n_hidden, noise_amp, dev)
     else:
         noise_t = torch.zeros((t_steps, b, cfg.n_hidden), device=dev)
+    lif = dict(_lif(cfg), use_snl=snl_active)
     _, spk_t, _, steps_t, _ = macro_lib.fused_seq(
-        ev_t, fw, st0.v_mem, noise_t, k=cfg.k, **_lif(cfg),
-        ima_noise=ima_kn, snl_amp=noise_amp if noisy else 0.0,
-        activity=activity, mac_telemetry=False,
-        seed=int(seed) if noisy else 0)
+        ev_t, fw, v0, noise_t, k=cfg.k, **lif, ima_noise=ima_kn,
+        snl_amp=noise_amp if noisy else 0.0, activity=activity,
+        mac_telemetry=False, seed=int(seed) if noisy else 0)
     counts = spk_t.sum(0)
     logits = f32math.div(counts, t_steps) @ p["w_out"]
     sops_t = ev_t.abs().sum(-1) * cfg.n_hidden             # (T, B)
+    n_upd = float(cfg.k if cfg.mode == "kwn" else cfg.n_hidden)
     tele = {
         "adc_steps": f32math.div(steps_t.float().sum(0), t_steps),
-        "lif_updates": torch.full((b,), float(cfg.k), device=dev),
+        "lif_updates": torch.full((b,), n_upd, device=dev),
         "sops": f32math.div(sops_t.sum(0), t_steps),
-        "skipped_block_ratio": torch.full((b,), float(_skip_ratio(activity)),
-                                          device=dev),
+        "skipped_block_ratio": torch.full(
+            (b,), float(_skip_ratio(activity, activity.numel())),
+            device=dev),
+    }
+    return logits, tele
+
+
+def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds):
+    """A KWN layer stack in one launch of the stacked kernel: per-layer
+    membranes in registers across T, inter-layer spikes never leave the
+    kernel.  Hidden layers report through telemetry only: SOPs from the
+    per-layer spike counts, the skipped-block ratio from the per-layer
+    occupancy counters."""
+    dev = ev.device
+    b, t_steps = ev.shape[0], ev.shape[1]
+    widths = cfg.layer_widths
+    n_layers = len(widths)
+    stack = pack_fused_stack(p, cfg, noise)
+    noisy = noise is not None
+    noise_amp = cfg.noise_amp if cfg.use_snl else 0.0
+    ima_kn = macro_lib.fused_kernel_noise(stack[0], _macro_cfg(cfg, noise))
+    if noisy:
+        seeds = layer_seeds(seed, n_layers) if seeds is None \
+            else [int(s) for s in seeds]
+        noises = None
+    else:
+        seeds = [0] * n_layers
+        noises = [_prbs_noise(b, t_steps, w, noise_amp, dev) if cfg.use_snl
+                  else torch.zeros((t_steps, b, w), device=dev)
+                  for w in widths]
+    if len(seeds) != n_layers:
+        raise ValueError(f"{len(seeds)} seeds for {n_layers} layers")
+    ev_t = ev.transpose(0, 1)                              # (T, B, N_in)
+    v0s = [lif_lib.lif_init((b, w), device=dev).v_mem for w in widths]
+    out = macro_lib.fused_multi_seq(
+        ev_t, stack, v0s, noises, ks=cfg.layer_k, **_lif(cfg),
+        ima_noise=ima_kn, snl_amp=noise_amp if noisy else 0.0, seeds=seeds)
+    counts = out.spikes.sum(0)
+    logits = f32math.div(counts, t_steps) @ p["w_out"]
+    adc = sum(s.float().sum(0) for s in out.steps)
+    sops = ternary_lib.ternary_input_encode(ev_t).abs().sum(-1).sum(0) \
+        * widths[0]
+    for li in range(1, n_layers):
+        sops = sops + out.spike_counts[li - 1].sum(0) * widths[li]
+    occupied = sum(o.sum() for o in out.occupancy)
+    tele = {
+        "adc_steps": f32math.div(adc, t_steps),
+        "lif_updates": torch.full((b,), float(sum(cfg.layer_k)),
+                                  device=dev),
+        "sops": f32math.div(sops, t_steps),
+        "skipped_block_ratio": torch.full(
+            (b,), float(_skip_ratio(occupied, out.total_blocks)),
+            device=dev),
     }
     return logits, tele
 
@@ -303,24 +462,28 @@ def forward_silicon_stream(p: dict, events: torch.Tensor, cfg: SNNConfig,
     the noise of its own batch-1 run (counter PRNG via ``row_ctl`` keyed
     on its seed, absolute step and row 0; clean SNL from its own LFSR), so
     a request's results equal a one-shot batch-1 ``forward_silicon`` bit
-    for bit.  ``fw`` is the packed weights (``pack_fused``), packed here
-    when omitted.
+    for bit.  The NLD head has no SNL, so its slots draw no PRBS bits.
+    ``fw`` is the packed weights (``pack_fused``), packed here when
+    omitted.  Single-layer configs only: the engine serves stacks through
+    its drain path.
     """
-    _check_supported(cfg)
+    if _is_stack(cfg):
+        raise ValueError("forward_silicon_stream is single-layer only; "
+                         "serve stacks through the legacy drain path")
     dev = state.v.device
-    mcfg = _macro_cfg(cfg, noise)
     if fw is None:
-        fw = pack_fused(p, cfg, noise)
+        fw = pack_fused(params_to(p, dev), cfg, noise)
     noisy = noise is not None
-    noise_amp = cfg.noise_amp if cfg.use_snl else 0.0
-    ima_kn = macro_lib.fused_kernel_noise(fw, mcfg)
+    snl_active = cfg.use_snl and cfg.mode == "kwn"
+    noise_amp = cfg.noise_amp if snl_active else 0.0
+    ima_kn = macro_lib.fused_kernel_noise(fw, _macro_cfg(cfg, noise))
     events = events.to(dev, torch.float32)
     r, slots = events.shape[0], events.shape[1]
     activity = macro_lib.plan_activity(events, fw, cfg.n_hidden)
     new_prbs = state.prbs
-    if noisy:
+    if noisy or cfg.mode == "nld":
         noise_t = None
-    elif cfg.use_snl:
+    elif snl_active:
         new_prbs, bits = prbs_lib.draw(state.prbs, r * cfg.n_hidden)
         noise_t = prbs_lib.bits_to_noise(bits, noise_amp).reshape(
             slots, r, cfg.n_hidden).transpose(0, 1)
@@ -328,16 +491,17 @@ def forward_silicon_stream(p: dict, events: torch.Tensor, cfg: SNNConfig,
         noise_t = torch.zeros((r, slots, cfg.n_hidden), device=dev)
     row_ctl = macro_lib.stream_row_ctl(state.seed, state.steps_done)
     v_out, spk_t, _, steps_t, _ = macro_lib.fused_seq(
-        events, fw, state.v, noise_t, k=cfg.k, **_lif(cfg),
-        ima_noise=ima_kn, snl_amp=noise_amp if noisy else 0.0,
-        activity=activity, mac_telemetry=False, row_ctl=row_ctl)
+        events, fw, state.v, noise_t, k=cfg.k,
+        **dict(_lif(cfg), use_snl=snl_active), ima_noise=ima_kn,
+        snl_amp=noise_amp if noisy else 0.0, activity=activity,
+        mac_telemetry=False, row_ctl=row_ctl)
     iota = torch.arange(r, dtype=torch.int32, device=dev)[:, None]
     af = ((state.steps_done[None, :] + iota)
           < state.length[None, :]).float()                 # (R, S)
     counts = state.counts + (spk_t * af[:, :, None]).sum(0)
     adc = state.adc + (steps_t.float() * af).sum(0)
     sops = state.sops + (events.abs().sum(-1) * af).sum(0) * cfg.n_hidden
-    ratio = _skip_ratio(activity)
+    ratio = _skip_ratio(activity, activity.numel())
     skip_acc = state.skip_acc + ratio * af.sum(0)
     steps_done = torch.minimum(state.steps_done + r, state.length)
     return SiliconStreamState(v=v_out, prbs=new_prbs, counts=counts,

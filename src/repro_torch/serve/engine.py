@@ -96,7 +96,8 @@ class SNNEventEngine:
     step-granularity *continuous batching* (default) or by legacy
     drain-the-queue batches.
 
-    **Continuous path** (``continuous=True``, the default).  The engine keeps ``batch_slots``
+    **Continuous path** (``continuous=True``, the default for single-layer
+    configs, KWN or NLD).  The engine keeps ``batch_slots``
     persistent serving slots whose LIF membrane — the SNN analog of an LM
     engine's KV cache — lives on device in a
     ``snn.SiliconStreamState`` and is carried across rounds.  Each round
@@ -128,7 +129,8 @@ class SNNEventEngine:
     ``forward_silicon(fused="seq")`` call per fixed-size batch of whole
     sequences, padded to ``batch_slots`` rows; batches are bucketed by
     stream length.  ``noise`` draws then come from a per-batch seed word
-    derived from the engine seed.
+    derived from the engine seed.  Layer stacks are served only here
+    (the default for them; ``continuous=True`` raises ``ValueError``).
 
     Everything runs on ``device`` (default ``cuda``).  Counterpart of
     ``repro.serve.engine.SNNEventEngine``.
@@ -173,9 +175,18 @@ class SNNEventEngine:
                  device=None):
         self.cfg = cfg
         self.device = device_lib.resolve(device)
-        self.params = {name: torch.as_tensor(w).to(self.device)
-                       for name, w in params.items()}
-        self._fw = snn_lib.pack_fused(self.params, cfg, noise)
+        self.params = snn_lib.params_to(params, self.device)
+        single = len(cfg.layer_widths) == 1
+        if continuous is None:
+            continuous = single
+        elif continuous and not single:
+            raise ValueError(
+                "continuous batching needs a single-layer config; pass "
+                "continuous=False (or leave it None to auto-select) for "
+                "stacks")
+        # packed once for the continuous path; the drain path packs per call
+        self._fw = snn_lib.pack_fused(self.params, cfg, noise) \
+            if single else None
         self.b = batch_slots
         self.noise = noise
         self.pack_by_density = pack_by_density
@@ -186,7 +197,7 @@ class SNNEventEngine:
         self._submitted = 0
         self._seed = seed
         self._batches = 0                # legacy-path batch counter
-        self.continuous = True if continuous is None else continuous
+        self.continuous = continuous
         self.round_steps = round_steps
         self.max_pending = max_pending
         self.preemptive = preemptive

@@ -157,12 +157,12 @@ def test_unported_paths_raise(fused):
     with pytest.raises(NotImplementedError, match="composed and per-step"):
         t_snn.forward_silicon(tp, _events(1, 4, tcfg.n_in), tcfg,
                               device="cpu", fused=fused)
-    with pytest.raises(NotImplementedError, match="NLD"):
-        t_snn.init_params(t_snn.SNNConfig(n_in=16, mode="nld"),
-                          torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="multi-layer"):
-        t_snn.forward_silicon(tp, _events(1, 4, 16), t_snn.SNNConfig(
-            n_in=16, hidden_layers=(8, 8)), device="cpu")
+    # layer stacks are ported on the fused path only, like single layers
+    scfg = t_snn.SNNConfig(n_in=16, hidden_layers=(8, 8))
+    sp = t_snn.init_params(scfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match="composed and per-step"):
+        t_snn.forward_silicon(sp, _events(1, 4, 16), scfg, device="cpu",
+                              fused=fused)
 
 
 def test_init_params_is_seeded():
