@@ -19,6 +19,13 @@ Phases (any failure raises, so the exit code is non-zero):
      version on the same padded operands, at the DVS-Gesture stack
      (two 128-column layers, T=30) and at a ragged three-layer shape;
    all exact: 0 mismatches, MAC and ADC steps equal, membranes 0 ULP;
+   - training: the KWN forward with its training trace through
+     ``ops.fused_macro_seq(train_trace=True)`` (trace 0 ULP), and the
+     surrogate backward kernel on its residuals (``ops.seq_grad_operands``)
+     against ``ref.fused_macro_seq_grad_ref``, at the training shape
+     (T=30, M=64, K=512, N=128) and a padded one, clean and noisy,
+     residual and remat, gated and dense: dv0 0 ULP, dW within rtol 1e-5 /
+     atol 1e-6, and the same dW bits for every launch;
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    - KWN: ``SNNEventEngine`` serves 96 event-stream requests of the
@@ -32,18 +39,30 @@ Phases (any failure raises, so the exit code is non-zero):
    - the stack: ``forward_silicon`` on the DVS-Gesture stack (64 streams
      of 30 steps) on the card, clean and noisy, must equal the same call
      on the CPU (the plain version);
+   - training: ``snn.train`` on the DVS-Gesture dataset at full width,
+     batch 64: 4 software steps (no kernel), then 8 silicon steps with
+     the Fig. 7 noise, warm started (seq-KWN launches == backward
+     launches == steps, no other kernel, finite losses); the first
+     silicon step again on the CPU (spikes bit for bit, loss and grads
+     within rtol 1e-5 / atol 1e-6); ``forward_silicon(fused="step")``
+     against ``"seq"`` bit for bit with T launches, clean and noisy;
 5. timings: each kernel against its plain version on the card at its
    main path's shape (ms per round for KWN and NLD, ms per launch for the
    stack) beside its roofline bound; the KWN engine's requests/s and round
    ms p50/p95 over an 8192-request clean burst, and a breakdown of a
    1024-request burst under the engine tracer and ``torch.profiler``; the
    NLD engine's requests/s and whole-tick time over a 2048-request clean
-   burst.
+   burst; at the training shape, the backward kernel per launch (residual
+   and remat) against its plain version, its bound and one
+   ``torch.matmul`` of the contraction alone, the forward with and
+   without its trace, and the whole silicon step (ms, steps/s, device
+   idle share under ``torch.profiler``).
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
-to ``chiprun_out/chip_smoke.json``, the profiler's op table to
-``chiprun_out/chip_smoke_profile.txt``.
+to ``chiprun_out/chip_smoke.json``, the profiler's op tables to
+``chiprun_out/chip_smoke_profile.txt`` (serving) and
+``chiprun_out/chip_smoke_train_profile.txt`` (training).
 """
 
 from __future__ import annotations
@@ -64,12 +83,15 @@ from repro_torch.core import dendrite as dendrite_lib  # noqa: E402
 from repro_torch.core import ima as ima_lib  # noqa: E402
 from repro_torch.core import macro as macro_lib  # noqa: E402
 from repro_torch.core import prbs as prbs_lib  # noqa: E402
+from repro_torch.data import events as events_lib  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
-from repro_torch.kernels import fused_macro, ref  # noqa: E402
+from repro_torch.kernels import fused_macro, fused_macro_grad  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import snn  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import engine as engine_lib  # noqa: E402
 from repro_torch.serve import lifecycle  # noqa: E402
+from repro_torch.train import silicon as silicon_lib  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -85,9 +107,17 @@ SLOTS, ROUND = 64, 8
 BURST, PROFILED = 8192, 1024    # requests of the timed and profiled bursts
 NLD_BURST = 2048                # requests of the timed NLD burst
 STACK_BATCH = 64                # event streams in one stacked launch
+SW_STEPS, SI_STEPS, TRAIN_BATCH = 4, 8, 64   # the training path
+TRAIN_LR = 0.02                 # examples/train_snn_events.py fine-tune
+TOL = dict(rtol=1e-5, atol=1e-6)
+GRAD_KW = dict(drive_gain=CFG.drive_gain, beta=CFG.beta, v_th1=CFG.v_th1,
+               v_lim=8.0, kwn_relax=silicon_lib.DEFAULT_KWN_RELAX,
+               surrogate_beta=4.0, ste_lo=-CFG.mac_range - 0.5,
+               ste_hi=CFG.mac_range + 0.5)
 KERNELS = {"fused_macro_seq_kwn": fused_macro.fused_macro_seq,
            "fused_macro_seq_nld": fused_macro.fused_macro_seq_nld,
-           "fused_macro_multi_seq_kwn": fused_macro.fused_macro_multi_seq}
+           "fused_macro_multi_seq_kwn": fused_macro.fused_macro_multi_seq,
+           "fused_macro_seq_kwn_bwd": fused_macro_grad.fused_macro_seq_grad}
 PATH_KERNEL = {"kwn": "fused_macro_seq_kwn", "nld": "fused_macro_seq_nld"}
 
 
@@ -432,7 +462,7 @@ def _stack_call(rs, t, m, kdim, widths, ks, noisy, dev):
           .to(dev) for w in widths]
     nz = None
     if not noisy:
-        nz = [snn._prbs_noise(m, t, w, 0.05, dev) for w in widths]
+        nz = [prbs_lib.sequence_noise(m, t, w, 0.05, dev) for w in widths]
     seeds = [int(s) for s in rs.randint(0, 2 ** 31 - 1, len(widths))]
     xm, planes, vs_p, nz_p, act, ctl, specs, plan0 = ops.stack_operands(
         x, [(fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale)
@@ -810,13 +840,338 @@ def serving_phase(params, dev) -> dict:
     return {"burst": burst, "breakdown": breakdown}
 
 
-def _record(name, replaces, launches, cmp, timing) -> dict:
+# --- silicon training: phases 3, 4 and 5 -------------------------------------
+
+def _close(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(torch.allclose(a, b, **TOL))
+
+
+def _train_forward(rs, t, m, kdim, n, noisy, dev):
+    """A silicon-training forward on the card through the public wrapper
+    (the training trace and the MAC residual), the plain version on the
+    same card tensors, and random cotangents.  Returns (kernel outputs,
+    plain outputs, the backward's residual tuple for
+    ``ops.seq_grad_operands``)."""
+    args, nz, noise_kw = _operands(rs, t, m, kdim, n, noisy, dev)
+    args[0][1::3] = 0.0          # empty steps: row tiles the backward skips
+    stream_kw, rc = _streams(rs, m, "scalar", dev)
+    kw = dict(k=CFG.k, drive_gain=CFG.drive_gain, train_trace=True,
+              **noise_kw)
+    got = ops.fused_macro_seq(*args, nz, device=dev, **stream_kw, **kw)
+    want = ref.fused_macro_seq_ref(*args, nz, row_ctl=rc, **kw)
+    w = 2.0 * args[1].float() + args[2].float()
+    g_spk = torch.randn((t, m, n), device=dev)
+    g_vfin = torch.randn((m, n), device=dev)
+    res = (args[0], w, args[5], got[3], got[5], got[0], g_spk, g_vfin)
+    return got, want, res
+
+
+def compare_train_phase(dev) -> dict:
+    """Kernel #1's training trace and kernel #3 against their plain
+    versions on the same card tensors, at the training shape (T=30, M=64,
+    K=512, N=128) and a padded one (T=7, M=37, K=300, N=100), clean and
+    noisy: the trace and dv0 0 ULP, dW within rtol 1e-5 / atol 1e-6, and
+    dW / dv0 the same bits run to run, residual or remat, gated or not."""
+    rs = np.random.RandomState(SEED + 11)
+    torch.manual_seed(SEED + 11)
+    worst_trace, worst_dw, n_cases = 0, 0.0, 0
+    for t, m, kdim, n in ((CFG.n_steps, TRAIN_BATCH, CFG.n_in,
+                           CFG.n_hidden), (7, 37, 300, 100)):
+        for noisy in (False, True):
+            got, want, res = _train_forward(rs, t, m, kdim, n, noisy, dev)
+            same = [torch.equal(a, b[..., 0] if i == 4 else b)
+                    for i, (a, b) in enumerate(zip(got, want))]
+            ulps = _ulps(got[5], want[5])
+            worst_trace = max(worst_trace, ulps)
+            tag = (f"T={t} M={m} K={kdim} N={n} "
+                   f"{'noisy' if noisy else 'clean'}")
+            if not all(same) or ulps:
+                raise AssertionError(f"train forward {tag}: kernel != plain "
+                                     f"version {same}, vtrace {ulps} ulp")
+            first = None
+            for remat, gate in ((False, True), (True, True), (False, False),
+                                (True, False), (False, True)):
+                operands = ops.seq_grad_operands(*res, remat=remat,
+                                                 gate=gate)
+                before = fused_macro_grad.fused_macro_seq_grad.launches
+                dw, dv0 = fused_macro_grad.fused_macro_seq_grad(*operands,
+                                                                **GRAD_KW)
+                torch.cuda.synchronize()
+                if fused_macro_grad.fused_macro_seq_grad.launches \
+                        != before + 1:
+                    raise AssertionError("the backward wrapper did not "
+                                         "launch the kernel once")
+                dw_w, dv0_w = ref.fused_macro_seq_grad_ref(*operands,
+                                                           **GRAD_KW)
+                err = (dw - dw_w).abs().max().item()
+                worst_dw = max(worst_dw, err)
+                n_cases += 1
+                if _ulps(dv0, dv0_w) or not _close(dw, dw_w) \
+                        or not dw_w.abs().max() > 0:
+                    raise AssertionError(
+                        f"backward {tag} remat={remat} gate={gate}: dv0 "
+                        f"{_ulps(dv0, dv0_w)} ulp, dW max |err| {err}")
+                if first is None:
+                    first = (dw, dv0)
+                elif not (torch.equal(dw, first[0])
+                          and torch.equal(dv0, first[1])):
+                    raise AssertionError(f"backward {tag}: dW or dv0 bits "
+                                         f"moved (remat={remat}, "
+                                         f"gate={gate})")
+            log(f"compare train {tag}: forward equal to the plain version, "
+                f"vtrace 0 ulp; backward x5 (residual/remat, gated/dense, "
+                f"a repeat): dv0 0 ulp, dW within tolerance (max |err| "
+                f"{worst_dw:.3g}) and the same bits every launch; "
+                f"{int(want[2].sum())} spikes")
+    return {"trace": {"max_abs_err": 0.0, "max_ulps": worst_trace,
+                      "mismatches": 0, "cases": 4},
+            "bwd": {"max_abs_err": worst_dw, "mismatches": 0,
+                    "cases": n_cases}}
+
+
+def _loss_and_grads(params, ev, lab, seed, noise):
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    loss = snn.loss_fn(p, ev, lab, CFG, seed, silicon=True, noise=noise,
+                       kwn_relax=silicon_lib.DEFAULT_KWN_RELAX)
+    grads = torch.autograd.grad(loss, [p["w_hid"], p["w_out"]])
+    return loss.detach(), grads
+
+
+def train_path_phase(dev) -> tuple[dict, dict]:
+    """The training path at full width: ``snn.train`` on DVS-Gesture,
+    batch 64: 4 software steps, then 8 noise-aware silicon steps warm
+    started from them (the fine-tune recipe of
+    examples/train_snn_events.py), the launch counters zeroed before and
+    read after each.  Then the first silicon step again on the CPU (the
+    plain versions) from the same params, batch and seed, and
+    ``forward_silicon(fused="step")`` against ``"seq"`` on the card."""
+    ds = events_lib.EventDataset(events_lib.DVS_GESTURE, device=dev)
+    nm = ima_lib.IMANoiseModel()
+    torch.cuda.synchronize()
+    reset_counts()
+    p_sw, sw_losses = snn.train(CFG, ds, n_steps=SW_STEPS,
+                                batch=TRAIN_BATCH, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        raise AssertionError(f"the software path launched kernels: "
+                             f"{read_counts()}")
+    reset_counts()
+    t0 = time.perf_counter()
+    p_si, si_losses = snn.train(
+        CFG, ds, n_steps=SI_STEPS, batch=TRAIN_BATCH, seed=SEED + 1,
+        lr=TRAIN_LR, silicon=True, noise=nm,
+        kwn_relax=silicon_lib.DEFAULT_KWN_RELAX, params=p_sw, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    fwd = counts.pop("fused_macro_seq_kwn")
+    bwd = counts.pop("fused_macro_seq_kwn_bwd")
+    if fwd != SI_STEPS or bwd != SI_STEPS or any(counts.values()):
+        raise AssertionError(f"silicon steps {SI_STEPS}: forward launches "
+                             f"{fwd}, backward {bwd}, others {counts}")
+    if not np.isfinite(sw_losses + si_losses).all():
+        raise AssertionError(f"non-finite losses {sw_losses} {si_losses}")
+    log(f"train path: {SW_STEPS} software steps (losses "
+        f"{[round(x, 4) for x in sw_losses]}, no kernel), {SI_STEPS} "
+        f"silicon steps (losses {[round(x, 4) for x in si_losses]}); "
+        f"seq-KWN launches {fwd} == backward launches {bwd} == steps; "
+        f"{1e3 * wall / SI_STEPS:.2f} ms a silicon step with its batch")
+
+    # the first silicon step again, on the card and on the CPU
+    batches, step_seeds = snn.train_generators(SEED + 1, dev)
+    ev, lab = ds.sample(batches, TRAIN_BATCH)
+    seed = silicon_lib.step_seed(step_seeds)
+    loss_g, grads_g = _loss_and_grads(p_sw, ev, lab, seed, nm)
+    cpu_params = snn.params_to(p_sw, "cpu")
+    loss_c, grads_c = _loss_and_grads(cpu_params, ev.cpu(), lab.cpu(), seed,
+                                      nm)
+    eye = {"w_hid": p_sw["w_hid"],
+           "w_out": torch.eye(CFG.n_hidden, device=dev)}
+    rates = [silicon_lib.forward_logits(
+        snn.params_to(eye, d), ev.to(d), CFG, seed, noise=nm).detach().cpu()
+        for d in (dev, torch.device("cpu"))]
+    errs = [(a.cpu() - b).abs().max().item()
+            for a, b in zip((loss_g,) + grads_g, (loss_c,) + grads_c)]
+    if not torch.equal(rates[0], rates[1]) or not rates[1].sum() > 0:
+        raise AssertionError("first silicon step: card spikes != CPU spikes")
+    if not all(_close(a.cpu(), b) for a, b in
+               zip((loss_g,) + grads_g, (loss_c,) + grads_c)):
+        raise AssertionError(f"first silicon step: card != CPU, max |err| "
+                             f"(loss, w_hid, w_out) {errs}")
+    if abs(loss_g.item() - si_losses[0]) > 1e-5 * abs(si_losses[0]):
+        raise AssertionError(f"first step loss {loss_g.item()} != "
+                             f"{si_losses[0]}")
+    log(f"train path: first silicon step on the CPU: spikes equal bit for "
+        f"bit ({int(rates[1].sum() * CFG.n_steps)} spikes), loss and "
+        f"grads within tolerance, max |err| (loss, w_hid, w_out) {errs}")
+
+    step_res = {}
+    for label, noise in (("clean", None), ("noisy", nm)):
+        reset_counts()
+        ls, ts = snn.forward_silicon(p_si, ev, CFG, seed=seed, noise=noise,
+                                     fused="step", device=dev)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        launches = counts.pop("fused_macro_seq_kwn")
+        lq, tq = snn.forward_silicon(p_si, ev, CFG, seed=seed, noise=noise,
+                                     device=dev)
+        if launches != CFG.n_steps or any(counts.values()):
+            raise AssertionError(f"step path launches {launches}, others "
+                                 f"{counts}")
+        if not torch.equal(ls, lq) or any(not torch.equal(ts[k], tq[k])
+                                          for k in tq):
+            raise AssertionError(f"step path {label} != seq path")
+        step_res[label] = launches
+        log(f"step path {label}: {launches} launches == T, logits and "
+            f"telemetry equal to the seq path bit for bit")
+    res = {"software_losses": sw_losses, "silicon_losses": si_losses,
+           "forward_launches": fwd, "backward_launches": bwd,
+           "silicon_wall_s": wall, "first_step_max_abs_err": errs,
+           "step_path_launches": step_res}
+    return p_si, res
+
+
+def train_timing_phase(params, dev) -> dict:
+    """At the training path's shape (DVS-Gesture batch of 64, T=30,
+    K=512, N=128): kernel #3 per launch under both policies against its
+    plain version, its bound and one ``torch.matmul`` of the contraction
+    alone; kernel #1 with and without its training trace; the whole
+    silicon step and its device idle share under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ds = events_lib.EventDataset(events_lib.DVS_GESTURE, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    ev, lab = ds.sample(gen, TRAIN_BATCH)
+    nm = ima_lib.IMANoiseModel()
+    w, scale = silicon_lib.quantized_weight_ste(params["w_hid"])
+    w = w.detach()
+    mcfg = macro_lib.CIMMacroConfig(code_bits=CFG.code_bits,
+                                    mac_range=CFG.mac_range, ima_noise=nm)
+    fw = macro_lib.pack_kwn_weights(w, scale, mcfg)
+    kn = macro_lib.fused_kernel_noise(fw, mcfg)
+    t, m, kdim, n = CFG.n_steps, TRAIN_BATCH, CFG.n_in, CFG.n_hidden
+    x = ev.transpose(0, 1).contiguous()
+    plan = fused_macro.plan_tiles(m, kdim, n, n, t)
+    if (plan.m_pad, plan.k_pad, plan.n_pad) != (m, kdim, n):
+        raise AssertionError(f"training shape is padded: {plan}")
+    xi = x.to(torch.int8)
+    act = ops.fused_activity_map(xi, plan)
+    v0 = torch.zeros((m, n), device=dev)
+    rc = macro_lib.stream_row_ctl(
+        torch.full((m,), 5, device=dev), torch.zeros(m, device=dev),
+        torch.arange(m, device=dev)).contiguous()
+    fwd_kw = dict(k=CFG.k, drive_gain=CFG.drive_gain, beta=CFG.beta,
+                  v_th1=CFG.v_th1, v_th2=CFG.v_th2, v_lim=8.0,
+                  ima_noise=kn, snl_amp=CFG.noise_amp, bm=plan.bm,
+                  bk=plan.bk)
+    fwd_ops = (xi, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v0,
+               None, act, rc)
+    fwd_ms = {}
+    for trace in (False, True):
+        launch = lambda trace=trace: fused_macro.fused_macro_seq(
+            *fwd_ops, mac_telemetry=trace, train_trace=trace, **fwd_kw)
+        fwd_ms[trace] = [_time_ms(launch, 100) for _ in range(3)]
+    out = fused_macro.fused_macro_seq(*fwd_ops, mac_telemetry=True,
+                                      train_trace=True, **fwd_kw)
+    torch.manual_seed(SEED + 12)
+    g_spk = torch.randn((t, m, n), device=dev)
+    g_vfin = torch.randn((m, n), device=dev)
+    res = (x, w, scale, out[3], out[5], out[0], g_spk, g_vfin)
+    timing = {}
+    nnz = int((xi != 0).sum())
+    for remat in (False, True):
+        operands = ops.seq_grad_operands(*res, remat=remat, gate=True)
+        launch = lambda operands=operands: \
+            fused_macro_grad.fused_macro_seq_grad(*operands, **GRAD_KW)
+        plain = lambda operands=operands: ref.fused_macro_seq_grad_ref(
+            *operands, **GRAD_KW)
+        kernel_ms = [_time_ms(launch, 200) for _ in range(3)]
+        plain_ms = [_time_ms(plain, 5) for _ in range(2)]
+        # each operand read once, each output written once; the
+        # contraction over the events (and the remat MAC) plus the chain
+        in_bytes = (xi.numel() + 4 * (3 * t * m * n + m * n + n)
+                    + 4 * operands[9].numel()
+                    + (2 * kdim * n if remat else 4 * t * m * n))
+        out_bytes = 4 * (kdim * n + m * n)
+        n_ops = 2 * nnz * n * (2 if remat else 1) + 27 * t * m * n
+        bound_ms, bound_by = _bound(in_bytes + out_bytes, n_ops)
+        timing["remat" if remat else "residual"] = {
+            "kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
+            "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": in_bytes + out_bytes, "ops": n_ops}
+    xt = x.reshape(t * m, kdim).t().float().contiguous()
+    gm = torch.randn((t * m, n), device=dev)
+    library_ms = min(_time_ms(lambda: torch.matmul(xt, gm), 200)
+                     for _ in range(3))
+
+    # the whole silicon step (batch drawn beforehand) and its idle share
+    p = {k: v.detach().clone() for k, v in params.items()}
+    mom = {k: torch.zeros_like(v) for k, v in p.items()}
+
+    def steps(k):
+        nonlocal p, mom
+        for i in range(k):
+            p, mom, loss = snn.train_step(
+                p, mom, ev, lab, CFG, TRAIN_LR, 1000 + i, silicon=True,
+                noise=nm, kwn_relax=silicon_lib.DEFAULT_KWN_RELAX)
+        return loss
+
+    steps(2)
+    torch.cuda.synchronize()
+    n_steps = 20
+    t0 = time.perf_counter()
+    steps(n_steps)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps(5)
+        torch.cuda.synchronize()
+    table = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in table if e.device_type == cuda]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / 5
+    (ROOT / "chiprun_out" / "chip_smoke_train_profile.txt").write_text(
+        table.table(sort_by="self_cpu_time_total", row_limit=40))
+    res = {"bwd": timing, "library_ms": library_ms,
+           "fwd_ms": {"trace": min(fwd_ms[True]),
+                      "no_trace": min(fwd_ms[False]),
+                      "trace_all": fwd_ms[True],
+                      "no_trace_all": fwd_ms[False]},
+           "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / step_ms,
+           "top_device": [(e.key, e.count, _device_us(e) / 1e3)
+                          for e in sorted(kernels, key=_device_us,
+                                          reverse=True)[:8]],
+           "shape": {"T": t, "M": m, "K": kdim, "N": n, "nnz": nnz}}
+    for pol, tm in timing.items():
+        log(f"bwd timing {pol} T={t} M={m} K={kdim} N={n}: kernel "
+            f"{tm['kernel_ms']:.4f} ms/launch, plain {tm['plain_ms']:.3f} "
+            f"ms, bound {tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
+    log(f"contraction alone, torch.matmul (K, T*M) @ (T*M, N): "
+        f"{library_ms:.4f} ms; seq-KWN forward at the training shape: "
+        f"{res['fwd_ms']['no_trace']:.4f} ms, with trace and MAC "
+        f"{res['fwd_ms']['trace']:.4f} ms")
+    log(f"silicon step (batch {m}): {step_ms:.3f} ms, "
+        f"{res['steps_per_s']:.1f} steps/s; device busy {busy_ms:.3f} ms a "
+        f"step under the profiler (idle share "
+        f"{res['device_idle_share']:.3f})")
+    for key, count, ms in res["top_device"][:5]:
+        log(f"  device {ms:.3f} ms in {count} launches: {key[:80]}")
+    return res
+
+
+def _record(name, replaces, launches, cmp, timing,
+            library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": cmp["max_abs_err"], "ms": timing["kernel_ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"], "library_ms": None,
+            "bound_by": timing["bound_by"], "library_ms": library_ms,
             "mismatches": cmp["mismatches"]}
 
 
@@ -826,15 +1181,18 @@ def main() -> None:
     dev = torch.device("cuda")
     build_s = build_phase()
     cmp = {"kwn": compare_phase(dev), "nld": compare_nld_phase(dev),
-           "stack": compare_stack_phase(dev)}
+           "stack": compare_stack_phase(dev),
+           "train": compare_train_phase(dev)}
     log(f"phase 3 done at {time.perf_counter() - t0:.1f} s")
     params, main_res = main_path_phase(dev)
     nld_params, nld_res = nld_path_phase(dev)
     _, stack_res = stack_path_phase(dev)
+    train_params, train_res = train_path_phase(dev)
     log(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
-    timing = {"kwn": timing_phase(dev), "nld": nld_timing_phase(dev),
-              "stack": stack_timing_phase(dev)}
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    timing = {"kwn": timing_phase(dev), "nld": nld_timing_phase(dev),
+              "stack": stack_timing_phase(dev),
+              "train": train_timing_phase(train_params, dev)}
     serving = serving_phase(params, dev)
     nld_serving = nld_serving_phase(nld_params, dev)
     log(f"phase 5 done at {time.perf_counter() - t0:.1f} s")
@@ -855,10 +1213,24 @@ def main() -> None:
         log(f"[{smi}] {name}: {tm['kernel_ms']:.4f} ms/{unit}, plain "
             f"{tm['plain_ms']:.3f} ms/{unit}, bound "
             f"{tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
+    tt = timing["train"]
+    for pol, tm in tt["bwd"].items():
+        log(f"[{smi}] fused_macro_seq_kwn_bwd ({pol}): "
+            f"{tm['kernel_ms']:.4f} ms/launch, plain {tm['plain_ms']:.3f} "
+            f"ms, bound {tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']}); "
+            f"contraction alone in torch.matmul {tt['library_ms']:.4f} ms")
+    log(f"[{smi}] silicon training step, DVS-Gesture batch "
+        f"{TRAIN_BATCH}: {tt['step_ms']:.3f} ms, {tt['steps_per_s']:.1f} "
+        f"steps/s, device idle share {tt['device_idle_share']:.3f}; "
+        f"seq-KWN forward with trace {tt['fwd_ms']['trace']:.4f} ms "
+        f"(without {tt['fwd_ms']['no_trace']:.4f} ms)")
     path = "src/repro/kernels/fused_macro.py"
+    kwn_launches = (main_res["clean"]["launches"]
+                    + main_res["noisy"]["launches"]
+                    + train_res["forward_launches"]
+                    + sum(train_res["step_path_launches"].values()))
     record = {"kernels": [
-        _record("fused_macro_seq_kwn", f"{path}:524",
-                main_res["clean"]["launches"] + main_res["noisy"]["launches"],
+        _record("fused_macro_seq_kwn", f"{path}:524", kwn_launches,
                 cmp["kwn"], timing["kwn"]),
         _record("fused_macro_seq_nld", f"{path}:583",
                 nld_res["clean"]["launches"] + nld_res["noisy"]["launches"],
@@ -866,10 +1238,15 @@ def main() -> None:
         _record("fused_macro_multi_seq_kwn", f"{path}:896",
                 stack_res["clean"]["launches"]
                 + stack_res["noisy"]["launches"],
-                cmp["stack"], timing["stack"])]}
+                cmp["stack"], timing["stack"]),
+        _record("fused_macro_seq_kwn_bwd",
+                "src/repro/kernels/fused_macro_grad.py:73",
+                train_res["backward_launches"], cmp["train"]["bwd"],
+                tt["bwd"]["residual"], library_ms=tt["library_ms"])]}
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "build_s": build_s, "compare": cmp,
-         "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res},
+         "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
+                       "train": train_res},
          "timing": timing, "serving": serving, "nld_serving": nld_serving,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(json.dumps(record), flush=True)

@@ -6,10 +6,10 @@ combines the branches with dendritic weights W^d:
 
     V_mem^p(t+1) = sum_j W^d_{j,p} f( sum_i W^s_{i,j,p} S_i ) + beta V_mem^p(t)
 
-Counterpart of ``repro.core.dendrite`` (inference subset).  The fused NLD
-kernel computes this drive on the twin-cell grid (``core.macro``
-``pack_nld_weights``); ``dendrite_mac`` is the plain float form of the
-same equation, kept for the tests.
+Counterpart of ``repro.core.dendrite``.  The fused NLD kernel computes
+this drive on the twin-cell grid (``core.macro`` ``pack_nld_weights``);
+``dendrite_mac`` is the float form of the same equation, differentiable,
+which software BPTT (``models.snn.forward_train``) trains through.
 """
 
 from __future__ import annotations
@@ -52,15 +52,33 @@ def dendrite_init(generator: torch.Generator, n_in: int, n_out: int,
                           mask.to(dev))
 
 
+# Torch forms of ``ima.DENDRITE_ACTIVATIONS`` for training; ``relu`` is a
+# maximum, whose gradient splits a tie at 0 in halves as the reference's.
+TRAIN_ACTIVATIONS = {
+    "quadratic": lambda x: 0.5 * x * x,
+    "relu": lambda x: torch.maximum(x, torch.zeros_like(x)),
+    "sigmoid4": lambda x: 4.0 * torch.sigmoid(x),
+}
+
+
 def dendrite_mac(params: DendriteParams, spikes: torch.Tensor,
-                 nl_cb: ima_lib.RampCodebook | None = None) -> torch.Tensor:
+                 nl_cb: ima_lib.RampCodebook | None = None,
+                 f=None) -> torch.Tensor:
     """Eq. (2) drive term ``sum_j W^d_j f(branch_mac_j)`` in float weights.
 
-    spikes (..., I) ternary inputs; with ``nl_cb`` the branch MACs go
-    through the quantized NL-IMA ramp (convert + LUT), else they pass as
-    they are.  Returns (..., N).
+    spikes (..., I) ternary inputs.  With ``nl_cb`` the branch MACs go
+    through the quantized NL-IMA ramp (convert + LUT); its gradient is
+    ``f'`` when the activation ``f`` (a ``TRAIN_ACTIVATIONS`` entry) is
+    given, else straight through inside the ramp.  Without ``nl_cb`` the
+    branch MACs pass through ``f``, or as they are.  Returns (..., N).
     """
     w = params.w_syn * params.mask
     mac = torch.einsum("...i,jin->...jn", spikes.float(), w)
-    act = mac if nl_cb is None else ima_lib.ima_quantize(mac, nl_cb)
+    if nl_cb is not None and f is not None:
+        act_f = f(mac)
+        act = act_f + (ima_lib.ima_quantize(mac, nl_cb) - act_f).detach()
+    elif nl_cb is not None:
+        act = ima_lib.ima_quantize_ste(mac, nl_cb)
+    else:
+        act = mac if f is None else f(mac)
     return torch.einsum("...jn,jn->...n", act, params.w_dend)

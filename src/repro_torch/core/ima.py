@@ -3,7 +3,7 @@
 The IMA builds a ramp on the read bit-lines; the step at which it crosses
 the MAC value is the code.  A comparison against monotone boundaries is a
 count of boundaries below the value.  Counterpart of ``repro.core.ima``
-(inference subset).
+(inference, and the straight-through quantizer of NLQ-aware training).
 
 The codebooks are built with numpy in f32 so that they equal the
 reference's ``jnp.linspace``-based codebooks bit for bit: XLA computes
@@ -170,6 +170,33 @@ def ima_reconstruct(code: torch.Tensor, cb: RampCodebook) -> torch.Tensor:
 def ima_quantize(x: torch.Tensor, cb: RampCodebook) -> torch.Tensor:
     """convert + reconstruct: the value the digital LIF receives."""
     return ima_reconstruct(ima_convert(x, cb), cb)
+
+
+class _QuantizeSTE(torch.autograd.Function):
+    """``ima_quantize`` forward; straight through inside the ramp's range
+    (the levels' span +-0.5) backward."""
+
+    @staticmethod
+    def forward(ctx, x, levels, boundaries):
+        ctx.save_for_backward(x, levels)
+        code = torch.searchsorted(boundaries, x.contiguous())
+        return levels[code]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, levels = ctx.saved_tensors
+        lo, hi = levels[0], levels[-1]
+        inside = (x >= torch.minimum(lo, hi) - 0.5) \
+            & (x <= torch.maximum(lo, hi) + 0.5)
+        return g * inside.to(g.dtype), None, None
+
+
+def ima_quantize_ste(x: torch.Tensor, cb: RampCodebook) -> torch.Tensor:
+    """Differentiable fake-quantization through the IMA (NLQ-aware
+    training, Fig. 6c): the value of ``ima_quantize``, a straight-through
+    gradient inside the ramp's range."""
+    return _QuantizeSTE.apply(x, cb.levels.to(x.device),
+                              cb.boundaries.to(x.device))
 
 
 class IMANoiseModel(NamedTuple):

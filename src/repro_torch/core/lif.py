@@ -1,9 +1,9 @@
 """Digital LIF neuron parameters (paper C5, Eq. 1, Fig. 5).
 
-Counterpart of ``repro.core.lif`` (inference subset): the parameters, the
-initial state and the register saturation value.  The update itself runs
-inside the fused macro kernel and its plain version
-(``kernels.ref.lif_update``).
+Counterpart of ``repro.core.lif``: the parameters, the initial state, the
+register saturation value and the spike function with its surrogate
+gradient (software BPTT).  The silicon update runs inside the fused macro
+kernel and its plain version (``kernels.ref.lif_update``).
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import prbs
+from repro_torch.core import f32math, prbs
 
 
 class LIFParams(NamedTuple):
@@ -38,3 +38,26 @@ def lif_init(shape, seed: int = 1, device=None) -> LIFState:
 def vmem_limit(bits: int) -> float:
     """Signed V_mem register full scale (``bits`` wide, 8 fractional bits)."""
     return float(2 ** (bits - 1)) / 256.0
+
+
+class _SpikeFn(torch.autograd.Function):
+    """``v >= v_th`` forward; the SuperSpike fast-sigmoid surrogate
+    ``4 / (1 + |4 (v - v_th)|)^2`` backward."""
+
+    @staticmethod
+    def forward(ctx, v, v_th: float):
+        ctx.save_for_backward(v)
+        ctx.v_th = v_th
+        return (v >= v_th).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        beta = 4.0
+        d = 1.0 + torch.abs(beta * (v - ctx.v_th))
+        return g * (f32math.div(torch.ones_like(d), d * d) * beta), None
+
+
+def spike_fn(v: torch.Tensor, v_th: float) -> torch.Tensor:
+    """Heaviside spike with the SuperSpike surrogate gradient (beta 4)."""
+    return _SpikeFn.apply(v, float(v_th))

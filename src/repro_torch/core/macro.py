@@ -5,8 +5,11 @@ layer, never the kernels: ``pack_kwn_weights`` / ``pack_nld_weights`` /
 ``pack_kwn_stack`` turn weights into the device operands,
 ``plan_fused_tiles`` / ``plan_activity`` / ``plan_fused_stack`` expose the
 tile plans and the occupancy map, ``fused_seq`` runs a whole event
-sequence through the fused single-layer kernel (KWN or NLD head) and
-``fused_multi_seq`` through the stacked KWN kernel.
+sequence through the fused single-layer kernel (KWN or NLD head),
+``fused_step`` one time step of it, ``fused_multi_seq`` a sequence through
+the stacked KWN kernel, and ``fused_seq_vjp`` the differentiable KWN
+sequence that silicon training runs (the surrogate backward kernel behind
+it).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.core import f32math
 from repro_torch.core import ima as ima_lib
 from repro_torch.core import ternary as ternary_lib
+
 
 class CIMMacroConfig(NamedTuple):
     code_bits: int = 5                 # IMA resolution
@@ -199,6 +203,73 @@ def fused_seq(spikes: torch.Tensor, fw: FusedMacroWeights, v: torch.Tensor,
         mac_telemetry=mac_telemetry, seed=seed, step_offset=step_offset,
         row_ctl=row_ctl, device=v.device)
     return v_out, spk, mask, steps, mac
+
+
+def fused_step(spikes: torch.Tensor, fw: FusedMacroWeights, v: torch.Tensor,
+               noise: torch.Tensor | None = None, *, k: int = 12,
+               drive_gain: float = 1.0, beta: float = 0.9,
+               v_th1: float = 1.0, v_th2: float = 0.6,
+               v_reset: float = 0.0, v_lim: float = 8.0,
+               use_snl: bool = True, ima_noise=None, snl_amp: float = 0.0,
+               mac_telemetry: bool = True, seed=0, step_offset=0):
+    """One time step through the fused kernel (one launch), on ``v``'s
+    device: spikes (..., I), v / noise (..., N).  With counter noise the
+    step index goes in ``step_offset``, which keys the stream as the
+    sequence path does.  Returns (v_out, spikes, mask, adc_steps (...),
+    mac (..., NC) or None)."""
+    from repro_torch.kernels import ops
+    s = ternary_lib.ternary_input_encode(spikes)
+    mac, v_out, spk, mask, steps = ops.fused_macro_step(
+        s, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v, noise,
+        fw.w_dend, mode=fw.mode, k=k, drive_gain=drive_gain, beta=beta,
+        v_th1=v_th1, v_th2=v_th2, v_reset=v_reset, v_lim=v_lim,
+        use_snl=use_snl, ima_noise=ima_noise, snl_amp=snl_amp,
+        mac_telemetry=mac_telemetry, seed=seed, step_offset=step_offset,
+        device=v.device)
+    return v_out, spk, mask, steps, mac
+
+
+def fused_seq_vjp(spikes: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                  cfg: CIMMacroConfig, v: torch.Tensor, *, k: int = 12,
+                  drive_gain: float = 1.0, beta: float = 0.9,
+                  v_th1: float = 1.0, v_th2: float = 0.6,
+                  v_reset: float = 0.0, v_lim: float = 8.0,
+                  use_snl: bool = True, noise: torch.Tensor | None = None,
+                  snl_amp: float = 0.0, kwn_relax: float = 0.0,
+                  remat: bool = False, seed: int = 0):
+    """Differentiable fused KWN sequence, on ``spikes``' device: the
+    silicon-in-the-loop training forward, with the surrogate backward
+    kernel behind it.
+
+    spikes (T, ..., I) events (no gradient), w (I, N) f32 weight in integer
+    MAC units (gradient straight through the twin-cell rounding; the model
+    layer puts its own clipped straight-through in front), scale (N,)
+    per-column scale (no gradient), v (..., N) initial membrane.
+    ``cfg.ima_noise`` turns on the Fig. 7 counter noise keyed on ``seed``
+    (a fresh seed per optimization step); ``noise`` (T, ..., N) is the
+    clean path's streamed SNL noise, None for the counter SNL stream at
+    ``snl_amp`` (or none when ``use_snl`` is off).  The ramp's
+    straight-through window is ``+-(cfg.mac_range + 0.5)``; ``kwn_relax``
+    and ``remat`` as in ``kernels.ops.SeqVJPSpec``.
+
+    Returns (spikes_out (T, ..., N), v_out (..., N)), both differentiable.
+    """
+    from repro_torch.kernels import ops
+    nlq = _nlq(cfg)
+    ima_kn = None
+    if cfg.ima_noise is not None:
+        ima_kn = ima_lib.kernel_noise_params(cfg.ima_noise, nlq)
+    spec = ops.SeqVJPSpec(
+        k=k, drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_th2=v_th2,
+        v_reset=v_reset, v_lim=v_lim, use_snl=use_snl, ima_noise=ima_kn,
+        snl_amp=snl_amp, kwn_relax=kwn_relax,
+        ste_lo=float(-cfg.mac_range - 0.5), ste_hi=float(cfg.mac_range + 0.5),
+        remat=remat)
+    dev = spikes.device
+    s = ternary_lib.ternary_input_encode(spikes)
+    return ops.fused_macro_seq_vjp(
+        spec, w, s, nlq.boundaries.to(dev), nlq.levels.to(dev),
+        scale.reshape(-1).to(torch.float32), v, noise, seed)
 
 
 def fused_multi_seq(spikes: torch.Tensor, stack, vs, noises=None, *, ks,

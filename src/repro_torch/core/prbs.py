@@ -76,3 +76,13 @@ def draw(states: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
 def bits_to_noise(bits: torch.Tensor, amplitude: float) -> torch.Tensor:
     """Two-level noise ``(2 * bit - 1) * amplitude`` in f32."""
     return (2.0 * bits.float() - 1.0) * amplitude
+
+
+def sequence_noise(b: int, t_steps: int, width: int, amp: float,
+                   device=None) -> torch.Tensor:
+    """The clean-path SNL noise of a fresh LIF state (``lif_init``'s LFSR
+    word) over a one-shot sequence: ``b * width`` bits per step from one
+    LFSR, (T, b, width) f32."""
+    s0 = torch.tensor([lfsr_init(1)], device=device)
+    _, bits = draw(s0, t_steps * b * width)
+    return bits_to_noise(bits[0], amp).reshape(t_steps, b, width)

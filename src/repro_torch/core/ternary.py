@@ -2,7 +2,8 @@
 
 A twin 9T bit-cell stores a ternary value; two cells in banks with a 2:1
 current ratio compose a signed 3-bit weight ``W = 2*W_msb + W_lsb`` in
-[-3, 3].  Counterpart of ``repro.core.ternary`` (inference subset).
+[-3, 3].  Counterpart of ``repro.core.ternary`` (inference and the
+weight fake-quantizer of quantization-aware training).
 """
 
 from __future__ import annotations
@@ -56,3 +57,28 @@ def quantize_weights_3bit(w: torch.Tensor, per_channel: bool = True
 def pack_ternary(x: torch.Tensor) -> torch.Tensor:
     """Ternary {-1, 0, 1} values as int8."""
     return torch.round(x).to(torch.int8)
+
+
+class _QuantizeSTE(torch.autograd.Function):
+    """``w_int * scale`` forward; straight through inside the grid's clip
+    range (``|w / scale| <= 3.5``) backward."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.save_for_backward(w)
+        w_int, scale = quantize_weights_3bit(w)
+        return w_int * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        dims = tuple(range(w.dim() - 1))
+        scale = torch.clamp(f32math.div(
+            torch.amax(torch.abs(w), dim=dims, keepdim=True), 3.0), min=1e-8)
+        return g * (torch.abs(f32math.div(w, scale)) <= 3.5).to(g.dtype)
+
+
+def quantize_weights_ste(w: torch.Tensor) -> torch.Tensor:
+    """Fake-quantize weights onto the twin-cell grid (per-column scale),
+    with a straight-through gradient inside the clip range."""
+    return _QuantizeSTE.apply(w)

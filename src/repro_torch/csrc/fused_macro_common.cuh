@@ -284,15 +284,24 @@ struct LifParams {
   float beta, v_th1, v_th2, v_reset, v_lim;
 };
 
-// Eq. (1): an active neuron leaks and integrates (one fused multiply-add),
-// the rest hold; the SNL kick in (v_th2, v_th1); saturate; compare; reset.
+// Eq. (1) up to the comparator: an active neuron leaks and integrates (one
+// fused multiply-add), the rest hold; the SNL kick in (v_th2, v_th1);
+// saturate.  Returns the saturated membrane before the reset (the training
+// trace).
+__device__ __forceinline__ float lif_clip(float v, float drive, bool active,
+                                          float nz, bool use_snl,
+                                          const LifParams& lp) {
+  float vn = active ? fmaf(lp.beta, v, drive) : v;
+  if (use_snl && vn > lp.v_th2 && vn < lp.v_th1) vn = vn + nz;
+  return fminf(fmaxf(vn, -lp.v_lim), lp.v_lim);
+}
+
+// Eq. (1): lif_clip, then compare and reset.
 __device__ __forceinline__ float lif_update(float v, float drive, bool active,
                                             float nz, bool use_snl,
                                             const LifParams& lp,
                                             float* spike) {
-  float vn = active ? fmaf(lp.beta, v, drive) : v;
-  if (use_snl && vn > lp.v_th2 && vn < lp.v_th1) vn = vn + nz;
-  vn = fminf(fmaxf(vn, -lp.v_lim), lp.v_lim);
+  const float vn = lif_clip(v, drive, active, nz, use_snl, lp);
   *spike = vn >= lp.v_th1 ? 1.0f : 0.0f;
   return *spike > 0.0f ? lp.v_reset : vn;
 }

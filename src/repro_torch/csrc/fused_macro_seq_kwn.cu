@@ -4,7 +4,9 @@
 // (entry fused_macro_seq, mode "kwn").  Per time step and batch row:
 // twin-cell ternary MAC -> ramp codes -> optional Fig. 7 counter noise ->
 // KWN descending priority sweep with early stop -> LUT x scale x mask x gain
-// -> LIF with SNL, the membrane carried across T.
+// -> LIF with SNL, the membrane carried across T.  With a vtrace pointer (the
+// silicon-training forward, train_trace in the reference) it also writes the
+// saturated membrane before the reset at every step; serving passes null.
 //
 // What bounds it on the card: by the roofline, bytes.  At the serving shape
 // (64 rows, K=512, N=128, 8 steps a round, 5 % events) one launch moves
@@ -57,6 +59,7 @@ struct FmskParams {
   float* spikes;           // (T, M, N)
   float* mask;             // (T, M, N)
   int32_t* steps;          // (T, M)
+  float* vtrace;           // (T, M, N) saturated pre-reset membrane, or null
   int t_steps, m, k_dim, n, n_valid, k, n_codes, bm, bk, use_snl, noisy;
   float ratio, drive_gain, beta, v_th1, v_th2, v_reset, v_lim, snl_amp;
   float offset_lsb, sigma_lsb, inl_lsb, in_lo, in_span;
@@ -151,8 +154,10 @@ fmsk_kernel(const FmskParams p) {
         nz = p.snl_amp * counter_sign(seed, (uint32_t)(step0 + t), rid,
                                       (uint32_t)c);
       }
-      float spike;
-      v[j] = lif_update(v[j], drive, maskf > 0.0f, nz, p.use_snl, lp, &spike);
+      const float vc = lif_clip(v[j], drive, maskf > 0.0f, nz, p.use_snl, lp);
+      const float spike = vc >= lp.v_th1 ? 1.0f : 0.0f;
+      v[j] = spike > 0.0f ? lp.v_reset : vc;
+      if (p.vtrace != nullptr) p.vtrace[base + c] = vc;
       p.spikes[base + c] = spike;
       p.mask[base + c] = maskf;
       if (p.mac != nullptr) p.mac[base + c] = acc[j];

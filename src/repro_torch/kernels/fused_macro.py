@@ -3,12 +3,14 @@
 Counterpart of ``repro.kernels.fused_macro`` (``TilePlan``,
 ``plan_tiles``, ``fused_macro_seq`` in both modes, ``LayerSpec`` and
 ``fused_macro_multi_seq``).  Three hand-written CUDA kernels for Hopper
-replace the Pallas kernels:
+replace the Pallas kernels (the backward of the first is in
+``kernels.fused_macro_grad``):
 
 * ``csrc/fused_macro_seq_kwn.cu`` (``_seq_kwn_kernel``): per time step the
   twin-cell ternary MAC, the ramp codes with optional Fig. 7 counter
   noise, the KWN descending priority sweep, the LUT drive and the LIF
-  update with SNL, the membrane carried across T in registers;
+  update with SNL, the membrane carried across T in registers, and for
+  training the saturated membrane of every step (``train_trace``);
 * ``csrc/fused_macro_seq_nld.cu`` (``_seq_nld_kernel``): the same MAC,
   ``mac * scale``, the activation ramp with optional noise, the LUT, the
   branch-major soma combine with ``w_dend`` and a dense LIF without SNL;
@@ -124,7 +126,8 @@ class _Params(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "x", "msb", "lsb", "bounds", "levels", "scale", "v0", "noise",
-        "activity", "row_ctl", "mac", "v_out", "spikes", "mask", "steps")] + [
+        "activity", "row_ctl", "mac", "v_out", "spikes", "mask", "steps",
+        "vtrace")] + [
         (name, ctypes.c_int) for name in (
             "t_steps", "m", "k_dim", "n", "n_valid", "k", "n_codes", "bm",
             "bk", "use_snl", "noisy")] + [
@@ -222,7 +225,7 @@ def _check_rows(m, bm, k_dim, bk):
 def _launch(x, msb, lsb, boundaries, levels, scale, v, noise, activity,
             row_ctl, *, k, ratio, drive_gain, beta, v_th1, v_th2, v_reset,
             v_lim, use_snl, bm, bk, n_valid, ima_noise, snl_amp,
-            mac_telemetry):
+            mac_telemetry, train_trace):
     dev = x.device
     t_steps, m, k_dim = x.shape
     n = msb.shape[1]
@@ -251,7 +254,9 @@ def _launch(x, msb, lsb, boundaries, levels, scale, v, noise, activity,
         v_out=torch.empty((m, n), dtype=f32, device=dev),
         spikes=torch.empty((t_steps, m, n), dtype=f32, device=dev),
         mask=torch.empty((t_steps, m, n), dtype=f32, device=dev),
-        steps=torch.empty((t_steps, m, 1), dtype=i32, device=dev))
+        steps=torch.empty((t_steps, m, 1), dtype=i32, device=dev),
+        vtrace=torch.empty((t_steps, m, n), dtype=f32, device=dev)
+        if train_trace else None)
     params = _Params(
         **{name: _ptr(a) for name, a in {**ops, **outs}.items()},
         t_steps=t_steps, m=m, k_dim=k_dim, n=n, n_valid=n_valid, k=k,
@@ -262,8 +267,9 @@ def _launch(x, msb, lsb, boundaries, levels, scale, v, noise, activity,
         **_noise_kw(ima_noise))
     _run("fused_macro_seq_kwn", "fmsk_launch", params, dev)
     fused_macro_seq.launches += 1
-    return (outs["mac"], outs["v_out"], outs["spikes"], outs["mask"],
-            outs["steps"])
+    out = (outs["mac"], outs["v_out"], outs["spikes"], outs["mask"],
+           outs["steps"])
+    return out + (outs["vtrace"],) if train_trace else out
 
 
 def _default_row_ctl(m, seed, step_offset, dev) -> torch.Tensor:
@@ -284,7 +290,7 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
                     bm: int = DEFAULT_BM, bk: int = DEFAULT_BK,
                     n_valid: int | None = None, ima_noise=None,
                     snl_amp: float = 0.0, mac_telemetry: bool = True,
-                    seed=0, step_offset=0):
+                    train_trace: bool = False, seed=0, step_offset=0):
     """A whole fused KWN event sequence in one launch (padded operands).
 
     x (T, M, K) int8, msb/lsb (K, N) int8, boundaries (n_codes - 1,),
@@ -295,7 +301,9 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     absolute row]``: the stream of the reference's scalar path.
 
     Returns (mac (T, M, N) or None, v_out (M, N), spikes (T, M, N),
-    mask (T, M, N), adc_steps (T, M, 1) int32).
+    mask (T, M, N), adc_steps (T, M, 1) int32), and with ``train_trace``
+    also vtrace (T, M, N) f32, the saturated membrane before the reset
+    (the residual of the surrogate backward).
     """
     m = x.shape[1]
     n = msb.shape[1]
@@ -307,7 +315,7 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     kw = dict(k=k, ratio=ratio, drive_gain=drive_gain, beta=beta,
               v_th1=v_th1, v_th2=v_th2, v_reset=v_reset, v_lim=v_lim,
               use_snl=use_snl, ima_noise=ima_noise, snl_amp=snl_amp,
-              mac_telemetry=mac_telemetry)
+              mac_telemetry=mac_telemetry, train_trace=train_trace)
     if x.is_cuda:
         return _launch(x, msb, lsb, boundaries, levels, scale, v, noise,
                        activity, row_ctl.contiguous(), bm=bm, bk=bk,

@@ -1,6 +1,7 @@
 """Public wrappers around the fused kernels: padding, activity planning and
 the event-tensor input contract.  Counterpart of ``repro.kernels.ops``
-(the sequence paths: single-layer KWN and NLD, and the KWN stack).
+(the sequence paths: single-layer KWN and NLD, their per-step form, the
+KWN stack, and the differentiable KWN sequence of silicon training).
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import device as device_lib
+from repro_torch.core import ternary as ternary_lib
 from repro_torch.kernels import fused_macro as _fused
+from repro_torch.kernels import fused_macro_grad as _fused_grad
 
 
 def event_stream_issues(events, n_in: int | None = None):
@@ -92,8 +95,8 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
                     v_reset: float = 0.0, v_lim: float = 8.0,
                     use_snl: bool = True, ima_noise=None,
                     snl_amp: float = 0.0, activity=None,
-                    mac_telemetry: bool = True, seed=0,
-                    step_offset=0, row_ctl=None, device=None):
+                    mac_telemetry: bool = True, train_trace: bool = False,
+                    seed=0, step_offset=0, row_ctl=None, device=None):
     """Batched time-major fused sequence; x (T, ..., K), v (..., N),
     noise (T, ..., N) or None for the in-kernel counter noise.
 
@@ -111,10 +114,16 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     off.  The counter noise is keyed on logical columns, so padding never
     moves a draw.
 
+    ``train_trace`` (KWN only) also returns vtrace (T, ..., N), the
+    saturated membrane before the reset: the residual of the surrogate
+    backward.
+
     Returns (mac (T, ..., NC) or None, v_out (..., N), spikes (T, ..., N),
-    mask (T, ..., N), adc_steps (T, ...)).
+    mask (T, ..., N), adc_steps (T, ...)), plus vtrace with ``train_trace``.
     """
     dev = device_lib.resolve(device)
+    if train_trace and mode != "kwn":
+        raise ValueError("train_trace is KWN-only (silicon training)")
     t = x.shape[0]
     lead = tuple(x.shape[1:-1])
     kdim = x.shape[-1]
@@ -177,22 +186,53 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     if noise is not None:
         nm = torch.as_tensor(noise).to(dev, torch.float32).reshape(t, -1, n)
         nm = F.pad(nm, (0, plan.n_pad - n, 0, plan.m_pad - m0))
-    mac, v_out, spikes, mask, steps = _fused.fused_macro_seq(
+    outs = _fused.fused_macro_seq(
         xm.contiguous(), msb_p, lsb_p, bounds, lut, scale_p,
         vm.contiguous(), None if nm is None else nm.contiguous(),
         activity.contiguous(), rc,
         k=k, ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
         v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
         bm=plan.bm, bk=plan.bk, n_valid=plan.n_valid, ima_noise=ima_noise,
-        snl_amp=snl_amp, mac_telemetry=mac_telemetry, seed=seed,
-        step_offset=step_offset)
+        snl_amp=snl_amp, mac_telemetry=mac_telemetry,
+        train_trace=train_trace, seed=seed, step_offset=step_offset)
+    mac, v_out, spikes, mask, steps = outs[:5]
     if mac is not None:
         mac = mac[:, :m0, :n].reshape(t, *lead, nc)
-    return (mac,
-            v_out[:m0, :n].reshape(*lead, n),
-            spikes[:, :m0, :n].reshape(t, *lead, n),
-            mask[:, :m0, :n].reshape(t, *lead, n),
-            steps[:, :m0, 0].reshape(t, *lead))
+    ret = (mac,
+           v_out[:m0, :n].reshape(*lead, n),
+           spikes[:, :m0, :n].reshape(t, *lead, n),
+           mask[:, :m0, :n].reshape(t, *lead, n),
+           steps[:, :m0, 0].reshape(t, *lead))
+    if train_trace:
+        ret += (outs[5][:, :m0, :n].reshape(t, *lead, n),)
+    return ret
+
+
+def fused_macro_step(x, msb, lsb, boundaries, levels, scale, v, noise=None,
+                     w_dend=None, *, mode: str = "kwn", k: int = 12,
+                     ratio: float = 2.0, drive_gain: float = 1.0,
+                     beta: float = 0.9, v_th1: float = 1.0,
+                     v_th2: float = 0.6, v_reset: float = 0.0,
+                     v_lim: float = 8.0, use_snl: bool = True,
+                     ima_noise=None, snl_amp: float = 0.0,
+                     mac_telemetry: bool = True, seed=0, step_offset=0,
+                     device=None):
+    """One time step: the T=1 case of ``fused_macro_seq`` (one launch).
+
+    x (..., K), v (..., N), noise (..., N) or None.  With counter noise,
+    pass the step index as ``step_offset`` so that a per-step loop draws
+    the stream of the one-launch sequence.  Returns (mac (..., NC) or None,
+    v_out (..., N), spikes (..., N), mask (..., N), adc_steps (...)).
+    """
+    mac, v_out, spikes, mask, steps = fused_macro_seq(
+        x[None], msb, lsb, boundaries, levels, scale, v,
+        None if noise is None else noise[None], w_dend, mode=mode, k=k,
+        ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
+        v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
+        ima_noise=ima_noise, snl_amp=snl_amp, mac_telemetry=mac_telemetry,
+        seed=seed, step_offset=step_offset, device=device)
+    return (None if mac is None else mac[0], v_out, spikes[0], mask[0],
+            steps[0])
 
 
 class MultiSeqOut(NamedTuple):
@@ -303,3 +343,134 @@ def fused_macro_multi_seq(x, stack, vs, noises=None, *, ks,
         spike_counts=tuple(c[:, :m0].reshape(t, *lead) for c in counts),
         occupancy=tuple(occ),
         total_blocks=t * n_i * sum(spec.n_k for spec in specs))
+
+
+# --- the differentiable sequence: silicon-in-the-loop training --------------
+
+class SeqVJPSpec(NamedTuple):
+    """Static configuration of ``fused_macro_seq_vjp``: the forward's
+    keywords plus the surrogate backward's: ``kwn_relax`` (the loser
+    gradient leak through the hard winner gate), ``surrogate_beta``
+    (SuperSpike sharpness), ``ste_lo`` / ``ste_hi`` (the ramp's
+    straight-through window, in integer MAC units), ``remat`` (recompute
+    the MAC in the backward instead of keeping the (T, M, N) residual: the
+    same bits) and ``gate`` (hand the backward the row-tile activity map:
+    the same bits)."""
+
+    k: int = 12
+    ratio: float = 2.0
+    drive_gain: float = 1.0
+    beta: float = 0.9
+    v_th1: float = 1.0
+    v_th2: float = 0.6
+    v_reset: float = 0.0
+    v_lim: float = 8.0
+    use_snl: bool = True
+    ima_noise: object = None          # ima.IMAKernelNoise | None
+    snl_amp: float = 0.0
+    kwn_relax: float = 0.0
+    surrogate_beta: float = 4.0
+    ste_lo: float = -24.5
+    ste_hi: float = 24.5
+    remat: bool = False
+    gate: bool = True
+
+
+class _SeqVJP(torch.autograd.Function):
+    """Forward: the seq-KWN kernel with its training trace.  Backward: the
+    surrogate backward kernel, on the forward's tile plan."""
+
+    @staticmethod
+    def forward(ctx, spec: SeqVJPSpec, w, x, boundaries, levels, scale, v,
+                noise, seed: int):
+        msb, lsb = ternary_lib.weight_decompose(w.detach())
+        mac, v_out, spikes, mask, _, vtrace = fused_macro_seq(
+            x, ternary_lib.pack_ternary(msb), ternary_lib.pack_ternary(lsb),
+            boundaries, levels, scale, v, noise, mode="kwn", k=spec.k,
+            ratio=spec.ratio, drive_gain=spec.drive_gain, beta=spec.beta,
+            v_th1=spec.v_th1, v_th2=spec.v_th2, v_reset=spec.v_reset,
+            v_lim=spec.v_lim, use_snl=spec.use_snl,
+            ima_noise=spec.ima_noise, snl_amp=spec.snl_amp,
+            mac_telemetry=not spec.remat, train_trace=True, seed=seed,
+            device=x.device)
+        ctx.spec = spec
+        ctx.save_for_backward(w.detach(), x, scale, mask, vtrace, mac)
+        return spikes, v_out
+
+    @staticmethod
+    def backward(ctx, g_spk, g_vout):
+        spec = ctx.spec
+        w, x, scale, mask, vtrace, mac = ctx.saved_tensors
+        args = seq_grad_operands(x, w, scale, mask, vtrace, mac, g_spk,
+                                 g_vout, remat=spec.remat, gate=spec.gate)
+        dw_p, dv0_p = _fused_grad.fused_macro_seq_grad(
+            *args, ratio=spec.ratio, drive_gain=spec.drive_gain,
+            beta=spec.beta, v_th1=spec.v_th1, v_lim=spec.v_lim,
+            kwn_relax=spec.kwn_relax, surrogate_beta=spec.surrogate_beta,
+            ste_lo=spec.ste_lo, ste_hi=spec.ste_hi)
+        kdim, n = w.shape
+        m0 = int(np.prod(x.shape[1:-1], dtype=np.int64))
+        dv0 = dv0_p[:m0, :n].reshape(*x.shape[1:-1], n)
+        return None, dw_p[:kdim, :n], None, None, None, None, dv0, None, None
+
+
+def seq_grad_operands(x, w, scale, mask, vtrace, mac, g_spk, g_vout, *,
+                      remat: bool, gate: bool) -> tuple:
+    """The operands of the backward kernel, padded to the forward's tile
+    plan: (x, scale, g_spk, g_vfin, vtrace, mask, mac, msb, lsb,
+    activity), positional for ``fused_macro_grad.fused_macro_seq_grad``.
+
+    x (T, ..., K) the forward's events, w (K, N) its weight in integer
+    MAC units (planes for ``remat``), mask / vtrace / g_spk (T, ..., N),
+    mac (T, ..., N) the MAC residual (unused with ``remat``), g_vout
+    (..., N).  With ``gate`` the row-tile activity map (any K tile
+    occupied) goes with them.
+    """
+    t = x.shape[0]
+    kdim, n = w.shape
+    xm = x.reshape(t, -1, kdim)
+    m0 = xm.shape[1]
+    plan = _fused.plan_tiles(m0, kdim, n, n, t)
+    xm = F.pad(xm.to(torch.int8),
+               (0, plan.k_pad - kdim, 0, plan.m_pad - m0)).contiguous()
+    pad_n = (0, plan.n_pad - n, 0, plan.m_pad - m0)
+
+    def stack(a):
+        return F.pad(a.reshape(t, m0, n).float(), pad_n).contiguous()
+
+    activity = None
+    if gate:
+        activity = fused_activity_map(xm, plan).amax(2).contiguous()
+    msb = lsb = mac_p = None
+    if remat:
+        pad_kn = (0, plan.n_pad - n, 0, plan.k_pad - kdim)
+        msb, lsb = (ternary_lib.pack_ternary(F.pad(a, pad_kn)).contiguous()
+                    for a in ternary_lib.weight_decompose(w.detach()))
+    else:
+        mac_p = stack(mac)
+    scale_p = F.pad(scale.reshape(-1).float(), (0, plan.n_pad - n))
+    return (xm, scale_p.contiguous(), stack(g_spk),
+            F.pad(g_vout.reshape(m0, n).float(), pad_n).contiguous(),
+            stack(vtrace), stack(mask), mac_p, msb, lsb, activity)
+
+
+def fused_macro_seq_vjp(spec: SeqVJPSpec, w, x, boundaries, levels, scale,
+                        v, noise=None, seed: int = 0):
+    """``fused_macro_seq`` (KWN) with a surrogate backward, on ``x``'s
+    device.
+
+    w (K, N) f32 weight in integer MAC units (rounded onto the twin-cell
+    grid in the value, straight through in the gradient), x (T, ..., K)
+    ternary events (no gradient), v (..., N) initial membrane, noise
+    (T, ..., N) streamed SNL noise, or None for the counter SNL stream
+    (or none without SNL), seed the counter-PRNG seed word.  The forward
+    is the serving kernel with its training trace, the backward the
+    surrogate backward kernel, whose gradients are those of
+    ``kernels.ref.fused_macro_seq_vjp_ref``.  On a CUDA tensor both launch
+    their kernels; on a CPU tensor both run their plain versions.
+
+    Returns (spikes (T, ..., N), v_out (..., N)), both differentiable in
+    ``w`` and ``v``.
+    """
+    return _SeqVJP.apply(spec, w, x, boundaries, levels, scale, v, noise,
+                         int(seed))

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ctrprng, f32math
+from repro_torch.core import ternary as ternary_lib
 
 
 def ramp_codes(mac: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
@@ -63,14 +64,17 @@ def kwn_select(codes: torch.Tensor, k: int, n_codes: int):
 def lif_update(v, drive, mask, noise, *, beta, v_th1, v_th2, v_reset, v_lim,
                use_snl):
     """Eq. (1): winners leak and integrate (one fused multiply-add), the
-    rest hold; SNL kick in (v_th2, v_th1); saturate; compare; reset."""
+    rest hold; SNL kick in (v_th2, v_th1); saturate; compare; reset.
+    Returns (v_out, spike, v_clip): ``v_clip`` is the saturated membrane
+    before the reset, the training trace."""
     v_new = torch.where(mask > 0, f32math.fma(beta, v, drive), v)
     if use_snl:
         snl = (v_new > v_th2) & (v_new < v_th1)
         v_new = torch.where(snl, v_new + noise, v_new)
     v_new = torch.clamp(v_new, -v_lim, v_lim)
     spike = (v_new >= v_th1).float()
-    return torch.where(spike > 0, torch.full_like(v_new, v_reset), v_new), spike
+    return (torch.where(spike > 0, torch.full_like(v_new, v_reset), v_new),
+            spike, v_new)
 
 
 def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
@@ -81,7 +85,8 @@ def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
                         v_lim: float = 8.0, use_snl: bool = True,
                         ima_noise=None, snl_amp: float = 0.0,
                         n_valid: int | None = None,
-                        mac_telemetry: bool = True):
+                        mac_telemetry: bool = True,
+                        train_trace: bool = False):
     """A whole KWN event sequence, step by step.
 
     x (T, M, K) ternary, msb/lsb (K, N) int8 planes, boundaries
@@ -92,7 +97,8 @@ def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
     ``(row_ctl[i, 0], row_ctl[i, 1] + t, row_ctl[i, 2], column)``.
 
     Returns (mac (T, M, N) or None, v_out (M, N), spikes (T, M, N),
-    mask (T, M, N), adc_steps (T, M, 1) int32).
+    mask (T, M, N), adc_steps (T, M, 1) int32), and with ``train_trace``
+    also vtrace (T, M, N): the saturated membrane before the reset.
     """
     t_steps = x.shape[0]
     n = msb.shape[-1]
@@ -110,7 +116,7 @@ def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
     lif = dict(beta=beta, v_th1=v_th1, v_th2=v_th2, v_reset=v_reset,
                v_lim=v_lim, use_snl=use_snl)
     v = v.float()
-    macs, spikes, masks, steps = [], [], [], []
+    macs, spikes, masks, steps, trace = [], [], [], [], []
     for t in range(t_steps):
         mac = x[t].float() @ w
         codes = ramp_codes(mac, bounds)
@@ -130,14 +136,16 @@ def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
             nz = torch.tensor(snl_amp, dtype=torch.float32) * sign
         else:
             nz = torch.zeros_like(v)
-        v, spk = lif_update(v, drive, maskf, nz, **lif)
+        v, spk, v_clip = lif_update(v, drive, maskf, nz, **lif)
         if mac_telemetry:
             macs.append(mac)
         spikes.append(spk)
         masks.append(maskf)
         steps.append(st)
-    return (torch.stack(macs) if mac_telemetry else None, v,
-            torch.stack(spikes), torch.stack(masks), torch.stack(steps))
+        trace.append(v_clip)
+    out = (torch.stack(macs) if mac_telemetry else None, v,
+           torch.stack(spikes), torch.stack(masks), torch.stack(steps))
+    return out + (torch.stack(trace),) if train_trace else out
 
 
 def fused_macro_seq_nld_ref(x, msb, lsb, boundaries, levels, scale, w_dend,
@@ -187,9 +195,9 @@ def fused_macro_seq_nld_ref(x, msb, lsb, boundaries, levels, scale, w_dend,
         drive = act[:, 0] * w_dend[0]
         for j in range(1, n_branches):
             drive = f32math.fma(act[:, j], w_dend[j], drive)
-        v, spk = lif_update(v, drive * drive_gain, ones, zeros, beta=beta,
-                            v_th1=v_th1, v_th2=v_th1, v_reset=v_reset,
-                            v_lim=v_lim, use_snl=False)
+        v, spk, _ = lif_update(v, drive * drive_gain, ones, zeros, beta=beta,
+                               v_th1=v_th1, v_th2=v_th1, v_reset=v_reset,
+                               v_lim=v_lim, use_snl=False)
         if mac_telemetry:
             macs.append(mac)
         spikes.append(spk)
@@ -257,3 +265,174 @@ def fused_macro_multi_seq_ref(x, planes, v0s, noises, activity, ctl, *,
         cur = spk
     return (tuple(v_outs), spk, mask, torch.stack(steps),
             torch.stack(counts), torch.stack(occ))
+
+
+# --- silicon training: the surrogate backward and its autograd oracle -------
+
+def fused_macro_seq_grad_ref(x, scale, g_spk, g_vfin, vtrace, mask,
+                             mac=None, msb=None, lsb=None, activity=None, *,
+                             ratio: float = 2.0, drive_gain: float = 1.0,
+                             beta: float = 0.9, v_th1: float = 1.0,
+                             v_lim: float = 8.0, kwn_relax: float = 0.0,
+                             surrogate_beta: float = 4.0,
+                             ste_lo: float = -24.5, ste_hi: float = 24.5):
+    """The surrogate backward of the KWN sequence (padded operands).
+
+    x (T, M, K) ternary, scale (N,) (padded columns zero: they drop out of
+    ``dW`` by themselves), g_spk / vtrace / mask (T, M, N) f32, g_vfin
+    (M, N), mac (T, M, N) the forward's MAC residual, or None to recompute
+    it from the (K, N) int8 planes ``msb`` / ``lsb`` (exact small integers,
+    so both give the same bits), activity (T, M / bm) int32 row-tile
+    occupancy or None: a (step, row tile) whose word is 0 adds nothing.
+
+    Walks reversed time in the backward kernel's operation order:
+    SuperSpike ``sbeta / (1 + |sbeta (vt - v_th1)|)^2`` through the spike,
+    the reset's cut ``1 - spike``, the rail cut ``|vt| < v_lim``, the carry
+    (winners leak by ``beta``, the rest hold), and ``g_mac = g_v2 * (m +
+    kwn_relax (1 - m)) * scale * drive_gain * [ste_lo <= mac <= ste_hi]``;
+    then ``dW = sum_t x_t^T g_mac_t`` as one matrix product.
+    Returns (dW (K, N) f32, dv0 (M, N) f32).
+    """
+    t_steps, m, k_dim = x.shape
+    xf = x.float()
+    if mac is None:
+        mac = xf @ (ratio * msb.float() + lsb.float())
+    in_ramp = ((mac >= ste_lo) & (mac <= ste_hi)).float()
+    scale = scale.float().reshape(-1)
+    g_v = g_vfin.float()
+    g_mac = torch.empty_like(vtrace)
+    for t in reversed(range(t_steps)):
+        vt, mt = vtrace[t], mask[t]
+        spk = (vt >= v_th1).float()
+        d = 1.0 + (surrogate_beta * (vt - v_th1)).abs()
+        sg = torch.full_like(d, surrogate_beta) / (d * d)   # IEEE quotient
+        g_vclip = g_v * (1.0 - spk) + g_spk[t] * sg
+        g_v2 = g_vclip * (vt.abs() < v_lim).float()
+        g_v = g_v2 * (mt * beta + (1.0 - mt))
+        gate = mt + kwn_relax * (1.0 - mt)
+        g_mac[t] = g_v2 * gate * scale * drive_gain * in_ramp[t]
+    if activity is not None:
+        row_on = (activity > 0).repeat_interleave(m // activity.shape[1], 1)
+        xf = torch.where(row_on[..., None], xf, torch.zeros_like(xf))
+    n = vtrace.shape[-1]
+    dw = xf.reshape(-1, k_dim).t() @ g_mac.reshape(-1, n)
+    return dw, g_v
+
+
+def _ste(exact: torch.Tensor, surrogate: torch.Tensor) -> torch.Tensor:
+    """Value ``exact`` (bit for bit), gradient the surrogate's."""
+    return exact.detach() + (surrogate - surrogate.detach())
+
+
+class _SpikeSurrogate(torch.autograd.Function):
+    """``v >= v_th`` with the SuperSpike fast-sigmoid gradient."""
+
+    @staticmethod
+    def forward(ctx, v, v_th: float, sbeta: float):
+        ctx.save_for_backward(v)
+        ctx.v_th, ctx.sbeta = v_th, sbeta
+        return (v >= v_th).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        d = 1.0 + (ctx.sbeta * (v - ctx.v_th)).abs()
+        return g * (torch.full_like(d, ctx.sbeta) / (d * d)), None, None
+
+
+class _SatClip(torch.autograd.Function):
+    """V_mem register saturation; the gradient passes strictly inside the
+    rails (``clamp`` would pass it at a rail too)."""
+
+    @staticmethod
+    def forward(ctx, v, lim: float):
+        out = torch.clamp(v, -lim, lim)
+        ctx.save_for_backward(out)
+        ctx.lim = lim
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return g * (out.abs() < ctx.lim).float(), None
+
+
+def fused_macro_seq_vjp_ref(w, x, boundaries, levels, scale, v, noise=None,
+                            *, k: int = 12, ratio: float = 2.0,
+                            drive_gain: float = 1.0, beta: float = 0.9,
+                            v_th1: float = 1.0, v_th2: float = 0.6,
+                            v_reset: float = 0.0, v_lim: float = 8.0,
+                            use_snl: bool = True, ima_noise=None,
+                            snl_amp: float = 0.0, seed: int = 0,
+                            step_offset: int = 0, kwn_relax: float = 0.0,
+                            surrogate_beta: float = 4.0,
+                            ste_lo: float | None = None,
+                            ste_hi: float | None = None):
+    """Differentiable KWN sequence in autograd: the gradient semantics the
+    backward kernel reproduces (counterpart of the reference's
+    ``fused_macro_seq_vjp_ref``).
+
+    ``w`` (K, N) is the float weight in integer MAC units: the value path
+    rounds it onto the twin-cell grid, the gradient passes straight
+    through.  ``x`` (T, M, K) ternary f32 events carry no gradient.  The
+    values equal ``fused_macro_seq_ref`` bit for bit; the gradients are
+    straight through the MAC and inside the ramp's window
+    ``[ste_lo, ste_hi]`` (default: the levels' span +-0.5), the relaxed
+    winner gate (losers leak ``kwn_relax``), SuperSpike through the spike,
+    the rail cut, and nothing through the reset's selection or the noise.
+
+    Returns (v_fin, spikes (T, M, N), mask (T, M, N), adc_steps
+    (T, M, 1), vtrace (T, M, N)).
+    """
+    dev = x.device
+    msb, lsb = ternary_lib.weight_decompose(w.detach())
+    w_exact = ratio * msb + lsb
+    bounds = boundaries.float().to(dev)
+    levels = levels.float().to(dev)
+    n_codes = levels.shape[0]
+    scale = scale.float().reshape(-1).to(dev).detach()
+    ste_lo = float(levels.min()) - 0.5 if ste_lo is None else ste_lo
+    ste_hi = float(levels.max()) + 0.5 if ste_hi is None else ste_hi
+    m, n = x.shape[1], w.shape[1]
+    rows = torch.arange(m, device=dev, dtype=torch.int64)[:, None]
+    cols = torch.arange(n, device=dev, dtype=torch.int64)[None, :]
+    spikes, masks, steps, trace = [], [], [], []
+    for t in range(x.shape[0]):
+        xt = x[t].float()
+        mac_e = xt @ w_exact
+        mac = _ste(mac_e, xt @ w)
+        codes = ramp_codes(mac_e, bounds)
+        if ima_noise is not None:
+            codes = ctrprng.noisy_ima_codes(codes, mac_e, rows, cols, seed,
+                                            step_offset + t, ima_noise,
+                                            n_codes)
+        maskf, st = kwn_select(codes, k, n_codes)
+        drive_exact = levels[codes.long()] * scale * maskf * drive_gain
+        rng = ((mac_e >= ste_lo) & (mac_e <= ste_hi)).float()
+        drive_sur = mac * scale * drive_gain * rng
+        drive_w = _ste(drive_exact, drive_sur)
+        v_lose = v
+        if kwn_relax != 0.0:
+            leak = kwn_relax * drive_sur
+            v_lose = v + (leak - leak.detach())
+        v_win = _ste(f32math.fma(beta, v.detach(), drive_exact),
+                     beta * v + drive_w)
+        v2 = torch.where(maskf > 0, v_win, v_lose)
+        if use_snl:
+            if noise is not None:
+                nz = noise[t].float()
+            else:
+                nz = snl_amp * ctrprng.counter_sign(
+                    seed, step_offset + t, rows, cols, ctrprng.TAG_SNL)
+            vd = v2.detach()
+            v2 = torch.where((vd > v_th2) & (vd < v_th1), v2 + nz, v2)
+        v_clip = _SatClip.apply(v2, v_lim)
+        s = _SpikeSurrogate.apply(v_clip, v_th1, surrogate_beta)
+        v = torch.where(s.detach() > 0, torch.full_like(v_clip, v_reset),
+                        v_clip)
+        spikes.append(s)
+        masks.append(maskf)
+        steps.append(st)
+        trace.append(v_clip)
+    return (v, torch.stack(spikes), torch.stack(masks), torch.stack(steps),
+            torch.stack(trace))

@@ -1,17 +1,22 @@
 """The paper's event SNN served through the fused macro kernels.
 
-Counterpart of ``repro.models.snn`` for inference: ``SNNConfig``,
-``init_params``, ``forward_silicon(fused="seq")`` in both modes (KWN and
-NLD) and for KWN layer stacks, and the streaming state behind the
+Counterpart of ``repro.models.snn``: ``SNNConfig``, ``init_params``,
+``forward_silicon`` through the fused kernels (``fused="seq"``, one launch
+a sequence, or ``"step"``, one launch a time step) in both modes (KWN and
+NLD) and for KWN layer stacks, the streaming state behind the
 continuous-batching engine (``forward_silicon_stream`` with save/restore
-of one slot; single-layer KWN and NLD).  Training and the composed and
-per-step paths belong to a later slice of the port and raise
-``NotImplementedError``.
+of one slot; single-layer KWN and NLD), and training: software BPTT
+(``forward_train``) and silicon-in-the-loop training through the fused
+kernel and its surrogate backward (``loss_fn(silicon=True)``, see
+``train.silicon``), with ``train_step`` / ``train`` (SGD with momentum) and
+``evaluate``.  The composed path (``fused=False``) belongs to a later
+slice of the port and raises ``NotImplementedError``.
 
 JAX keys have no counterpart: the counter-PRNG seed word is an ``int``
 (``seed``); the reference derives it from its key (``snn._noise_seed``).
 A noisy stack takes one seed word per layer (``seeds``, the reference's
-``snn._noise_seeds``), derived from ``seed`` when not given.
+``snn._noise_seeds``), derived from ``seed`` when not given.  Batches and
+step seeds come from explicit ``torch.Generator``s.
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ class SNNConfig:
     v_th2: float = 0.6
     noise_amp: float = 0.05
     use_snl: bool = True
+    train_nlq: bool = True        # NLQ-aware training (Fig. 6c)
+    weight_qat: bool = True       # twin-cell 3-bit QAT
     # KWN layer stack: widths of L chained macro layers (n_hidden is forced
     # to the last width, which the readout reads) and per-layer winner
     # counts (default: k for every layer).
@@ -197,36 +204,36 @@ def _skip_ratio(occupied: torch.Tensor, blocks: int) -> torch.Tensor:
     return torch.clamp(1.0 - frac, 0.0, 1.0)
 
 
-def _prbs_noise(b: int, t_steps: int, width: int, amp: float, dev):
-    """The clean-path SNL noise of a fresh LIF state (``lif_init``'s LFSR
-    word): ``b * width`` bits per step from one LFSR, (T, b, width)."""
-    s0 = torch.tensor([prbs_lib.lfsr_init(1)], device=dev)
-    _, bits = prbs_lib.draw(s0, t_steps * b * width)
-    return prbs_lib.bits_to_noise(bits[0], amp).reshape(t_steps, b, width)
-
-
 def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
                     noise: ima_lib.IMANoiseModel | None = None,
                     fused: bool | str = "seq", device=None, seeds=None):
     """Inference through the fused macro kernels: events (B, T, N_in) ->
     (logits (B, classes), telemetry).
 
-    The whole sequence runs in one kernel launch (``fused="seq"``): the
-    KWN head (Eq. 1), the NLD head (Eq. 2, ``cfg.mode == "nld"``) or,
-    with ``cfg.hidden_layers``, the stacked KWN kernel.  Clean KWN, the
-    SNL noise is the PRBS-15 stream drawn ``B * width`` bits per step from
-    one LFSR per layer; with ``noise`` (the Fig. 7 ``IMANoiseModel``) both
-    the IMA error and the SNL sign noise come from the counter PRNG keyed
-    on ``seed`` (a stack on ``seeds``, one word per layer, derived from
+    ``fused="seq"`` (or True) runs the whole sequence in one kernel
+    launch: the KWN head (Eq. 1), the NLD head (Eq. 2, ``cfg.mode ==
+    "nld"``) or, with ``cfg.hidden_layers``, the stacked KWN kernel.
+    ``fused="step"`` launches the same single-layer kernel once per time
+    step (the T=1 case), threading the membrane and the PRBS state, with
+    the step index as the counter step word, so that its outputs equal the
+    sequence path's bit for bit; a stack routes ``"step"`` to the stacked
+    kernel as the reference does.  Clean KWN, the SNL noise is the
+    PRBS-15 stream drawn ``B * width`` bits per step from one LFSR per
+    layer; with ``noise`` (the Fig. 7 ``IMANoiseModel``) both the IMA
+    error and the SNL sign noise come from the counter PRNG keyed on
+    ``seed`` (a stack on ``seeds``, one word per layer, derived from
     ``seed`` when omitted).  The NLD head has no SNL noise.  Telemetry:
     per-request means over the actual sequence length of ADC steps, LIF
     updates and SOPs, plus the activity plan's skipped-block ratio.
     """
-    if fused is not True and fused != "seq":
+    if fused is False:
         raise NotImplementedError(
-            f"fused={fused!r}: only the time-major fused path ('seq') is "
-            f"ported; the composed and per-step paths come with the "
-            f"training slice")
+            "fused=False: the composed stage chain (with the calibration "
+            "kernels ternary_mac, nlq_convert, kwn_topk and lif_step) comes "
+            "with the next slice of the port")
+    if fused not in (True, "seq", "step"):
+        raise ValueError(f"unknown fused={fused!r}; expected False, True, "
+                         f"'step' or 'seq'")
     dev = device_lib.resolve(device)
     ev = torch.as_tensor(events).to(dev, torch.float32)
     p = params_to(p, dev)
@@ -241,17 +248,19 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     ev_t = ev.transpose(0, 1)                              # (T, B, N_in)
     activity = macro_lib.plan_activity(ev_t, fw, cfg.n_hidden)
     v0 = lif_lib.lif_init((b, cfg.n_hidden), device=dev).v_mem
-    if noisy or cfg.mode == "nld":
-        noise_t = None          # counter streams, or no SNL at all (NLD)
-    elif snl_active:
-        noise_t = _prbs_noise(b, t_steps, cfg.n_hidden, noise_amp, dev)
+    prbs_amp = noise_amp if snl_active and not noisy else None
+    lif = dict(_lif(cfg), use_snl=snl_active, k=cfg.k, ima_noise=ima_kn,
+               snl_amp=noise_amp if noisy else 0.0, mac_telemetry=False,
+               seed=int(seed) if noisy else 0)
+    if fused == "step":
+        spk_t, steps_t = _forward_steps(ev_t, fw, v0, lif, prbs_amp)
     else:
-        noise_t = torch.zeros((t_steps, b, cfg.n_hidden), device=dev)
-    lif = dict(_lif(cfg), use_snl=snl_active)
-    _, spk_t, _, steps_t, _ = macro_lib.fused_seq(
-        ev_t, fw, v0, noise_t, k=cfg.k, **lif, ima_noise=ima_kn,
-        snl_amp=noise_amp if noisy else 0.0, activity=activity,
-        mac_telemetry=False, seed=int(seed) if noisy else 0)
+        noise_t = None          # counter streams, or no SNL at all
+        if prbs_amp is not None:
+            noise_t = prbs_lib.sequence_noise(b, t_steps, cfg.n_hidden,
+                                              prbs_amp, dev)
+        _, spk_t, _, steps_t, _ = macro_lib.fused_seq(
+            ev_t, fw, v0, noise_t, activity=activity, **lif)
     counts = spk_t.sum(0)
     logits = f32math.div(counts, t_steps) @ p["w_out"]
     sops_t = ev_t.abs().sum(-1) * cfg.n_hidden             # (T, B)
@@ -265,6 +274,27 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
             device=dev),
     }
     return logits, tele
+
+
+def _forward_steps(ev_t, fw, v, lif: dict, prbs_amp: float | None):
+    """One fused launch per time step, the membrane carried from launch to
+    launch.  With ``prbs_amp`` (clean KWN with SNL) the SNL noise is
+    ``B * N`` bits per step from one LFSR whose state is threaded step by
+    step; otherwise the counter streams, keyed on the step index, or no
+    SNL.  Returns the (T, B, N) spike and (T, B) ADC-step stacks."""
+    b, n = v.shape
+    prbs = torch.tensor([prbs_lib.lfsr_init(1)], device=v.device)
+    spikes, steps = [], []
+    for t in range(ev_t.shape[0]):
+        nz = None
+        if prbs_amp is not None:
+            prbs, bits = prbs_lib.draw(prbs, b * n)
+            nz = prbs_lib.bits_to_noise(bits[0], prbs_amp).reshape(b, n)
+        v, spk, _, st, _ = macro_lib.fused_step(ev_t[t], fw, v, nz,
+                                                step_offset=t, **lif)
+        spikes.append(spk)
+        steps.append(st)
+    return torch.stack(spikes), torch.stack(steps)
 
 
 def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds):
@@ -287,7 +317,8 @@ def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds):
         noises = None
     else:
         seeds = [0] * n_layers
-        noises = [_prbs_noise(b, t_steps, w, noise_amp, dev) if cfg.use_snl
+        noises = [prbs_lib.sequence_noise(b, t_steps, w, noise_amp, dev)
+                  if cfg.use_snl
                   else torch.zeros((t_steps, b, w), device=dev)
                   for w in widths]
     if len(seeds) != n_layers:
@@ -508,3 +539,206 @@ def forward_silicon_stream(p: dict, events: torch.Tensor, cfg: SNNConfig,
                               adc=adc, sops=sops, skip_acc=skip_acc,
                               steps_done=steps_done, length=state.length,
                               seed=state.seed)
+
+
+# --- training ----------------------------------------------------------------
+
+def _nlq_cb(cfg: SNNConfig) -> ima_lib.RampCodebook:
+    return ima_lib.nlq_codebook(cfg.code_bits, -cfg.mac_range, cfg.mac_range)
+
+
+def _act_cb(cfg: SNNConfig) -> ima_lib.RampCodebook:
+    return ima_lib.activation_codebook(
+        cfg.code_bits, ima_lib.DENDRITE_ACTIVATIONS[cfg.activation],
+        -cfg.dend_range, cfg.dend_range)
+
+
+def _kwn_drive_train(w_full, spikes, cfg: SNNConfig, nlq):
+    """One KWN layer's QAT / STE MAC drive for one time step: the MAC
+    through the twin-cell fake quantizer, then (``train_nlq``) through the
+    NLQ ramp in integer MAC units (divided by the per-column scale before
+    the ramp, multiplied back after)."""
+    w = ternary_lib.quantize_weights_ste(w_full) if cfg.weight_qat \
+        else w_full
+    mac = spikes @ w
+    if cfg.train_nlq:
+        scale = ternary_lib.quantize_weights_3bit(w_full)[1][0].detach()
+        mac = ima_lib.ima_quantize_ste(f32math.div(mac, scale), nlq) * scale
+    return mac
+
+
+def forward_train(p: dict, events: torch.Tensor,
+                  cfg: SNNConfig) -> torch.Tensor:
+    """Software BPTT forward on ``events``' device: events (B, T, N_in) ->
+    logits (B, classes).
+
+    Dense LIF updates (top-K masking belongs to inference), the twin-cell
+    and NLQ fake quantizers (``weight_qat``, ``train_nlq``), the SuperSpike
+    surrogate at the spike.  NLD drives through ``dendrite_mac`` (the
+    quantized activation ramp with ``f'`` as its gradient when
+    ``train_nlq``); a KWN stack chains spike -> MAC -> LIF -> spike per
+    step and reads out the last layer.  Spike counts are normalized by the
+    actual sequence length.
+    """
+    b, t_steps = events.shape[0], events.shape[1]
+    dev = events.device
+    widths = cfg.layer_widths if cfg.mode == "kwn" else (cfg.n_hidden,)
+    if cfg.mode == "nld":
+        f = dendrite_lib.TRAIN_ACTIVATIONS[cfg.activation]
+        cb = _act_cb(cfg) if cfg.train_nlq else None
+        w_hid = [None]
+
+        def drive_of(li, x):
+            return dendrite_lib.dendrite_mac(p["dend"], x, cb, f=f)
+    else:
+        nlq = _nlq_cb(cfg)
+        w_hid = p["w_hid"] if _is_stack(cfg) else [p["w_hid"]]
+
+        def drive_of(li, x):
+            return _kwn_drive_train(w_hid[li], x, cfg, nlq)
+    vs = [torch.zeros((b, w), device=dev) for w in widths]
+    counts = torch.zeros((b, cfg.n_hidden), device=dev)
+    for t in range(t_steps):
+        cur = events[:, t]
+        for li in range(len(widths)):
+            v = cfg.beta * vs[li] + drive_of(li, cur) * cfg.drive_gain
+            cur = lif_lib.spike_fn(v, cfg.v_th1)
+            vs[li] = torch.where(cur > 0, torch.zeros_like(v), v)
+        counts = counts + cur
+    return f32math.div(counts, t_steps) @ p["w_out"]
+
+
+def loss_fn(p: dict, events: torch.Tensor, labels: torch.Tensor,
+            cfg: SNNConfig, seed: int | None = None, *,
+            silicon: bool = False,
+            noise: ima_lib.IMANoiseModel | None = None,
+            kwn_relax: float | None = None,
+            remat: bool = False) -> torch.Tensor:
+    """Cross-entropy loss.  ``silicon=True`` differentiates through the
+    fused macro kernel and its surrogate backward (``train.silicon``;
+    ``seed`` keys its counter noise, ``noise`` makes it noise-aware QAT)
+    instead of the software path ``forward_train``."""
+    if silicon:
+        from repro_torch.train import silicon as silicon_lib
+        return silicon_lib.loss_fn(
+            p, events, labels, cfg, 0 if seed is None else int(seed),
+            noise=noise, remat=remat,
+            kwn_relax=silicon_lib.DEFAULT_KWN_RELAX if kwn_relax is None
+            else kwn_relax)
+    logits = forward_train(p, events, cfg)
+    lse = torch.log_softmax(logits, dim=-1)
+    return -lse.gather(1, labels[:, None].long()).mean()
+
+
+def _tree_map(fn, *trees: dict) -> dict:
+    """``fn`` over the tensors of params-shaped dicts (a ``w_hid`` list and
+    the fields of ``dend`` included)."""
+    out = {}
+    for name, w in trees[0].items():
+        parts = [t[name] for t in trees]
+        if isinstance(w, dendrite_lib.DendriteParams):
+            out[name] = dendrite_lib.DendriteParams(
+                *(fn(*xs) for xs in zip(*parts)))
+        elif isinstance(w, (list, tuple)):
+            out[name] = [fn(*xs) for xs in zip(*parts)]
+        else:
+            out[name] = fn(*parts)
+    return out
+
+
+def _tree_leaves(tree: dict) -> list:
+    leaves = []
+    _tree_map(leaves.append, tree)
+    return leaves
+
+
+def train_step(p: dict, opt_m: dict, events: torch.Tensor,
+               labels: torch.Tensor, cfg: SNNConfig, lr: float,
+               seed: int | None = None, *, silicon: bool = False,
+               noise=None, kwn_relax: float | None = None,
+               remat: bool = False):
+    """One SGD-with-momentum step: ``m = 0.9 m + g``, ``p = p - lr m`` on
+    every tensor of ``p`` (``dend.mask`` too, as in the reference).
+    Returns (p, opt_m, loss), the loss a device scalar."""
+    leaf_p = _tree_map(lambda a: a.detach().requires_grad_(True), p)
+    loss = loss_fn(leaf_p, events, labels, cfg, seed, silicon=silicon,
+                   noise=noise, kwn_relax=kwn_relax, remat=remat)
+    leaves = _tree_leaves(leaf_p)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter([torch.zeros_like(a) if g is None else g
+               for a, g in zip(leaves, grads)])
+    g = _tree_map(lambda _: next(it), leaf_p)
+    with torch.no_grad():
+        opt_m = _tree_map(lambda m, gg: 0.9 * m + gg, opt_m, g)
+        p = _tree_map(lambda a, m: a.detach() - lr * m, p, opt_m)
+    return p, opt_m, loss.detach()
+
+
+def train_generators(seed: int, device) -> tuple[torch.Generator,
+                                                 torch.Generator]:
+    """The two generators ``train`` draws from for ``seed``: batches, on
+    the dataset's ``device``, and the silicon step seeds, on the CPU.  The
+    step seeds have their own stream, so a silicon run draws the same
+    batches as a software run of the same seed."""
+    batches = torch.Generator(device=device).manual_seed(int(seed))
+    steps = torch.Generator().manual_seed(int(seed) ^ 0x5EED5EED)
+    return batches, steps
+
+
+def train(cfg: SNNConfig, dataset, n_steps: int = 300, batch: int = 64,
+          seed: int = 0, lr: float = 0.05, *, silicon: bool = False,
+          noise: ima_lib.IMANoiseModel | None = None,
+          kwn_relax: float | None = None, remat: bool = False,
+          params: dict | None = None, device=None):
+    """SGD with momentum on ``device`` (default ``cuda``).
+
+    Batches come from ``dataset.sample`` with the batch generator of
+    ``train_generators(seed)``; parameters from ``init_params`` with a CPU
+    generator seeded ``seed``, or a copy of ``params`` (warm start: the
+    software pre-train -> silicon fine-tune recipe).  ``silicon=True``
+    trains through the fused kernel and its surrogate backward (KWN
+    single layer); every step then draws a fresh counter seed from the
+    step-seed generator, so with ``noise`` each step sees a fresh silicon
+    noise instance.  Losses stay on the device until the end.  Returns
+    (params, losses as floats).
+    """
+    dev = device_lib.resolve(device)
+    if params is None:
+        p = init_params(cfg, torch.Generator().manual_seed(int(seed)), dev)
+    else:
+        p = _tree_map(lambda a: a.detach().clone(), params_to(params, dev))
+    opt_m = _tree_map(torch.zeros_like, p)
+    batches, step_seeds = train_generators(seed, dataset.device)
+    losses = []
+    for _ in range(n_steps):
+        ev, lab = dataset.sample(batches, batch)
+        step = None
+        if silicon:
+            from repro_torch.train import silicon as silicon_lib
+            step = silicon_lib.step_seed(step_seeds)
+        p, opt_m, loss = train_step(p, opt_m, ev.to(dev), lab.to(dev), cfg,
+                                    lr, step, silicon=silicon, noise=noise,
+                                    kwn_relax=kwn_relax, remat=remat)
+        losses.append(loss)
+    return p, [float(x) for x in torch.stack(losses).cpu()] if losses \
+        else []
+
+
+def evaluate(p: dict, cfg: SNNConfig, dataset, generator: torch.Generator,
+             n_batches: int = 10, batch: int = 128, **silicon_kwargs):
+    """Accuracy and mean telemetry of ``forward_silicon`` over
+    ``n_batches`` batches drawn from ``generator`` (on the dataset's
+    device), which also draws each batch's counter seed."""
+    accs, teles = [], []
+    for _ in range(n_batches):
+        ev, lab = dataset.sample(generator, batch)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator,
+                                 device=generator.device))
+        logits, tele = forward_silicon(p, ev, cfg, seed=seed,
+                                       **silicon_kwargs)
+        accs.append(float((logits.argmax(-1) == lab.to(logits.device))
+                          .float().mean()))
+        teles.append(tele)
+    tele = {k: float(torch.stack([t[k].float().mean() for t in teles])
+                     .mean()) for k in teles[0]}
+    return sum(accs) / len(accs), tele

@@ -14,7 +14,7 @@ import torch
 from repro_torch.core import dendrite as dendrite_lib
 from repro_torch.core import ima as ima_lib
 from repro_torch.core import macro as macro_lib
-from repro_torch.kernels import fused_macro, ops
+from repro_torch.kernels import fused_macro, fused_macro_grad, ops, ref
 from repro_torch.models import snn
 
 pytestmark = pytest.mark.cuda
@@ -194,3 +194,134 @@ def test_nld_and_stack_forward_on_card_equals_cpu(cuda, kind, noisy):
         assert torch.equal(tg[key].cpu(), tc[key]), key
     np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+# --- silicon training: the forward's trace and the backward kernel ---------
+
+def _ulps(a, b):
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def _train_operands(shape, noisy, dev, seed=0):
+    """A training forward on the card (``train_trace``, MAC residual) and
+    random cotangents: (x, w, scale, mask, vtrace, mac, g_spk, g_vfin) on
+    ``dev``, and the forward's outputs."""
+    t, m, kdim, n = shape
+    rs = np.random.RandomState(seed)
+    w = torch.from_numpy(rs.randint(-3, 4, (kdim, n)).astype(np.float32))
+    fw, cfg = _weights(rs, kdim, n)
+    fw = macro_lib.pack_kwn_weights(w, fw.scale, cfg)
+    x = torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], p=[0.03, 0.94, 0.03],
+                                   size=(t, m, kdim)).astype(np.float32))
+    x[::3, :, :] = 0.0             # empty steps: gated row tiles
+    v0 = torch.from_numpy(rs.uniform(-1, 1.2, (m, n)).astype(np.float32))
+    nz = None if noisy else torch.from_numpy(
+        rs.choice([-0.05, 0.05], size=(t, m, n)).astype(np.float32))
+    kw = dict(k=12, drive_gain=0.25, seed=7, train_trace=True)
+    if noisy:
+        kw.update(ima_noise=macro_lib.fused_kernel_noise(fw, cfg),
+                  snl_amp=0.05)
+    outs = ops.fused_macro_seq(x, fw.msb, fw.lsb, fw.boundaries, fw.levels,
+                               fw.scale, v0, nz, device=dev, **kw)
+    g_spk = torch.from_numpy(rs.randn(t, m, n).astype(np.float32)).to(dev)
+    g_vfin = torch.from_numpy(rs.randn(m, n).astype(np.float32)).to(dev)
+    mac, _, _, mask, _, vtrace = outs
+    return (x.to(dev), w.to(dev), fw.scale.to(dev), mask, vtrace, mac,
+            g_spk, g_vfin), outs, (x, fw, v0, nz, kw)
+
+
+TRAIN_SHAPES = [(30, 64, 512, 128), (7, 37, 300, 100)]
+GRAD_KW = dict(drive_gain=0.25, kwn_relax=0.1, ste_lo=-24.5, ste_hi=24.5)
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=str)
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+def test_forward_trace_matches_plain_version(cuda, shape, noisy):
+    _, got, (x, fw, v0, nz, kw) = _train_operands(shape, noisy, cuda)
+    want = ops.fused_macro_seq(x, fw.msb, fw.lsb, fw.boundaries, fw.levels,
+                               fw.scale, v0, nz, device="cpu", **kw)
+    for name, a, b in zip(("mac", "v_out", "spikes", "mask", "steps",
+                           "vtrace"), got, want):
+        assert torch.equal(a.cpu(), b), name
+    assert _ulps(got[5].cpu(), want[5]) == 0
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=str)
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+@pytest.mark.parametrize("remat", [False, True], ids=["residual", "remat"])
+@pytest.mark.parametrize("gate", [False, True], ids=["dense", "gated"])
+def test_bwd_kernel_matches_plain_version(cuda, shape, noisy, remat, gate):
+    res, _, _ = _train_operands(shape, noisy, cuda)
+    args = ops.seq_grad_operands(*res, remat=remat, gate=gate)
+    before = fused_macro_grad.fused_macro_seq_grad.launches
+    dw, dv0 = fused_macro_grad.fused_macro_seq_grad(*args, **GRAD_KW)
+    torch.cuda.synchronize()
+    assert fused_macro_grad.fused_macro_seq_grad.launches == before + 1
+    dw_w, dv0_w = ref.fused_macro_seq_grad_ref(*args, **GRAD_KW)
+    assert _ulps(dv0, dv0_w) == 0
+    np.testing.assert_allclose(dw.cpu().numpy(), dw_w.cpu().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert float(dw_w.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=str)
+def test_bwd_kernel_bits_fixed_across_runs_and_policies(cuda, shape):
+    res, _, _ = _train_operands(shape, True, cuda)
+    outs = []
+    for remat, gate in ((False, True), (False, True), (True, True),
+                        (False, False), (True, False)):
+        args = ops.seq_grad_operands(*res, remat=remat, gate=gate)
+        outs.append(fused_macro_grad.fused_macro_seq_grad(*args, **GRAD_KW))
+    for dw, dv0 in outs[1:]:
+        assert torch.equal(dw, outs[0][0])
+        assert torch.equal(dv0, outs[0][1])
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+def test_silicon_loss_and_grads_on_card_equal_cpu(cuda, noisy):
+    cfg = snn.SNNConfig(n_in=96, n_hidden=40, n_classes=5, k=6)
+    p = snn.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rs = np.random.RandomState(5)
+    ev = torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], p=[0.1, 0.8, 0.1],
+                                    size=(4, 11, cfg.n_in))
+                          .astype(np.float32))
+    lab = torch.from_numpy(rs.randint(0, 5, 4))
+    noise = ima_lib.IMANoiseModel() if noisy else None
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        pd = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+        before = fused_macro_grad.fused_macro_seq_grad.launches
+        loss = snn.loss_fn(pd, ev.to(dev), lab.to(dev), cfg, 9,
+                           silicon=True, noise=noise)
+        grads = torch.autograd.grad(loss, [pd["w_hid"], pd["w_out"]])
+        if dev.type == "cuda":
+            assert fused_macro_grad.fused_macro_seq_grad.launches \
+                == before + 1
+        got[dev.type] = [loss.detach().cpu()] + [g.cpu() for g in grads]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+@pytest.mark.parametrize("mode", ["kwn", "nld"])
+def test_step_path_on_card_equals_seq(cuda, mode, noisy):
+    cfg = snn.SNNConfig(n_in=96, n_hidden=40, n_classes=5, k=6, mode=mode,
+                        activation="relu")
+    p = snn.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    rs = np.random.RandomState(6)
+    ev = rs.choice([-1.0, 0.0, 1.0], p=[0.1, 0.8, 0.1],
+                   size=(4, 9, cfg.n_in)).astype(np.float32)
+    noise = ima_lib.IMANoiseModel() if noisy else None
+    counter = (fused_macro.fused_macro_seq if mode == "kwn"
+               else fused_macro.fused_macro_seq_nld)
+    before = counter.launches
+    ls, ts = snn.forward_silicon(p, ev, cfg, seed=3, noise=noise,
+                                 fused="step", device=cuda)
+    assert counter.launches == before + 9
+    lq, tq = snn.forward_silicon(p, ev, cfg, seed=3, noise=noise,
+                                 fused="seq", device=cuda)
+    assert torch.equal(ls, lq)
+    for key in tq:
+        assert torch.equal(ts[key], tq[key]), key

@@ -229,7 +229,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
-    assert ROOT / "src" / "repro_torch" / "core" / "dendrite.py" in files
+    for rel in ("core/dendrite.py", "kernels/fused_macro_grad.py",
+                "train/silicon.py", "data/events.py"):
+        assert ROOT / "src" / "repro_torch" / rel in files, rel
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"

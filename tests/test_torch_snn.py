@@ -150,17 +150,17 @@ def test_skipped_block_ratio_matches_reference_map():
     assert 0.0 < float(want) < 1.0
 
 
-@pytest.mark.parametrize("fused", [False, "step"])
+@pytest.mark.parametrize("fused", [False])
 def test_unported_paths_raise(fused):
     _, tcfg, p = _setup()
     tp = convert.snn_params_from_jax(p, "cpu")
-    with pytest.raises(NotImplementedError, match="composed and per-step"):
+    with pytest.raises(NotImplementedError, match="composed stage chain"):
         t_snn.forward_silicon(tp, _events(1, 4, tcfg.n_in), tcfg,
                               device="cpu", fused=fused)
-    # layer stacks are ported on the fused path only, like single layers
+    # layer stacks are ported on the fused paths only, like single layers
     scfg = t_snn.SNNConfig(n_in=16, hidden_layers=(8, 8))
     sp = t_snn.init_params(scfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="composed and per-step"):
+    with pytest.raises(NotImplementedError, match="composed stage chain"):
         t_snn.forward_silicon(sp, _events(1, 4, 16), scfg, device="cpu",
                               fused=fused)
 
