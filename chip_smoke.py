@@ -5,8 +5,8 @@
 Phases (any failure raises, so the exit code is non-zero):
 
 1. device: a CUDA device must be present; print its name and power limit;
-2. build: compile every CUDA source of the port with nvcc (sm_90a), one
-   nvcc per source, all started together;
+2. build: compile every CUDA source of the port (eight) with nvcc
+   (sm_90a), one nvcc per source, all started together;
 3. kernels vs plain versions, on the same inputs on the card:
    - KWN: the public wrapper ``ops.fused_macro_seq`` (padding,
      ``n_valid``, activity gating, ``row_ctl`` or a scalar seed) against
@@ -26,6 +26,13 @@ Phases (any failure raises, so the exit code is non-zero):
      (T=30, M=64, K=512, N=128) and a padded one, clean and noisy,
      residual and remat, gated and dense: dv0 0 ULP, dW within rtol 1e-5 /
      atol 1e-6, and the same dW bits for every launch;
+   - the composed chain's kernels (``ternary_mac``, ``nlq_convert``,
+     ``kwn_topk``, ``lif_step`` through their ``ops`` wrappers) at the
+     chain's step shape (M=64, K=512, N=128), the bench's macro shape
+     (128, 256, 128) and a ragged one (37, 300, 100): the MAC at ratios 2,
+     3 and 2.05, the ramp at nlq / linear / activation codebooks of 5 and
+     6 bits, KWN at k = 0, 1, 12, N, N + 5, the LIF with SNL on and off;
+     every output exact, membranes 0 ULP;
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    - KWN: ``SNNEventEngine`` serves 96 event-stream requests of the
@@ -46,6 +53,19 @@ Phases (any failure raises, so the exit code is non-zero):
      silicon step again on the CPU (spikes bit for bit, loss and grads
      within rtol 1e-5 / atol 1e-6); ``forward_silicon(fused="step")``
      against ``"seq"`` bit for bit with T launches, clean and noisy;
+   - the composed path: ``forward_silicon(fused=False)`` on the
+     DVS-Gesture KWN configuration (64 streams of 30 steps, 5 % events,
+     clean with SNL) launches no kernel and equals the same call on the
+     CPU and ``fused="seq"`` on the card (spike counts and telemetry bit
+     for bit); the four-kernel chain (``ops.ternary_mac ->
+     ops.nlq_convert -> ops.kwn_topk -> ops.lif_step`` with the model's
+     planes and PRBS noise, the bench's ``_composed_step`` iterated)
+     equals ``ops.fused_macro_seq`` and the composed forward bit for bit
+     with 30 launches of each kernel; the same on the DVS-Gesture stack
+     (the chain 8 launches a step, against the stacked kernel); the NLD
+     composed forward against the CPU (telemetry equal, logits within
+     rtol 1e-5 / atol 1e-6); the noisy composed forward, and the Fig. 7
+     statistics of its conversion on the card;
 5. timings: each kernel against its plain version on the card at its
    main path's shape (ms per round for KWN and NLD, ms per launch for the
    stack) beside its roofline bound; the KWN engine's requests/s and round
@@ -56,7 +76,12 @@ Phases (any failure raises, so the exit code is non-zero):
    and remat) against its plain version, its bound and one
    ``torch.matmul`` of the contraction alone, the forward with and
    without its trace, and the whole silicon step (ms, steps/s, device
-   idle share under ``torch.profiler``).
+   idle share under ``torch.profiler``); kernels #5-#8 per launch at the
+   chain's step shape (CUDA events, and device time under the profiler)
+   against their plain versions, bounds and, where one PyTorch call
+   computes the same function, ``torch.matmul`` / ``torch.bucketize``;
+   one chain step against one fused step launch, and the composed
+   forward against ``"seq"``.
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
@@ -67,6 +92,7 @@ to ``chiprun_out/chip_smoke.json``, the profiler's op tables to
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -80,13 +106,18 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import dendrite as dendrite_lib  # noqa: E402
+from repro_torch.core import f32math  # noqa: E402
 from repro_torch.core import ima as ima_lib  # noqa: E402
 from repro_torch.core import macro as macro_lib  # noqa: E402
 from repro_torch.core import prbs as prbs_lib  # noqa: E402
 from repro_torch.data import events as events_lib  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import fused_macro, fused_macro_grad  # noqa: E402
+from repro_torch.kernels import kwn_topk as kwn_lib  # noqa: E402
+from repro_torch.kernels import lif_step as lif_lib  # noqa: E402
+from repro_torch.kernels import nlq_lut as nlq_lib  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ternary_mac as tmac_lib  # noqa: E402
 from repro_torch.models import snn  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import engine as engine_lib  # noqa: E402
@@ -95,6 +126,7 @@ from repro_torch.train import silicon as silicon_lib  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core ops
 SEED = 0
 CFG = snn.SNNConfig(n_in=512, n_hidden=128, n_classes=11, n_steps=30,
                     mode="kwn", k=12)
@@ -117,7 +149,11 @@ GRAD_KW = dict(drive_gain=CFG.drive_gain, beta=CFG.beta, v_th1=CFG.v_th1,
 KERNELS = {"fused_macro_seq_kwn": fused_macro.fused_macro_seq,
            "fused_macro_seq_nld": fused_macro.fused_macro_seq_nld,
            "fused_macro_multi_seq_kwn": fused_macro.fused_macro_multi_seq,
-           "fused_macro_seq_kwn_bwd": fused_macro_grad.fused_macro_seq_grad}
+           "fused_macro_seq_kwn_bwd": fused_macro_grad.fused_macro_seq_grad,
+           "ternary_mac": tmac_lib.ternary_mac,
+           "nlq_lut": nlq_lib.nlq_convert,
+           "kwn_topk": kwn_lib.kwn_topk,
+           "lif_step": lif_lib.lif_step_fused}
 PATH_KERNEL = {"kwn": "fused_macro_seq_kwn", "nld": "fused_macro_seq_nld"}
 
 
@@ -1164,6 +1200,439 @@ def train_timing_phase(params, dev) -> dict:
     return res
 
 
+# --- slice 4: the composed chain's four kernels and the composed path --------
+
+LIF_KW = dict(beta=CFG.beta, v_th1=CFG.v_th1, v_th2=CFG.v_th2, v_reset=0.0,
+              v_lim=8.0)
+STAGE_KERNELS = ("ternary_mac", "nlq_lut", "kwn_topk", "lif_step")
+STAGE_SHAPES = ((TRAIN_BATCH, CFG.n_in, CFG.n_hidden),   # the chain's step
+                (128, 256, 128),                         # the bench's macro
+                (37, 300, 100))                          # ragged
+
+
+def _tern(rs, shape, density, dev):
+    x = rs.choice([-1, 0, 1], p=[density / 2, 1 - density, density / 2],
+                  size=shape).astype(np.int8)
+    return torch.from_numpy(x).to(dev)
+
+
+def _stage_codebook(kind, bits):
+    if kind == "nlq":
+        return ima_lib.nlq_codebook(bits, -24.0, 24.0)
+    if kind == "linear":
+        return ima_lib.linear_codebook(bits, -24.0, 24.0)
+    return ima_lib.activation_codebook(bits, ima_lib.quadratic, -4.0, 4.0)
+
+
+def compare_stage_phase(dev) -> dict:
+    """Kernels #5-#8 through their ``ops`` wrappers on the card against
+    their plain versions on the same card tensors, at the chain's step
+    shape, the bench's macro shape and a ragged one: the MAC at ratios 2,
+    3 and 2.05; the ramp at nlq, linear and activation codebooks of 5 and
+    6 bits with boundary ties; KWN at k = 0, 1, 12, N and N + 5 on integral
+    MACs (ties); the LIF with SNL on and off.  Every output exact."""
+    rs = np.random.RandomState(SEED + 13)
+    res = {name: {"max_abs_err": 0.0, "mismatches": 0, "cases": 0}
+           for name in STAGE_KERNELS}
+
+    def check(name, counter, got, want, tag):
+        torch.cuda.synchronize()
+        if counter.launches != 1:
+            raise AssertionError(f"{name} {tag}: {counter.launches} launches")
+        counter.launches = 0
+        r = res[name]
+        r["cases"] += 1
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"{name} {tag}: {a.dtype} {a.shape} "
+                                     f"!= {b.dtype} {b.shape}")
+            mism = int((a != b).sum())
+            r["mismatches"] += mism
+            if a.is_floating_point():
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       (a - b).abs().max().item())
+                if _ulps(a, b):
+                    raise AssertionError(f"{name} {tag}: {_ulps(a, b)} ulp")
+            if mism:
+                raise AssertionError(f"{name} {tag}: {mism} mismatches")
+
+    reset_counts()
+    for m, kdim, n in STAGE_SHAPES:
+        for density in (0.05, 0.67):
+            x = _tern(rs, (m, kdim), density, dev)
+            msb, lsb = (_tern(rs, (kdim, n), 0.67, dev) for _ in range(2))
+            for ratio in (2.0, 3.0, 2.05):
+                got = ops.ternary_mac(x, msb, lsb, ratio=ratio, device=dev)
+                want = ref.ternary_mac_ref(x, msb, lsb, ratio)
+                check("ternary_mac", KERNELS["ternary_mac"], [got], [want],
+                      f"M={m} K={kdim} N={n} d={density} ratio={ratio}")
+        mac = ops.ternary_mac(x, msb, lsb, device=dev) / 8.0
+        KERNELS["ternary_mac"].launches = 0
+        mac = torch.round(mac)
+        for kind in ("nlq", "linear", "activation"):
+            for bits in (5, 6):
+                cb = _stage_codebook(kind, bits)
+                bounds, levels = cb.boundaries.to(dev), cb.levels.to(dev)
+                xin = (mac if kind != "activation"
+                       else torch.from_numpy(rs.uniform(-5, 5, (m, n))
+                                             .astype(np.float32)).to(dev))
+                xin = xin.clone()
+                xin.view(-1)[:bounds.numel()] = bounds
+                got = ops.nlq_convert(xin, bounds, levels, device=dev)
+                check("nlq_lut", KERNELS["nlq_lut"], got,
+                      ref.nlq_convert_ref(xin, bounds, levels),
+                      f"M={m} N={n} {kind} {bits} bits")
+        bounds = ima_lib.nlq_codebook(5, -24.0, 24.0).boundaries.to(dev)
+        for k in (0, 1, 12, n, n + 5):
+            mask, steps = ops.kwn_topk(mac, bounds, k, device=dev)
+            check("kwn_topk", KERNELS["kwn_topk"], [mask, steps[:, None]],
+                  ref.kwn_topk_ref(mac, bounds, k), f"M={m} N={n} k={k}")
+        for use_snl in (True, False):
+            args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+                rs.uniform(-1.5, 1.5, (m, n)), rs.normal(0, 0.5, (m, n)),
+                rs.uniform(size=(m, n)) < 0.3,
+                0.05 * rs.choice([-1.0, 1.0], size=(m, n)))]
+            got = ops.lif_step(*args, use_snl=use_snl, device=dev, **LIF_KW)
+            check("lif_step", KERNELS["lif_step"], got,
+                  ref.lif_step_ref(*args, use_snl=use_snl, **LIF_KW),
+                  f"M={m} N={n} snl={use_snl}")
+    for name, r in res.items():
+        log(f"compare {name}: {r['cases']} cases on the card equal to the "
+            f"plain version ({r['mismatches']} mismatches, membranes 0 ulp)")
+    return res
+
+
+def _identity(cfg, params):
+    """The config and params with an identity readout: the logits are the
+    spike rates (counts / T), exactly."""
+    cfg_eye = dataclasses.replace(cfg, n_classes=cfg.n_hidden)
+    p = dict(params)
+    p["w_out"] = torch.eye(cfg.n_hidden, device=params["w_out"].device)
+    return cfg_eye, p
+
+
+def _chain_step(cur, fw, v, noise, k):
+    """One step of the four-kernel chain (the bench's ``_composed_step``)
+    on ``cur``'s device: MAC, ramp + LUT, KWN, drive ``mac_q * scale *
+    mask * gain``, LIF."""
+    dev = cur.device
+    mac = ops.ternary_mac(cur, fw.msb, fw.lsb, device=dev)
+    _, mac_q = ops.nlq_convert(mac, fw.boundaries, fw.levels, device=dev)
+    mask, steps = ops.kwn_topk(mac, fw.boundaries, k, device=dev)
+    drive = mac_q * fw.scale * mask * CFG.drive_gain
+    v, spk = ops.lif_step(v, drive, mask, noise, device=dev, **LIF_KW)
+    return v, spk, steps
+
+
+def _stage_counts() -> tuple[dict, dict]:
+    counts = read_counts()
+    return {name: counts.pop(name) for name in STAGE_KERNELS}, counts
+
+
+def composed_path_phase(dev) -> dict:
+    """The composed path and the four-kernel chain on the DVS-Gesture KWN
+    configuration (64 streams of 30 steps, 5 % events) and its stack, the
+    launch counters zeroed before and read after each:
+    ``forward_silicon(fused=False)`` (no kernel) against the CPU and
+    against ``"seq"``; the chain against ``ops.fused_macro_seq`` and the
+    composed forward (30 launches of each kernel); the stack's composed
+    forward against the stacked kernel and its chain (8 launches a step)
+    against ``ops.fused_macro_multi_seq``; NLD's composed forward against
+    the CPU; the noisy composed forward and the Fig. 7 statistics of its
+    conversion on the card."""
+    rs = np.random.RandomState(SEED + 14)
+    b, t = STACK_BATCH, CFG.n_steps
+    u = rs.random_sample((b, t, CFG.n_in))
+    ev = (u > 0.975).astype(np.float32) - (u < 0.025)
+    ev_t = torch.from_numpy(ev).to(dev).transpose(0, 1).contiguous()
+    res = {}
+
+    # composed forward: card vs CPU vs "seq", real and identity readouts
+    params = snn.init_params(CFG, torch.Generator().manual_seed(SEED),
+                             device=dev)
+    cfg_eye, p_eye = _identity(CFG, params)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, tele = snn.forward_silicon(params, ev, CFG, fused=False,
+                                       device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(read_counts().values()):
+        raise AssertionError(f"the composed path launched kernels: "
+                             f"{read_counts()}")
+    rates, tele_eye = snn.forward_silicon(p_eye, ev, cfg_eye, fused=False,
+                                          device=dev)
+    lc, tc = snn.forward_silicon(snn.params_to(params, "cpu"), ev, CFG,
+                                 fused=False, device="cpu")
+    rates_c, _ = snn.forward_silicon(snn.params_to(p_eye, "cpu"), ev,
+                                     cfg_eye, fused=False, device="cpu")
+    rates_s, tele_s = snn.forward_silicon(p_eye, ev, cfg_eye, fused="seq",
+                                          device=dev)
+    err = (logits.cpu() - lc).abs().max().item()
+    for key in ("adc_steps", "lif_updates", "sops"):
+        if not (torch.equal(tele[key].cpu(), tc[key])
+                and torch.equal(tele_eye[key], tele_s[key])):
+            raise AssertionError(f"composed {key} differs (CPU or seq)")
+    if not (torch.equal(rates.cpu(), rates_c) and torch.equal(rates, rates_s)):
+        raise AssertionError("composed spike counts differ (CPU or seq)")
+    if err > 1e-5 * max(1.0, lc.abs().max().item()) \
+            or not torch.isfinite(logits).all() \
+            or tuple(logits.shape) != (b, CFG.n_classes):
+        raise AssertionError(f"composed logits differ from the CPU by {err}")
+    n_spikes = int(round(float(rates.sum()) * t))
+    log(f"composed path: {b} x {t} steps on the card, no kernel; spike "
+        f"counts ({n_spikes}) and telemetry equal to the CPU and to "
+        f"\"seq\" bit for bit, logits within {err:.3g} of the CPU; "
+        f"{1e3 * wall:.1f} ms")
+    res["composed"] = {"wall_ms": 1e3 * wall, "logits_max_abs_err": err,
+                       "spikes": n_spikes,
+                       "mean_adc_steps": float(tele["adc_steps"].mean())}
+
+    # the four-kernel chain with the model's planes and PRBS noise
+    fw = snn.pack_fused(params, CFG)
+    noise = prbs_lib.sequence_noise(b, t, CFG.n_hidden, CFG.noise_amp, dev)
+    v0 = torch.zeros((b, CFG.n_hidden), device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    v, spikes, steps = v0, [], []
+    for step in range(t):
+        v, spk, st = _chain_step(ev_t[step], fw, v, noise[step], CFG.k)
+        spikes.append(spk)
+        steps.append(st)
+    torch.cuda.synchronize()
+    launches, others = _stage_counts()
+    if any(n != t for n in launches.values()) or any(others.values()):
+        raise AssertionError(f"chain launches {launches}, others {others}")
+    spikes, steps = torch.stack(spikes), torch.stack(steps)
+    _, v_f, spk_f, _, st_f = ops.fused_macro_seq(
+        ev_t, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v0, noise,
+        k=CFG.k, drive_gain=CFG.drive_gain, device=dev)
+    if not (torch.equal(spikes, spk_f) and torch.equal(steps, st_f)
+            and _ulps(v, v_f) == 0):
+        raise AssertionError("chain != ops.fused_macro_seq")
+    if not (torch.equal(f32math.div(spikes.sum(0), t), rates)
+            and torch.equal(f32math.div(steps.float().sum(0), t),
+                            tele["adc_steps"])):
+        raise AssertionError("chain != forward_silicon(fused=False)")
+    log(f"chain: {t} steps x 4 kernels, launches {launches}; spikes, ADC "
+        f"steps and membranes equal to ops.fused_macro_seq bit for bit; "
+        f"counts and mean ADC steps equal to the composed forward")
+    res["chain"] = {"launches": launches, "spikes": int(spikes.sum())}
+
+    # the stack: composed against the stacked kernel, and its chain
+    sparams = snn.init_params(STACK_CFG, torch.Generator().manual_seed(SEED),
+                              device=dev)
+    scfg_eye, sp_eye = _identity(STACK_CFG, sparams)
+    reset_counts()
+    rates, tele = snn.forward_silicon(sp_eye, ev, scfg_eye, fused=False,
+                                      device=dev)
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+        raise AssertionError("the composed stack launched kernels")
+    rates_s, tele_s = snn.forward_silicon(sp_eye, ev, scfg_eye, fused="seq",
+                                          device=dev)
+    if not torch.equal(rates, rates_s) or any(
+            not torch.equal(tele[k], tele_s[k])
+            for k in ("adc_steps", "lif_updates", "sops")):
+        raise AssertionError("composed stack != stacked kernel")
+    stack = snn.pack_fused_stack(sparams, STACK_CFG)
+    widths, ks = STACK_CFG.hidden_layers, STACK_CFG.k_layers
+    noises = [prbs_lib.sequence_noise(b, t, w, STACK_CFG.noise_amp, dev)
+              for w in widths]
+    vs0 = [torch.zeros((b, w), device=dev) for w in widths]
+    torch.cuda.synchronize()
+    reset_counts()
+    vs, out, st_layers = list(vs0), [], [[] for _ in widths]
+    for step in range(t):
+        cur = ev_t[step]
+        for li, fwl in enumerate(stack):
+            vs[li], cur, st = _chain_step(cur, fwl, vs[li], noises[li][step],
+                                          ks[li])
+            st_layers[li].append(st)
+        out.append(cur)
+    torch.cuda.synchronize()
+    s_launches, others = _stage_counts()
+    want_n = t * len(widths)
+    if any(n != want_n for n in s_launches.values()) or any(others.values()):
+        raise AssertionError(f"stack chain launches {s_launches}, "
+                             f"others {others}")
+    mo = ops.fused_macro_multi_seq(
+        ev_t, [(f.msb, f.lsb, f.boundaries, f.levels, f.scale)
+               for f in stack], vs0, noises, ks=ks,
+        drive_gain=STACK_CFG.drive_gain, device=dev)
+    out = torch.stack(out)
+    if not (torch.equal(out, mo.spikes)
+            and all(torch.equal(torch.stack(a), b_)
+                    for a, b_ in zip(st_layers, mo.steps))
+            and all(_ulps(a, b_) == 0 for a, b_ in zip(vs, mo.v_outs))
+            and torch.equal(f32math.div(out.sum(0), t), rates)):
+        raise AssertionError("stack chain != stacked kernel / composed")
+    log(f"stack: composed forward equal to the stacked kernel (counts and "
+        f"telemetry); chain {len(widths) * 4} launches a step, launches "
+        f"{s_launches}, equal to ops.fused_macro_multi_seq bit for bit")
+    res["stack_chain"] = {"launches": s_launches, "spikes": int(out.sum())}
+
+    # NLD composed: card vs CPU, and the branch-MAC sum order
+    nparams = snn.init_params(NLD_CFG, torch.Generator().manual_seed(SEED),
+                              device=dev)
+    ln, tn = snn.forward_silicon(nparams, ev, NLD_CFG, fused=False,
+                                 device=dev)
+    lnc, tnc = snn.forward_silicon(snn.params_to(nparams, "cpu"), ev,
+                                   NLD_CFG, fused=False, device="cpu")
+    nerr = (ln.cpu() - lnc).abs().max().item()
+    if any(not torch.equal(tn[k].cpu(), tnc[k]) for k in tn) \
+            or not torch.allclose(ln.cpu(), lnc, **TOL) \
+            or not torch.isfinite(ln).all():
+        raise AssertionError(f"NLD composed: card != CPU (logits {nerr})")
+    dp = nparams["dend"]
+    w = dp.w_syn * dp.mask
+    mac_g = torch.einsum("...i,jin->...jn", ev_t[0], w)
+    mac_c = torch.einsum("...i,jin->...jn", ev_t[0].cpu(), w.cpu())
+    nld_mism = int((mac_g.cpu() != mac_c).sum())
+    log(f"NLD composed: telemetry equal to the CPU, logits within {nerr:.3g};"
+        f" branch MACs (64 x 512 against 2 x 512 x 128) differing from the "
+        f"CPU's in their last bits: {nld_mism} of {mac_c.numel()}")
+    res["nld"] = {"logits_max_abs_err": nerr, "branch_mac_mismatches":
+                  nld_mism, "branch_macs": mac_c.numel()}
+
+    # noisy composed KWN, and the Fig. 7 statistics of its conversion
+    nm = ima_lib.IMANoiseModel()
+    ln, tn = snn.forward_silicon(params, ev, CFG, seed=SEED + 3, noise=nm,
+                                 fused=False, device=dev)
+    if not torch.isfinite(ln).all() or torch.equal(tn["adc_steps"],
+                                                   tc["adc_steps"].to(dev)):
+        raise AssertionError("noisy composed forward: not finite, or the "
+                             "noise moved no code")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    fig7 = ima_lib.measure_transfer_error(ima_lib.nlq_codebook(
+        5, -CFG.mac_range, CFG.mac_range), gen, nm, n_points=1 << 20)
+    if abs(fig7["mean_lsb"] - 0.41) > 0.06 or abs(fig7["std_lsb"] - 1.34) \
+            > 0.08:
+        raise AssertionError(f"Fig. 7 statistics on the card: {fig7}")
+    log(f"noisy composed: finite, mean ADC steps "
+        f"{float(tn['adc_steps'].mean()):.4f} (clean "
+        f"{res['composed']['mean_adc_steps']:.4f}); its conversion's code "
+        f"error on the card over 2^20 points: mean "
+        f"{fig7['mean_lsb']:.4f} LSB, sigma {fig7['std_lsb']:.4f} LSB")
+    res["noisy"] = {"fig7": fig7,
+                    "mean_adc_steps": float(tn["adc_steps"].mean())}
+    return res
+
+
+def _device_ms_per_launch(fn, reps: int) -> float:
+    """Device time per call of ``fn`` under ``torch.profiler`` (every
+    device event of ``reps`` calls, over ``reps``): the kernel's own time,
+    without the host's launch gaps that CUDA events include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(_device_us(e) for e in prof.key_averages()
+               if e.device_type == cuda) / 1e3 / reps
+
+
+def stage_timing_phase(dev) -> dict:
+    """Kernels #5-#8 per launch at the chain's step shape (M=64, K=512,
+    N=128, the model's planes, 5 % events) with CUDA events, best of three
+    runs of 200 launches, beside the plain version on the card, the bound
+    and one PyTorch call where one computes the same function
+    (``torch.matmul`` on decoded f32 weights for #5, ``torch.bucketize``
+    for #6's codes); then one chain step against one
+    ``ops.fused_macro_step`` launch, and the composed forward (30 steps)
+    against ``"seq"``."""
+    rs = np.random.RandomState(SEED + 15)
+    m, kdim, n = TRAIN_BATCH, CFG.n_in, CFG.n_hidden
+    params = snn.init_params(CFG, torch.Generator().manual_seed(SEED),
+                             device=dev)
+    fw = snn.pack_fused(params, CFG)
+    x = _tern(rs, (m, kdim), 0.05, dev)
+    mac = tmac_lib.ternary_mac(x, fw.msb, fw.lsb)
+    codes, mac_q = nlq_lib.nlq_convert(mac, fw.boundaries, fw.levels)
+    mask, steps = kwn_lib.kwn_topk(mac, fw.boundaries, CFG.k)
+    v = torch.from_numpy(rs.uniform(-1, 1, (m, n)).astype(np.float32)) \
+        .to(dev)
+    drive = mac_q * fw.scale * mask * CFG.drive_gain
+    noise = prbs_lib.sequence_noise(m, 1, n, CFG.noise_amp, dev)[0]
+    n_codes = fw.levels.numel()
+    nnz = int((x != 0).sum())
+    w_f = 2.0 * fw.msb.float() + fw.lsb.float()
+    x_f = x.float()
+    cases = {
+        "ternary_mac": (
+            lambda: tmac_lib.ternary_mac(x, fw.msb, fw.lsb),
+            lambda: ref.ternary_mac_ref(x, fw.msb, fw.lsb),
+            lambda: torch.matmul(x_f, w_f),
+            x.numel() + 2 * kdim * n + 4 * m * n, 2 * 2 * nnz * n, INT8_OPS),
+        "nlq_lut": (
+            lambda: nlq_lib.nlq_convert(mac, fw.boundaries, fw.levels),
+            lambda: ref.nlq_convert_ref(mac, fw.boundaries, fw.levels),
+            lambda: torch.bucketize(mac, fw.boundaries),
+            4 * m * n + 4 * (2 * n_codes - 1) + 2 * 4 * m * n,
+            m * n * (n_codes - 1), F32_FLOPS),
+        "kwn_topk": (
+            lambda: kwn_lib.kwn_topk(mac, fw.boundaries, CFG.k),
+            lambda: ref.kwn_topk_ref(mac, fw.boundaries, CFG.k),
+            None,
+            4 * m * n + 4 * (n_codes - 1) + 4 * m * n + 4 * m,
+            m * n * (n_codes - 1) + n * int((steps + 1).sum()), F32_FLOPS),
+        "lif_step": (
+            lambda: lif_lib.lif_step_fused(v, drive, mask, noise, **LIF_KW),
+            lambda: ref.lif_step_ref(v, drive, mask, noise, **LIF_KW),
+            None, 4 * 4 * m * n + 2 * 4 * m * n, 8 * m * n, F32_FLOPS)}
+    if not torch.equal(torch.bucketize(mac, fw.boundaries).int(), codes):
+        raise AssertionError("torch.bucketize is not the ramp's code")
+    res = {}
+    for name, (launch, plain, library, n_bytes, n_ops, peak) in \
+            cases.items():
+        device_ms = _device_ms_per_launch(launch, 200)
+        kernel_ms = [_time_ms(launch, 200) for _ in range(3)]
+        plain_ms = [_time_ms(plain, 20) for _ in range(2)]
+        lib_ms = None if library is None else min(
+            _time_ms(library, 200) for _ in range(3))
+        bytes_s, ops_s = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+        res[name] = {"kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
+                     "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
+                     "library_ms": lib_ms, "device_ms": device_ms,
+                     "bound_ms": 1e3 * max(bytes_s, ops_s),
+                     "bound_by": "bytes" if bytes_s >= ops_s
+                     else "operations", "bytes": n_bytes, "ops": n_ops}
+        log(f"{name} timing M={m} K={kdim} N={n}: kernel "
+            f"{res[name]['kernel_ms']:.4f} ms/launch (device "
+            f"{device_ms:.4f} ms under the profiler), plain "
+            f"{res[name]['plain_ms']:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{res[name]['bound_ms'] * 1e3:.4f} us ({res[name]['bound_by']},"
+            f" {n_bytes} B)")
+
+    # one chain step against one fused step launch, on the same operands
+    v0 = torch.zeros((m, n), device=dev)
+    chain = lambda: _chain_step(x, fw, v0, noise, CFG.k)
+    fused = lambda: ops.fused_macro_step(
+        x, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v0, noise,
+        k=CFG.k, drive_gain=CFG.drive_gain, mac_telemetry=False, device=dev)
+    res["chain_step_ms"] = min(_time_ms(chain, 200) for _ in range(3))
+    res["fused_step_ms"] = min(_time_ms(fused, 200) for _ in range(3))
+    u = rs.random_sample((m, CFG.n_steps, kdim))
+    ev = (u > 0.975).astype(np.float32) - (u < 0.025)
+    for label, fz in (("composed", False), ("seq", "seq")):
+        run = lambda fz=fz: snn.forward_silicon(params, ev, CFG, fused=fz,
+                                                device=dev)
+        res[f"{label}_forward_ms"] = min(_time_ms(run, 3) for _ in range(3))
+    log(f"chain step (4 kernels + the drive) {res['chain_step_ms']:.4f} ms "
+        f"against one fused step launch {res['fused_step_ms']:.4f} ms; "
+        f"forward_silicon at batch {m}, {CFG.n_steps} steps: composed "
+        f"{res['composed_forward_ms']:.2f} ms, seq "
+        f"{res['seq_forward_ms']:.3f} ms")
+    return res
+
+
 def _record(name, replaces, launches, cmp, timing,
             library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -1182,17 +1651,20 @@ def main() -> None:
     build_s = build_phase()
     cmp = {"kwn": compare_phase(dev), "nld": compare_nld_phase(dev),
            "stack": compare_stack_phase(dev),
-           "train": compare_train_phase(dev)}
+           "train": compare_train_phase(dev),
+           "stage": compare_stage_phase(dev)}
     log(f"phase 3 done at {time.perf_counter() - t0:.1f} s")
     params, main_res = main_path_phase(dev)
     nld_params, nld_res = nld_path_phase(dev)
     _, stack_res = stack_path_phase(dev)
     train_params, train_res = train_path_phase(dev)
+    composed_res = composed_path_phase(dev)
     log(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     timing = {"kwn": timing_phase(dev), "nld": nld_timing_phase(dev),
               "stack": stack_timing_phase(dev),
-              "train": train_timing_phase(train_params, dev)}
+              "train": train_timing_phase(train_params, dev),
+              "stage": stage_timing_phase(dev)}
     serving = serving_phase(params, dev)
     nld_serving = nld_serving_phase(nld_params, dev)
     log(f"phase 5 done at {time.perf_counter() - t0:.1f} s")
@@ -1219,6 +1691,19 @@ def main() -> None:
             f"{tm['kernel_ms']:.4f} ms/launch, plain {tm['plain_ms']:.3f} "
             f"ms, bound {tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']}); "
             f"contraction alone in torch.matmul {tt['library_ms']:.4f} ms")
+    st = timing["stage"]
+    for name in STAGE_KERNELS:
+        tm = st[name]
+        lib = ("none" if tm["library_ms"] is None
+               else f"{tm['library_ms']:.4f} ms")
+        log(f"[{smi}] {name}: {tm['kernel_ms']:.4f} ms/launch (device "
+            f"{tm['device_ms']:.4f}), plain "
+            f"{tm['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{tm['bound_ms'] * 1e3:.4f} us ({tm['bound_by']})")
+    log(f"[{smi}] chain step {st['chain_step_ms']:.4f} ms, fused step "
+        f"{st['fused_step_ms']:.4f} ms; composed forward "
+        f"{st['composed_forward_ms']:.2f} ms, seq "
+        f"{st['seq_forward_ms']:.3f} ms")
     log(f"[{smi}] silicon training step, DVS-Gesture batch "
         f"{TRAIN_BATCH}: {tt['step_ms']:.3f} ms, {tt['steps_per_s']:.1f} "
         f"steps/s, device idle share {tt['device_idle_share']:.3f}; "
@@ -1242,11 +1727,21 @@ def main() -> None:
         _record("fused_macro_seq_kwn_bwd",
                 "src/repro/kernels/fused_macro_grad.py:73",
                 train_res["backward_launches"], cmp["train"]["bwd"],
-                tt["bwd"]["residual"], library_ms=tt["library_ms"])]}
+                tt["bwd"]["residual"], library_ms=tt["library_ms"])]
+        + [dict(_record(name, f"src/repro/kernels/{src}.py:{line}",
+                        composed_res["chain"]["launches"][name]
+                        + composed_res["stack_chain"]["launches"][name],
+                        cmp["stage"][name], st[name],
+                        library_ms=st[name]["library_ms"]),
+                device_ms=st[name]["device_ms"])
+           for name, src, line in (("ternary_mac", "ternary_mac", 30),
+                                   ("nlq_lut", "nlq_lut", 22),
+                                   ("kwn_topk", "kwn_topk", 26),
+                                   ("lif_step", "lif_step", 21))]}
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "build_s": build_s, "compare": cmp,
          "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
-                       "train": train_res},
+                       "train": train_res, "composed": composed_res},
          "timing": timing, "serving": serving, "nld_serving": nld_serving,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(json.dumps(record), flush=True)

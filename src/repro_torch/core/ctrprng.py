@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import f32math
+from repro_torch.core import ima as ima_lib
 
 TAG_IMA = 0x494D4101   # IMA conversion error (Fig. 7a/b)
 TAG_SNL = 0x534E4C01   # SNL probabilistic-firing sign noise (Eq. 1 n(t))
@@ -73,21 +74,11 @@ def counter_sign(seed, step, rows, cols, tag: int) -> torch.Tensor:
 
 def noisy_ima_codes(ideal_codes: torch.Tensor, x: torch.Tensor, rows, cols,
                     seed, step, params, n_codes: int) -> torch.Tensor:
-    """Fig. 7 error injection in code space: INL sinusoid + offset +
-    Gaussian (all in code LSBs), round half to even, clip to the counter.
+    """Fig. 7 error injection in code space (``ima.inject_code_error``)
+    with the counter stream's normal draw at ``(seed, step, row, col)``.
 
     ``params`` carries ``offset_lsb / sigma_lsb / inl_lsb / in_lo / in_hi``
-    (``ima.IMAKernelNoise``).  The range denominator is folded in f64 and
-    cast once, and ``ideal + inl`` and ``offset + sigma * g`` are fused
-    multiply-adds, as in the reference.
+    (``ima.IMAKernelNoise``).
     """
-    f32 = torch.float32
-    u = f32math.div(x.float() - torch.tensor(params.in_lo, dtype=f32),
-                    params.in_hi - params.in_lo + 1e-9)
-    s = f32math.sinf(f32math.TWO_PI_F32 * u)
     g = counter_normal(seed, step, rows, cols, TAG_IMA)
-    eps = f32math.fma(torch.tensor(params.sigma_lsb, dtype=f32), g,
-                      torch.tensor(params.offset_lsb, dtype=f32))
-    pre = f32math.fma(torch.tensor(params.inl_lsb, dtype=f32), s,
-                      ideal_codes.float()) + eps
-    return torch.clamp(torch.round(pre).to(torch.int32), 0, n_codes - 1)
+    return ima_lib.inject_code_error(ideal_codes, x, g, params, n_codes)

@@ -3,7 +3,8 @@
 The IMA builds a ramp on the read bit-lines; the step at which it crosses
 the MAC value is the code.  A comparison against monotone boundaries is a
 count of boundaries below the value.  Counterpart of ``repro.core.ima``
-(inference, and the straight-through quantizer of NLQ-aware training).
+(inference, the straight-through quantizer of NLQ-aware training, and the
+Fig. 7 silicon error model with its measurements).
 
 The codebooks are built with numpy in f32 so that they equal the
 reference's ``jnp.linspace``-based codebooks bit for bit: XLA computes
@@ -28,6 +29,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import f32math
+
 
 class RampCodebook(NamedTuple):
     """levels (n_codes,) LUT values, boundaries (n_codes - 1,) thresholds,
@@ -41,6 +44,11 @@ class RampCodebook(NamedTuple):
     @property
     def n_codes(self) -> int:
         return int(self.levels.shape[0])
+
+    def to(self, device) -> "RampCodebook":
+        """The codebook with its tables on ``device``."""
+        return self._replace(levels=self.levels.to(device),
+                             boundaries=self.boundaries.to(device))
 
 
 def _fma32(a, b, c) -> np.ndarray:
@@ -225,3 +233,95 @@ def kernel_noise_params(noise: IMANoiseModel,
         offset_lsb=float(noise.offset_lsb), sigma_lsb=float(noise.sigma_lsb),
         inl_lsb=float(noise.inl_lsb), in_lo=float(cb.in_lo),
         in_hi=float(cb.in_hi))
+
+
+def lsb_size(cb: RampCodebook) -> float:
+    """One code step of the ramp's input range."""
+    return (cb.in_hi - cb.in_lo) / (cb.n_codes - 1)
+
+
+def inject_code_error(ideal: torch.Tensor, x: torch.Tensor,
+                      normal: torch.Tensor, params: IMAKernelNoise,
+                      n_codes: int) -> torch.Tensor:
+    """The Fig. 7 error in code space, given a standard-normal draw: the
+    INL sinusoid over the ramp (peak ``inl_lsb``) plus ``offset_lsb +
+    sigma_lsb * normal``, rounded half to even and clipped to the counter.
+
+    The reference's arithmetic: the range denominator folded in f64 and
+    cast once, ``2 pi u`` with the f32 constant, the C library's sinf, and
+    ``ideal + inl_lsb * s`` and ``offset + sigma * normal`` as fused
+    multiply-adds (XLA contracts both)."""
+    f32 = torch.float32
+    u = f32math.div(x.float() - torch.tensor(params.in_lo, dtype=f32),
+                    params.in_hi - params.in_lo + 1e-9)
+    s = f32math.sinf(f32math.TWO_PI_F32 * u)
+    eps = f32math.fma(torch.tensor(params.sigma_lsb, dtype=f32),
+                      normal.float(),
+                      torch.tensor(params.offset_lsb, dtype=f32))
+    pre = f32math.fma(torch.tensor(params.inl_lsb, dtype=f32), s,
+                      ideal.float()) + eps
+    return torch.clamp(torch.round(pre).to(torch.int32), 0, n_codes - 1)
+
+
+def _noisy_codes(x: torch.Tensor, cb: RampCodebook, normal: torch.Tensor,
+                 noise: IMANoiseModel) -> torch.Tensor:
+    """``ima_convert_noisy`` on a given standard-normal draw ``normal``
+    (shaped like ``x``)."""
+    return inject_code_error(ima_convert(x, cb), x, normal,
+                             kernel_noise_params(noise, cb), cb.n_codes)
+
+
+def ima_convert_noisy(x: torch.Tensor, cb: RampCodebook,
+                      generator: torch.Generator,
+                      noise: IMANoiseModel = IMANoiseModel()
+                      ) -> torch.Tensor:
+    """Conversion with the comparator offset, thermal noise and INL of
+    Fig. 7, in code LSBs; the normal draw comes from ``generator`` (the
+    reference's comes from a JAX key: the same law, other numbers)."""
+    normal = torch.randn(x.shape, generator=generator,
+                         device=generator.device).to(x.device)
+    return _noisy_codes(x, cb, normal, noise)
+
+
+def _sweep(cb: RampCodebook, n_points: int, device) -> torch.Tensor:
+    """The measurement's input sweep: ``jnp.linspace`` over the range."""
+    return torch.from_numpy(_linspace_f32(cb.in_lo, cb.in_hi,
+                                          n_points)).to(device)
+
+
+def measure_transfer_error(cb: RampCodebook, generator: torch.Generator,
+                           noise: IMANoiseModel = IMANoiseModel(),
+                           n_points: int = 4096) -> dict:
+    """Monte-Carlo of the Fig. 7a measurement: sweep the input range,
+    convert with noise, compare with the ideal code; mean and sigma of the
+    error in LSB (the paper: 0.41 and 1.34)."""
+    xs = _sweep(cb, n_points, generator.device)
+    err = (ima_convert_noisy(xs, cb, generator, noise)
+           - ima_convert(xs, cb)).float()
+    return {"mean_lsb": float(err.mean()),
+            "std_lsb": float(err.std(correction=0))}
+
+
+def measure_inl(cb: RampCodebook, f, n_points: int = 4096,
+                generator: torch.Generator | None = None,
+                noise: IMANoiseModel | None = None) -> float:
+    """Average INL of the NL-activation ramp against the ideal curve
+    ``f`` (a numpy f32 function, as ``DENDRITE_ACTIVATIONS``), in LSB of
+    the output range (Fig. 7b).  With ``noise`` and ``generator`` the
+    silicon's systematic error (the INL sinusoid, no offset, no thermal
+    noise) is included: the paper's 0.91 LSB."""
+    dev = cb.levels.device if generator is None else generator.device
+    xs = _sweep(cb, n_points, dev)
+    if noise is not None and generator is not None:
+        codes = ima_convert_noisy(
+            xs, cb, generator,
+            IMANoiseModel(0.0, noise.sigma_lsb * 0.0, noise.inl_lsb))
+        y_hat = ima_reconstruct(codes, cb)
+    else:
+        y_hat = ima_quantize(xs, cb)
+    y = torch.from_numpy(np.asarray(f(xs.cpu().numpy()), np.float32)
+                         ).to(dev)
+    levels = cb.levels.to(dev)
+    out_lsb = f32math.div(levels.max() - levels.min(), cb.n_codes - 1)
+    inl = f32math.div((y_hat - y).abs(), torch.clamp(out_lsb, min=1e-9))
+    return float(inl.mean())

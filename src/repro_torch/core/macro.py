@@ -1,39 +1,168 @@
-"""CIM macro seam: packed operands and the fused sequence entry points.
+"""CIM macro: the composed stage functions, packed operands and the fused
+sequence entry points.
 
-Counterpart of ``repro.core.macro`` (the fused paths).  Models call this
-layer, never the kernels: ``pack_kwn_weights`` / ``pack_nld_weights`` /
-``pack_kwn_stack`` turn weights into the device operands,
-``plan_fused_tiles`` / ``plan_activity`` / ``plan_fused_stack`` expose the
-tile plans and the occupancy map, ``fused_seq`` runs a whole event
-sequence through the fused single-layer kernel (KWN or NLD head),
-``fused_step`` one time step of it, ``fused_multi_seq`` a sequence through
-the stacked KWN kernel, and ``fused_seq_vjp`` the differentiable KWN
-sequence that silicon training runs (the surrogate backward kernel behind
-it).
+Counterpart of ``repro.core.macro``.  Two execution paths, as in the
+reference:
+
+* **composed** (``cim_mac`` / ``kwn_forward`` / ``nld_forward`` /
+  ``tiled_cim_mac``): each stage a separate PyTorch computation with its
+  intermediates visible.  The MAC is a plain ``einsum`` of ternary events
+  with small integer weights (exact in f32 in any order; the matmul is
+  never lowered to TF32), as the reference leaves it to XLA outside any
+  kernel.  ``MacroGeometry`` counts the physical 256x128 macros a layer
+  tiles onto;
+* **fused**: ``pack_kwn_weights`` / ``pack_nld_weights`` /
+  ``pack_kwn_stack`` turn weights into the device operands,
+  ``plan_fused_tiles`` / ``plan_activity`` / ``plan_fused_stack`` expose the
+  tile plans and the occupancy map, ``fused_seq`` runs a whole event
+  sequence through the fused single-layer kernel (KWN or NLD head),
+  ``fused_step`` one time step of it, ``fused_multi_seq`` a sequence
+  through the stacked KWN kernel, and ``fused_seq_vjp`` the
+  differentiable KWN sequence that silicon training runs (the surrogate
+  backward kernel behind it).
+
+Models call this layer, never the kernels.  Noise draws of the composed
+path come from a ``torch.Generator`` where the reference takes a JAX key.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dendrite as dendrite_lib
 from repro_torch.core import f32math
 from repro_torch.core import ima as ima_lib
+from repro_torch.core import kwn as kwn_lib
 from repro_torch.core import ternary as ternary_lib
+
+MACRO_ROWS = 256   # MAC array word-lines (inputs)
+MACRO_COLS = 128   # columns (neurons)
+IMA_ROWS = 46      # ramp array rows
+
+
+class MacroGeometry(NamedTuple):
+    n_in: int
+    n_out: int
+    row_tiles: int
+    col_tiles: int
+
+    @property
+    def n_macros(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+
+def geometry(n_in: int, n_out: int) -> MacroGeometry:
+    """The virtual macro grid an (n_in, n_out) layer tiles onto."""
+    return MacroGeometry(n_in, n_out,
+                         row_tiles=math.ceil(n_in / MACRO_ROWS),
+                         col_tiles=math.ceil(n_out / MACRO_COLS))
 
 
 class CIMMacroConfig(NamedTuple):
     code_bits: int = 5                 # IMA resolution
     mac_range: float = 64.0            # full-scale MAC range (weight LSBs)
     nlq_gamma: float = 2.0
+    ratio_sigma: float = 0.0           # MC current-ratio spread (0 = ideal)
     ima_noise: ima_lib.IMANoiseModel | None = None  # None = ideal conversion
 
 
 def _nlq(cfg: CIMMacroConfig) -> ima_lib.RampCodebook:
     return ima_lib.nlq_codebook(cfg.code_bits, -cfg.mac_range, cfg.mac_range,
                                 cfg.nlq_gamma)
+
+
+def _codebooks(cfg: CIMMacroConfig
+               ) -> tuple[ima_lib.RampCodebook, ima_lib.RampCodebook]:
+    """The linear and the NLQ ramp over ``±cfg.mac_range``."""
+    lin = ima_lib.linear_codebook(cfg.code_bits, -cfg.mac_range,
+                                  cfg.mac_range)
+    return lin, _nlq(cfg)
+
+
+# --- the composed path --------------------------------------------------------
+
+def cim_mac(spikes: torch.Tensor, w_int: torch.Tensor, cfg: CIMMacroConfig,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Analog ternary MAC: spikes (..., I) x integer weights (I, N) in
+    [-3, 3], through the twin-cell split; with ``cfg.ratio_sigma > 0`` and
+    a generator, a per-column current ratio drawn from it."""
+    msb, lsb = ternary_lib.weight_decompose(w_int)
+    if cfg.ratio_sigma > 0.0 and generator is not None:
+        w_eff = ternary_lib.effective_weights(msb, lsb, generator,
+                                              cfg.ratio_sigma)
+    else:
+        w_eff = ternary_lib.weight_compose(msb, lsb)
+    s = ternary_lib.ternary_input_encode(spikes)
+    return torch.einsum("...i,in->...n", s, w_eff)
+
+
+def kwn_forward(spikes: torch.Tensor, w_int: torch.Tensor, k: int,
+                cfg: CIMMacroConfig,
+                generator: torch.Generator | None = None):
+    """KWN mode: MAC -> NLQ ramp (descending) -> top-K early stop.
+
+    With ``cfg.ima_noise`` and a generator the conversion carries the
+    Fig. 7 error.  Returns (drive, mask, result): the LUT value of the
+    winners and exactly 0 for the rest, the winner mask, and the
+    ``KWNResult`` (indices, codes, ADC steps)."""
+    nlq = _nlq(cfg).to(w_int.device)
+    mac = cim_mac(spikes, w_int, cfg, generator)
+    if cfg.ima_noise is not None and generator is not None:
+        codes = ima_lib.ima_convert_noisy(mac, nlq, generator, cfg.ima_noise)
+        mac_eff = ima_lib.ima_reconstruct(codes, nlq)
+    else:
+        mac_eff = mac
+    res = kwn_lib.kwn_select(mac_eff, k, nlq)
+    drive = ima_lib.ima_quantize(mac_eff, nlq) * res.mask
+    return drive, res.mask, res
+
+
+def nld_forward(spikes: torch.Tensor,
+                dendrite_params: dendrite_lib.DendriteParams,
+                cfg: CIMMacroConfig, activation: str = "quadratic",
+                quantize: bool = True) -> torch.Tensor:
+    """NLD mode: the float branch MACs through the NL-activation ramp over
+    ``±cfg.mac_range`` (or the ideal activation without ``quantize``),
+    combined at the soma (Eq. 2).  The branch MACs are a float ``einsum``:
+    its sum order is the library's, so they match the reference to a few
+    ULP, not bit for bit (see ``core.dendrite``)."""
+    cb = ima_lib.activation_codebook(
+        cfg.code_bits, ima_lib.DENDRITE_ACTIVATIONS[activation],
+        -cfg.mac_range, cfg.mac_range).to(spikes.device)
+    return dendrite_lib.dendrite_mac(
+        dendrite_params, spikes, nl_cb=cb if quantize else None,
+        f=dendrite_lib.TRAIN_ACTIVATIONS[activation])
+
+
+def tiled_cim_mac(spikes: torch.Tensor, w_int: torch.Tensor,
+                  cfg: CIMMacroConfig
+                  ) -> tuple[torch.Tensor, MacroGeometry]:
+    """A layer larger than one macro, tiled onto the 256x128 grid: each
+    row tile's MAC goes through the linear ramp before the digital add
+    across row tiles (in tile order), as the silicon loses precision.
+    Returns (out (..., N), geometry)."""
+    n_in, n_out = w_int.shape
+    geo = geometry(n_in, n_out)
+    lin = _codebooks(cfg)[0].to(w_int.device)
+    pad_i = geo.row_tiles * MACRO_ROWS - n_in
+    pad_n = geo.col_tiles * MACRO_COLS - n_out
+    s = F.pad(spikes.float(), (0, pad_i))
+    w = F.pad(w_int.float(), (0, pad_n, 0, pad_i))
+    s_t = s.reshape(*s.shape[:-1], geo.row_tiles, MACRO_ROWS)
+    w_t = w.reshape(geo.row_tiles, MACRO_ROWS, geo.col_tiles * MACRO_COLS)
+    msb, lsb = ternary_lib.weight_decompose(w_t)
+    partial = torch.einsum("...tr,trn->...tn", s_t,
+                           ternary_lib.weight_compose(msb, lsb))
+    partial_q = ima_lib.ima_quantize(partial, lin)
+    out = partial_q[..., 0, :]
+    for t in range(1, geo.row_tiles):
+        out = out + partial_q[..., t, :]
+    return out[..., :n_out], geo
 
 
 class FusedMacroWeights(NamedTuple):

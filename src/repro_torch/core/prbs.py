@@ -12,7 +12,8 @@ Two draw orders exist, and both reproduce the reference exactly:
 
 * the one-shot sequence path draws ``b * n_hidden`` bits per step from a
   single LFSR, step after step (``draw(state, T * b * n)`` reshaped
-  ``(T, b, n)``);
+  ``(T, b, n)``; the composed path draws the same bits a step at a time
+  with ``prbs_noise``, threading the state);
 * the streaming path keeps one LFSR per slot and draws ``n_hidden`` bits
   per step per slot (``draw(states, R * n)`` reshaped ``(S, R, n)``).
 """
@@ -20,6 +21,7 @@ Two draw orders exist, and both reproduce the reference exactly:
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -76,6 +78,20 @@ def draw(states: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
 def bits_to_noise(bits: torch.Tensor, amplitude: float) -> torch.Tensor:
     """Two-level noise ``(2 * bit - 1) * amplitude`` in f32."""
     return (2.0 * bits.float() - 1.0) * amplitude
+
+
+def prbs_noise(state, shape, amplitude: float, device=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric two-level noise in {-amplitude, +amplitude} of ``shape``:
+    ``prod(shape)`` bits from the one LFSR in ``state`` (an int, or a
+    one-element int64 tensor, which fixes the device).  Returns
+    ``(new_state, noise)``, the state a 0-d int64 tensor, so that a loop
+    threading it never waits for the device."""
+    if isinstance(state, torch.Tensor):
+        device = state.device
+    s = torch.as_tensor(state, dtype=torch.int64, device=device).reshape(1)
+    new, bits = draw(s, math.prod(int(d) for d in shape))
+    return new[0], bits_to_noise(bits[0], amplitude).reshape(shape)
 
 
 def sequence_noise(b: int, t_steps: int, width: int, amp: float,

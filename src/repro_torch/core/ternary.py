@@ -2,8 +2,9 @@
 
 A twin 9T bit-cell stores a ternary value; two cells in banks with a 2:1
 current ratio compose a signed 3-bit weight ``W = 2*W_msb + W_lsb`` in
-[-3, 3].  Counterpart of ``repro.core.ternary`` (inference and the
-weight fake-quantizer of quantization-aware training).
+[-3, 3].  Counterpart of ``repro.core.ternary`` (inference, the
+current-ratio variation model and the weight fake-quantizer of
+quantization-aware training).
 """
 
 from __future__ import annotations
@@ -35,6 +36,27 @@ def weight_compose(msb: torch.Tensor, lsb: torch.Tensor,
                    ratio: float = CURRENT_RATIO) -> torch.Tensor:
     """The effective weight the analog array realizes."""
     return ratio * msb + lsb
+
+
+def sample_current_ratio(generator: torch.Generator, shape=(),
+                         sigma: float = 0.02,
+                         nominal: float = CURRENT_RATIO) -> torch.Tensor:
+    """Monte-Carlo sample of I_MSB / I_LSB: a lognormal spread of
+    ``sigma`` about ``nominal`` (Fig. 3c), on the generator's device."""
+    z = torch.randn(tuple(shape), generator=generator,
+                    device=generator.device)
+    return nominal * torch.exp(sigma * z)
+
+
+def effective_weights(msb: torch.Tensor, lsb: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      sigma: float = 0.0) -> torch.Tensor:
+    """Weights as the macro realizes them, with a per-column current
+    ratio drawn from ``generator`` when ``sigma > 0``."""
+    if generator is None or sigma == 0.0:
+        return weight_compose(msb, lsb)
+    ratio = sample_current_ratio(generator, msb.shape[-1:], sigma=sigma)
+    return weight_compose(msb, lsb, ratio=ratio.to(msb.device))
 
 
 def quantize_weights_3bit(w: torch.Tensor, per_channel: bool = True

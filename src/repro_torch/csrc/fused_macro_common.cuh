@@ -1,13 +1,15 @@
 // Device code shared by the fused macro kernels (fused_macro_seq_kwn.cu,
-// fused_macro_seq_nld.cu, fused_macro_multi_seq_kwn.cu): the counter PRNG
+// fused_macro_seq_nld.cu, fused_macro_multi_seq_kwn.cu) and the composed
+// chain's stages (ternary_mac.cu, nlq_lut.cu, kwn_topk.cu, lif_step.cu):
+// the counter PRNG
 // and the Fig. 7 noise model, the event-driven twin-cell MAC, the ramp
 // conversion, the KWN priority sweep and the LIF update.
 //
 // Every function reproduces the JAX reference's rounding: the kernels are
 // built with -fmad=false, and the reference's fused multiply-adds are
 // written out as fmaf.  The plain PyTorch versions are in
-// repro_torch/kernels/ref.py, repro_torch/core/ctrprng.py and
-// repro_torch/core/f32math.py.
+// repro_torch/kernels/ref.py, repro_torch/core/lif.py,
+// repro_torch/core/ctrprng.py and repro_torch/core/f32math.py.
 
 #pragma once
 

@@ -1,0 +1,59 @@
+"""The KWN top-K kernel with ramp early stop: the composed chain's third
+stage.
+
+Counterpart of ``repro.kernels.kwn_topk`` (``kwn_topk``, the Pallas kernel
+``_kwn_kernel``).  The hand-written CUDA kernel ``csrc/kwn_topk.cu``
+replaces it: one warp per row, the ramp codes and the fused kernels'
+descending priority sweep (a ballot per level in column order), which
+stops at the K-th winner; ``K <= 0`` reports step 0 as the TPU kernel's
+full sweep does.  Any width up to ``MAX_COLS`` columns.
+
+A CUDA tensor launches the kernel, counted in ``kwn_topk.launches``; a CPU
+tensor runs the plain version ``kernels.ref.kwn_topk_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.fused_macro import MAX_COLS, _operand, _ptr, _run
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``KwnParams`` in ``csrc/kwn_topk.cu``."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "mac", "bounds", "mask", "steps")] + [
+        (name, ctypes.c_int) for name in ("m", "n", "k", "n_codes")]
+
+
+def kwn_topk(mac: torch.Tensor, boundaries: torch.Tensor, k: int):
+    """mac (M, N) f32, boundaries (n_codes - 1,) f32 -> (mask (M, N) f32,
+    adc_steps (M, 1) int32)."""
+    if mac.device.type == "cpu":
+        return ref.kwn_topk_ref(mac, boundaries, k)
+    if not mac.is_cuda:
+        raise ValueError(f"unsupported device {mac.device}")
+    dev = mac.device
+    m, n = mac.shape
+    if n > MAX_COLS:
+        raise ValueError(f"the KWN kernel takes at most {MAX_COLS} columns, "
+                         f"got {n}")
+    n_codes = boundaries.shape[0] + 1
+    f32 = torch.float32
+    ops = dict(mac=_operand(mac, f32, (m, n), dev),
+               bounds=_operand(boundaries, f32, (n_codes - 1,), dev))
+    mask = torch.empty((m, n), dtype=f32, device=dev)
+    steps = torch.empty((m, 1), dtype=torch.int32, device=dev)
+    params = _Params(**{name: _ptr(a) for name, a in ops.items()},
+                     mask=_ptr(mask), steps=_ptr(steps), m=m, n=n, k=int(k),
+                     n_codes=n_codes)
+    _run("kwn_topk", "kwn_launch", params, dev)
+    kwn_topk.launches += 1
+    return mask, steps
+
+
+kwn_topk.launches = 0

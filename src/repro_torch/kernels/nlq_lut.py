@@ -1,0 +1,56 @@
+"""The NLQ ramp conversion and LUT kernel: the composed chain's second
+stage.
+
+Counterpart of ``repro.kernels.nlq_lut`` (``nlq_convert``, the Pallas
+kernel ``_nlq_kernel``).  The hand-written CUDA kernel ``csrc/nlq_lut.cu``
+replaces it: one thread per element, the codebook in shared memory, the
+code a count of boundaries strictly below, the reconstruction a gather
+(the Pallas one-hot sum, whose other terms are zeros).
+
+A CUDA tensor launches the kernel, counted in ``nlq_convert.launches``; a
+CPU tensor runs the plain version ``kernels.ref.nlq_convert_ref``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.fused_macro import _operand, _ptr, _run
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``NlqParams`` in ``csrc/nlq_lut.cu``."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "x", "bounds", "levels", "codes", "recon")] + [
+        ("total", ctypes.c_longlong), ("n_codes", ctypes.c_int)]
+
+
+def nlq_convert(x: torch.Tensor, boundaries: torch.Tensor,
+                levels: torch.Tensor):
+    """x (M, N) f32, boundaries (n_codes - 1,), levels (n_codes,) f32 ->
+    (codes (M, N) int32, reconstruction (M, N) f32)."""
+    if x.device.type == "cpu":
+        return ref.nlq_convert_ref(x, boundaries, levels)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    dev = x.device
+    n_codes = levels.shape[0]
+    f32 = torch.float32
+    ops = dict(x=_operand(x, f32, tuple(x.shape), dev),
+               bounds=_operand(boundaries, f32, (n_codes - 1,), dev),
+               levels=_operand(levels, f32, (n_codes,), dev))
+    codes = torch.empty(x.shape, dtype=torch.int32, device=dev)
+    recon = torch.empty(x.shape, dtype=f32, device=dev)
+    params = _Params(**{name: _ptr(a) for name, a in ops.items()},
+                     codes=_ptr(codes), recon=_ptr(recon), total=x.numel(),
+                     n_codes=n_codes)
+    _run("nlq_lut", "nlq_launch", params, dev)
+    nlq_convert.launches += 1
+    return codes, recon
+
+
+nlq_convert.launches = 0

@@ -1,7 +1,12 @@
-"""Public wrappers around the fused kernels: padding, activity planning and
-the event-tensor input contract.  Counterpart of ``repro.kernels.ops``
-(the sequence paths: single-layer KWN and NLD, their per-step form, the
-KWN stack, and the differentiable KWN sequence of silicon training).
+"""Public wrappers around the kernels: padding, activity planning and the
+event-tensor input contract.  Counterpart of ``repro.kernels.ops``: the
+composed chain's single-stage kernels (``ternary_mac``, ``nlq_convert``,
+``kwn_topk``, ``lif_step``) and the fused sequence paths (single-layer KWN
+and NLD, their per-step form, the KWN stack, and the differentiable KWN
+sequence of silicon training).
+
+Every wrapper runs on ``device`` (default ``cuda``; ``"cpu"`` runs the
+plain versions) and takes leading batch dimensions as the reference does.
 """
 
 from __future__ import annotations
@@ -16,6 +21,64 @@ from repro_torch import device as device_lib
 from repro_torch.core import ternary as ternary_lib
 from repro_torch.kernels import fused_macro as _fused
 from repro_torch.kernels import fused_macro_grad as _fused_grad
+from repro_torch.kernels import kwn_topk as _kwn
+from repro_torch.kernels import lif_step as _lif
+from repro_torch.kernels import nlq_lut as _nlq
+from repro_torch.kernels import ternary_mac as _tmac
+
+
+# --- the composed chain: one kernel a stage -----------------------------------
+
+def _rows(a, dev, dtype) -> torch.Tensor:
+    """``a`` on ``dev`` as a contiguous (rows, last) ``dtype`` matrix."""
+    a = torch.as_tensor(a).to(dev, dtype)
+    return a.reshape(-1, a.shape[-1]).contiguous()
+
+
+def ternary_mac(x, msb, lsb, ratio: float = 2.0, device=None) -> torch.Tensor:
+    """Twin-cell ternary MAC: x (..., K) ternary, msb / lsb (K, N) ternary
+    planes -> (..., N) f32 ``x @ (ratio * msb + lsb)``.  The kernel masks
+    ragged shapes itself: nothing is padded."""
+    dev = device_lib.resolve(device)
+    lead = tuple(x.shape[:-1])
+    out = _tmac.ternary_mac(_rows(x, dev, torch.int8),
+                            _rows(msb, dev, torch.int8),
+                            _rows(lsb, dev, torch.int8), ratio=ratio)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def nlq_convert(x, boundaries, levels, device=None):
+    """NLQ ramp conversion and LUT map-back: x (..., N) -> (codes (..., N)
+    int32, reconstruction (..., N) f32)."""
+    dev = device_lib.resolve(device)
+    f32 = torch.float32
+    codes, y = _nlq.nlq_convert(
+        _rows(x, dev, f32), torch.as_tensor(boundaries).to(dev, f32)
+        .contiguous(), torch.as_tensor(levels).to(dev, f32).contiguous())
+    return codes.reshape(x.shape), y.reshape(x.shape)
+
+
+def kwn_topk(mac, boundaries, k: int, device=None):
+    """KWN top-K with ramp early stop: mac (..., N) -> (mask (..., N) f32,
+    adc_steps (...,) int32)."""
+    dev = device_lib.resolve(device)
+    mask, steps = _kwn.kwn_topk(
+        _rows(mac, dev, torch.float32),
+        torch.as_tensor(boundaries).to(dev, torch.float32).contiguous(), k)
+    return mask.reshape(mac.shape), steps[:, 0].reshape(mac.shape[:-1])
+
+
+def lif_step(v, drive, mask, noise, device=None, **params):
+    """The fused LIF step: v, drive, mask, noise all (..., N) -> (v_out,
+    spikes), both (..., N) f32; ``params`` are ``lif_step_fused``'s
+    (beta, v_th1, v_th2, v_reset, v_lim, use_snl)."""
+    dev = device_lib.resolve(device)
+    flat = [_rows(a, dev, torch.float32) for a in (v, drive, mask, noise)]
+    v_out, spikes = _lif.lif_step_fused(*flat, **params)
+    return v_out.reshape(v.shape), spikes.reshape(v.shape)
+
+
+# --- the fused sequence paths ---------------------------------------------------
 
 
 def event_stream_issues(events, n_in: int | None = None):

@@ -4,10 +4,12 @@ Counterparts of ``repro.kernels.ref``: ``fused_macro_seq_ref`` (KWN mode,
 ``fused_head_ref`` / ``fused_macro_step_ref`` folded left over T, with
 ``counter_snl_noise`` for the in-kernel SNL stream),
 ``fused_macro_seq_nld_ref`` (the NLD head) and
-``fused_macro_multi_seq_ref`` (the KWN stack, layer by layer).  Each is
-the function its wrapper in ``kernels.fused_macro`` computes for a CPU
-tensor, and the yardstick its CUDA kernel is held against on the card; it
-is never a fallback for a CUDA tensor.
+``fused_macro_multi_seq_ref`` (the KWN stack, layer by layer), and the
+four single-stage kernels of the composed chain: ``ternary_mac_ref``,
+``nlq_convert_ref``, ``kwn_topk_ref`` and ``lif_step_ref``.  Each is the
+function its wrapper in ``kernels`` computes for a CPU tensor, and the
+yardstick its CUDA kernel is held against on the card; it is never a
+fallback for a CUDA tensor.
 
 Beyond the JAX oracle it takes ``row_ctl`` ((M, 3) int32
 ``[seed, step_offset, row_id]`` per row, replacing the scalar seed/step
@@ -29,7 +31,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ctrprng, f32math
+from repro_torch.core import kwn as kwn_lib
 from repro_torch.core import ternary as ternary_lib
+from repro_torch.core.lif import lif_update
 
 
 def ramp_codes(mac: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
@@ -38,43 +42,65 @@ def ramp_codes(mac: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
 
 
 def kwn_select(codes: torch.Tensor, k: int, n_codes: int):
-    """Descending-ramp priority-encoded top-K on a (M, N) code plane.
-
-    Columns win in order of descending code, ties in index order; code -1
-    (padding) never wins.  ``steps`` is ``n_codes - 1 - code`` of the K-th
-    winner, or ``n_codes - 1`` when fewer than K columns can win.  Returns
-    (mask f32 (M, N), steps int32 (M, 1)).
-    """
-    m, n = codes.shape
-    kk = min(k, n)
-    idx = torch.arange(n, device=codes.device, dtype=torch.int64)
-    key = codes.to(torch.int64) * n + (n - 1 - idx)
-    top_key, top_idx = torch.topk(key, kk, dim=-1)
-    top_code = torch.div(top_key, n, rounding_mode="floor")
-    valid = top_code >= 0
-    mask = torch.zeros((m, n), dtype=torch.float32, device=codes.device)
-    mask.scatter_(1, top_idx, valid.float())
-    reached = valid.sum(-1) >= k
-    kth = top_code[:, -1]
-    steps = torch.where(reached, n_codes - 1 - kth,
-                        torch.full_like(kth, n_codes - 1))
-    return mask, steps.to(torch.int32)[:, None]
+    """Descending-ramp priority-encoded top-K on a (M, N) code plane
+    (``core.kwn.select_codes``; code -1 never wins).  Returns (mask f32
+    (M, N), steps int32 (M, 1))."""
+    res = kwn_lib.select_codes(codes, k, n_codes)
+    return res.mask, res.adc_steps[..., None]
 
 
-def lif_update(v, drive, mask, noise, *, beta, v_th1, v_th2, v_reset, v_lim,
-               use_snl):
-    """Eq. (1): winners leak and integrate (one fused multiply-add), the
-    rest hold; SNL kick in (v_th2, v_th1); saturate; compare; reset.
-    Returns (v_out, spike, v_clip): ``v_clip`` is the saturated membrane
-    before the reset, the training trace."""
-    v_new = torch.where(mask > 0, f32math.fma(beta, v, drive), v)
-    if use_snl:
-        snl = (v_new > v_th2) & (v_new < v_th1)
-        v_new = torch.where(snl, v_new + noise, v_new)
-    v_new = torch.clamp(v_new, -v_lim, v_lim)
-    spike = (v_new >= v_th1).float()
-    return (torch.where(spike > 0, torch.full_like(v_new, v_reset), v_new),
-            spike, v_new)
+# --- the single-stage kernels of the composed chain -------------------------
+
+def ternary_mac_ref(x: torch.Tensor, msb: torch.Tensor, lsb: torch.Tensor,
+                    ratio: float = 2.0) -> torch.Tensor:
+    """Twin-cell GEMM: x (M, K) ternary against ``ratio * msb + lsb``,
+    (K, N) ternary planes -> (M, N) f32.
+
+    Both plane products are exact small integers, so the result is
+    ``fma(ratio, x @ msb, x @ lsb)``, rounded once: the reference's f32
+    product exactly for an integral ratio (while |MAC| < 2^24), and
+    within its accumulation error otherwise."""
+    xf = x.float()
+    return f32math.fma(ratio, xf @ msb.float(), xf @ lsb.float())
+
+
+def nlq_convert_ref(x: torch.Tensor, boundaries: torch.Tensor,
+                    levels: torch.Tensor):
+    """Ramp codes (boundaries strictly below) and the LUT map-back: the
+    reference's one-hot sum, whose other terms are zeros, is a gather.
+    Returns (codes int32, reconstruction f32), both shaped like ``x``."""
+    codes = ramp_codes(x.float(), boundaries.float())
+    return codes, levels.float()[codes.long()]
+
+
+def kwn_topk_ref(mac: torch.Tensor, boundaries: torch.Tensor, k: int):
+    """Ramp codes, then the full descending priority-encoder sweep: (mask
+    (M, N) f32, adc_steps (M, 1) int32).  ``k <= 0`` admits no column and
+    stops at step 0, as the sweep's first level already has K winners;
+    ``k >= N`` admits every column."""
+    n_codes = boundaries.shape[0] + 1
+    if k <= 0:
+        return (torch.zeros(mac.shape, dtype=torch.float32,
+                            device=mac.device),
+                torch.zeros((*mac.shape[:-1], 1), dtype=torch.int32,
+                            device=mac.device))
+    return kwn_select(ramp_codes(mac.float(), boundaries.float()), k,
+                      n_codes)
+
+
+def lif_step_ref(v, drive, mask, noise, *, beta: float = 0.9,
+                 v_th1: float = 1.0, v_th2: float = 0.6,
+                 v_reset: float = 0.0, v_lim: float = 8.0,
+                 use_snl: bool = True):
+    """The elementwise LIF of the reference's kernel: winners ``fma(beta,
+    v, drive)`` (the kernel body is compiled and contracted; the eager
+    oracle ``beta * v + drive`` rounds twice), the SNL kick, the clip, the
+    compare and the reset.  Returns (v_out, spikes)."""
+    v_out, spike, _ = lif_update(v.float(), drive.float(), mask.float(),
+                                 noise.float(), beta=beta, v_th1=v_th1,
+                                 v_th2=v_th2, v_reset=v_reset, v_lim=v_lim,
+                                 use_snl=use_snl)
+    return v_out, spike
 
 
 def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,

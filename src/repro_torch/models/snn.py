@@ -1,16 +1,18 @@
-"""The paper's event SNN served through the fused macro kernels.
+"""The paper's event SNN, served and trained through the macro.
 
 Counterpart of ``repro.models.snn``: ``SNNConfig``, ``init_params``,
-``forward_silicon`` through the fused kernels (``fused="seq"``, one launch
-a sequence, or ``"step"``, one launch a time step) in both modes (KWN and
-NLD) and for KWN layer stacks, the streaming state behind the
+``forward_silicon`` in its three forms, through the fused kernels
+(``fused="seq"``, one launch a sequence, or ``"step"``, one launch a time
+step) or through the composed stage chain (``fused=False``: the ``core``
+stage functions in plain PyTorch, no kernel, the bitwise oracle of the
+fused forms), each in both modes (KWN and NLD) and for KWN layer stacks,
+the streaming state behind the
 continuous-batching engine (``forward_silicon_stream`` with save/restore
 of one slot; single-layer KWN and NLD), and training: software BPTT
 (``forward_train``) and silicon-in-the-loop training through the fused
 kernel and its surrogate backward (``loss_fn(silicon=True)``, see
 ``train.silicon``), with ``train_step`` / ``train`` (SGD with momentum) and
-``evaluate``.  The composed path (``fused=False``) belongs to a later
-slice of the port and raises ``NotImplementedError``.
+``evaluate``.
 
 JAX keys have no counterpart: the counter-PRNG seed word is an ``int``
 (``seed``); the reference derives it from its key (``snn._noise_seed``).
@@ -32,6 +34,7 @@ from repro_torch import device as device_lib
 from repro_torch.core import ctrprng, f32math
 from repro_torch.core import dendrite as dendrite_lib
 from repro_torch.core import ima as ima_lib
+from repro_torch.core import kwn as kwn_lib
 from repro_torch.core import lif as lif_lib
 from repro_torch.core import macro as macro_lib
 from repro_torch.core import prbs as prbs_lib
@@ -207,9 +210,13 @@ def _skip_ratio(occupied: torch.Tensor, blocks: int) -> torch.Tensor:
 def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
                     noise: ima_lib.IMANoiseModel | None = None,
                     fused: bool | str = "seq", device=None, seeds=None):
-    """Inference through the fused macro kernels: events (B, T, N_in) ->
-    (logits (B, classes), telemetry).
+    """Inference through the macro: events (B, T, N_in) -> (logits (B,
+    classes), telemetry).
 
+    ``fused=False`` runs the composed stage chain (``_forward_silicon_
+    composed``): the ``core`` stage functions a time step at a time in
+    plain PyTorch, no kernel, the reference's bitwise oracle for the fused
+    paths (clean KWN equals ``"seq"`` and ``"step"`` bit for bit).
     ``fused="seq"`` (or True) runs the whole sequence in one kernel
     launch: the KWN head (Eq. 1), the NLD head (Eq. 2, ``cfg.mode ==
     "nld"``) or, with ``cfg.hidden_layers``, the stacked KWN kernel.
@@ -226,17 +233,16 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     per-request means over the actual sequence length of ADC steps, LIF
     updates and SOPs, plus the activity plan's skipped-block ratio.
     """
-    if fused is False:
-        raise NotImplementedError(
-            "fused=False: the composed stage chain (with the calibration "
-            "kernels ternary_mac, nlq_convert, kwn_topk and lif_step) comes "
-            "with the next slice of the port")
-    if fused not in (True, "seq", "step"):
+    if fused not in (False, True, "seq", "step"):
         raise ValueError(f"unknown fused={fused!r}; expected False, True, "
                          f"'step' or 'seq'")
     dev = device_lib.resolve(device)
     ev = torch.as_tensor(events).to(dev, torch.float32)
     p = params_to(p, dev)
+    if fused is False:
+        if _is_stack(cfg):
+            return _forward_silicon_composed_stack(p, ev, cfg, seed, noise)
+        return _forward_silicon_composed(p, ev, cfg, seed, noise)
     if _is_stack(cfg):
         return _forward_silicon_stack(p, ev, cfg, seed, noise, seeds)
     b, t_steps = ev.shape[0], ev.shape[1]
@@ -346,6 +352,124 @@ def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds):
             device=dev),
     }
     return logits, tele
+
+
+def nlq_steps_full(cfg: SNNConfig) -> int:
+    """The full ramp's step count (NLD converts every column)."""
+    return 2 ** cfg.code_bits - 1
+
+
+def _composed_setup(ev, cfg: SNNConfig, seed, noise):
+    """The composed path's LIF parameters and its noise generator: a
+    ``torch.Generator`` on the events' device seeded from ``seed``, or None
+    on the clean path (the reference splits its key per step)."""
+    lif_p = lif_lib.LIFParams(beta=cfg.beta, v_th1=cfg.v_th1,
+                              v_th2=cfg.v_th2,
+                              noise_amp=cfg.noise_amp if cfg.use_snl
+                              else 0.0)
+    gen = None
+    if noise is not None:
+        gen = torch.Generator(device=ev.device).manual_seed(int(seed))
+    return lif_p, gen
+
+
+def _kwn_composed_layer(cur, w_int, scale, k, nlq, mcfg, gen, noise):
+    """One KWN layer for one step: ``cim_mac``, the NLQ ramp (with the
+    Fig. 7 error drawn from ``gen`` when noisy), ``kwn_select`` on the
+    quantized MAC, and the winner drive ``recon * scale * mask``."""
+    mac_int = macro_lib.cim_mac(cur, w_int, mcfg, generator=gen)
+    if noise is not None:
+        codes = ima_lib.ima_convert_noisy(mac_int, nlq, gen, noise)
+        mac_q = ima_lib.ima_reconstruct(codes, nlq)
+    else:
+        mac_q = ima_lib.ima_quantize(mac_int, nlq)
+    res = kwn_lib.kwn_select(mac_q, k, nlq)
+    return (mac_q * scale[0]) * res.mask, res
+
+
+def _composed_tele(adc, upd, sops, t_steps: int) -> dict:
+    return {"adc_steps": f32math.div(adc, t_steps),
+            "lif_updates": f32math.div(upd, t_steps),
+            "sops": f32math.div(sops, t_steps)}
+
+
+def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise):
+    """The composed stage chain, a time step at a time (the reference's
+    ``forward_silicon(fused=False)``): KWN ``cim_mac`` -> NLQ ramp (+ the
+    Fig. 7 error from the generator) -> ``kwn_select`` -> ``lif_step``
+    with the PRBS SNL noise threaded from one LFSR; NLD ``nld_forward``
+    (float branch weights through the activation ramp, soma combine) ->
+    the dense ``lif_step``.  Telemetry: per-step means of ADC steps, LIF
+    updates and SOPs over ``events.shape[1]``; no skipped-block ratio."""
+    dev = ev.device
+    b, t_steps = ev.shape[0], ev.shape[1]
+    n = cfg.n_hidden
+    mcfg = _macro_cfg(cfg, noise)
+    lif_p, gen = _composed_setup(ev, cfg, seed, noise)
+    if cfg.mode == "kwn":
+        w_int, scale = ternary_lib.quantize_weights_3bit(p["w_hid"])
+        nlq = _nlq_cb(cfg).to(dev)
+    state = lif_lib.lif_init((b, n), device=dev)
+    counts = torch.zeros((b, n), device=dev)
+    adc, upd, sops = (torch.zeros((b,), device=dev) for _ in range(3))
+    for t in range(t_steps):
+        ev_t = ev[:, t]
+        if cfg.mode == "nld":
+            drive = macro_lib.nld_forward(ev_t, p["dend"], mcfg,
+                                          activation=cfg.activation)
+            mask, n_upd, steps = None, n, nlq_steps_full(cfg)
+        else:
+            drive, res = _kwn_composed_layer(ev_t, w_int, scale, cfg.k, nlq,
+                                             mcfg, gen, noise)
+            mask, n_upd, steps = res.mask, cfg.k, res.adc_steps.float()
+        state, s = lif_lib.lif_step(state, drive * cfg.drive_gain, lif_p,
+                                    update_mask=mask,
+                                    use_snl=cfg.use_snl and cfg.mode == "kwn")
+        counts = counts + s
+        adc = adc + steps
+        upd = upd + float(n_upd)
+        sops = sops + ev_t.abs().sum(-1) * n
+    logits = f32math.div(counts, t_steps) @ p["w_out"]
+    return logits, _composed_tele(adc, upd, sops, t_steps)
+
+
+def _forward_silicon_composed_stack(p, ev, cfg: SNNConfig, seed, noise):
+    """The composed chain through a KWN layer stack, layer after layer in
+    each time step, every inter-layer spike tensor materialized (the
+    reference's ``_forward_silicon_composed_multi``).  Each layer's LIF has
+    its own LFSR; a noisy stack draws one normal tensor per step and layer
+    from the generator, in layer order (the reference folds the layer into
+    the step key)."""
+    dev = ev.device
+    b, t_steps = ev.shape[0], ev.shape[1]
+    widths = cfg.layer_widths
+    ks = cfg.layer_k
+    mcfg = _macro_cfg(cfg, noise)
+    lif_p, gen = _composed_setup(ev, cfg, seed, noise)
+    layers = [ternary_lib.quantize_weights_3bit(w) for w in p["w_hid"]]
+    nlq = _nlq_cb(cfg).to(dev)
+    states = [lif_lib.lif_init((b, w), device=dev) for w in widths]
+    counts = torch.zeros((b, cfg.n_hidden), device=dev)
+    adc, upd, sops = (torch.zeros((b,), device=dev) for _ in range(3))
+    for t in range(t_steps):
+        cur = ev[:, t]
+        adc_t = torch.zeros((b,), device=dev)
+        sops_t = torch.zeros((b,), device=dev)
+        for li, (w_int, scale) in enumerate(layers):
+            drive, res = _kwn_composed_layer(cur, w_int, scale, ks[li], nlq,
+                                             mcfg, gen, noise)
+            states[li], s = lif_lib.lif_step(
+                states[li], drive * cfg.drive_gain, lif_p,
+                update_mask=res.mask, use_snl=cfg.use_snl)
+            adc_t = adc_t + res.adc_steps.float()
+            sops_t = sops_t + cur.abs().sum(-1) * widths[li]
+            cur = s
+        counts = counts + cur
+        adc = adc + adc_t
+        upd = upd + float(sum(ks))
+        sops = sops + sops_t
+    logits = f32math.div(counts, t_steps) @ p["w_out"]
+    return logits, _composed_tele(adc, upd, sops, t_steps)
 
 
 class SiliconStreamState(NamedTuple):

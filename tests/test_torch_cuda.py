@@ -12,9 +12,15 @@ import pytest
 import torch
 
 from repro_torch.core import dendrite as dendrite_lib
+from repro_torch.core import f32math
 from repro_torch.core import ima as ima_lib
 from repro_torch.core import macro as macro_lib
+from repro_torch.core import prbs as prbs_lib
 from repro_torch.kernels import fused_macro, fused_macro_grad, ops, ref
+from repro_torch.kernels import kwn_topk as kernels_kwn
+from repro_torch.kernels import lif_step as kernels_lif
+from repro_torch.kernels import nlq_lut as kernels_nlq
+from repro_torch.kernels import ternary_mac as kernels_tmac
 from repro_torch.models import snn
 
 pytestmark = pytest.mark.cuda
@@ -325,3 +331,162 @@ def test_step_path_on_card_equals_seq(cuda, mode, noisy):
     assert torch.equal(ls, lq)
     for key in tq:
         assert torch.equal(ts[key], tq[key]), key
+
+
+# --- the composed chain: the four single-stage kernels ------------------------
+
+STAGE_SHAPES = [(64, 512, 128), (128, 256, 128), (37, 300, 100)]
+LIF_KW = dict(beta=0.9, v_th1=1.0, v_th2=0.6, v_reset=0.0, v_lim=8.0)
+
+
+def _codebook(kind, bits):
+    if kind == "nlq":
+        return ima_lib.nlq_codebook(bits, -24.0, 24.0)
+    if kind == "linear":
+        return ima_lib.linear_codebook(bits, -24.0, 24.0)
+    return ima_lib.activation_codebook(bits, ima_lib.quadratic, -4.0, 4.0)
+
+
+def _tern(rs, *shape):
+    return torch.from_numpy(rs.randint(-1, 2, size=shape).astype(np.int8))
+
+
+def _same(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu(), b), (a.cpu() != b).sum()
+
+
+@pytest.mark.parametrize("ratio", [2.0, 3.0, 2.05])
+@pytest.mark.parametrize("shape", STAGE_SHAPES, ids=str)
+def test_ternary_mac_kernel_matches_plain_version(cuda, shape, ratio):
+    m, k, n = shape
+    rs = np.random.RandomState(m)
+    x, msb, lsb = _tern(rs, m, k), _tern(rs, k, n), _tern(rs, k, n)
+    before = kernels_tmac.ternary_mac.launches
+    got = ops.ternary_mac(x, msb, lsb, ratio=ratio, device=cuda)
+    torch.cuda.synchronize()
+    assert kernels_tmac.ternary_mac.launches == before + 1
+    _same([got], [ops.ternary_mac(x, msb, lsb, ratio=ratio, device="cpu")])
+
+
+@pytest.mark.parametrize("bits", [5, 6])
+@pytest.mark.parametrize("kind", ["nlq", "linear", "activation"])
+@pytest.mark.parametrize("shape", STAGE_SHAPES, ids=str)
+def test_nlq_kernel_matches_plain_version(cuda, shape, kind, bits):
+    m, _, n = shape
+    rs = np.random.RandomState(bits)
+    cb = _codebook(kind, bits)
+    span = 5.0 if kind == "activation" else 30.0
+    x = torch.from_numpy(rs.uniform(-span, span, (m, n)).astype(np.float32))
+    x.view(-1)[:cb.boundaries.numel()] = cb.boundaries      # ties
+    before = kernels_nlq.nlq_convert.launches
+    got = ops.nlq_convert(x, cb.boundaries, cb.levels, device=cuda)
+    torch.cuda.synchronize()
+    assert kernels_nlq.nlq_convert.launches == before + 1
+    _same(got, ops.nlq_convert(x, cb.boundaries, cb.levels, device="cpu"))
+
+
+@pytest.mark.parametrize("k", [0, 1, 12, "N", "N+5"])
+@pytest.mark.parametrize("shape", STAGE_SHAPES + [(16, 0, 256)], ids=str)
+def test_kwn_kernel_matches_plain_version(cuda, shape, k):
+    m, _, n = shape
+    k = {"N": n, "N+5": n + 5}.get(k, k)
+    rs = np.random.RandomState(n)
+    cb = _codebook("nlq", 5)
+    mac = torch.from_numpy(np.round(rs.normal(0, 10, (m, n)))
+                           .astype(np.float32))
+    before = kernels_kwn.kwn_topk.launches
+    got = ops.kwn_topk(mac, cb.boundaries, k, device=cuda)
+    torch.cuda.synchronize()
+    assert kernels_kwn.kwn_topk.launches == before + 1
+    _same(got, ops.kwn_topk(mac, cb.boundaries, k, device="cpu"))
+
+
+@pytest.mark.parametrize("use_snl", [True, False], ids=["snl", "no_snl"])
+@pytest.mark.parametrize("shape", STAGE_SHAPES + [(3, 0, 7)], ids=str)
+def test_lif_kernel_matches_plain_version(cuda, shape, use_snl):
+    m, _, n = shape
+    rs = np.random.RandomState(m + n)
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rs.uniform(-1.5, 1.5, (m, n)), rs.normal(0, 0.5, (m, n)),
+        rs.uniform(size=(m, n)) < 0.3,
+        0.05 * rs.choice([-1.0, 1.0], size=(m, n)))]
+    before = kernels_lif.lif_step_fused.launches
+    got = ops.lif_step(*args, use_snl=use_snl, device=cuda, **LIF_KW)
+    torch.cuda.synchronize()
+    assert kernels_lif.lif_step_fused.launches == before + 1
+    _same(got, ops.lif_step(*args, use_snl=use_snl, device="cpu", **LIF_KW))
+
+
+def _chain(ev_t, fw, v, noise, k, drive_gain, dev):
+    """The four-kernel chain over a (T, B, I) sequence: spikes (T, B, N),
+    ADC steps (T, B) and the final membrane."""
+    spikes, steps = [], []
+    for t in range(ev_t.shape[0]):
+        mac = ops.ternary_mac(ev_t[t], fw.msb, fw.lsb, device=dev)
+        _, mac_q = ops.nlq_convert(mac, fw.boundaries, fw.levels, device=dev)
+        mask, st = ops.kwn_topk(mac, fw.boundaries, k, device=dev)
+        drive = mac_q * fw.scale * mask * drive_gain
+        v, spk = ops.lif_step(v, drive, mask, noise[t], device=dev, **LIF_KW)
+        spikes.append(spk)
+        steps.append(st)
+    return torch.stack(spikes), torch.stack(steps), v
+
+
+def test_chain_equals_fused_seq_and_composed_forward(cuda):
+    """The chain on the card, with the model's planes and PRBS noise,
+    equals ``ops.fused_macro_seq`` on the same operands (spikes, ADC
+    steps, membranes) and ``forward_silicon(fused=False)`` (spike counts
+    through an identity readout, mean ADC steps) bit for bit; each kernel
+    launches once a step."""
+    cfg = snn.SNNConfig(n_in=96, n_hidden=40, n_classes=40, k=6)
+    p = snn.init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    p["w_out"] = torch.eye(cfg.n_hidden, device=cuda)
+    rs = np.random.RandomState(3)
+    b, t = 8, 10
+    ev = rs.choice([-1.0, 0.0, 1.0], p=[0.1, 0.8, 0.1],
+                   size=(b, t, cfg.n_in)).astype(np.float32)
+    fw = snn.pack_fused(p, cfg)
+    ev_t = torch.from_numpy(ev).to(cuda).transpose(0, 1)
+    noise = prbs_lib.sequence_noise(b, t, cfg.n_hidden, cfg.noise_amp, cuda)
+    v0 = torch.zeros((b, cfg.n_hidden), device=cuda)
+    counters = (kernels_tmac.ternary_mac, kernels_nlq.nlq_convert,
+                kernels_kwn.kwn_topk, kernels_lif.lif_step_fused)
+    before = [c.launches for c in counters]
+    spk, steps, v = _chain(ev_t, fw, v0, noise, cfg.k, cfg.drive_gain, cuda)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [t] * 4
+    _, v_f, spk_f, _, st_f = ops.fused_macro_seq(
+        ev_t, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v0, noise,
+        k=cfg.k, drive_gain=cfg.drive_gain, device=cuda)
+    assert torch.equal(spk, spk_f) and torch.equal(steps, st_f)
+    assert torch.equal(v, v_f)
+    logits, tele = snn.forward_silicon(p, ev, cfg, fused=False, device=cuda)
+    assert torch.equal(logits, f32math.div(spk.sum(0), t))
+    assert torch.equal(tele["adc_steps"],
+                       f32math.div(steps.float().sum(0), t))
+    assert spk.sum() > 0
+
+
+@pytest.mark.parametrize("kind", ["kwn", "nld", "stack"])
+def test_composed_forward_on_card_equals_cpu(cuda, kind):
+    if kind == "nld":
+        cfg = snn.SNNConfig(n_in=96, n_hidden=40, n_classes=5, mode="nld",
+                            n_branches=2, activation="relu")
+    elif kind == "stack":
+        cfg = snn.SNNConfig(n_in=96, n_classes=5, hidden_layers=(64, 48),
+                            k_layers=(6, 5))
+    else:
+        cfg = snn.SNNConfig(n_in=96, n_hidden=40, n_classes=5, k=6)
+    p = snn.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rs = np.random.RandomState(5)
+    ev = rs.choice([-1.0, 0.0, 1.0], p=[0.1, 0.8, 0.1],
+                   size=(4, 11, cfg.n_in)).astype(np.float32)
+    (lg, tg), (lc, tc) = (
+        snn.forward_silicon(p, ev, cfg, fused=False, device=dev)
+        for dev in (cuda, "cpu"))
+    for key in ("adc_steps", "lif_updates", "sops"):
+        assert torch.equal(tg[key].cpu(), tc[key]), key
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-5,
+                               atol=1e-6)

@@ -152,17 +152,23 @@ def test_skipped_block_ratio_matches_reference_map():
 
 @pytest.mark.parametrize("fused", [False])
 def test_unported_paths_raise(fused):
+    """The last unported form of ``forward_silicon``, the composed path,
+    is ported now: it runs, single layer and stack, and returns finite
+    logits with the composed path's telemetry (no skipped-block ratio)."""
     _, tcfg, p = _setup()
     tp = convert.snn_params_from_jax(p, "cpu")
-    with pytest.raises(NotImplementedError, match="composed stage chain"):
-        t_snn.forward_silicon(tp, _events(1, 4, tcfg.n_in), tcfg,
-                              device="cpu", fused=fused)
-    # layer stacks are ported on the fused paths only, like single layers
+    logits, tele = t_snn.forward_silicon(tp, _events(1, 4, tcfg.n_in), tcfg,
+                                         device="cpu", fused=fused)
+    assert logits.shape == (1, tcfg.n_classes)
+    assert torch.isfinite(logits).all()
+    assert set(tele) == {"adc_steps", "lif_updates", "sops"}
     scfg = t_snn.SNNConfig(n_in=16, hidden_layers=(8, 8))
     sp = t_snn.init_params(scfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="composed stage chain"):
-        t_snn.forward_silicon(sp, _events(1, 4, 16), scfg, device="cpu",
-                              fused=fused)
+    logits, tele = t_snn.forward_silicon(sp, _events(1, 4, 16), scfg,
+                                         device="cpu", fused=fused)
+    assert logits.shape == (1, scfg.n_classes)
+    assert torch.isfinite(logits).all()
+    assert float(tele["lif_updates"][0]) == sum(scfg.layer_k)
 
 
 def test_init_params_is_seeded():
