@@ -5,7 +5,7 @@
 Phases (any failure raises, so the exit code is non-zero):
 
 1. device: a CUDA device must be present; print its name and power limit;
-2. build: compile every CUDA source of the port (eight) with nvcc
+2. build: compile every CUDA source of the port (nine) with nvcc
    (sm_90a), one nvcc per source, all started together;
 3. kernels vs plain versions, on the same inputs on the card:
    - KWN: the public wrapper ``ops.fused_macro_seq`` (padding,
@@ -33,6 +33,12 @@ Phases (any failure raises, so the exit code is non-zero):
      3 and 2.05, the ramp at nlq / linear / activation codebooks of 5 and
      6 bits, KWN at k = 0, 1, 12, N, N + 5, the LIF with SNL on and off;
      every output exact, membranes 0 ULP;
+   - the flash-attention kernel (#9) through its wrapper against
+     ``ref.flash_attention_ref``: f32 and bf16, causal and full, D in 16,
+     32, 64, 128, S in 128, 192, 1000 (ragged) and 2048, BH 72 at D = 64;
+     f32 within rtol = atol = 2e-5, bf16 within one bf16 ULP of the plain
+     version's f32 result rounded; the large-logit case (inputs x30,
+     integer-valued so that the scores are exact in any sum order);
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    - KWN: ``SNNEventEngine`` serves 96 event-stream requests of the
@@ -66,6 +72,16 @@ Phases (any failure raises, so the exit code is non-zero):
      composed forward against the CPU (telemetry equal, logits within
      rtol 1e-5 / atol 1e-6); the noisy composed forward, and the Fig. 7
      statistics of its conversion on the card;
+   - the LM: smollm-135m at full width (30 layers, d_model 576, 9 heads
+     over 3 kv heads, d_ff 1536, vocab 49152, bf16, random weights from
+     the seed): ``lm.forward(prefill=True)`` on 8 prompts of 2048 tokens
+     (30 flash launches, finite logits (8, padded_vocab)), ``pad_cache``
+     to 2080 and 32 greedy ``decode_step``s (no launch); prefill against
+     teacher-forced decode over 64 tokens in f32 (2e-3) and bf16
+     (``BF16_TOL``); ``launch.serve.main`` with its defaults (8 requests,
+     4 slots, 12 new tokens, no flash launch), its tokens equal to a
+     prefill-plus-decode run of each prompt wherever the top-2 gap
+     exceeds the tolerance; the same engine in CIM mode, finite logits;
 5. timings: each kernel against its plain version on the card at its
    main path's shape (ms per round for KWN and NLD, ms per launch for the
    stack) beside its roofline bound; the KWN engine's requests/s and round
@@ -81,7 +97,12 @@ Phases (any failure raises, so the exit code is non-zero):
    against their plain versions, bounds and, where one PyTorch call
    computes the same function, ``torch.matmul`` / ``torch.bucketize``;
    one chain step against one fused step launch, and the composed
-   forward against ``"seq"``.
+   forward against ``"seq"``; kernel #9 at BH=72, D=64, bf16, causal,
+   S=2048 and 512 against its plain version, its bound and
+   ``scaled_dot_product_attention`` (timed only), the smollm prefill of
+   8 x 2048 (with the kernel's share of device time), a decode step at
+   batch 8 against 2080 slots, and ``BatchedEngine`` tokens/s with its
+   device idle share.
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
@@ -105,6 +126,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import dendrite as dendrite_lib  # noqa: E402
 from repro_torch.core import f32math  # noqa: E402
 from repro_torch.core import ima as ima_lib  # noqa: E402
@@ -112,13 +134,16 @@ from repro_torch.core import macro as macro_lib  # noqa: E402
 from repro_torch.core import prbs as prbs_lib  # noqa: E402
 from repro_torch.data import events as events_lib  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_lib  # noqa: E402
 from repro_torch.kernels import fused_macro, fused_macro_grad  # noqa: E402
 from repro_torch.kernels import kwn_topk as kwn_lib  # noqa: E402
 from repro_torch.kernels import lif_step as lif_lib  # noqa: E402
 from repro_torch.kernels import nlq_lut as nlq_lib  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ternary_mac as tmac_lib  # noqa: E402
-from repro_torch.models import snn  # noqa: E402
+from repro_torch.launch import serve as serve_lib  # noqa: E402
+from repro_torch.models import lm, snn  # noqa: E402
+from repro_torch.nn import module as nn_module  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import engine as engine_lib  # noqa: E402
 from repro_torch.serve import lifecycle  # noqa: E402
@@ -127,6 +152,7 @@ from repro_torch.train import silicon as silicon_lib  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core ops
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core FLOP/s
 SEED = 0
 CFG = snn.SNNConfig(n_in=512, n_hidden=128, n_classes=11, n_steps=30,
                     mode="kwn", k=12)
@@ -153,7 +179,8 @@ KERNELS = {"fused_macro_seq_kwn": fused_macro.fused_macro_seq,
            "ternary_mac": tmac_lib.ternary_mac,
            "nlq_lut": nlq_lib.nlq_convert,
            "kwn_topk": kwn_lib.kwn_topk,
-           "lif_step": lif_lib.lif_step_fused}
+           "lif_step": lif_lib.lif_step_fused,
+           "flash_attention": flash_lib.flash_attention_fwd}
 PATH_KERNEL = {"kwn": "fused_macro_seq_kwn", "nld": "fused_macro_seq_nld"}
 
 
@@ -1633,6 +1660,422 @@ def stage_timing_phase(dev) -> dict:
     return res
 
 
+# --- slice 5: the dense LM path and kernel #9 (flash attention) --------------
+
+LM_ARCH = "smollm-135m"
+PREFILL_BATCH, PREFILL_LEN = 8, 2048     # SmolLM's published context
+DECODE_TO, DECODE_STEPS = 2080, 32
+CONSIST_BATCH, CONSIST_LEN = 2, 64
+# prefill against teacher-forced decode: the JAX suite's 2e-3 in f32; in
+# bf16 the two paths round activations at other places (the kernel keeps
+# scores in f32, decode's einsums round them to bf16), which moved logits
+# of magnitude ~2.5 by 0.043 on the card (64 tokens, batch 2); BF16_TOL
+# leaves a factor of about 3 over that
+F32_TOL, BF16_TOL = 2e-3, 0.125
+FLASH_TOL = dict(rtol=2e-5, atol=2e-5)
+FLASH_DIMS, FLASH_SEQS = (16, 32, 64, 128), (128, 192, 1000, 2048)
+FLASH_TIMED = (2048, 512)               # S of the phase-5 timings
+LM_HEADS = 72                           # BH of the smollm prefill: 8 x 9
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ULP at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(torch.clamp(x.abs(), min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def compare_flash_phase(dev) -> dict:
+    """Kernel #9 against its plain version on the same card tensors: f32
+    and bf16, causal and full, D in 16..128, S in 128, 192, 1000 (ragged)
+    and 2048, BH 72 at D = 64 (the smollm prefill) and 12 otherwise; f32
+    within rtol = atol = 2e-5, bf16 against the plain version's f32 result
+    rounded, within one bf16 ULP (or 2e-5 where an output cancels to near
+    zero); then the large-logit case (inputs x30, integer-valued so the
+    scores are exact in any sum order) at the f32 tolerance."""
+    rs = np.random.RandomState(SEED + 20)
+    res = {"cases": 0, "mismatches": 0, "max_abs_err": 0.0,
+           "max_abs_err_bf16": 0.0, "max_bf16_ulps": 0.0}
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for d in FLASH_DIMS:
+                for s in FLASH_SEQS:
+                    bh = LM_HEADS if d == 64 else 12
+                    q, k, v = (torch.from_numpy(
+                        rs.randn(bh, s, d).astype(np.float32)).to(dev, dtype)
+                        for _ in range(3))
+                    got = flash_lib.flash_attention_fwd(q, k, v,
+                                                        causal=causal)
+                    want = ref.flash_attention_ref(q, k, v, causal)
+                    torch.cuda.synchronize()
+                    g, w = got.float(), want.float()
+                    err = (g - w).abs()
+                    case = f"{dtype} causal={causal} D={d} S={s} BH={bh}"
+                    if got.dtype != dtype or not torch.isfinite(g).all():
+                        raise AssertionError(f"flash {case}: bad output")
+                    if dtype == torch.float32:
+                        if not torch.allclose(got, want, **FLASH_TOL):
+                            raise AssertionError(
+                                f"flash {case}: max err {err.max():.3g}")
+                        res["max_abs_err"] = max(res["max_abs_err"],
+                                                 float(err.max()))
+                    else:
+                        ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+                        if not (err <= torch.clamp(ulp, min=2e-5)).all():
+                            raise AssertionError(
+                                f"flash {case}: beyond one bf16 ULP")
+                        res["max_abs_err_bf16"] = max(
+                            res["max_abs_err_bf16"], float(err.max()))
+                        # in ULPs where an ULP is the tolerance
+                        big = ulp >= 2e-5
+                        if big.any():
+                            res["max_bf16_ulps"] = max(
+                                res["max_bf16_ulps"],
+                                float((err[big] / ulp[big]).max()))
+                    res["cases"] += 1
+    for d, s in ((16, 128), (64, 1000), (64, 2048)):
+        q, k, v = (torch.round(30.0 * torch.from_numpy(
+            rs.randn(8, s, d).astype(np.float32))).to(dev) for _ in range(3))
+        got = flash_lib.flash_attention_fwd(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, True)
+        if not torch.isfinite(got).all() or not torch.allclose(
+                got, want, **FLASH_TOL):
+            raise AssertionError(f"flash large logits D={d} S={s}: max err "
+                                 f"{(got - want).abs().max():.3g}")
+        res["max_abs_err_large"] = max(res.get("max_abs_err_large", 0.0),
+                                       float((got - want).abs().max()))
+        res["cases"] += 1
+    log(f"flash_attention: {res['cases']} cases equal to the plain version "
+        f"(f32 max abs err {res['max_abs_err']:.3g}, large logits "
+        f"{res['max_abs_err_large']:.3g}; bf16 max abs err "
+        f"{res['max_abs_err_bf16']:.3g}, {res['max_bf16_ulps']:.2f} ULP) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def _lm_counts() -> tuple[int, dict]:
+    counts = read_counts()
+    return counts.pop("flash_attention"), counts
+
+
+def _greedy_reference(params, cfg, prompt, n_new, dev):
+    """What the engine should generate for ``prompt`` alone (batch 1):
+    prefill, then greedy decode.  The engine feeds the argmax after the
+    prompt without recording it, so this returns n_new + 1 tokens and the
+    top-2 logit gap at each."""
+    toks = torch.tensor([prompt], device=dev)
+    logits, _, cache = lm.forward(params, {"tokens": toks}, cfg,
+                                  prefill=True)
+    cache = lm.pad_cache(cache, cfg, len(prompt) + n_new + 1)
+    seq, gaps = [], []
+    for i in range(n_new + 1):
+        top2 = torch.topk(logits[0, :cfg.vocab_size], 2)
+        seq.append(int(top2.indices[0]))
+        gaps.append(float(top2.values[0] - top2.values[1]))
+        if i == n_new:
+            break
+        logits, cache = lm.decode_step(
+            params, cache, torch.tensor([[seq[-1]]], device=dev),
+            torch.tensor([len(prompt) + i], device=dev), cfg)
+    return seq, gaps
+
+
+def _check_against_reference(params, cfg, done, tol, dev) -> int:
+    """Each request's tokens equal the reference's wherever every top-2
+    gap up to that token exceeds ``tol``; returns the near ties seen."""
+    near_ties = 0
+    for r in done:
+        seq, gaps = _greedy_reference(params, cfg, r.prompt,
+                                      len(r.generated), dev)
+        for i, tok in enumerate(r.generated):
+            if tok != seq[i + 1]:
+                if min(gaps[:i + 2]) > tol:
+                    raise AssertionError(
+                        f"request {r.uid}: token {i} is {tok}, the "
+                        f"reference's {seq[i + 1]}, with every top-2 gap "
+                        f"above {tol} (min {min(gaps[:i + 2]):.4g})")
+                near_ties += 1
+                break
+    return near_ties
+
+
+def lm_path_phase(dev) -> tuple[dict, dict]:
+    """smollm-135m at full width (30 layers, d_model 576, 9 heads over 3
+    kv heads, d_ff 1536, vocab 49152, tied embeddings, bf16 compute),
+    random weights from the seed, each step with the counters zeroed just
+    before and read just after: prefill of 8 x 2048 tokens (30 flash
+    launches), ``pad_cache`` to 2080 and 32 greedy decode steps (none);
+    prefill against teacher-forced decode over 64 tokens in f32 and bf16;
+    ``launch/serve.py``'s CLI with its defaults (8 requests, 4 slots, 12
+    new tokens, s_max 128, prompts of 4-7 tokens; no flash launch), its
+    tokens against a prefill-plus-decode run of each prompt; the same
+    engine in CIM mode."""
+    cfg = configs.get_config(LM_ARCH)
+    params = nn_module.materialize(lm.param_specs(cfg),
+                                   torch.Generator().manual_seed(SEED),
+                                   device=dev)
+    rs = np.random.RandomState(SEED + 21)
+    toks = torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))).to(dev)
+    res: dict = {"arch": LM_ARCH, "params": cfg.param_count()}
+    t_phase = time.perf_counter()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, _, cache = lm.forward(params, {"tokens": toks}, cfg,
+                                  prefill=True)
+    torch.cuda.synchronize()
+    flash, others = _lm_counts()
+    res["prefill"] = {"launches": flash, "wall_ms_first": 1e3 * (
+        time.perf_counter() - t0)}
+    if flash != cfg.n_layers or any(others.values()):
+        raise AssertionError(f"prefill: {flash} flash launches for "
+                             f"{cfg.n_layers} layers, others {others}")
+    if tuple(logits.shape) != (PREFILL_BATCH, cfg.padded_vocab) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    cache = lm.pad_cache(cache, cfg, DECODE_TO)
+    if tuple(cache["b0"]["k"].shape) != (cfg.n_groups, PREFILL_BATCH,
+                                         DECODE_TO, cfg.n_kv, cfg.hd):
+        raise AssertionError(f"padded cache {cache['b0']['k'].shape}")
+    reset_counts()
+    nxt = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+    generated = []
+    for i in range(DECODE_STEPS):
+        pos = torch.full((PREFILL_BATCH,), PREFILL_LEN + i, device=dev)
+        logits, cache = lm.decode_step(params, cache, nxt[:, None], pos,
+                                       cfg)
+        nxt = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+        generated.append(nxt)
+    torch.cuda.synchronize()
+    flash, others = _lm_counts()
+    if flash or any(others.values()) or not torch.isfinite(logits).all():
+        raise AssertionError(f"decode: flash {flash}, others {others}")
+    res["decode"] = {"steps": DECODE_STEPS, "launches": flash}
+    log(f"LM prefill {PREFILL_BATCH} x {PREFILL_LEN}: "
+        f"{res['prefill']['launches']} flash launches, logits "
+        f"{tuple(logits.shape)} finite; {DECODE_STEPS} greedy decode steps "
+        f"to {PREFILL_LEN + DECODE_STEPS} of {DECODE_TO} slots, no launch")
+
+    res["consistency"] = {}
+    for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        tk = toks[:CONSIST_BATCH, :CONSIST_LEN]
+        reset_counts()
+        lp, _, pc = lm.forward(params, {"tokens": tk}, c, prefill=True)
+        torch.cuda.synchronize()
+        flash, _ = _lm_counts()
+        dc = lm.init_cache(c, CONSIST_BATCH, CONSIST_LEN, device=dev)
+        for t in range(CONSIST_LEN):
+            ld, dc = lm.decode_step(params, dc, tk[:, t:t + 1],
+                                    torch.full((CONSIST_BATCH,), t,
+                                               device=dev), c)
+        err = float((ld - lp).abs().max())
+        kerr = max(float((dc[n][key].float() - pc[n][key].float())
+                         .abs().max()) for n in pc for key in ("k", "v"))
+        res["consistency"][dtype] = {"max_abs_err_logits": err,
+                                     "max_abs_err_cache": kerr,
+                                     "tol": tol, "launches": flash,
+                                     "logit_scale": float(lp.abs().max())}
+        log(f"prefill vs teacher-forced decode over {CONSIST_LEN} tokens "
+            f"({dtype}): logits max abs err {err:.3g} (tol {tol}; max "
+            f"|logit| {res['consistency'][dtype]['logit_scale']:.3g}), "
+            f"cache {kerr:.3g}, {flash} flash launches")
+        if flash != cfg.n_layers or not torch.allclose(ld, lp, rtol=tol,
+                                                       atol=tol):
+            raise AssertionError(f"prefill vs decode ({dtype}): {err:.3g}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    done = serve_lib.main(["--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash, others = _lm_counts()
+    if flash or any(others.values()):
+        raise AssertionError(f"serving: flash {flash}, others {others}")
+    if len(done) != 8 or any(len(r.generated) != 12 or not all(
+            0 <= t < cfg.vocab_size for t in r.generated) for r in done):
+        raise AssertionError("serving: not every request completed with 12 "
+                             "tokens in the vocabulary")
+    near = _check_against_reference(params, cfg, done, 2 * BF16_TOL, dev)
+    # the same requests in f32, where the tolerance is tight enough that a
+    # near tie is rare on a random model's flat logits
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    eng = engine_lib.BatchedEngine(f32_cfg, params, batch_slots=4,
+                                   s_max=128, device=dev)
+    for r in done:
+        eng.submit(engine_lib.Request(uid=r.uid, prompt=r.prompt,
+                                      max_new_tokens=12))
+    reset_counts()
+    f32_done = eng.run(max_rounds=256)
+    flash, others = _lm_counts()
+    if len(f32_done) != 8 or flash or any(others.values()):
+        raise AssertionError(f"f32 serving: {len(f32_done)} done, flash "
+                             f"{flash}, others {others}")
+    near32 = _check_against_reference(params, f32_cfg, f32_done,
+                                      2 * F32_TOL, dev)
+    res["serving"] = {"requests": len(done), "launches": flash,
+                      "wall_s_first": wall, "near_ties_bf16": near,
+                      "near_ties_f32": near32,
+                      "tokens": {r.uid: r.generated for r in done}}
+    log(f"launch.serve defaults: {len(done)} requests x 12 tokens, 0 flash "
+        f"launches; tokens equal prefill + decode of each prompt except "
+        f"{near} near ties (top-2 gap <= {2 * BF16_TOL}); in f32 "
+        f"{near32} (gap <= {2 * F32_TOL})")
+
+    cim_cfg = dataclasses.replace(cfg, cim_linear=True)
+    eng = engine_lib.BatchedEngine(cim_cfg, params, batch_slots=4,
+                                   s_max=128, device=dev)
+    step, finite = eng.step_fn, []
+
+    def checked_step(*args):
+        nxt, logits, cache = step(*args)
+        finite.append(torch.isfinite(logits).all())
+        return nxt, logits, cache
+
+    eng.step_fn = checked_step
+    for r in done:
+        eng.submit(engine_lib.Request(uid=r.uid, prompt=r.prompt,
+                                      max_new_tokens=12))
+    reset_counts()
+    cim_done = eng.run(max_rounds=256)
+    flash, others = _lm_counts()
+    if len(cim_done) != 8 or any(len(r.generated) != 12 for r in cim_done) \
+            or not bool(torch.stack(finite).all()) or flash \
+            or any(others.values()):
+        raise AssertionError("CIM-mode engine did not complete cleanly")
+    res["cim_serving"] = {"requests": len(cim_done), "steps": len(finite),
+                          "launches": flash}
+    log(f"CIM-mode engine: {len(cim_done)} requests x 12 tokens, finite "
+        f"logits at all {len(finite)} steps; LM path "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return params, res
+
+
+def _device_busy_ms(prof) -> float:
+    """Device time of every kernel and copy in a profile, summed from the
+    raw trace: ``key_averages`` spends a minute or more on the ~10^6
+    events of an engine run."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda) / 1e6
+
+
+def lm_timing_phase(params, dev) -> dict:
+    """Kernel #9 at BH=72, D=64, bf16, causal, S=2048 and 512: ms per
+    launch through the wrapper (CUDA events, best of three runs) and the
+    device ms under the profiler, the plain version, the bound and
+    ``scaled_dot_product_attention`` (timed only; the port never calls
+    it); prefill ms for 8 x 2048 and the kernel's share of device time;
+    a decode step at batch 8 against a 2080-slot cache; ``BatchedEngine``
+    tokens/s with the launch/serve defaults, and its device idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get_config(LM_ARCH)
+    rs = np.random.RandomState(SEED + 22)
+    res: dict = {"flash": {}}
+    t_phase = time.perf_counter()
+    for s in FLASH_TIMED:
+        q, k, v = (torch.from_numpy(rs.randn(LM_HEADS, s, cfg.hd).astype(
+            np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+        q4, k4, v4 = (t.view(PREFILL_BATCH, cfg.n_heads, s, cfg.hd)
+                      for t in (q, k, v))
+        launch = lambda: flash_lib.flash_attention_fwd(q, k, v, causal=True)
+        plain = lambda: ref.flash_attention_ref(q, k, v, True)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)
+        reps = 20 if s == 2048 else 100
+        kernel_ms = [_time_ms(launch, reps) for _ in range(3)]
+        device_ms = _device_ms_per_launch(launch, reps)
+        plain_ms = [_time_ms(plain, 5) for _ in range(2)]
+        lib_ms = [_time_ms(library, 5 * reps) for _ in range(3)]
+        n_bytes = 4 * LM_HEADS * s * cfg.hd * 2
+        n_ops = 4 * LM_HEADS * cfg.hd * (s * s + s) // 2
+        bytes_s, ops_s = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
+        lib_err = float((library().reshape(LM_HEADS, s, cfg.hd).float()
+                         - launch().float()).abs().max())
+        res["flash"][s] = {
+            "kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
+            "device_ms": device_ms, "plain_ms": min(plain_ms),
+            "plain_ms_all": plain_ms, "library_ms": min(lib_ms),
+            "library_ms_all": lib_ms, "library_max_abs_diff": lib_err,
+            "bound_ms": 1e3 * max(bytes_s, ops_s),
+            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+            "bytes": n_bytes, "ops": n_ops}
+        tm = res["flash"][s]
+        log(f"flash_attention BH={LM_HEADS} S={s} D={cfg.hd} bf16 causal: "
+            f"kernel {tm['kernel_ms']:.4f} ms/launch (device "
+            f"{device_ms:.4f}), plain {tm['plain_ms']:.4f} ms, SDPA "
+            f"{tm['library_ms']:.4f} ms (max diff {lib_err:.3g}), bound "
+            f"{tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
+
+    toks = torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))).to(dev)
+    prefill = lambda: lm.forward(params, {"tokens": toks}, cfg,
+                                 prefill=True)
+    res["prefill_ms"] = min(_time_ms(prefill, 1) for _ in range(3))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, cache = prefill()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_events = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(_device_us(e) for e in dev_events) / 1e3
+    flash_busy = sum(_device_us(e) for e in dev_events
+                     if "flash_kernel" in e.key) / 1e3
+    res["prefill_device_ms"] = busy
+    res["prefill_flash_device_ms"] = flash_busy
+    res["prefill_flash_share"] = flash_busy / busy if busy else float("nan")
+    res["prefill_top_device"] = [
+        (e.key[:90], e.count, _device_us(e) / 1e3)
+        for e in sorted(dev_events, key=_device_us, reverse=True)[:8]]
+
+    cache = lm.pad_cache(cache, cfg, DECODE_TO)
+    tok = toks[:, :1]
+    pos = torch.full((PREFILL_BATCH,), PREFILL_LEN, device=dev)
+    decode = lambda: lm.decode_step(params, cache, tok, pos, cfg)
+    res["decode_step_ms"] = min(_time_ms(decode, 10) for _ in range(3))
+    log(f"prefill {PREFILL_BATCH} x {PREFILL_LEN}: {res['prefill_ms']:.2f} "
+        f"ms, device busy {busy:.2f} ms of which flash {flash_busy:.2f} ms "
+        f"({res['prefill_flash_share']:.3f}); decode step at batch "
+        f"{PREFILL_BATCH} against {DECODE_TO} slots: "
+        f"{res['decode_step_ms']:.3f} ms")
+
+    prompts = [[int(t) for t in rs.randint(0, cfg.vocab_size, 4 + u % 4)]
+               for u in range(8)]
+
+    def serve() -> tuple[float, int]:
+        eng = engine_lib.BatchedEngine(cfg, params, batch_slots=4,
+                                       s_max=128, device=dev)
+        for uid, prompt in enumerate(prompts):
+            eng.submit(engine_lib.Request(uid=uid, prompt=prompt,
+                                          max_new_tokens=12))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(max_rounds=256)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, sum(len(r.generated) for r in done)
+
+    serve()
+    walls = [serve() for _ in range(2)]
+    wall, n_tok = min(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof, _ = serve()
+    busy = _device_busy_ms(prof)
+    res["engine"] = {"tokens": n_tok, "wall_s": wall,
+                     "wall_s_all": [w for w, _ in walls],
+                     "tokens_per_s": n_tok / wall,
+                     "wall_s_profiled": wall_prof, "device_busy_ms": busy,
+                     "device_idle_share": 1.0 - busy / (1e3 * wall)}
+    log(f"BatchedEngine (8 requests, 4 slots, 12 new tokens): {n_tok} "
+        f"tokens in {1e3 * wall:.1f} ms, {n_tok / wall:.1f} tokens/s, "
+        f"device busy {busy:.2f} ms (idle share "
+        f"{res['engine']['device_idle_share']:.3f}); LM timing "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
 def _record(name, replaces, launches, cmp, timing,
             library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -1652,19 +2095,22 @@ def main() -> None:
     cmp = {"kwn": compare_phase(dev), "nld": compare_nld_phase(dev),
            "stack": compare_stack_phase(dev),
            "train": compare_train_phase(dev),
-           "stage": compare_stage_phase(dev)}
+           "stage": compare_stage_phase(dev),
+           "flash": compare_flash_phase(dev)}
     log(f"phase 3 done at {time.perf_counter() - t0:.1f} s")
     params, main_res = main_path_phase(dev)
     nld_params, nld_res = nld_path_phase(dev)
     _, stack_res = stack_path_phase(dev)
     train_params, train_res = train_path_phase(dev)
     composed_res = composed_path_phase(dev)
+    lm_params, lm_res = lm_path_phase(dev)
     log(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     timing = {"kwn": timing_phase(dev), "nld": nld_timing_phase(dev),
               "stack": stack_timing_phase(dev),
               "train": train_timing_phase(train_params, dev),
-              "stage": stage_timing_phase(dev)}
+              "stage": stage_timing_phase(dev),
+              "lm": lm_timing_phase(lm_params, dev)}
     serving = serving_phase(params, dev)
     nld_serving = nld_serving_phase(nld_params, dev)
     log(f"phase 5 done at {time.perf_counter() - t0:.1f} s")
@@ -1704,6 +2150,17 @@ def main() -> None:
         f"{st['fused_step_ms']:.4f} ms; composed forward "
         f"{st['composed_forward_ms']:.2f} ms, seq "
         f"{st['seq_forward_ms']:.3f} ms")
+    lt = timing["lm"]
+    for s_len, tm in lt["flash"].items():
+        log(f"[{smi}] flash_attention BH={LM_HEADS} S={s_len} D=64 bf16: "
+            f"{tm['kernel_ms']:.4f} ms/launch (device {tm['device_ms']:.4f}"
+            f"), plain {tm['plain_ms']:.4f} ms, SDPA {tm['library_ms']:.4f} "
+            f"ms, bound {tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
+    log(f"[{smi}] {LM_ARCH} prefill {PREFILL_BATCH} x {PREFILL_LEN}: "
+        f"{lt['prefill_ms']:.2f} ms (flash {lt['prefill_flash_share']:.3f} "
+        f"of device time); decode step {lt['decode_step_ms']:.3f} ms; "
+        f"BatchedEngine {lt['engine']['tokens_per_s']:.1f} tokens/s, idle "
+        f"share {lt['engine']['device_idle_share']:.3f}")
     log(f"[{smi}] silicon training step, DVS-Gesture batch "
         f"{TRAIN_BATCH}: {tt['step_ms']:.3f} ms, {tt['steps_per_s']:.1f} "
         f"steps/s, device idle share {tt['device_idle_share']:.3f}; "
@@ -1737,11 +2194,21 @@ def main() -> None:
            for name, src, line in (("ternary_mac", "ternary_mac", 30),
                                    ("nlq_lut", "nlq_lut", 22),
                                    ("kwn_topk", "kwn_topk", 26),
-                                   ("lif_step", "lif_step", 21))]}
+                                   ("lif_step", "lif_step", 21))]
+        + [dict(_record("flash_attention",
+                        "src/repro/kernels/flash_attention.py:29",
+                        lm_res["prefill"]["launches"]
+                        + sum(c["launches"] for c in
+                              lm_res["consistency"].values()),
+                        cmp["flash"], lt["flash"][PREFILL_LEN],
+                        library_ms=lt["flash"][PREFILL_LEN]["library_ms"]),
+                device_ms=lt["flash"][PREFILL_LEN]["device_ms"],
+                max_abs_err_bf16=cmp["flash"]["max_abs_err_bf16"])]}
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "build_s": build_s, "compare": cmp,
          "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
-                       "train": train_res, "composed": composed_res},
+                       "train": train_res, "composed": composed_res,
+                       "lm": lm_res},
          "timing": timing, "serving": serving, "nld_serving": nld_serving,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(json.dumps(record), flush=True)

@@ -5,7 +5,8 @@ or objects whose fields are such arrays), so this module imports neither
 JAX nor ``repro``.  The layouts are the same on both sides: ``w_hid``
 (n_in, n_hidden) or a list of per-layer arrays for a stack, ``w_out``
 (n_hidden, n_classes), ``dend`` with ``w_syn`` / ``mask`` (J, n_in,
-n_hidden) and ``w_dend`` (J, n_hidden), twin-cell planes (n_in, NC).
+n_hidden) and ``w_dend`` (J, n_hidden), twin-cell planes (n_in, NC); the
+LM's parameters are the same nested dict on both sides.
 """
 
 from __future__ import annotations
@@ -51,3 +52,16 @@ def fused_weights_from_jax(fw, device=None) -> macro_lib.FusedMacroWeights:
         w_dend=None if fw.w_dend is None
         else _put(fw.w_dend, np.float32, dev),
         mode=fw.mode)
+
+
+def lm_params_from_jax(tree: dict, device=None) -> dict:
+    """The port's LM params from the reference's (``models.lm`` layout,
+    a nested dict of arrays), leaf for leaf, dtypes kept."""
+    dev = device_lib.resolve(device)
+
+    def put(node):
+        if isinstance(node, dict):
+            return {k: put(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node)).to(dev)
+
+    return put(tree)

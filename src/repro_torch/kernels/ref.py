@@ -6,7 +6,8 @@ Counterparts of ``repro.kernels.ref``: ``fused_macro_seq_ref`` (KWN mode,
 ``fused_macro_seq_nld_ref`` (the NLD head) and
 ``fused_macro_multi_seq_ref`` (the KWN stack, layer by layer), and the
 four single-stage kernels of the composed chain: ``ternary_mac_ref``,
-``nlq_convert_ref``, ``kwn_topk_ref`` and ``lif_step_ref``.  Each is the
+``nlq_convert_ref``, ``kwn_topk_ref`` and ``lif_step_ref``, and the LM
+stack's attention forward ``flash_attention_ref``.  Each is the
 function its wrapper in ``kernels`` computes for a CPU tensor, and the
 yardstick its CUDA kernel is held against on the card; it is never a
 fallback for a CUDA tensor.
@@ -462,3 +463,31 @@ def fused_macro_seq_vjp_ref(w, x, boundaries, levels, scale, v, noise=None,
         trace.append(v_clip)
     return (v, torch.stack(spikes), torch.stack(masks), torch.stack(steps),
             torch.stack(trace))
+
+
+# --- the LM stack's attention forward ---------------------------------------
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Attention forward, q / k / v (BH, S, D) f32 or bf16 -> (BH, S, D) in
+    q's dtype: the function of the reference's ``_flash_kernel``.
+
+    Scores ``q.k * (1 / sqrt(D))`` in f32, masked ``row >= col`` with
+    -1e30 when causal, softmax, ``p @ v`` in f32, divided by
+    ``max(l, 1e-30)``, rounded once to q's dtype.  One softmax over the
+    whole row instead of the kernel's online one: the two differ only in
+    the order of the sums.
+    """
+    d = q.shape[-1]
+    s = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / d ** 0.5)
+    if causal:
+        n = q.shape[-2]
+        rows = torch.arange(n, device=q.device)
+        s = s.masked_fill(rows[:, None] < rows[None, :], NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    return ((p @ v.float()) / torch.clamp(l, min=1e-30)).to(q.dtype)

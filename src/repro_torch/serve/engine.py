@@ -1,10 +1,13 @@
-"""Serving: the batched event-stream engine on the fused macro kernel.
+"""Serving: the batched event-stream engine on the fused macro kernel, and
+the LM's decode step and continuous-batching engine.
 
-Counterpart of ``repro.serve.engine.SNNEventEngine`` (the LM engine and
-``build_serve_step`` come with the LM slice).  The continuous path keeps
-``batch_slots`` persistent slots whose LIF membranes live on the device and
-advances them ``round_steps`` steps per kernel launch; the legacy path
-drains the queue in whole-sequence batches.
+Counterpart of ``repro.serve.engine``.  ``SNNEventEngine``'s continuous
+path keeps ``batch_slots`` persistent slots whose LIF membranes live on
+the device and advances them ``round_steps`` steps per kernel launch; the
+legacy path drains the queue in whole-sequence batches.
+``build_serve_step`` is one decode token for a batch of requests, and
+``BatchedEngine`` admits LM requests into fixed slots, prefills them token
+by token through that step and decodes until each completes.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import ctrprng, f32math
 from repro_torch.core import energy as energy_lib
+from repro_torch.models import lm
 from repro_torch.models import snn as snn_lib
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -49,6 +53,39 @@ def _derived_seed(engine_seed: int, tag: int, index: int) -> int:
     counter (index, 0)."""
     word, _ = ctrprng.threefry2x32(engine_seed, tag, index, 0)
     return int(word) & 0x7FFFFFFF
+
+
+def build_serve_step(cfg: lm.LMConfig, *, temperature: float = 0.0):
+    """Returns step(params, cache, tokens, pos, generator) ->
+    (next tokens (B, 1) int32, logits (B, V), cache).
+
+    Greedy at ``temperature == 0``; above it the next token is drawn from
+    ``softmax(logits / temperature)`` with ``generator`` (its draws are
+    not ``jax.random``'s)."""
+
+    def serve_step(params, cache, tokens, pos, generator):
+        logits, cache = lm.decode_step(params, cache, tokens, pos, cfg)
+        logits = logits[:, :cfg.vocab_size]
+        if temperature > 0.0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        return nxt[:, None].to(torch.int32), logits, cache
+
+    return serve_step
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: list[int]
+    max_new_tokens: int = 16
+    generated: list[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def done(self) -> bool:
+        return len(self.generated) >= self.max_new_tokens
 
 
 @dataclasses.dataclass
@@ -893,3 +930,80 @@ class SNNEventEngine:
         rep["deadline_misses"] = sum(
             1 for r in self.completed if r.deadline_missed)
         return rep
+
+
+class BatchedEngine:
+    """Minimal continuous-batching LM engine: fixed B slots, requests are
+    admitted as slots free, prefill runs token by token through the decode
+    step (teacher forcing), then decode until each request completes.
+
+    The admission, position and ``max_rounds`` semantics are the
+    reference's: a prompt token steps the whole batch (the other slots
+    rewrite the K/V they will write again at their next decode), and
+    ``max_rounds`` budgets decode rounds only.  Decoding is greedy.  Runs
+    on ``cuda`` unless the caller passes ``device="cpu"``.
+    """
+
+    def __init__(self, cfg: lm.LMConfig, params, batch_slots: int = 4,
+                 s_max: int = 256, device=None):
+        dev = device_lib.resolve(device)
+        self.cfg = cfg
+        self.params = params
+        self.b = batch_slots
+        self.s_max = s_max
+        self.device = dev
+        self.step_fn = build_serve_step(cfg)
+        self.cache = lm.init_cache(cfg, batch_slots, s_max, device=dev)
+        self.pos = torch.zeros((batch_slots,), dtype=torch.int64, device=dev)
+        self.slots: list[Request | None] = [None] * batch_slots
+        self.pending: list[Request] = []
+        self.completed: list[Request] = []
+        self._next_token = torch.zeros((batch_slots, 1), dtype=torch.int32,
+                                       device=dev)
+        self._gen = torch.Generator(dev).manual_seed(0)
+
+    def submit(self, req: Request):
+        self.pending.append(req)
+
+    def _admit(self):
+        for i in range(self.b):
+            if self.slots[i] is None and self.pending:
+                req = self.pending.pop(0)
+                self.slots[i] = req
+                for t, tok in enumerate(req.prompt):
+                    toks = self._next_token.clone()
+                    toks[i, 0] = tok
+                    pos = self.pos.clone()
+                    pos[i] = t
+                    nxt, _, self.cache = self.step_fn(
+                        self.params, self.cache, toks, pos, self._gen)
+                    self._next_token[i] = nxt[i]
+                self.pos[i] = len(req.prompt)
+
+    def run(self, max_rounds: int = 64):
+        # max_rounds budgets *decode* rounds: admission / prefill work is
+        # never charged against it
+        rounds = 0
+        while self.pending or any(self.slots):
+            self._admit()
+            if not any(self.slots):
+                break
+            if rounds >= max_rounds:
+                break
+            rounds += 1
+            nxt, _, self.cache = self.step_fn(self.params, self.cache,
+                                              self._next_token, self.pos,
+                                              self._gen)
+            self._next_token = nxt
+            self.pos += torch.tensor(
+                [1 if s is not None else 0 for s in self.slots],
+                dtype=self.pos.dtype, device=self.device)
+            toks, pos = nxt[:, 0].tolist(), self.pos.tolist()
+            for i, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                req.generated.append(toks[i])
+                if req.done or pos[i] >= self.s_max - 1:
+                    self.completed.append(req)
+                    self.slots[i] = None
+        return self.completed

@@ -16,12 +16,16 @@ from repro_torch.core import f32math
 from repro_torch.core import ima as ima_lib
 from repro_torch.core import macro as macro_lib
 from repro_torch.core import prbs as prbs_lib
+from repro_torch.configs import base as lm_base
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as kernels_flash
 from repro_torch.kernels import fused_macro, fused_macro_grad, ops, ref
 from repro_torch.kernels import kwn_topk as kernels_kwn
 from repro_torch.kernels import lif_step as kernels_lif
 from repro_torch.kernels import nlq_lut as kernels_nlq
 from repro_torch.kernels import ternary_mac as kernels_tmac
-from repro_torch.models import snn
+from repro_torch.models import lm, snn
+from repro_torch.nn import module as nn_module
 
 pytestmark = pytest.mark.cuda
 
@@ -490,3 +494,113 @@ def test_composed_forward_on_card_equals_cpu(cuda, kind):
         assert torch.equal(tg[key].cpu(), tc[key]), key
     np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+# --- kernel #9: flash attention ---------------------------------------------
+
+FLASH_SHAPES = [(8, 128, 16), (8, 192, 32), (16, 1000, 64), (72, 2048, 64),
+                (8, 2048, 128)]
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ULP at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(torch.clamp(x.abs(), min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _flash_inputs(shape, dtype, dev, scale=1.0, seed=0):
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32))
+            .to(dev, dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain_version(cuda, shape, causal, dtype):
+    """f32 at rtol = atol = 2e-5 (the JAX suite's); bf16 against the plain
+    version's f32 result from the same bf16 inputs, rounded: within one
+    bf16 ULP, or 2e-5 where the output cancels to near zero."""
+    q, k, v = _flash_inputs(shape, dtype, cuda)
+    before = kernels_flash.flash_attention_fwd.launches
+    got = kernels_flash.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels_flash.flash_attention_fwd.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        g, w = got.float(), want.float()
+        tol = torch.clamp(_bf16_ulp(torch.maximum(g.abs(), w.abs())),
+                          min=2e-5)
+        assert bool(((g - w).abs() <= tol).all())
+
+
+def test_flash_kernel_large_logits(cuda):
+    """Integer-valued inputs x30 (scores up to ~1e3, exact in any sum
+    order): finite, and equal to the plain version at the f32 tolerance."""
+    q, k, v = (torch.round(t) for t in _flash_inputs(
+        (4, 1000, 64), torch.float32, cuda, scale=30.0, seed=11))
+    got = kernels_flash.flash_attention_fwd(q, k, v, causal=True)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, True),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 64, 256), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kernels_flash.flash_attention_fwd(q, q, q)
+    q = torch.zeros((2, 64, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        kernels_flash.flash_attention_fwd(q, q, q)
+
+
+def test_lm_forward_launches_flash_once_per_layer(cuda):
+    """Full smollm-135m width (30 layers, bf16) at a short sequence: one
+    flash launch per layer for the full forward and for prefill; decode
+    launches none."""
+    cfg = get_config("smollm-135m")
+    params = nn_module.materialize(lm.param_specs(cfg),
+                                   torch.Generator().manual_seed(0),
+                                   device=cuda)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 70))).to(cuda)
+    for prefill in (False, True):
+        before = kernels_flash.flash_attention_fwd.launches
+        out = lm.forward(params, {"tokens": toks}, cfg, prefill=prefill)
+        torch.cuda.synchronize()
+        assert kernels_flash.flash_attention_fwd.launches - before == 30
+        assert bool(torch.isfinite(out[0]).all())
+    cache = lm.pad_cache(out[2], cfg, 80)
+    before = kernels_flash.flash_attention_fwd.launches
+    logits, _ = lm.decode_step(params, cache, toks[:, :1],
+                               torch.full((2,), 70, device=cuda), cfg)
+    assert kernels_flash.flash_attention_fwd.launches == before
+    assert logits.shape == (2, cfg.padded_vocab)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-32b"])
+def test_lm_forward_and_decode_on_card_equal_cpu(cuda, arch):
+    """Reduced configs in f32: the card's kernel and cuBLAS sums against
+    the CPU's plain versions, logits within rtol = atol = 1e-5."""
+    cfg = lm_base.reduced(get_config(arch))
+    p_cpu = nn_module.materialize(lm.param_specs(cfg),
+                                  torch.Generator().manual_seed(0),
+                                  device="cpu")
+    p_gpu = nn_module.tree_map(lambda t: t.to(cuda), p_cpu)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (2, 37)))
+    outs = [lm.forward(p, {"tokens": toks.to(dev)}, cfg, prefill=True)
+            for p, dev in ((p_gpu, cuda), (p_cpu, "cpu"))]
+    torch.testing.assert_close(outs[0][0].cpu(), outs[1][0], rtol=1e-5,
+                               atol=1e-5)
+    steps = []
+    for (_, _, cache), p, dev in zip(outs, (p_gpu, p_cpu), (cuda, "cpu")):
+        cache = lm.pad_cache(cache, cfg, 40)
+        logits, _ = lm.decode_step(p, cache, toks[:, :1].to(dev),
+                                   torch.full((2,), 37, device=dev), cfg)
+        steps.append(logits.cpu())
+    torch.testing.assert_close(steps[0], steps[1], rtol=1e-5, atol=1e-5)

@@ -20,11 +20,17 @@ import torch
 
 from repro.models import snn as j_snn
 from repro_torch import convert
+from repro_torch.configs import base as t_base
+from repro_torch.configs import get_config
 from repro_torch.core import ima as t_ima
 from repro_torch.kernels import ops as t_ops
+from repro_torch.launch import serve as t_serve
+from repro_torch.models import lm as t_lm
 from repro_torch.models import snn as t_snn
+from repro_torch.nn import module as t_module
 from repro_torch.serve import lifecycle
-from repro_torch.serve.engine import EventRequest, SNNEventEngine
+from repro_torch.serve.engine import (BatchedEngine, EventRequest,
+                                      SNNEventEngine)
 
 torch.set_num_threads(1)
 
@@ -230,7 +236,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
     for rel in ("core/dendrite.py", "kernels/fused_macro_grad.py",
-                "train/silicon.py", "data/events.py"):
+                "train/silicon.py", "data/events.py", "nn/attention.py",
+                "models/lm.py", "kernels/flash_attention.py"):
         assert ROOT / "src" / "repro_torch" / rel in files, rel
     for path in files:
         hits = pattern.findall(path.read_text())
@@ -253,3 +260,22 @@ def test_entry_points_do_not_fall_back_to_cpu():
         t_ops.fused_macro_seq(torch.zeros((2, 1, tcfg.n_in)), fw.msb, fw.lsb,
                               fw.boundaries, fw.levels, fw.scale,
                               torch.zeros((1, tcfg.n_hidden)))
+    lcfg = t_base.reduced(get_config("smollm-135m"))
+    specs = t_lm.param_specs(lcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_module.materialize(specs, torch.Generator().manual_seed(0))
+    lp = t_module.materialize(specs, torch.Generator().manual_seed(0),
+                              device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_lm.init_cache(lcfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedEngine(lcfg, lp)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_serve.main(["--smoke"])
+    # lm.forward and lm.decode_step run where their tensors are (params
+    # from materialize, caches from init_cache); off the CPU the forward's
+    # attention launches the kernel or raises, never the plain version
+    meta = t_module.tree_map(lambda t: t.to("meta"), lp)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        t_lm.forward(meta, {"tokens": torch.zeros((1, 4), dtype=torch.long,
+                                                  device="meta")}, lcfg)
