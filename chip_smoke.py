@@ -6,7 +6,10 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. device: a CUDA device must be present; print its name and power limit;
 2. build: compile every CUDA source of the port (nine) with nvcc
-   (sm_90a), one nvcc per source, all started together;
+   (sm_90a), one nvcc per source, all started together; report each
+   flash-kernel width's registers and spills (``-Xptxas -v``) and count
+   the tensor-core instructions (HGMMA, HMMA) in the flash library's SASS
+   (``cuobjdump -sass``): the bf16 kernels must have them;
 3. kernels vs plain versions, on the same inputs on the card:
    - KWN: the public wrapper ``ops.fused_macro_seq`` (padding,
      ``n_valid``, activity gating, ``row_ctl`` or a scalar seed) against
@@ -35,10 +38,12 @@ Phases (any failure raises, so the exit code is non-zero):
      every output exact, membranes 0 ULP;
    - the flash-attention kernel (#9) through its wrapper against
      ``ref.flash_attention_ref``: f32 and bf16, causal and full, D in 16,
-     32, 64, 128, S in 128, 192, 1000 (ragged) and 2048, BH 72 at D = 64;
-     f32 within rtol = atol = 2e-5, bf16 within one bf16 ULP of the plain
-     version's f32 result rounded; the large-logit case (inputs x30,
-     integer-valued so that the scores are exact in any sum order);
+     32, 64, 128 at S in 128, 192, 1000 (ragged) and 2048, BH 72 at
+     D = 64; D in 21, 80, 112, 192, 256 (padded inside the kernel's
+     tiles) at S in 192 and 1000, and 2048 at D = 256; f32 within rtol =
+     atol = 2e-5, bf16 within one bf16 ULP of the plain version's f32
+     result rounded; the large-logit case (inputs x30, integer-valued so
+     that the scores are exact in any sum order) at D = 16, 21, 64, 256;
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    - KWN: ``SNNEventEngine`` serves 96 event-stream requests of the
@@ -82,6 +87,12 @@ Phases (any failure raises, so the exit code is non-zero):
      4 slots, 12 new tokens, no flash launch), its tokens equal to a
      prefill-plus-decode run of each prompt wherever the top-2 gap
      exceeds the tolerance; the same engine in CIM mode, finite logits;
+   - the repaired faults: ``BatchedEngine`` (reduced smollm-135m, 1 slot,
+     s_max 8) on prompts of 7, 8 and 9 tokens, so that positions reach
+     and pass s_max, without a device assert and with the tokens of the
+     same engine on the CPU; a prefill of nemotron-4-340b reduced to
+     d_model 768 (its head_dim 192) through the flash kernel, one launch
+     a layer, logits equal to the CPU's in f32;
 5. timings: each kernel against its plain version on the card at its
    main path's shape (ms per round for KWN and NLD, ms per launch for the
    stack) beside its roofline bound; the KWN engine's requests/s and round
@@ -98,7 +109,8 @@ Phases (any failure raises, so the exit code is non-zero):
    computes the same function, ``torch.matmul`` / ``torch.bucketize``;
    one chain step against one fused step launch, and the composed
    forward against ``"seq"``; kernel #9 at BH=72, D=64, bf16, causal,
-   S=2048 and 512 against its plain version, its bound and
+   S=2048 and 512, and at BH=16, S=2048, D=256 (gemma2's head_dim),
+   against its plain version, its bound and
    ``scaled_dot_product_attention`` (timed only), the smollm prefill of
    8 x 2048 (with the kernel's share of device time), a decode step at
    batch 8 against 2080 slots, and ``BatchedEngine`` tokens/s with its
@@ -115,6 +127,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -127,6 +140,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.configs import base as config_base  # noqa: E402
 from repro_torch.core import dendrite as dendrite_lib  # noqa: E402
 from repro_torch.core import f32math  # noqa: E402
 from repro_torch.core import ima as ima_lib  # noqa: E402
@@ -210,12 +224,59 @@ def device_phase() -> tuple[str, str]:
     return torch.cuda.get_device_name(0), smi
 
 
-def build_phase() -> float:
+def build_phase() -> tuple[float, dict]:
     secs = build.build_all()
     for name, text in build.BUILD_LOG.items():
         log(f"[nvcc {name}]\n{text.strip()}")
     log(f"build: {secs:.1f} s for {build.sources()}")
-    return secs
+    return secs, flash_build_report()
+
+
+def flash_build_report() -> dict:
+    """Registers and spill bytes of each flash-kernel instantiation (from
+    ``-Xptxas -v``), ptxas's notes that it serialized wgmma, and the
+    tensor-core instructions of each in the built library's SASS
+    (``cuobjdump -sass``).  Fails if a bf16 kernel has no HGMMA: its
+    products would not be on the tensor cores."""
+    text = build.BUILD_LOG.get("flash_attention", "")
+    rep: dict = {"kernels": {}, "serialized": sum(
+        "Potential Performance Loss" in ln for ln in text.splitlines())}
+    cur = None
+    for ln in text.splitlines():
+        m = re.search(r"Function properties for \S*flash_(bf16|f32)_kernel"
+                      r"ILi(\d+)E", ln)
+        if m:
+            cur = rep["kernels"].setdefault(f"{m.group(1)}_{m.group(2)}", {})
+        elif cur is not None and "spill stores" in ln:
+            cur["spill_bytes"] = sum(int(x) for x in re.findall(
+                r"(\d+) bytes spill", ln))
+        elif cur is not None and "Used" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             ln).group(1))
+            cur = None
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build._target("flash_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for fn in re.split(r"\n\s+Function : ", sass)[1:]:
+        m = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", fn.split("\n")[0])
+        if m:
+            entry = rep["kernels"].setdefault(f"{m.group(1)}_{m.group(2)}",
+                                              {})
+            entry["HGMMA"] = len(re.findall(r"\bHGMMA\.", fn))
+            entry["HMMA"] = len(re.findall(r"\bHMMA\.", fn))
+    bf16 = {k: v for k, v in rep["kernels"].items() if k.startswith("bf16")}
+    if len(bf16) != 9 or not all(v.get("HGMMA", 0) > 0
+                                 for v in bf16.values()):
+        raise AssertionError(f"flash bf16 kernels without HGMMA: {bf16}")
+    log("flash kernels (registers, spill bytes, HGMMA in SASS): " + ", ".join(
+        f"{k} {v.get('registers')}/{v.get('spill_bytes')}/{v.get('HGMMA')}"
+        for k, v in sorted(rep["kernels"].items(),
+                           key=lambda kv: (kv[0].split("_")[0],
+                                           int(kv[0].split("_")[1]))))
+        + f"; wgmma serialized in {rep['serialized']}")
+    return rep
 
 
 # --- phase 3: kernel against its plain version ---------------------------
@@ -1674,8 +1735,17 @@ CONSIST_BATCH, CONSIST_LEN = 2, 64
 F32_TOL, BF16_TOL = 2e-3, 0.125
 FLASH_TOL = dict(rtol=2e-5, atol=2e-5)
 FLASH_DIMS, FLASH_SEQS = (16, 32, 64, 128), (128, 192, 1000, 2048)
-FLASH_TIMED = (2048, 512)               # S of the phase-5 timings
+# the head dims of reduced configs (21) and of the registry (80, 112, 192,
+# 256), padded inside the kernel's tiles, at fewer lengths
+FLASH_PADDED_DIMS, FLASH_PADDED_SEQS = (21, 80, 112, 192, 256), (192, 1000)
+FLASH_CASES = ([(d, s) for d in FLASH_DIMS for s in FLASH_SEQS]
+               + [(d, s) for d in FLASH_PADDED_DIMS
+                  for s in FLASH_PADDED_SEQS] + [(256, 2048)])
 LM_HEADS = 72                           # BH of the smollm prefill: 8 x 9
+# (BH, S, D) of the phase-5 timings: the smollm prefill's attention at its
+# context and at 512, and gemma2's head_dim
+FLASH_TIMED = ((LM_HEADS, 2048, 64), (LM_HEADS, 512, 64), (16, 2048, 256))
+FLASH_MAIN = "72x2048x64"
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1686,8 +1756,9 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 def compare_flash_phase(dev) -> dict:
     """Kernel #9 against its plain version on the same card tensors: f32
-    and bf16, causal and full, D in 16..128, S in 128, 192, 1000 (ragged)
-    and 2048, BH 72 at D = 64 (the smollm prefill) and 12 otherwise; f32
+    and bf16, causal and full, ``FLASH_CASES`` (D from 16 to 256, S in
+    128, 192, 1000 (ragged) and 2048), BH 72 at D = 64 (the smollm
+    prefill) and 12 otherwise; f32
     within rtol = atol = 2e-5, bf16 against the plain version's f32 result
     rounded, within one bf16 ULP (or 2e-5 where an output cancels to near
     zero); then the large-logit case (inputs x30, integer-valued so the
@@ -1698,42 +1769,41 @@ def compare_flash_phase(dev) -> dict:
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
-            for d in FLASH_DIMS:
-                for s in FLASH_SEQS:
-                    bh = LM_HEADS if d == 64 else 12
-                    q, k, v = (torch.from_numpy(
-                        rs.randn(bh, s, d).astype(np.float32)).to(dev, dtype)
-                        for _ in range(3))
-                    got = flash_lib.flash_attention_fwd(q, k, v,
-                                                        causal=causal)
-                    want = ref.flash_attention_ref(q, k, v, causal)
-                    torch.cuda.synchronize()
-                    g, w = got.float(), want.float()
-                    err = (g - w).abs()
-                    case = f"{dtype} causal={causal} D={d} S={s} BH={bh}"
-                    if got.dtype != dtype or not torch.isfinite(g).all():
-                        raise AssertionError(f"flash {case}: bad output")
-                    if dtype == torch.float32:
-                        if not torch.allclose(got, want, **FLASH_TOL):
-                            raise AssertionError(
-                                f"flash {case}: max err {err.max():.3g}")
-                        res["max_abs_err"] = max(res["max_abs_err"],
-                                                 float(err.max()))
-                    else:
-                        ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
-                        if not (err <= torch.clamp(ulp, min=2e-5)).all():
-                            raise AssertionError(
-                                f"flash {case}: beyond one bf16 ULP")
-                        res["max_abs_err_bf16"] = max(
-                            res["max_abs_err_bf16"], float(err.max()))
-                        # in ULPs where an ULP is the tolerance
-                        big = ulp >= 2e-5
-                        if big.any():
-                            res["max_bf16_ulps"] = max(
-                                res["max_bf16_ulps"],
-                                float((err[big] / ulp[big]).max()))
-                    res["cases"] += 1
-    for d, s in ((16, 128), (64, 1000), (64, 2048)):
+            for d, s in FLASH_CASES:
+                bh = LM_HEADS if d == 64 else 12
+                q, k, v = (torch.from_numpy(
+                    rs.randn(bh, s, d).astype(np.float32)).to(dev, dtype)
+                    for _ in range(3))
+                got = flash_lib.flash_attention_fwd(q, k, v,
+                                                    causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal)
+                torch.cuda.synchronize()
+                g, w = got.float(), want.float()
+                err = (g - w).abs()
+                case = f"{dtype} causal={causal} D={d} S={s} BH={bh}"
+                if got.dtype != dtype or not torch.isfinite(g).all():
+                    raise AssertionError(f"flash {case}: bad output")
+                if dtype == torch.float32:
+                    if not torch.allclose(got, want, **FLASH_TOL):
+                        raise AssertionError(
+                            f"flash {case}: max err {err.max():.3g}")
+                    res["max_abs_err"] = max(res["max_abs_err"],
+                                             float(err.max()))
+                else:
+                    ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+                    if not (err <= torch.clamp(ulp, min=2e-5)).all():
+                        raise AssertionError(
+                            f"flash {case}: beyond one bf16 ULP")
+                    res["max_abs_err_bf16"] = max(
+                        res["max_abs_err_bf16"], float(err.max()))
+                    # in ULPs where an ULP is the tolerance
+                    big = ulp >= 2e-5
+                    if big.any():
+                        res["max_bf16_ulps"] = max(
+                            res["max_bf16_ulps"],
+                            float((err[big] / ulp[big]).max()))
+                res["cases"] += 1
+    for d, s in ((16, 128), (21, 1000), (64, 1000), (64, 2048), (256, 1000)):
         q, k, v = (torch.round(30.0 * torch.from_numpy(
             rs.randn(8, s, d).astype(np.float32))).to(dev) for _ in range(3))
         got = flash_lib.flash_attention_fwd(q, k, v, causal=True)
@@ -1952,6 +2022,82 @@ def lm_path_phase(dev) -> tuple[dict, dict]:
     return params, res
 
 
+FAULT_S_MAX, FAULT_PROMPTS, FAULT_NEW = 8, (7, 8, 9), 4
+WIDE_HEAD_ARCH, WIDE_HEAD_D_MODEL = "nemotron-4-340b", 768   # head_dim 192
+
+
+def lm_fault_phase(dev) -> dict:
+    """The two faults this slice repairs, on the card, each with the
+    counters zeroed just before and read just after.  ``BatchedEngine`` on
+    the reduced smollm-135m (1 slot, s_max 8, 4 new tokens) with prompts
+    of 7, 8 and 9 tokens: the token-by-token prefill and the decode reach
+    and pass s_max, where the reference writes no K/V; the run must not
+    assert on the device and must give the tokens of the same engine on
+    the CPU.  Then a prefill of nemotron-4-340b reduced to d_model 768
+    over 4 heads (its own head_dim, 192) through the flash kernel: one
+    launch a layer, logits equal to the CPU's within 1e-5 in f32."""
+    res: dict = {"engine": {}}
+    cfg = config_base.reduced(configs.get_config(LM_ARCH))
+    p_cpu = nn_module.materialize(lm.param_specs(cfg),
+                                  torch.Generator().manual_seed(SEED + 1),
+                                  device="cpu")
+    p_gpu = nn_module.tree_map(lambda t: t.to(dev), p_cpu)
+    rs = np.random.RandomState(SEED + 23)
+    for n in FAULT_PROMPTS:
+        prompt = [int(t) for t in rs.randint(0, cfg.vocab_size, n)]
+        tokens = {}
+        for where, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+            eng = engine_lib.BatchedEngine(cfg, params, batch_slots=1,
+                                           s_max=FAULT_S_MAX,
+                                           device=dev if where == "cuda"
+                                           else "cpu")
+            eng.submit(engine_lib.Request(uid=0, prompt=prompt,
+                                          max_new_tokens=FAULT_NEW))
+            reset_counts()
+            done = eng.run()
+            torch.cuda.synchronize()          # a device assert shows here
+            if any(read_counts().values()):
+                raise AssertionError(f"engine at s_max: {read_counts()}")
+            tokens[where] = [r.generated for r in done]
+        if tokens["cuda"] != tokens["cpu"] or not tokens["cuda"][0]:
+            raise AssertionError(f"engine, {n}-token prompt, s_max "
+                                 f"{FAULT_S_MAX}: card {tokens['cuda']}, "
+                                 f"CPU {tokens['cpu']}")
+        res["engine"][n] = tokens["cuda"][0]
+
+    wide = config_base.reduced(configs.get_config(WIDE_HEAD_ARCH),
+                               d_model=WIDE_HEAD_D_MODEL)
+    p_cpu = nn_module.materialize(lm.param_specs(wide),
+                                  torch.Generator().manual_seed(SEED + 2),
+                                  device="cpu")
+    p_gpu = nn_module.tree_map(lambda t: t.to(dev), p_cpu)
+    toks = torch.from_numpy(rs.randint(0, wide.vocab_size, (2, 300)))
+    reset_counts()
+    got, _, _ = lm.forward(p_gpu, {"tokens": toks.to(dev)}, wide,
+                           prefill=True)
+    torch.cuda.synchronize()
+    flash, others = _lm_counts()
+    want, _, _ = lm.forward(p_cpu, {"tokens": toks}, wide, prefill=True)
+    err = float((got.cpu() - want).abs().max())
+    if flash != wide.n_layers or any(others.values()) or not torch.allclose(
+            got.cpu(), want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"head_dim {wide.hd} prefill: {flash} flash "
+                             f"launches for {wide.n_layers} layers, others "
+                             f"{others}, max err {err:.3g}")
+    res["wide_head"] = {"arch": WIDE_HEAD_ARCH, "head_dim": wide.hd,
+                        "launches": flash, "max_abs_err": err}
+    log(f"BatchedEngine at s_max {FAULT_S_MAX} (prompts "
+        f"{list(FAULT_PROMPTS)} tokens): no device assert, tokens equal to "
+        f"the CPU's {res['engine']}; {WIDE_HEAD_ARCH} reduced to head_dim "
+        f"{wide.hd}: prefill {flash} flash launches, logits within "
+        f"{err:.3g} of the CPU's")
+    return res
+
+
+def _is_flash(key: str) -> bool:
+    return "flash_bf16_kernel" in key or "flash_f32_kernel" in key
+
+
 def _device_busy_ms(prof) -> float:
     """Device time of every kernel and copy in a profile, summed from the
     raw trace: ``key_averages`` spends a minute or more on the ~10^6
@@ -1962,8 +2108,8 @@ def _device_busy_ms(prof) -> float:
 
 
 def lm_timing_phase(params, dev) -> dict:
-    """Kernel #9 at BH=72, D=64, bf16, causal, S=2048 and 512: ms per
-    launch through the wrapper (CUDA events, best of three runs) and the
+    """Kernel #9 (bf16, causal) at ``FLASH_TIMED``: ms per launch through
+    the wrapper (CUDA events, best of three runs) and the
     device ms under the profiler, the plain version, the bound and
     ``scaled_dot_product_attention`` (timed only; the port never calls
     it); prefill ms for 8 x 2048 and the kernel's share of device time;
@@ -1975,11 +2121,10 @@ def lm_timing_phase(params, dev) -> dict:
     rs = np.random.RandomState(SEED + 22)
     res: dict = {"flash": {}}
     t_phase = time.perf_counter()
-    for s in FLASH_TIMED:
-        q, k, v = (torch.from_numpy(rs.randn(LM_HEADS, s, cfg.hd).astype(
+    for bh, s, d in FLASH_TIMED:
+        q, k, v = (torch.from_numpy(rs.randn(bh, s, d).astype(
             np.float32)).to(dev, torch.bfloat16) for _ in range(3))
-        q4, k4, v4 = (t.view(PREFILL_BATCH, cfg.n_heads, s, cfg.hd)
-                      for t in (q, k, v))
+        q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
         launch = lambda: flash_lib.flash_attention_fwd(q, k, v, causal=True)
         plain = lambda: ref.flash_attention_ref(q, k, v, True)
         library = lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1989,12 +2134,13 @@ def lm_timing_phase(params, dev) -> dict:
         device_ms = _device_ms_per_launch(launch, reps)
         plain_ms = [_time_ms(plain, 5) for _ in range(2)]
         lib_ms = [_time_ms(library, 5 * reps) for _ in range(3)]
-        n_bytes = 4 * LM_HEADS * s * cfg.hd * 2
-        n_ops = 4 * LM_HEADS * cfg.hd * (s * s + s) // 2
+        n_bytes = 4 * bh * s * d * 2
+        n_ops = 4 * bh * d * (s * s + s) // 2
         bytes_s, ops_s = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
-        lib_err = float((library().reshape(LM_HEADS, s, cfg.hd).float()
+        lib_err = float((library().reshape(bh, s, d).float()
                          - launch().float()).abs().max())
-        res["flash"][s] = {
+        key = f"{bh}x{s}x{d}"
+        res["flash"][key] = {
             "kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
             "device_ms": device_ms, "plain_ms": min(plain_ms),
             "plain_ms_all": plain_ms, "library_ms": min(lib_ms),
@@ -2002,8 +2148,8 @@ def lm_timing_phase(params, dev) -> dict:
             "bound_ms": 1e3 * max(bytes_s, ops_s),
             "bound_by": "bytes" if bytes_s >= ops_s else "operations",
             "bytes": n_bytes, "ops": n_ops}
-        tm = res["flash"][s]
-        log(f"flash_attention BH={LM_HEADS} S={s} D={cfg.hd} bf16 causal: "
+        tm = res["flash"][key]
+        log(f"flash_attention BH={bh} S={s} D={d} bf16 causal: "
             f"kernel {tm['kernel_ms']:.4f} ms/launch (device "
             f"{device_ms:.4f}), plain {tm['plain_ms']:.4f} ms, SDPA "
             f"{tm['library_ms']:.4f} ms (max diff {lib_err:.3g}), bound "
@@ -2022,7 +2168,7 @@ def lm_timing_phase(params, dev) -> dict:
     dev_events = [e for e in prof.key_averages() if e.device_type == cuda]
     busy = sum(_device_us(e) for e in dev_events) / 1e3
     flash_busy = sum(_device_us(e) for e in dev_events
-                     if "flash_kernel" in e.key) / 1e3
+                     if _is_flash(e.key)) / 1e3
     res["prefill_device_ms"] = busy
     res["prefill_flash_device_ms"] = flash_busy
     res["prefill_flash_share"] = flash_busy / busy if busy else float("nan")
@@ -2091,7 +2237,7 @@ def main() -> None:
     t0 = time.perf_counter()
     kind, smi = device_phase()
     dev = torch.device("cuda")
-    build_s = build_phase()
+    build_s, flash_build = build_phase()
     cmp = {"kwn": compare_phase(dev), "nld": compare_nld_phase(dev),
            "stack": compare_stack_phase(dev),
            "train": compare_train_phase(dev),
@@ -2104,6 +2250,7 @@ def main() -> None:
     train_params, train_res = train_path_phase(dev)
     composed_res = composed_path_phase(dev)
     lm_params, lm_res = lm_path_phase(dev)
+    lm_res["faults"] = lm_fault_phase(dev)
     log(f"phase 4 done at {time.perf_counter() - t0:.1f} s")
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     timing = {"kwn": timing_phase(dev), "nld": nld_timing_phase(dev),
@@ -2146,13 +2293,16 @@ def main() -> None:
             f"{tm['device_ms']:.4f}), plain "
             f"{tm['plain_ms']:.4f} ms, library {lib}, bound "
             f"{tm['bound_ms'] * 1e3:.4f} us ({tm['bound_by']})")
+    log(f"[{smi}] ternary_mac through its wrapper "
+        f"{st['ternary_mac']['kernel_ms']:.4f} ms against torch.matmul "
+        f"{st['ternary_mac']['library_ms']:.4f} ms at the same shape")
     log(f"[{smi}] chain step {st['chain_step_ms']:.4f} ms, fused step "
         f"{st['fused_step_ms']:.4f} ms; composed forward "
         f"{st['composed_forward_ms']:.2f} ms, seq "
         f"{st['seq_forward_ms']:.3f} ms")
     lt = timing["lm"]
-    for s_len, tm in lt["flash"].items():
-        log(f"[{smi}] flash_attention BH={LM_HEADS} S={s_len} D=64 bf16: "
+    for shape, tm in lt["flash"].items():
+        log(f"[{smi}] flash_attention (BH x S x D) {shape} bf16 causal: "
             f"{tm['kernel_ms']:.4f} ms/launch (device {tm['device_ms']:.4f}"
             f"), plain {tm['plain_ms']:.4f} ms, SDPA {tm['library_ms']:.4f} "
             f"ms, bound {tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
@@ -2200,12 +2350,13 @@ def main() -> None:
                         lm_res["prefill"]["launches"]
                         + sum(c["launches"] for c in
                               lm_res["consistency"].values()),
-                        cmp["flash"], lt["flash"][PREFILL_LEN],
-                        library_ms=lt["flash"][PREFILL_LEN]["library_ms"]),
-                device_ms=lt["flash"][PREFILL_LEN]["device_ms"],
+                        cmp["flash"], lt["flash"][FLASH_MAIN],
+                        library_ms=lt["flash"][FLASH_MAIN]["library_ms"]),
+                device_ms=lt["flash"][FLASH_MAIN]["device_ms"],
                 max_abs_err_bf16=cmp["flash"]["max_abs_err_bf16"])]}
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
-        {"device": smi, "build_s": build_s, "compare": cmp,
+        {"device": smi, "build_s": build_s, "flash_build": flash_build,
+         "compare": cmp,
          "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
                        "train": train_res, "composed": composed_res,
                        "lm": lm_res},

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_BOUND: dict[tuple[str, str], object] = {}   # (source, fn) -> bound function
 BUILD_LOG: dict[str, str] = {}   # nvcc's output (ptxas register report)
 
 
@@ -85,6 +86,20 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _LOADED[name] = lib
     return lib
+
+
+def function(name: str, fn_name: str, params_type):
+    """``fn_name`` of ``csrc/<name>.cu``, an ``int fn(const Params*, void*
+    stream)``, with its ``argtypes`` and ``restype`` set: bound once per
+    (source, function) and cached, so a launch costs the host one dict
+    lookup here."""
+    fn = _BOUND.get((name, fn_name))
+    if fn is None:
+        fn = getattr(library(name), fn_name)
+        fn.argtypes = [ctypes.POINTER(params_type), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _BOUND[name, fn_name] = fn
+    return fn
 
 
 def build_all() -> float:

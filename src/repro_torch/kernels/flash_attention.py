@@ -4,11 +4,12 @@ attention.
 Counterpart of ``repro.kernels.flash_attention`` (``flash_attention_fwd``,
 the Pallas kernel ``_flash_kernel``).  The hand-written CUDA kernel
 ``csrc/flash_attention.cu`` replaces it: one CTA per 64-row query tile and
-(batch x head), a warp per 16 rows, the online softmax's running max and
-sum in registers, a loop over 64-row kv tiles that stops at the last tile
-a causal row can see.  It takes any S (it masks the ragged edge itself, so
-the wrapper pads nothing), f32 or bf16, causal or full, and D in
-``HEAD_DIMS``.
+(batch x head), the online softmax's running max and sum in registers, a
+loop over kv tiles that stops at the last tile a causal row can see; bf16
+on the tensor cores (wgmma, P split into two bf16 halves for P V), f32 on
+the f32 cores.  It takes any S (it masks the ragged edge itself, so the
+wrapper pads nothing), f32 or bf16, causal or full, and any head_dim from
+1 to ``MAX_HEAD_DIM`` (padded with zeros inside the kernel's tiles).
 
 There is no backward, as the Pallas kernel has none: the wrapper raises
 when grad mode is on and an input requires grad.  A CUDA tensor launches
@@ -25,8 +26,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_macro import _operand, _ptr, _run
 
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_BH = 65535                      # the grid's second axis
+MAX_HEAD_DIM = 256                  # the widest instantiated tile
+MAX_CTAS = 2 ** 31 - 1              # the grid: BH x 64-row query tiles
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -60,12 +61,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bh, s, d = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash attention takes f32 or bf16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention takes head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
-    if bh > MAX_BH:
-        raise ValueError(f"flash attention takes at most {MAX_BH} "
-                         f"batch x heads, got {bh}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash attention takes head_dim from 1 to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if bh * -(-s // 64) > MAX_CTAS:
+        raise ValueError(f"flash attention takes at most {MAX_CTAS} "
+                         f"(batch x heads) x 64-row query tiles, got "
+                         f"{bh} x {-(-s // 64)}")
     ops = {name: _operand(t, q.dtype, (bh, s, d), dev)
            for name, t in (("q", q), ("k", k), ("v", v))}
     out = torch.empty_like(q)

@@ -182,9 +182,10 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 
 def _operand(a, dtype, shape, dev):
-    """``a`` itself, after checking that the kernel can take it."""
-    if a.device != dev or a.dtype != dtype or not a.is_contiguous() \
-            or tuple(a.shape) != tuple(shape):
+    """``a`` itself, after checking that the kernel can take it (the
+    cheapest checks first: this runs for every operand of every launch)."""
+    if a.dtype != dtype or a.shape != tuple(shape) or not a.is_contiguous() \
+            or a.device != dev:
         raise ValueError(f"kernel operand must be a contiguous {dtype} "
                          f"{tuple(shape)} tensor on {dev}; got "
                          f"{a.dtype} {tuple(a.shape)} on {a.device}")
@@ -205,13 +206,23 @@ def _noise_kw(ima_noise) -> dict:
 
 def _run(source: str, fn_name: str, params: ctypes.Structure, dev) -> None:
     """Launch ``fn_name`` of ``csrc/<source>.cu`` on the current stream of
-    ``dev`` and raise if CUDA refused the launch."""
-    fn = getattr(build.library(source), fn_name)
-    fn.argtypes = [ctypes.POINTER(type(params)), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ctypes.byref(params), stream)
+    ``dev`` and raise if CUDA refused the launch.
+
+    The function is bound once (``build.function``); the stream is read
+    without entering a device context when ``dev`` is already the current
+    device, which is the usual case."""
+    fn = build.function(source, fn_name, type(params))
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    # the raw pointer of torch.cuda.current_stream(index).cuda_stream,
+    # without building a Stream object
+    if index == current:
+        err = fn(ctypes.byref(params),
+                 torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(ctypes.byref(params),
+                     torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{source} launch failed: CUDA error {err}")
 

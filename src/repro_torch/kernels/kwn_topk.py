@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_macro import MAX_COLS, _operand, _ptr, _run
+from repro_torch.kernels.fused_macro import MAX_COLS, _operand, _run
 
 
 class _Params(ctypes.Structure):
@@ -44,13 +44,13 @@ def kwn_topk(mac: torch.Tensor, boundaries: torch.Tensor, k: int):
                          f"got {n}")
     n_codes = boundaries.shape[0] + 1
     f32 = torch.float32
-    ops = dict(mac=_operand(mac, f32, (m, n), dev),
-               bounds=_operand(boundaries, f32, (n_codes - 1,), dev))
-    mask = torch.empty((m, n), dtype=f32, device=dev)
-    steps = torch.empty((m, 1), dtype=torch.int32, device=dev)
-    params = _Params(**{name: _ptr(a) for name, a in ops.items()},
-                     mask=_ptr(mask), steps=_ptr(steps), m=m, n=n, k=int(k),
-                     n_codes=n_codes)
+    mac = _operand(mac, f32, (m, n), dev)
+    boundaries = _operand(boundaries, f32, (n_codes - 1,), dev)
+    mask = mac.new_empty((m, n))
+    steps = mac.new_empty((m, 1), dtype=torch.int32)
+    params = _Params(mac=mac.data_ptr(), bounds=boundaries.data_ptr(),
+                     mask=mask.data_ptr(), steps=steps.data_ptr(), m=m, n=n,
+                     k=int(k), n_codes=n_codes)
     _run("kwn_topk", "kwn_launch", params, dev)
     kwn_topk.launches += 1
     return mask, steps

@@ -17,7 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_macro import _operand, _ptr, _run
+from repro_torch.kernels.fused_macro import _operand, _run
 
 
 class _Params(ctypes.Structure):
@@ -37,23 +37,23 @@ def lif_step_fused(v: torch.Tensor, drive: torch.Tensor, mask: torch.Tensor,
                    v_reset: float = 0.0, v_lim: float = 8.0,
                    use_snl: bool = True):
     """All operands (M, N) f32; returns (v_out, spikes), both (M, N) f32."""
-    kw = dict(beta=beta, v_th1=v_th1, v_th2=v_th2, v_reset=v_reset,
-              v_lim=v_lim, use_snl=use_snl)
     if v.device.type == "cpu":
-        return ref.lif_step_ref(v, drive, mask, noise, **kw)
+        return ref.lif_step_ref(v, drive, mask, noise, beta=beta, v_th1=v_th1,
+                                v_th2=v_th2, v_reset=v_reset, v_lim=v_lim,
+                                use_snl=use_snl)
     if not v.is_cuda:
         raise ValueError(f"unsupported device {v.device}")
     dev = v.device
-    shape = tuple(v.shape)
-    ops = {name: _operand(a, torch.float32, shape, dev) for name, a in
-           (("v", v), ("drive", drive), ("mask", mask), ("noise", noise))}
-    v_out = torch.empty(shape, dtype=torch.float32, device=dev)
-    spikes = torch.empty(shape, dtype=torch.float32, device=dev)
-    vec4 = all(a.data_ptr() % 16 == 0
-               for a in (*ops.values(), v_out, spikes))
-    params = _Params(**{name: _ptr(a) for name, a in ops.items()},
-                     v_out=_ptr(v_out), spikes=_ptr(spikes), total=v.numel(),
-                     vec4=int(vec4), **{**kw, "use_snl": int(use_snl)})
+    shape, f32 = v.shape, torch.float32
+    ptrs = [_operand(a, f32, shape, dev).data_ptr()
+            for a in (v, drive, mask, noise)]
+    v_out = v.new_empty(shape)
+    spikes = v.new_empty(shape)
+    ptrs += [v_out.data_ptr(), spikes.data_ptr()]
+    vec4 = all(ptr % 16 == 0 for ptr in ptrs)
+    params = _Params(*ptrs, total=v.numel(), use_snl=int(use_snl),
+                     vec4=int(vec4), beta=beta, v_th1=v_th1, v_th2=v_th2,
+                     v_reset=v_reset, v_lim=v_lim)
     _run("lif_step", "lif_launch", params, dev)
     lif_step_fused.launches += 1
     return v_out, spikes

@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_macro import _operand, _ptr, _run
+from repro_torch.kernels.fused_macro import _operand, _run
 
 
 class _Params(ctypes.Structure):
@@ -40,13 +40,14 @@ def nlq_convert(x: torch.Tensor, boundaries: torch.Tensor,
     dev = x.device
     n_codes = levels.shape[0]
     f32 = torch.float32
-    ops = dict(x=_operand(x, f32, tuple(x.shape), dev),
-               bounds=_operand(boundaries, f32, (n_codes - 1,), dev),
-               levels=_operand(levels, f32, (n_codes,), dev))
-    codes = torch.empty(x.shape, dtype=torch.int32, device=dev)
-    recon = torch.empty(x.shape, dtype=f32, device=dev)
-    params = _Params(**{name: _ptr(a) for name, a in ops.items()},
-                     codes=_ptr(codes), recon=_ptr(recon), total=x.numel(),
+    x = _operand(x, f32, x.shape, dev)
+    boundaries = _operand(boundaries, f32, (n_codes - 1,), dev)
+    levels = _operand(levels, f32, (n_codes,), dev)
+    codes = x.new_empty(x.shape, dtype=torch.int32)
+    recon = x.new_empty(x.shape)
+    params = _Params(x=x.data_ptr(), bounds=boundaries.data_ptr(),
+                     levels=levels.data_ptr(), codes=codes.data_ptr(),
+                     recon=recon.data_ptr(), total=x.numel(),
                      n_codes=n_codes)
     _run("nlq_lut", "nlq_launch", params, dev)
     nlq_convert.launches += 1

@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.fused_macro import _operand, _ptr, _run
+from repro_torch.kernels.fused_macro import _operand, _run
 
 
 class _Params(ctypes.Structure):
@@ -42,12 +42,13 @@ def ternary_mac(x: torch.Tensor, msb: torch.Tensor, lsb: torch.Tensor,
     dev = x.device
     m, k_dim = x.shape
     n = msb.shape[1]
-    ops = dict(x=_operand(x, torch.int8, (m, k_dim), dev),
-               msb=_operand(msb, torch.int8, (k_dim, n), dev),
-               lsb=_operand(lsb, torch.int8, (k_dim, n), dev))
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    params = _Params(**{name: _ptr(a) for name, a in ops.items()},
-                     out=_ptr(out), m=m, k_dim=k_dim, n=n, ratio=ratio)
+    i8 = torch.int8
+    x = _operand(x, i8, (m, k_dim), dev)
+    msb = _operand(msb, i8, (k_dim, n), dev)
+    lsb = _operand(lsb, i8, (k_dim, n), dev)
+    out = x.new_empty((m, n), dtype=torch.float32)
+    params = _Params(x=x.data_ptr(), msb=msb.data_ptr(), lsb=lsb.data_ptr(),
+                     out=out.data_ptr(), m=m, k_dim=k_dim, n=n, ratio=ratio)
     _run("ternary_mac", "tmac_launch", params, dev)
     ternary_mac.launches += 1
     return out

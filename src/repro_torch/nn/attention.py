@@ -100,7 +100,11 @@ def mha_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: torch.Tensor,
     The new K/V are written into ``cache`` in place at each row's
     position: the values the reference's one-hot update gives (every other
     slot times 1 plus 0, the written one times 0 plus the new value),
-    without a second copy of the cache.
+    without a second copy of the cache.  A row at or past ``s_max`` has an
+    all-zero one-hot row in the reference, so its cache is left as it is:
+    the write goes to the last slot and puts its old value back, which
+    needs no host sync on ``pos`` and indexes nothing out of bounds.  The
+    cache is written through a flat view, so it must be contiguous.
     """
     b = x.shape[0]
     s_max = cache.k.shape[1]
@@ -111,9 +115,14 @@ def mha_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: torch.Tensor,
         q = layers.rope(q, pos[:, None], rope_theta)
         k_new = layers.rope(k_new, pos[:, None], rope_theta)
 
-    rows = torch.arange(b, device=x.device)
-    cache.k[rows, pos] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[rows, pos] = v_new[:, 0].to(cache.v.dtype)
+    # row i's slot in the cache seen as (B * S_max, n_kv, hd)
+    slot = torch.clamp(pos, max=s_max - 1) + torch.arange(
+        0, b * s_max, s_max, device=x.device)
+    past = (pos >= s_max)[:, None, None]
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        flat = buf.view(b * s_max, *buf.shape[2:])
+        flat.index_copy_(0, slot, torch.where(
+            past, flat.index_select(0, slot), new[:, 0].to(buf.dtype)))
 
     n_rep = n_heads // n_kv
     kk = _repeat_kv(cache.k, n_rep)                           # (B,S,H,hd)

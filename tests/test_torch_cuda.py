@@ -549,8 +549,72 @@ def test_flash_kernel_large_logits(cuda):
                                rtol=2e-5, atol=2e-5)
 
 
+def _assert_flash_gate(got, want, dtype):
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        g, w = got.float(), want.float()
+        tol = torch.clamp(_bf16_ulp(torch.maximum(g.abs(), w.abs())),
+                          min=2e-5)
+        assert bool(((g - w).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("d", [21, 80, 112, 192, 256])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_takes_every_head_dim(cuda, d, causal, dtype):
+    """Head dims padded inside the kernel's tiles (21 -> 32, 112, 192 and
+    256 on their own widths; 21 also takes the element-wise load path),
+    under the same gates, at a ragged S."""
+    q, k, v = _flash_inputs((4, 1000, d), dtype, cuda, seed=d)
+    got = kernels_flash.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _assert_flash_gate(got, ref.flash_attention_ref(q, k, v, causal), dtype)
+
+
+@pytest.mark.parametrize("d", [64, 192])
+def test_flash_kernel_rows_not_16_byte_aligned(cuda, d):
+    """A view one element into its storage: the bf16 kernel cannot use the
+    tensor maps there and loads element by element, with the same result
+    gate."""
+    rs = np.random.RandomState(d)
+    flat = torch.from_numpy(rs.randn(3 * 4 * 300 * d + 1).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = (flat[1 + i * 4 * 300 * d:1 + (i + 1) * 4 * 300 * d]
+               .view(4, 300, d) for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    got = kernels_flash.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    _assert_flash_gate(got, ref.flash_attention_ref(q, k, v, True),
+                       torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [21, 256])
+def test_flash_kernel_large_logits_at_head_dims(cuda, d):
+    q, k, v = (torch.round(t) for t in _flash_inputs(
+        (2, 1000, d), torch.float32, cuda, scale=30.0, seed=12))
+    got = kernels_flash.flash_attention_fwd(q, k, v, causal=True)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, True),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_refused_launch_raises_runtime_error(cuda):
+    """A launch CUDA refuses (here more dynamic shared memory than the
+    NLQ kernel may take without opting in) never runs; the wrapper raises
+    instead of returning an unwritten output."""
+    x = torch.zeros((4, 4), device=cuda)
+    n_codes = 16384                          # 128 KB of shared memory
+    with pytest.raises(RuntimeError, match="nlq_lut launch failed"):
+        kernels_nlq.nlq_convert(
+            x, torch.linspace(-1, 1, n_codes - 1, device=cuda),
+            torch.zeros(n_codes, device=cuda))
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros((2, 64, 256), device=cuda)
+    q = torch.zeros((2, 64, 257), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         kernels_flash.flash_attention_fwd(q, q, q)
     q = torch.zeros((2, 64, 64), device=cuda, dtype=torch.float16)
@@ -580,6 +644,27 @@ def test_lm_forward_launches_flash_once_per_layer(cuda):
                                torch.full((2,), 70, device=cuda), cfg)
     assert kernels_flash.flash_attention_fwd.launches == before
     assert logits.shape == (2, cfg.padded_vocab)
+
+
+def test_lm_prefill_at_head_dim_192_on_card_equals_cpu(cuda):
+    """nemotron-4-340b reduced to d_model 768 over 4 heads (head_dim 192,
+    the config's own): the prefill launches the flash kernel once a layer,
+    and its logits equal the CPU's in f32."""
+    cfg = lm_base.reduced(get_config("nemotron-4-340b"), d_model=768)
+    assert cfg.hd == 192
+    p_cpu = nn_module.materialize(lm.param_specs(cfg),
+                                  torch.Generator().manual_seed(0),
+                                  device="cpu")
+    p_gpu = nn_module.tree_map(lambda t: t.to(cuda), p_cpu)
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 70)))
+    before = kernels_flash.flash_attention_fwd.launches
+    got = lm.forward(p_gpu, {"tokens": toks.to(cuda)}, cfg, prefill=True)
+    torch.cuda.synchronize()
+    assert kernels_flash.flash_attention_fwd.launches - before == \
+        cfg.n_layers
+    want = lm.forward(p_cpu, {"tokens": toks}, cfg, prefill=True)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-32b"])

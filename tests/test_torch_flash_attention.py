@@ -73,6 +73,39 @@ def test_bf16_inputs_within_one_ulp_of_pallas_kernel(causal):
     assert np.all(np.abs(got - want) <= np.maximum(_bf16_ulp(big), 2e-5))
 
 
+HEAD_DIMS = [21, 80, 112, 192, 256]     # reduced configs and the registry's
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_version_matches_pallas_kernel_at_head_dims(d, causal):
+    """Head dims that are not powers of two (21 from ``reduced()``; 80
+    hubert-xlarge, 112 kimi-k2, 192 nemotron-4-340b) and 256 (gemma2,
+    recurrentgemma, xlstm): the Pallas kernel's blocks take any D, and so
+    does the plain version the card's kernel is held to."""
+    q, k, v = _qkv(d, (2, 128, d))
+    want = j_flash.flash_attention_fwd(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), causal=causal,
+                                       bq=64, bk=64)
+    got = _port(q, k, v, causal)
+    assert got.shape == (2, 128, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("d", [80, 256])
+def test_bf16_within_one_ulp_of_pallas_kernel_at_head_dims(d):
+    q, k, v = _qkv(d + 1, (2, 128, d))
+    qb, kb, vb = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(j_flash.flash_attention_fwd(
+        qb, kb, vb, causal=True, bq=64, bk=64), dtype=np.float32)
+    got = t_flash.flash_attention_fwd(
+        *(torch.from_numpy(np.asarray(a, dtype=np.float32))
+          .to(torch.bfloat16) for a in (qb, kb, vb)), causal=True)
+    got = got.float().numpy()
+    big = np.maximum(np.abs(got), np.abs(want))
+    assert np.all(np.abs(got - want) <= np.maximum(_bf16_ulp(big), 2e-5))
+
+
 def test_large_logits_stay_finite_and_match():
     """The JAX suite's large-logit case (inputs x30, scores up to ~1e3)
     with integer-valued inputs: the scores are then exact in any sum order,

@@ -369,6 +369,60 @@ def test_batched_engine_budget_and_sampling():
     assert greedy.dtype == torch.int32 and greedy.shape == (2, 1)
 
 
+@pytest.mark.parametrize("prompt_len", [7, 8, 9])
+def test_batched_engine_at_s_max_matches_reference(prompt_len):
+    """Prompts of ``s_max - 1``, ``s_max`` and ``s_max + 1`` tokens: the
+    reference's one-hot cache write is all zeros at ``pos >= s_max``, so
+    nothing is written and decoding goes on; the port gives its tokens."""
+    jc, tc = _cfgs("smollm-135m")
+    jp, tp = _params(jc, seed=1)
+    prompt = [int(t) for t in _tokens(np.random.RandomState(prompt_len),
+                                      jc.vocab_size, prompt_len)]
+    j_eng = j_engine.BatchedEngine(jc, jax.tree.map(jnp.asarray, jp),
+                                   batch_slots=1, s_max=8)
+    t_eng = t_engine.BatchedEngine(tc, tp, batch_slots=1, s_max=8,
+                                   device="cpu")
+    for eng, req in ((j_eng, j_engine.Request), (t_eng, t_engine.Request)):
+        eng.submit(req(uid=0, prompt=prompt, max_new_tokens=4))
+    want = [r.generated for r in j_eng.run()]
+    got = [r.generated for r in t_eng.run()]
+    assert got == want and len(got) == 1 and got[0]
+
+
+def test_mha_decode_past_s_max_matches_reference():
+    """``mha_decode`` with one row at ``pos = s_max`` and one inside: the
+    output and the cache equal the reference's (the row past the end
+    writes nothing and sees every slot)."""
+    jc, _ = _cfgs("smollm-135m")
+    rs = np.random.RandomState(4)
+    s_max, hd, d = 8, jc.hd, jc.d_model
+    widths = dict(wq=jc.n_heads * hd, wk=jc.n_kv * hd, wv=jc.n_kv * hd)
+    p = {name: {"w": (rs.randn(d, n) / np.sqrt(d)).astype(np.float32)}
+         for name, n in widths.items()}
+    p["wo"] = {"w": (rs.randn(jc.n_heads * hd, d) / np.sqrt(d))
+               .astype(np.float32)}
+    x = rs.randn(2, 1, d).astype(np.float32)
+    k, v = (rs.randn(2, s_max, jc.n_kv, hd).astype(np.float32)
+            for _ in range(2))
+    pos = np.array([s_max, 3], np.int32)
+    kw = dict(n_heads=jc.n_heads, n_kv=jc.n_kv, head_dim=hd,
+              rope_theta=jc.rope_theta)
+    want, jcache = j_attention.mha_decode(
+        jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+        j_attention.KVCache(jnp.asarray(k), jnp.asarray(v)),
+        jnp.asarray(pos), **kw)
+    got, tcache = t_attention.mha_decode(
+        jax.tree.map(torch.from_numpy, p), torch.from_numpy(x),
+        t_attention.KVCache(torch.from_numpy(k.copy()),
+                            torch.from_numpy(v.copy())),
+        torch.from_numpy(pos).long(), **kw)
+    _close(got, want)
+    _close(tcache.k, jcache.k)
+    _close(tcache.v, jcache.v)
+    np.testing.assert_array_equal(tcache.k[0].numpy(), k[0])
+    np.testing.assert_array_equal(tcache.v[0].numpy(), v[0])
+
+
 @pytest.mark.parametrize("cim", [False, True], ids=["dense", "cim"])
 def test_launch_serve_smoke_on_cpu(cim, capsys):
     argv = ["--smoke", "--device", "cpu"] + (["--cim"] if cim else [])
