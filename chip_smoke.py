@@ -9,12 +9,17 @@ Phases (any failure raises, so the exit code is non-zero):
    (sm_90a), one nvcc per source, all started together; report each
    flash-kernel width's registers and spills (``-Xptxas -v``) and count
    the tensor-core instructions (HGMMA, HMMA) in the flash library's SASS
-   (``cuobjdump -sass``): the bf16 kernels must have them;
+   (``cuobjdump -sass``): the bf16 kernels must have them; report the
+   registers, static shared memory, stack frame and spills of the
+   kernels of #1 (``fmsk_head<CPL>``, ``fmsk_lif``) and #3
+   (``fmskb_mac``, ``fmskb_chain``, ``fmskb_dw_part``, ``fmskb_dw_sum``);
 3. kernels vs plain versions, on the same inputs on the card:
    - KWN: the public wrapper ``ops.fused_macro_seq`` (padding,
      ``n_valid``, activity gating, ``row_ctl`` or a scalar seed) against
      ``kernels/ref.py`` on the same unpadded inputs, at the engine's round
-     shape, at T=32 and at a ragged shape, clean and with counter noise;
+     shape, at T=32, at a ragged shape, at N=200 (padded to 256) and at
+     N=1024 (MAX_COLS), clean and with counter noise, and at the training
+     shape (T=30, M=64) with the Fig. 7 noise and the training trace;
    - NLD: ``ops.fused_macro_seq(mode="nld")`` the same way, at the
      DVS-Gesture round shape and sequence (J=2 branches of 128 neurons)
      and at a ragged shape with per-branch column padding (J=3);
@@ -95,7 +100,8 @@ Phases (any failure raises, so the exit code is non-zero):
      a layer, logits equal to the CPU's in f32;
 5. timings: each kernel against its plain version on the card at its
    main path's shape (ms per round for KWN and NLD, ms per launch for the
-   stack) beside its roofline bound; the KWN engine's requests/s and round
+   stack) beside its roofline bound, and #1 and #3 also by their device
+   time under ``torch.profiler``; the KWN engine's requests/s and round
    ms p50/p95 over an 8192-request clean burst, and a breakdown of a
    1024-request burst under the engine tracer and ``torch.profiler``; the
    NLD engine's requests/s and whole-tick time over a 2048-request clean
@@ -103,7 +109,9 @@ Phases (any failure raises, so the exit code is non-zero):
    and remat) against its plain version, its bound and one
    ``torch.matmul`` of the contraction alone, the forward with and
    without its trace, and the whole silicon step (ms, steps/s, device
-   idle share under ``torch.profiler``); kernels #5-#8 per launch at the
+   idle share under ``torch.profiler``, and the share of it in kernels
+   #1 and #3); kernel #1 with its trace at the training shape against
+   its plain version and bound; kernels #5-#8 per launch at the
    chain's step shape (CUDA events, and device time under the profiler)
    against their plain versions, bounds and, where one PyTorch call
    computes the same function, ``torch.matmul`` / ``torch.bucketize``;
@@ -224,12 +232,56 @@ def device_phase() -> tuple[str, str]:
     return torch.cuda.get_device_name(0), smi
 
 
-def build_phase() -> tuple[float, dict]:
+def build_phase() -> tuple[float, dict, dict]:
     secs = build.build_all()
     for name, text in build.BUILD_LOG.items():
         log(f"[nvcc {name}]\n{text.strip()}")
     log(f"build: {secs:.1f} s for {build.sources()}")
-    return secs, flash_build_report()
+    return secs, flash_build_report(), seq_kwn_build_report()
+
+
+SEQ_KWN_KERNELS = ("fmsk_head", "fmsk_lif", "fmskb_mac", "fmskb_chain",
+                   "fmskb_dw_part", "fmskb_dw_sum")
+
+
+def seq_kwn_build_report() -> dict:
+    """Registers, static shared memory, stack frame and spill bytes
+    (``-Xptxas -v``) of each kernel of #1 (``fmsk_head<CPL>``,
+    ``fmsk_lif``) and #3 (``fmskb_*``).  The staged-MAC kernels take their
+    plane ring as dynamic shared memory (64 KB at 128 columns a tile),
+    which ptxas does not report."""
+    rep: dict = {}
+    pat = re.compile(r"\d+(" + "|".join(SEQ_KWN_KERNELS)
+                     + r")(?:ILi(\d+)E)?")
+    for src in ("fused_macro_seq_kwn", "fused_macro_seq_kwn_bwd"):
+        cur = None
+        for ln in build.BUILD_LOG.get(src, "").splitlines():
+            m = re.search(r"Function properties for _ZN(\d+)(\S+)", ln)
+            if m:
+                # past the anonymous namespace's length-prefixed name
+                k = pat.match(m.group(2)[int(m.group(1)):])
+                cur = None if k is None else rep.setdefault(
+                    k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""),
+                    {})
+            elif cur is not None and "spill stores" in ln:
+                cur["stack_bytes"] = int(re.search(
+                    r"(\d+) bytes stack frame", ln).group(1))
+                cur["spill_bytes"] = sum(int(x) for x in re.findall(
+                    r"(\d+) bytes spill", ln))
+            elif cur is not None and "Used" in ln:
+                cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 ln).group(1))
+                sm = re.search(r"(\d+) bytes smem", ln)
+                cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+                cur = None
+    if not all(any(key.startswith(name) for key in rep)
+               for name in SEQ_KWN_KERNELS):
+        raise AssertionError(f"ptxas report lacks a seq-KWN kernel: {rep}")
+    log("seq-KWN kernels (registers / static smem / stack / spill bytes): "
+        + ", ".join(f"{k} {v.get('registers')}/{v.get('static_smem_bytes')}"
+                    f"/{v.get('stack_bytes')}/{v.get('spill_bytes')}"
+                    for k, v in rep.items()))
+    return rep
 
 
 def flash_build_report() -> dict:
@@ -327,52 +379,51 @@ def compare_phase(dev) -> dict:
     """The public wrapper ``ops.fused_macro_seq`` on the card (padding,
     ``n_valid``, the activity map, ``row_ctl`` or the scalar seed it turns
     into one, slicing back) against the plain version on the same unpadded
-    card tensors."""
+    card tensors: every output equal and the membranes (and the training
+    trace) at 0 ULP, clean and noisy."""
     rs = np.random.RandomState(SEED)
     worst, total_mismatch = 0.0, 0
-    cases = [(shape, noisy, how)
+    cases = [(shape, noisy, how, False)
              for shape in ((ROUND, SLOTS, CFG.n_in, CFG.n_hidden),
-                           (32, 64, 512, 128), (32, 37, 300, 200))
+                           (32, 64, 512, 128), (32, 37, 300, 200),
+                           (ROUND, SLOTS, CFG.n_in, 200),
+                           (ROUND, SLOTS, 300, fused_macro.MAX_COLS))
              for noisy, how in ((False, "row_ctl"), (True, "row_ctl"),
                                 (True, "scalar"))]
-    for (t, m, kdim, n), noisy, how in cases:
+    cases.append(((CFG.n_steps, TRAIN_BATCH, CFG.n_in, CFG.n_hidden), True,
+                  "row_ctl", True))
+    for (t, m, kdim, n), noisy, how, trace in cases:
         args, nz, noise_kw = _operands(rs, t, m, kdim, n, noisy, dev)
         stream_kw, rc = _streams(rs, m, how, dev)
-        kw = dict(k=12, drive_gain=0.25, **noise_kw)
+        kw = dict(k=12, drive_gain=0.25, train_trace=trace, **noise_kw)
         before = fused_macro.fused_macro_seq.launches
         got = ops.fused_macro_seq(*args, nz, device=dev, **stream_kw, **kw)
         torch.cuda.synchronize()
         if fused_macro.fused_macro_seq.launches != before + 1:
             raise AssertionError("ops.fused_macro_seq did not launch the "
                                  "kernel once")
-        mac_w, v_w, spk_w, mask_w, st_w = ref.fused_macro_seq_ref(
-            *args, nz, row_ctl=rc, **kw)
+        want = ref.fused_macro_seq_ref(*args, nz, row_ctl=rc, **kw)
+        mac_w, v_w, spk_w, mask_w, st_w = want[:5]
         st_w = st_w[..., 0]
-        mac_g, v_g, spk_g, mask_g, st_g = got
-        ulps = (v_g.view(torch.int32).long()
-                - v_w.view(torch.int32).long()).abs().max().item()
+        mac_g, v_g, spk_g, mask_g, st_g = got[:5]
+        ulps = _ulps(v_g, v_w)
+        if trace:
+            ulps = max(ulps, _ulps(got[5], want[5]))
         err = (v_g - v_w).abs().max().item()
         worst = max(worst, err)
         mism = int((mask_g != mask_w).sum() + (spk_g != spk_w).sum())
         total_mismatch += mism
         n_el = mask_w.numel()
         tag = (f"T={t} M={m} K={kdim} N={n} "
-               f"{'noisy' if noisy else 'clean'} {how}")
+               f"{'noisy' if noisy else 'clean'} {how}"
+               f"{' trace' if trace else ''}")
         log(f"compare {tag}: mask/spike mismatches {mism} of {2 * n_el}, "
             f"steps equal {bool(torch.equal(st_g, st_w))}, mac equal "
-            f"{bool(torch.equal(mac_g, mac_w))}, membrane max |err| "
+            f"{bool(torch.equal(mac_g, mac_w))}, membranes max |err| "
             f"{err:.3g} ({ulps} ulp)")
-        if not torch.equal(mac_g, mac_w):
-            raise AssertionError(f"{tag}: MAC differs")
-        if not noisy:
-            if mism or not torch.equal(st_g, st_w) or ulps > 1:
-                raise AssertionError(f"{tag}: kernel != plain version")
-        else:
-            if mism > 1e-3 * 2 * n_el:
-                raise AssertionError(f"{tag}: {mism} noisy mismatches")
-            if torch.equal(mask_g, mask_w) and (
-                    not torch.equal(spk_g, spk_w) or ulps > 1):
-                raise AssertionError(f"{tag}: same winners, other LIF")
+        if (mism or ulps or not torch.equal(mac_g, mac_w)
+                or not torch.equal(st_g, st_w)):
+            raise AssertionError(f"{tag}: kernel != plain version")
     return {"max_abs_err": worst, "mismatches": total_mismatch,
             "cases": len(cases)}
 
@@ -756,6 +807,7 @@ def timing_phase(dev) -> dict:
     kernel_ms = [_time_ms(launch, 200) for _ in range(2)]
     plain_ms = [_time_ms(plain, 5) for _ in range(2)]
     kernel_ms += [_time_ms(launch, 200)]
+    device_ms = _device_ms_per_launch(launch, 50)
     # the least the card could take: each operand read once, each output
     # written once; the MAC the data needs (2 ops per active input and
     # column) plus the ramp compares
@@ -768,14 +820,16 @@ def timing_phase(dev) -> dict:
     ops_s = ops_count / F32_FLOPS
     bound_ms = 1e3 * max(bytes_s, ops_s)
     res = {"kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
+           "device_ms": device_ms,
            "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
            "bound_ms": bound_ms,
            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
            "bytes": in_bytes + out_bytes, "ops": ops_count,
            "shape": {"R": t, "S": m, "K": kdim, "N": n}}
     log(f"timing R={t} S={m} K={kdim} N={n}: kernel {res['kernel_ms']:.4f} "
-        f"ms/round, plain {res['plain_ms']:.3f} ms/round, bound "
-        f"{bound_ms * 1e3:.3f} us ({res['bound_by']})")
+        f"ms/round (device {device_ms:.4f} under the profiler), plain "
+        f"{res['plain_ms']:.3f} ms/round, bound {bound_ms * 1e3:.3f} us "
+        f"({res['bound_by']})")
     return res
 
 
@@ -1196,8 +1250,25 @@ def train_timing_phase(params, dev) -> dict:
         launch = lambda trace=trace: fused_macro.fused_macro_seq(
             *fwd_ops, mac_telemetry=trace, train_trace=trace, **fwd_kw)
         fwd_ms[trace] = [_time_ms(launch, 100) for _ in range(3)]
+    fwd_device_ms = _device_ms_per_launch(launch, 50)   # with the trace
     out = fused_macro.fused_macro_seq(*fwd_ops, mac_telemetry=True,
                                       train_trace=True, **fwd_kw)
+    ref_kw = {k: v for k, v in fwd_kw.items() if k not in ("bm", "bk")}
+    fwd_plain_ms = [_time_ms(lambda: ref.fused_macro_seq_ref(
+        *fwd_ops[:8], row_ctl=rc, mac_telemetry=True, train_trace=True,
+        **ref_kw), 2) for _ in range(2)]
+    # #1 with its trace: each operand read once (x, planes, codebook,
+    # scale, v0, activity, row_ctl), each output written once (v_out; MAC,
+    # spikes, mask and trace stacks; steps); the MAC the events need plus
+    # the ramp compares (the counter noise's arithmetic is not counted, so
+    # the bound is lower than the work)
+    n_codes = fw.levels.shape[0]
+    fwd_bytes = (xi.numel() + 2 * kdim * n + 4 * (2 * n_codes - 1 + n)
+                 + 4 * m * n + 4 * act.numel() + 4 * rc.numel()
+                 + 4 * m * n + 4 * 4 * t * m * n + 4 * t * m)
+    fwd_ops_n = (2 * int((xi != 0).sum()) * n
+                 + t * m * n * (n_codes - 1))
+    fwd_bound_ms, fwd_bound_by = _bound(fwd_bytes, fwd_ops_n)
     torch.manual_seed(SEED + 12)
     g_spk = torch.randn((t, m, n), device=dev)
     g_vfin = torch.randn((m, n), device=dev)
@@ -1212,6 +1283,7 @@ def train_timing_phase(params, dev) -> dict:
             *operands, **GRAD_KW)
         kernel_ms = [_time_ms(launch, 200) for _ in range(3)]
         plain_ms = [_time_ms(plain, 5) for _ in range(2)]
+        device_ms = _device_ms_per_launch(launch, 50)
         # each operand read once, each output written once; the
         # contraction over the events (and the remat MAC) plus the chain
         in_bytes = (xi.numel() + 4 * (3 * t * m * n + m * n + n)
@@ -1222,6 +1294,7 @@ def train_timing_phase(params, dev) -> dict:
         bound_ms, bound_by = _bound(in_bytes + out_bytes, n_ops)
         timing["remat" if remat else "residual"] = {
             "kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
+            "device_ms": device_ms,
             "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": in_bytes + out_bytes, "ops": n_ops}
@@ -1259,11 +1332,19 @@ def train_timing_phase(params, dev) -> dict:
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / 5
     (ROOT / "chiprun_out" / "chip_smoke_train_profile.txt").write_text(
         table.table(sort_by="self_cpu_time_total", row_limit=40))
+    seq_kwn_ms = sum(_device_us(e) for e in kernels
+                     if "fmsk" in e.key) / 1e3 / 5
     res = {"bwd": timing, "library_ms": library_ms,
            "fwd_ms": {"trace": min(fwd_ms[True]),
                       "no_trace": min(fwd_ms[False]),
                       "trace_all": fwd_ms[True],
-                      "no_trace_all": fwd_ms[False]},
+                      "no_trace_all": fwd_ms[False],
+                      "device_trace": fwd_device_ms,
+                      "plain_trace": min(fwd_plain_ms),
+                      "plain_trace_all": fwd_plain_ms,
+                      "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by},
+           "seq_kwn_device_ms_per_step": seq_kwn_ms,
+           "seq_kwn_device_share": seq_kwn_ms / busy_ms,
            "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
            "device_busy_ms_per_step": busy_ms,
            "device_idle_share": 1.0 - busy_ms / step_ms,
@@ -1273,18 +1354,24 @@ def train_timing_phase(params, dev) -> dict:
            "shape": {"T": t, "M": m, "K": kdim, "N": n, "nnz": nnz}}
     for pol, tm in timing.items():
         log(f"bwd timing {pol} T={t} M={m} K={kdim} N={n}: kernel "
-            f"{tm['kernel_ms']:.4f} ms/launch, plain {tm['plain_ms']:.3f} "
-            f"ms, bound {tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
+            f"{tm['kernel_ms']:.4f} ms/launch (device {tm['device_ms']:.4f}"
+            f"), plain {tm['plain_ms']:.3f} ms, bound "
+            f"{tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
     log(f"contraction alone, torch.matmul (K, T*M) @ (T*M, N): "
         f"{library_ms:.4f} ms; seq-KWN forward at the training shape: "
         f"{res['fwd_ms']['no_trace']:.4f} ms, with trace and MAC "
-        f"{res['fwd_ms']['trace']:.4f} ms")
+        f"{res['fwd_ms']['trace']:.4f} ms (device "
+        f"{fwd_device_ms:.4f}; plain "
+        f"{res['fwd_ms']['plain_trace']:.3f} ms, bound "
+        f"{fwd_bound_ms * 1e3:.3f} us ({fwd_bound_by}))")
     log(f"silicon step (batch {m}): {step_ms:.3f} ms, "
         f"{res['steps_per_s']:.1f} steps/s; device busy {busy_ms:.3f} ms a "
         f"step under the profiler (idle share "
         f"{res['device_idle_share']:.3f})")
     for key, count, ms in res["top_device"][:5]:
         log(f"  device {ms:.3f} ms in {count} launches: {key[:80]}")
+    log(f"kernels #1 and #3 (fmsk*): {seq_kwn_ms:.4f} ms of device time a "
+        f"step, {res['seq_kwn_device_share']:.3f} of it")
     return res
 
 
@@ -2237,7 +2324,7 @@ def main() -> None:
     t0 = time.perf_counter()
     kind, smi = device_phase()
     dev = torch.device("cuda")
-    build_s, flash_build = build_phase()
+    build_s, flash_build, seq_kwn_build = build_phase()
     cmp = {"kwn": compare_phase(dev), "nld": compare_nld_phase(dev),
            "stack": compare_stack_phase(dev),
            "train": compare_train_phase(dev),
@@ -2315,15 +2402,21 @@ def main() -> None:
         f"{TRAIN_BATCH}: {tt['step_ms']:.3f} ms, {tt['steps_per_s']:.1f} "
         f"steps/s, device idle share {tt['device_idle_share']:.3f}; "
         f"seq-KWN forward with trace {tt['fwd_ms']['trace']:.4f} ms "
-        f"(without {tt['fwd_ms']['no_trace']:.4f} ms)")
+        f"(without {tt['fwd_ms']['no_trace']:.4f} ms); kernels #1 and #3 "
+        f"{tt['seq_kwn_device_share']:.3f} of the step's device time")
     path = "src/repro/kernels/fused_macro.py"
     kwn_launches = (main_res["clean"]["launches"]
                     + main_res["noisy"]["launches"]
                     + train_res["forward_launches"]
                     + sum(train_res["step_path_launches"].values()))
     record = {"kernels": [
-        _record("fused_macro_seq_kwn", f"{path}:524", kwn_launches,
-                cmp["kwn"], timing["kwn"]),
+        dict(_record("fused_macro_seq_kwn", f"{path}:524", kwn_launches,
+                     cmp["kwn"], timing["kwn"]),
+             device_ms=timing["kwn"]["device_ms"],
+             ms_train=tt["fwd_ms"]["trace"],
+             device_ms_train=tt["fwd_ms"]["device_trace"],
+             plain_ms_train=tt["fwd_ms"]["plain_trace"],
+             bound_ms_train=tt["fwd_ms"]["bound_ms"]),
         _record("fused_macro_seq_nld", f"{path}:583",
                 nld_res["clean"]["launches"] + nld_res["noisy"]["launches"],
                 cmp["nld"], timing["nld"]),
@@ -2331,10 +2424,15 @@ def main() -> None:
                 stack_res["clean"]["launches"]
                 + stack_res["noisy"]["launches"],
                 cmp["stack"], timing["stack"]),
-        _record("fused_macro_seq_kwn_bwd",
-                "src/repro/kernels/fused_macro_grad.py:73",
-                train_res["backward_launches"], cmp["train"]["bwd"],
-                tt["bwd"]["residual"], library_ms=tt["library_ms"])]
+        dict(_record("fused_macro_seq_kwn_bwd",
+                     "src/repro/kernels/fused_macro_grad.py:73",
+                     train_res["backward_launches"], cmp["train"]["bwd"],
+                     tt["bwd"]["residual"], library_ms=tt["library_ms"]),
+             device_ms=tt["bwd"]["residual"]["device_ms"],
+             ms_remat=tt["bwd"]["remat"]["kernel_ms"],
+             device_ms_remat=tt["bwd"]["remat"]["device_ms"],
+             plain_ms_remat=tt["bwd"]["remat"]["plain_ms"],
+             bound_ms_remat=tt["bwd"]["remat"]["bound_ms"])]
         + [dict(_record(name, f"src/repro/kernels/{src}.py:{line}",
                         composed_res["chain"]["launches"][name]
                         + composed_res["stack_chain"]["launches"][name],
@@ -2356,6 +2454,7 @@ def main() -> None:
                 max_abs_err_bf16=cmp["flash"]["max_abs_err_bf16"])]}
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "build_s": build_s, "flash_build": flash_build,
+         "seq_kwn_build": seq_kwn_build,
          "compare": cmp,
          "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
                        "train": train_res, "composed": composed_res,

@@ -3,7 +3,10 @@
 // chain's stages (ternary_mac.cu, nlq_lut.cu, kwn_topk.cu, lif_step.cu):
 // the counter PRNG
 // and the Fig. 7 noise model, the event-driven twin-cell MAC, the ramp
-// conversion, the KWN priority sweep and the LIF update.
+// conversion, the KWN priority sweep and the LIF update; and, for the
+// seq-KWN forward's head and its backward's remat pass
+// (fused_macro_seq_kwn_bwd.cu), bulk-copy (TMA) staging on mbarriers and the
+// twin-cell MAC from weight planes staged in shared memory.
 //
 // Every function reproduces the JAX reference's rounding: the kernels are
 // built with -fmad=false, and the reference's fused multiply-adds are
@@ -306,6 +309,289 @@ __device__ __forceinline__ float lif_update(float v, float drive, bool active,
   const float vn = lif_clip(v, drive, active, nz, use_snl, lp);
   *spike = vn >= lp.v_th1 ? 1.0f : 0.0f;
   return *spike > 0.0f ? lp.v_reset : vn;
+}
+
+// ---------------------------------------------------------------------------
+// Staging through shared memory by bulk copies (TMA) on mbarriers, and the
+// staged twin-cell MAC of the seq-KWN forward's head and the backward's
+// remat pass: the work that does not depend on the membrane, spread over
+// every (step, row) pair.
+// ---------------------------------------------------------------------------
+
+constexpr int kStageRows = 128;   // K rows of one staged plane tile
+constexpr int kStages = 3;        // tiles of the staged MAC's ring
+constexpr int kItemWarps = 8;     // item warps of a staged-MAC CTA
+constexpr int kMacThreads = 32 * (kItemWarps + 1);   // + the copy warp
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Makes the initialised mbarriers visible to the async proxy.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Bulk copies of a rows x bytes tile (row strides src_ld in global memory,
+// dst_ld in shared memory), issued by the lanes of one warp and completing
+// on `bar`: one copy when the tile is contiguous on both sides, else one a
+// row.  Bytes, strides and addresses are multiples of 16.
+__device__ __forceinline__ void bulk_tile(int8_t* dst, int dst_ld,
+                                          const int8_t* src, size_t src_ld,
+                                          int rows, int bytes, uint64_t* bar,
+                                          int lane) {
+  if (src_ld == (size_t)bytes && dst_ld == bytes) {
+    if (lane == 0) bulk_g2s(dst, src, (uint32_t)(rows * bytes), bar);
+    return;
+  }
+  for (int r = lane; r < rows; r += 32)
+    bulk_g2s(dst + r * dst_ld, src + (size_t)r * src_ld, (uint32_t)bytes,
+             bar);
+}
+
+// The same tile copied by plain loads and stores of every thread of the
+// block (rows the bulk copy cannot take).
+__device__ __forceinline__ void copy_tile(int8_t* dst, int dst_ld,
+                                          const int8_t* src, size_t src_ld,
+                                          int rows, int bytes) {
+  for (int i = threadIdx.x; i < rows * bytes; i += blockDim.x) {
+    const int r = i / bytes, c = i - r * bytes;
+    dst[r * dst_ld + c] = src[(size_t)r * src_ld + c];
+  }
+}
+
+// Whether the (K, n) int8 planes and the events at x can be staged by bulk
+// copies: 16-byte aligned rows.
+inline bool planes_bulk(const void* msb, const void* lsb, const void* x,
+                        int n) {
+  return ((uintptr_t)msb | (uintptr_t)lsb | (uintptr_t)x) % 16 == 0
+         && n % 16 == 0;
+}
+
+// ramp_code for CPT values at once: each boundary is loaded once for all of
+// them, eight loads in flight at a time.  The same count, so the same codes.
+template <int CPT>
+__device__ __forceinline__ void ramp_codes(const float (&x)[CPT],
+                                           int (&code)[CPT],
+                                           const float* bounds,
+                                           int n_codes) {
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) code[j] = 0;
+  int i = 0;
+  for (; i + 8 <= n_codes - 1; i += 8) {
+    float b[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) b[u] = bounds[i + u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) code[j] += x[j] > b[u];
+  }
+  for (; i < n_codes - 1; ++i) {
+    const float b = bounds[i];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) code[j] += x[j] > b;
+  }
+}
+
+// float(v) for an int8 value, exact, by integer add and one float
+// subtraction (the 2^23 + 2^22 trick) instead of the quarter-rate I2F.
+__device__ __forceinline__ float i8_to_f32(int v) {
+  return __int_as_float(0x4B400000 + v) - 0x1.8p23f;
+}
+
+// mac_add_rows for a staged tile: rows of BN = 32 CPT columns, all in
+// bounds (columns past the layer hold stale bytes whose sums are never
+// read), so no column is guarded and each event's 2 CPT plane bytes load
+// together; two events a pass, added in order.  With ternary events and
+// planes every product (s * w, ratio * m) is exact, so fmaf rounds as
+// mac_add_rows' multiply-then-add does: the same bits.
+template <int CPT>
+__device__ __forceinline__ void mac_add_rows_staged(float (&acc)[CPT],
+                                                    unsigned live, int xv,
+                                                    const int8_t* msb,
+                                                    const int8_t* lsb,
+                                                    float ratio, int lane) {
+  constexpr int BN = 32 * CPT;
+  while (live) {
+    const int b0 = __ffs(live) - 1;
+    live &= live - 1;
+    const bool two = live != 0u;
+    const int b1 = two ? __ffs(live) - 1 : b0;
+    if (two) live &= live - 1;
+    const float s0 = i8_to_f32(__shfl_sync(kFull, xv, b0));
+    const float s1 = i8_to_f32(__shfl_sync(kFull, xv, b1));
+    int m0[CPT], l0[CPT], m1[CPT], l1[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      m0[j] = msb[b0 * BN + lane + 32 * j];
+      l0[j] = lsb[b0 * BN + lane + 32 * j];
+      m1[j] = msb[b1 * BN + lane + 32 * j];
+      l1[j] = lsb[b1 * BN + lane + 32 * j];
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      acc[j] = fmaf(s0, fmaf(ratio, i8_to_f32(m0[j]), i8_to_f32(l0[j])),
+                    acc[j]);
+    if (two) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        acc[j] = fmaf(s1, fmaf(ratio, i8_to_f32(m1[j]), i8_to_f32(l1[j])),
+                      acc[j]);
+    }
+  }
+}
+
+// Dynamic shared memory of staged_mac's ring for BN columns a tile and
+// `items` (step, row) items a CTA: kStages stages of (kStageRows x BN) MSB
+// and LSB planes and the items' (items x kStageRows) event bytes, then one
+// mbarrier a stage.
+__host__ __device__ constexpr int staged_mac_smem(int bn, int items) {
+  return kStages * kStageRows * (2 * bn + items) + 8 * kStages;
+}
+
+// The MAC of IPW (step, row) items per warp for NCT column tiles of
+// BN = 32 CPT columns, the first starting at column c_base.  The CTA owns
+// kItemWarps * IPW consecutive items, of which the first n_rows exist; their
+// event rows (k_dim ternary int8 values each, the first at x_cta) and the
+// (K, n) planes stream through a kStages-stage ring in shared memory
+// (`ring`, staged_mac_smem(BN, kItemWarps * IPW) bytes, 16-byte aligned).
+// The block is kMacThreads threads: kItemWarps item warps and, last, a copy
+// warp.  With `bulk` (planes_bulk) the copy warp issues each tile as bulk
+// copies that complete on the stage's mbarrier, kStages - 1 tiles ahead of
+// the MAC, off the item warps' path; otherwise every thread copies it with
+// plain loads.  Each byte is read from global memory once per CTA.  Every
+// thread of the block must call it (it holds __syncthreads).
+//
+// Item i of warp w is slot w * IPW + i; on[i] false: no events (its MAC
+// stays 0).  occ[i] gates it (one word per bk rows of K, or null): a chunk
+// whose word is 0 is not read.  Events are added in ascending K, each as
+// acc + s * (ratio * msb + lsb) (mac_add_rows_staged): mac_events' order
+// and rounding, so the same bits.  After the last K tile of column tile ct,
+// epi(ct, acc) receives acc[i][j] for column c_base + BN ct + lane + 32 j.
+template <int CPT, int NCT, int IPW, class Epi>
+__device__ __forceinline__ void staged_mac(
+    int8_t* ring, const int8_t* msb, const int8_t* lsb, int k_dim, int n,
+    int c_base, bool bulk, const int8_t* x_cta, int n_rows,
+    const bool (&on)[IPW], const int32_t* const (&occ)[IPW], int bk,
+    float ratio, Epi&& epi) {
+  constexpr int BN = 32 * CPT;
+  constexpr int kItems = kItemWarps * IPW;
+  constexpr int kStage = kStageRows * (2 * BN + kItems);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_kt = (k_dim + kStageRows - 1) / kStageRows;
+  const int total = NCT * n_kt;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  if (bulk && threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(&bar[i]);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  // tile q into stage q % kStages (called after a barrier that every read
+  // of the stage's previous tile precedes)
+  auto issue = [&](int q) {
+    if (q >= total) return;
+    const int ct = q / n_kt, k0 = (q - ct * n_kt) * kStageRows;
+    const int c0 = c_base + ct * BN;
+    const int rows = min(kStageRows, k_dim - k0), cols = min(BN, n - c0);
+    int8_t* st = ring + (q % kStages) * kStage;
+    const size_t g = (size_t)k0 * n + c0;
+    if (bulk) {
+      if (warp != kItemWarps) return;
+      uint64_t* b = &bar[q % kStages];
+      if (lane == 0)
+        mbar_expect(b, (uint32_t)((cols > 0 ? 2 * rows * cols : 0)
+                                  + n_rows * rows));
+      __syncwarp();
+      if (cols > 0) {
+        bulk_tile(st, BN, msb + g, n, rows, cols, b, lane);
+        bulk_tile(st + kStageRows * BN, BN, lsb + g, n, rows, cols, b,
+                  lane);
+      }
+      bulk_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, k_dim,
+                n_rows, rows, b, lane);
+    } else {
+      if (cols > 0) {
+        copy_tile(st, BN, msb + g, n, rows, cols);
+        copy_tile(st + kStageRows * BN, BN, lsb + g, n, rows, cols);
+      }
+      copy_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, k_dim,
+                n_rows, rows);
+    }
+  };
+  for (int q = 0; q < kStages - 1; ++q) issue(q);
+  int q = 0;
+#pragma unroll
+  for (int ct = 0; ct < NCT; ++ct) {
+    float acc[IPW][CPT];
+#pragma unroll
+    for (int i = 0; i < IPW; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) acc[i][j] = 0.0f;
+    for (int kt = 0; kt < n_kt; ++kt, ++q) {
+      const int k0 = kt * kStageRows, k1 = min(k_dim, k0 + kStageRows);
+      // the gate words of this tile are loaded here and read after the
+      // barrier, so their loads are in flight while the stage lands
+      int word[IPW][kStageRows / 32];
+#pragma unroll
+      for (int i = 0; i < IPW; ++i)
+#pragma unroll
+        for (int u = 0; u < kStageRows / 32; ++u) {
+          const int kc = k0 + 32 * u;
+          word[i][u] = on[i] && kc < k1
+                       ? (occ[i] == nullptr ? 1 : occ[i][kc / bk]) : 0;
+        }
+      if (bulk) mbar_wait(&bar[q % kStages], (q / kStages) & 1);
+      __syncthreads();
+      issue(q + kStages - 1);
+      const int8_t* s_msb = ring + (q % kStages) * kStage;
+      const int8_t* s_lsb = s_msb + kStageRows * BN;
+      const int8_t* s_x = s_lsb + kStageRows * BN;
+#pragma unroll
+      for (int i = 0; i < IPW; ++i) {
+        if (warp == kItemWarps) break;   // the copy warp
+        const int8_t* xs = s_x + (warp * IPW + i) * kStageRows;
+#pragma unroll
+        for (int u = 0; u < kStageRows / 32; ++u) {
+          const int xv = word[i][u] != 0 ? xs[32 * u + lane] : 0;
+          const unsigned live = __ballot_sync(kFull, xv != 0);
+          mac_add_rows_staged<CPT>(acc[i], live, xv, s_msb + 32 * u * BN,
+                                   s_lsb + 32 * u * BN, ratio, lane);
+        }
+      }
+    }
+    epi(ct, acc);
+  }
 }
 
 }  // namespace fm

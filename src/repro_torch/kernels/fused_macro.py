@@ -6,11 +6,14 @@ Counterpart of ``repro.kernels.fused_macro`` (``TilePlan``,
 replace the Pallas kernels (the backward of the first is in
 ``kernels.fused_macro_grad``):
 
-* ``csrc/fused_macro_seq_kwn.cu`` (``_seq_kwn_kernel``): per time step the
-  twin-cell ternary MAC, the ramp codes with optional Fig. 7 counter
-  noise, the KWN descending priority sweep, the LUT drive and the LIF
-  update with SNL, the membrane carried across T in registers, and for
-  training the saturated membrane of every step (``train_trace``);
+* ``csrc/fused_macro_seq_kwn.cu`` (``_seq_kwn_kernel``): two kernels on
+  one stream.  The head runs over every (step, row) pair at once: the
+  twin-cell ternary MAC from weight planes staged in shared memory, the
+  ramp codes with optional Fig. 7 counter noise, the KWN descending
+  priority sweep and the LUT drive, into a (T, M, N) scratch the wrapper
+  allocates.  Then one thread per (row, column) carries the membrane
+  across T through the LIF update with SNL, writing for training the
+  saturated membrane of every step (``train_trace``);
 * ``csrc/fused_macro_seq_nld.cu`` (``_seq_nld_kernel``): the same MAC,
   ``mac * scale``, the activation ramp with optional noise, the LUT, the
   branch-major soma combine with ``w_dend`` and a dense LIF without SNL;
@@ -127,7 +130,7 @@ class _Params(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "x", "msb", "lsb", "bounds", "levels", "scale", "v0", "noise",
         "activity", "row_ctl", "mac", "v_out", "spikes", "mask", "steps",
-        "vtrace")] + [
+        "vtrace", "drive", "snl")] + [
         (name, ctypes.c_int) for name in (
             "t_steps", "m", "k_dim", "n", "n_valid", "k", "n_codes", "bm",
             "bk", "use_snl", "noisy")] + [
@@ -267,7 +270,12 @@ def _launch(x, msb, lsb, boundaries, levels, scale, v, noise, activity,
         mask=torch.empty((t_steps, m, n), dtype=f32, device=dev),
         steps=torch.empty((t_steps, m, 1), dtype=i32, device=dev),
         vtrace=torch.empty((t_steps, m, n), dtype=f32, device=dev)
-        if train_trace else None)
+        if train_trace else None,
+        # scratch the head hands the LIF recurrence: the LUT drive, and
+        # the signs of the counter SNL stream
+        drive=torch.empty((t_steps, m, n), dtype=f32, device=dev),
+        snl=torch.empty((t_steps, m, n), dtype=torch.int8, device=dev)
+        if noise is None and use_snl and snl_amp != 0.0 else None)
     params = _Params(
         **{name: _ptr(a) for name, a in {**ops, **outs}.items()},
         t_steps=t_steps, m=m, k_dim=k_dim, n=n, n_valid=n_valid, k=k,

@@ -1,11 +1,19 @@
 """The surrogate backward of the fused KWN sequence: the kernel's wrapper.
 
 Counterpart of ``repro.kernels.fused_macro_grad`` (``fused_macro_seq_grad``,
-the Pallas kernel ``_seq_kwn_bwd_kernel``).  The hand-written CUDA kernel
-``csrc/fused_macro_seq_kwn_bwd.cu`` replaces it: a reverse-time pass (one
-warp per row and 32 columns, the membrane cotangent in a register) writes
-``g_mac`` and ``dv0``, then an event-driven contraction sums
-``dW = sum_t x_t^T g_mac_t`` in a fixed order, without atomics.
+the Pallas kernel ``_seq_kwn_bwd_kernel``).  The hand-written CUDA source
+``csrc/fused_macro_seq_kwn_bwd.cu`` replaces it with up to four kernels on
+one stream, of which only the second is serial over T: without a MAC
+residual (remat) the MAC of every (step, row) pair in one parallel pass,
+from weight planes staged in shared memory (the forward's device code, so
+the residual's bits); the reverse-time chain, one thread per (row, column)
+with the membrane cotangent in a register, writing ``g_mac`` and ``dv0``;
+an event-driven contraction ``dW = sum_t x_t^T g_mac_t`` over
+``DW_SLICES`` fixed slices of the T*M rows, x and ``g_mac`` staged through
+shared memory; and the slices' partials added in slice order.  No
+atomics: dW is the same bits on every launch and under both policies.
+The wrapper allocates the scratch: ``g_mac`` (T, M, N rounded up to 4),
+the remat MAC (T, M, N) and the partials (``DW_SLICES``, K, N).
 
 The wrapper takes operands already padded to the forward's ``TilePlan``
 (``kernels.ops.seq_grad_operands`` pads them).  A CUDA tensor
@@ -22,15 +30,17 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_macro import _operand, _ptr, _run
 
+DW_SLICES = 32   # fixed row slices of the contraction: fixed bits
+
 
 class _BwdParams(ctypes.Structure):
     """Mirror of ``FmskBwdParams`` in ``csrc/fused_macro_seq_kwn_bwd.cu``."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "x", "scale", "g_spk", "g_vfin", "vtrace", "mask", "mac", "msb",
-        "lsb", "activity", "g_mac", "dw", "dv0")] + [
+        "lsb", "activity", "g_mac", "dw", "dv0", "mac_s", "part")] + [
         (name, ctypes.c_int) for name in (
-            "t_steps", "m", "k_dim", "n", "bm")] + [
+            "t_steps", "m", "k_dim", "n", "bm", "ldg", "n_slices")] + [
         (name, ctypes.c_float) for name in (
             "ratio", "drive_gain", "beta", "v_th1", "v_lim", "kwn_relax",
             "surrogate_beta", "ste_lo", "ste_hi")]
@@ -62,12 +72,18 @@ def _launch(x, scale, g_spk, g_vfin, vtrace, mask, mac, msb, lsb, activity,
                                               dev),
         activity=None if activity is None else _operand(
             activity, i32, (t_steps, m // bm), dev))
-    outs = dict(g_mac=torch.empty(stack, dtype=f32, device=dev),
-                dw=torch.empty((k_dim, n), dtype=f32, device=dev),
-                dv0=torch.empty((m, n), dtype=f32, device=dev))
+    ldg = -(-n // 4) * 4     # g_mac rows padded to 16 bytes: bulk copies
+    outs = dict(
+        g_mac=torch.empty((t_steps, m, ldg), dtype=f32, device=dev),
+        dw=torch.empty((k_dim, n), dtype=f32, device=dev),
+        dv0=torch.empty((m, n), dtype=f32, device=dev),
+        mac_s=torch.empty(stack, dtype=f32, device=dev) if mac is None
+        else None,
+        part=torch.empty((DW_SLICES, k_dim, n), dtype=f32, device=dev))
     params = _BwdParams(
         **{name: _ptr(a) for name, a in {**ops, **outs}.items()},
-        t_steps=t_steps, m=m, k_dim=k_dim, n=n, bm=bm, **kw)
+        t_steps=t_steps, m=m, k_dim=k_dim, n=n, bm=bm, ldg=ldg,
+        n_slices=DW_SLICES, **kw)
     _run("fused_macro_seq_kwn_bwd", "fmskb_launch", params, dev)
     fused_macro_seq_grad.launches += 1
     return outs["dw"], outs["dv0"]

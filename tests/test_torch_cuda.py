@@ -73,6 +73,73 @@ def test_kernel_matches_plain_version(cuda, shape, noisy):
         assert torch.equal(a.cpu(), b), name
 
 
+SEQ_KWN_SHAPES = [(t, m, n) for t in (1, 8, 30) for m in (4, 64, 132)
+                  for n in (32, 128, 200, 1024)]
+# (counter noise, activity map, training trace): each flag on and off, and
+# each pair of flags in both combinations, at every shape
+SEQ_KWN_VARIANTS = [(False, False, False), (True, True, True),
+                    (True, False, False), (False, True, True)]
+
+
+def _bits(a: torch.Tensor) -> torch.Tensor:
+    return a.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("variant", SEQ_KWN_VARIANTS,
+                         ids=lambda v: "-".join(
+                             ("noisy" if v[0] else "clean",
+                              "gated" if v[1] else "dense",
+                              "trace" if v[2] else "serve")))
+@pytest.mark.parametrize("shape", SEQ_KWN_SHAPES, ids=str)
+def test_seq_kwn_kernel_bit_exact_to_plain_version(cuda, shape, variant):
+    """Kernel #1 through its wrapper on operands padded to the tile plan
+    (K 300 -> 512: a ragged K tile; N = 200 -> 256 with 56 columns of code
+    -1; N = 1024 = MAX_COLS, eight column tiles of staged planes; M = 132
+    -> 256, two row tiles), with per-row ``row_ctl`` (distinct seeds, step
+    offsets and row ids), against ``ref.fused_macro_seq_ref`` on the same
+    card tensors: every output equal, membranes and the trace at 0 ULP."""
+    t, m, n = shape
+    noisy, gated, trace = variant
+    kdim = 300
+    rs = np.random.RandomState(t * 10000 + m * 10 + n)
+    fw, cfg = _weights(rs, kdim, n)
+    plan = fused_macro.plan_tiles(m, kdim, n, n, t)
+    pad = torch.nn.functional.pad
+    mp, kp, np_ = plan.m_pad, plan.k_pad, plan.n_pad
+    x = rs.choice([-1, 0, 1], p=[0.04, 0.92, 0.04], size=(t, m, kdim))
+    x[::2, :, :256] = 0              # a quiet K tile on even steps
+    x = pad(torch.from_numpy(x.astype(np.int8)),
+            (0, kp - kdim, 0, mp - m)).to(cuda)
+    v0 = pad(torch.from_numpy(rs.uniform(-1, 1.2, (m, n))
+                              .astype(np.float32)), (0, np_ - n, 0, mp - m))
+    rc = pad(torch.from_numpy(np.stack(
+        [rs.randint(0, 2 ** 31 - 1, m), rs.randint(0, 50, m),
+         rs.randint(0, 4 * m, m)], -1).astype(np.int32)), (0, 0, 0, mp - m))
+    nz = None if noisy else pad(torch.from_numpy(
+        rs.choice([-0.05, 0.05], size=(t, m, n)).astype(np.float32)),
+        (0, np_ - n, 0, mp - m)).to(cuda)
+    kw = dict(k=12, drive_gain=0.25, train_trace=trace, n_valid=n)
+    if noisy:
+        kw.update(ima_noise=macro_lib.fused_kernel_noise(fw, cfg),
+                  snl_amp=0.05)
+    planes = [pad(a, (0, np_ - n, 0, kp - kdim)).contiguous().to(cuda)
+              for a in (fw.msb, fw.lsb)]
+    args = (x, *planes, fw.boundaries.to(cuda), fw.levels.to(cuda),
+            pad(fw.scale, (0, np_ - n)).to(cuda), v0.to(cuda), nz)
+    activity = ops.fused_activity_map(x, plan) if gated else None
+    before = fused_macro.fused_macro_seq.launches
+    got = fused_macro.fused_macro_seq(*args, activity, rc.to(cuda),
+                                      bm=plan.bm, bk=plan.bk, **kw)
+    torch.cuda.synchronize()
+    assert fused_macro.fused_macro_seq.launches == before + 1
+    want = ref.fused_macro_seq_ref(*args, row_ctl=rc.to(cuda), **kw)
+    names = ("mac", "v_out", "spikes", "mask", "steps", "vtrace")
+    assert len(got) == len(want) == (6 if trace else 5)
+    for name, a, b in zip(names, got, want):
+        assert torch.equal(_bits(a), _bits(b)), name
+    assert int(want[3].sum()) > 0
+
+
 @pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
 def test_forward_on_card_equals_cpu(cuda, noisy):
     cfg = snn.SNNConfig(n_in=96, n_hidden=40, n_classes=5, k=6)
@@ -241,7 +308,7 @@ def _train_operands(shape, noisy, dev, seed=0):
             g_spk, g_vfin), outs, (x, fw, v0, nz, kw)
 
 
-TRAIN_SHAPES = [(30, 64, 512, 128), (7, 37, 300, 100)]
+TRAIN_SHAPES = [(30, 64, 512, 128), (7, 37, 300, 100), (8, 64, 300, 200)]
 GRAD_KW = dict(drive_gain=0.25, kwn_relax=0.1, ste_lo=-24.5, ste_hi=24.5)
 
 
@@ -286,6 +353,27 @@ def test_bwd_kernel_bits_fixed_across_runs_and_policies(cuda, shape):
     for dw, dv0 in outs[1:]:
         assert torch.equal(dw, outs[0][0])
         assert torch.equal(dv0, outs[0][1])
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["residual", "remat"])
+@pytest.mark.parametrize("shape", [(30, 64, 512, 128), (4, 16, 256, 1024)],
+                         ids=str)
+def test_bwd_kernel_dw_bits_fixed_over_five_launches(cuda, shape, remat):
+    """Kernel #3's contraction adds fixed row slices in a fixed order, with
+    no atomics: five launches give the same dW and dv0 bits, at the
+    training shape and at MAX_COLS (eight column tiles of the remat
+    MAC)."""
+    res, _, _ = _train_operands(shape, True, cuda)
+    args = ops.seq_grad_operands(*res, remat=remat, gate=True)
+    outs = [fused_macro_grad.fused_macro_seq_grad(*args, **GRAD_KW)
+            for _ in range(5)]
+    for dw, dv0 in outs[1:]:
+        assert torch.equal(_bits(dw), _bits(outs[0][0]))
+        assert torch.equal(_bits(dv0), _bits(outs[0][1]))
+    dw_w, dv0_w = ref.fused_macro_seq_grad_ref(*args, **GRAD_KW)
+    assert _ulps(outs[0][1], dv0_w) == 0
+    np.testing.assert_allclose(outs[0][0].cpu().numpy(),
+                               dw_w.cpu().numpy(), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])

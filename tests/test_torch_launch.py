@@ -12,20 +12,22 @@ import ctypes
 import pytest
 import torch
 
-from repro_torch.kernels import build, fused_macro
+from repro_torch.kernels import build, fused_macro, fused_macro_grad
 from repro_torch.kernels import flash_attention as kernels_flash
 from repro_torch.kernels import nlq_lut as kernels_nlq
 from repro_torch.kernels import ternary_mac as kernels_tmac
 
 
 class _Function:
-    """A C launcher: records the stream it was given, returns ``err``."""
+    """A C launcher: records the parameter struct and the stream it was
+    given, returns ``err``."""
 
     def __init__(self, err=0):
-        self.err, self.streams = err, []
+        self.err, self.streams, self.params = err, [], []
         self.argtypes = self.restype = None
 
     def __call__(self, params, stream):
+        self.params.append(params._obj)
         self.streams.append(stream)
         return self.err
 
@@ -106,3 +108,108 @@ def test_run_enters_the_device_only_when_it_is_not_current(fake_cuda,
     assert entered == [1]
     assert build._BOUND["ternary_mac", "tmac_launch"].streams == [
         1000, 1000, 1001]
+
+
+@pytest.fixture
+def allocations(monkeypatch):
+    """``torch.empty`` that records {data pointer: shape} of what it
+    allocates."""
+    seen, empty = {}, torch.empty
+
+    def recording_empty(*args, **kwargs):
+        out = empty(*args, **kwargs)
+        seen[out.data_ptr()] = tuple(out.shape)
+        return out
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    return seen
+
+
+@pytest.mark.parametrize("train_trace", [False, True])
+def test_seq_kwn_wrapper_hands_the_head_a_drive_scratch(fake_cuda,
+                                                        allocations,
+                                                        train_trace):
+    """Kernel #1 is a head over every (step, row) pair and a LIF
+    recurrence: its wrapper allocates the (T, M, N) drive between them
+    and still counts one launch."""
+    t, m, k_dim, n = 3, 8, 64, 5
+    i8 = torch.int8
+    before = fused_macro.fused_macro_seq.launches
+    out = fused_macro._launch(
+        torch.zeros((t, m, k_dim), dtype=i8),
+        torch.zeros((k_dim, n), dtype=i8), torch.zeros((k_dim, n), dtype=i8),
+        torch.zeros(3), torch.zeros(4), torch.ones(n), torch.zeros((m, n)),
+        None, None, torch.zeros((m, 3), dtype=torch.int32), k=2, ratio=2.0,
+        drive_gain=1.0, beta=0.9, v_th1=1.0, v_th2=0.6, v_reset=0.0,
+        v_lim=8.0, use_snl=True, bm=8, bk=32, n_valid=n, ima_noise=None,
+        snl_amp=0.0, mac_telemetry=True, train_trace=train_trace)
+    assert fused_macro.fused_macro_seq.launches == before + 1
+    assert len(out) == (6 if train_trace else 5)
+    params = build._BOUND["fused_macro_seq_kwn", "fmsk_launch"].params[-1]
+    assert allocations[params.drive] == (t, m, n)
+    outputs = {params.mac, params.v_out, params.spikes, params.mask,
+               params.steps, params.vtrace}
+    assert params.drive not in outputs
+    assert (params.vtrace is not None) == train_trace
+    assert params.noise is None and params.activity is None
+    assert params.snl is None                 # snl_amp 0: no SNL stream
+
+
+@pytest.mark.parametrize("dense_noise", [False, True],
+                         ids=["counter", "dense"])
+def test_seq_kwn_wrapper_hands_the_lif_the_counter_snl_signs(
+        fake_cuda, allocations, dense_noise):
+    """The counter SNL stream is drawn in the head, over every (step, row)
+    pair, into an int8 (T, M, N) scratch; a dense noise operand needs
+    none."""
+    t, m, k_dim, n = 2, 4, 32, 3
+    i8 = torch.int8
+    noise = torch.zeros((t, m, n)) if dense_noise else None
+    fused_macro._launch(
+        torch.zeros((t, m, k_dim), dtype=i8),
+        torch.zeros((k_dim, n), dtype=i8), torch.zeros((k_dim, n), dtype=i8),
+        torch.zeros(3), torch.zeros(4), torch.ones(n), torch.zeros((m, n)),
+        noise, None, torch.zeros((m, 3), dtype=torch.int32), k=1,
+        ratio=2.0, drive_gain=1.0, beta=0.9, v_th1=1.0, v_th2=0.6,
+        v_reset=0.0, v_lim=8.0, use_snl=True, bm=4, bk=32, n_valid=n,
+        ima_noise=None, snl_amp=0.05, mac_telemetry=False,
+        train_trace=False)
+    params = build._BOUND["fused_macro_seq_kwn", "fmsk_launch"].params[-1]
+    if dense_noise:
+        assert params.snl is None and params.noise == noise.data_ptr()
+    else:
+        assert allocations[params.snl] == (t, m, n)
+        assert params.noise is None
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["residual", "remat"])
+def test_seq_grad_wrapper_allocates_the_kernels_scratch(fake_cuda,
+                                                       allocations, remat):
+    """Kernel #3's wrapper allocates ``g_mac`` with rows padded to 16
+    bytes, the (DW_SLICES, K, N) partials of the contraction, and the
+    (T, M, N) MAC only without a MAC residual."""
+    t, m, k_dim, n = 3, 8, 64, 5
+    f32 = torch.float32
+    stack = torch.zeros((t, m, n), dtype=f32)
+    planes = (torch.zeros((k_dim, n), dtype=torch.int8),) * 2
+    before = fused_macro_grad.fused_macro_seq_grad.launches
+    dw, dv0 = fused_macro_grad._launch(
+        torch.zeros((t, m, k_dim), dtype=torch.int8), torch.ones(n), stack,
+        torch.zeros((m, n)), stack, stack, None if remat else stack,
+        *(planes if remat else (None, None)),
+        torch.ones((t, 1), dtype=torch.int32), ratio=2.0, drive_gain=1.0,
+        beta=0.9, v_th1=1.0, v_lim=8.0, kwn_relax=0.0, surrogate_beta=4.0,
+        ste_lo=-24.5, ste_hi=24.5)
+    assert fused_macro_grad.fused_macro_seq_grad.launches == before + 1
+    params = build._BOUND["fused_macro_seq_kwn_bwd", "fmskb_launch"] \
+        .params[-1]
+    assert (params.ldg, params.n_slices) == (8, fused_macro_grad.DW_SLICES)
+    assert allocations[params.g_mac] == (t, m, 8)
+    assert allocations[params.part] == (fused_macro_grad.DW_SLICES, k_dim,
+                                        n)
+    assert (params.dw, params.dv0) == (dw.data_ptr(), dv0.data_ptr())
+    if remat:
+        assert allocations[params.mac_s] == (t, m, n)
+        assert params.mac is None
+    else:
+        assert params.mac_s is None and params.mac == stack.data_ptr()
