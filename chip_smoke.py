@@ -11,8 +11,10 @@ Phases (any failure raises, so the exit code is non-zero):
    the tensor-core instructions (HGMMA, HMMA) in the flash library's SASS
    (``cuobjdump -sass``): the bf16 kernels must have them; report the
    registers, static shared memory, stack frame and spills of the
-   kernels of #1 (``fmsk_head<CPL>``, ``fmsk_lif``) and #3
-   (``fmskb_mac``, ``fmskb_chain``, ``fmskb_dw_part``, ``fmskb_dw_sum``);
+   kernels of #1 (``fmsk_head<CPL>``, ``fmsk_lif``), #3
+   (``fmskb_mac``, ``fmskb_chain``, ``fmskb_dw_part``, ``fmskb_dw_sum``),
+   #2 (``fmsn_head<CPT>``, ``fmsn_lif``) and #4 (``fmmk_head<CPL>``,
+   ``fmmk_lif``), failing if one is missing;
 3. kernels vs plain versions, on the same inputs on the card:
    - KWN: the public wrapper ``ops.fused_macro_seq`` (padding,
      ``n_valid``, activity gating, ``row_ctl`` or a scalar seed) against
@@ -21,11 +23,15 @@ Phases (any failure raises, so the exit code is non-zero):
      N=1024 (MAX_COLS), clean and with counter noise, and at the training
      shape (T=30, M=64) with the Fig. 7 noise and the training trace;
    - NLD: ``ops.fused_macro_seq(mode="nld")`` the same way, at the
-     DVS-Gesture round shape and sequence (J=2 branches of 128 neurons)
-     and at a ragged shape with per-branch column padding (J=3);
+     DVS-Gesture round shape and sequence (J=2 branches of 128 neurons),
+     at a ragged shape with per-branch column padding (J=3), at J=2 x
+     N=50 (unpadded, so a neuron's branches sit on other lanes), at J=2 x
+     N=512 (1024 columns) over T=30 and at J=6;
    - the KWN stack: the stacked kernel's wrapper against its plain
      version on the same padded operands, at the DVS-Gesture stack
-     (two 128-column layers, T=30) and at a ragged three-layer shape;
+     (two 128-column layers, T=30), at a ragged three-layer shape, one
+     layer of 256, four layers (128, 200, 64, 20), three layers of 512
+     (which the one-warp-a-row kernel refused) and (1024, 200) at T=30;
    all exact: 0 mismatches, MAC and ADC steps equal, membranes 0 ULP;
    - training: the KWN forward with its training trace through
      ``ops.fused_macro_seq(train_trace=True)`` (trace 0 ULP), and the
@@ -111,7 +117,10 @@ Phases (any failure raises, so the exit code is non-zero):
    without its trace, and the whole silicon step (ms, steps/s, device
    idle share under ``torch.profiler``, and the share of it in kernels
    #1 and #3); kernel #1 with its trace at the training shape against
-   its plain version and bound; kernels #5-#8 per launch at the
+   its plain version and bound; #2 and #4 also by their device time
+   under the profiler, and #4's inter-layer spike scratch with rows
+   padded to 16 bytes against unpadded rows at widths (200, 128);
+   kernels #5-#8 per launch at the
    chain's step shape (CUDA events, and device time under the profiler)
    against their plain versions, bounds and, where one PyTorch call
    computes the same function, ``torch.matmul`` / ``torch.bucketize``;
@@ -237,23 +246,28 @@ def build_phase() -> tuple[float, dict, dict]:
     for name, text in build.BUILD_LOG.items():
         log(f"[nvcc {name}]\n{text.strip()}")
     log(f"build: {secs:.1f} s for {build.sources()}")
-    return secs, flash_build_report(), seq_kwn_build_report()
+    return secs, flash_build_report(), split_build_report()
 
 
-SEQ_KWN_KERNELS = ("fmsk_head", "fmsk_lif", "fmskb_mac", "fmskb_chain",
-                   "fmskb_dw_part", "fmskb_dw_sum")
+SPLIT_KERNELS = {   # source -> its kernels: a parallel head, a serial LIF
+    "fused_macro_seq_kwn": ("fmsk_head", "fmsk_lif"),
+    "fused_macro_seq_kwn_bwd": ("fmskb_mac", "fmskb_chain", "fmskb_dw_part",
+                                "fmskb_dw_sum"),
+    "fused_macro_seq_nld": ("fmsn_head", "fmsn_lif"),
+    "fused_macro_multi_seq_kwn": ("fmmk_head", "fmmk_lif")}
 
 
-def seq_kwn_build_report() -> dict:
+def split_build_report() -> dict:
     """Registers, static shared memory, stack frame and spill bytes
     (``-Xptxas -v``) of each kernel of #1 (``fmsk_head<CPL>``,
-    ``fmsk_lif``) and #3 (``fmskb_*``).  The staged-MAC kernels take their
-    plane ring as dynamic shared memory (64 KB at 128 columns a tile),
-    which ptxas does not report."""
+    ``fmsk_lif``), #3 (``fmskb_*``), #2 (``fmsn_head<CPT>``, ``fmsn_lif``)
+    and #4 (``fmmk_head<CPL>``, ``fmmk_lif``).  The staged-MAC kernels take
+    their plane ring as dynamic shared memory (64 KB at 128 columns a
+    tile), which ptxas does not report."""
+    names = [k for ks in SPLIT_KERNELS.values() for k in ks]
     rep: dict = {}
-    pat = re.compile(r"\d+(" + "|".join(SEQ_KWN_KERNELS)
-                     + r")(?:ILi(\d+)E)?")
-    for src in ("fused_macro_seq_kwn", "fused_macro_seq_kwn_bwd"):
+    pat = re.compile(r"\d+(" + "|".join(names) + r")(?:ILi(\d+)E)?")
+    for src in SPLIT_KERNELS:
         cur = None
         for ln in build.BUILD_LOG.get(src, "").splitlines():
             m = re.search(r"Function properties for _ZN(\d+)(\S+)", ln)
@@ -274,10 +288,11 @@ def seq_kwn_build_report() -> dict:
                 sm = re.search(r"(\d+) bytes smem", ln)
                 cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
                 cur = None
-    if not all(any(key.startswith(name) for key in rep)
-               for name in SEQ_KWN_KERNELS):
-        raise AssertionError(f"ptxas report lacks a seq-KWN kernel: {rep}")
-    log("seq-KWN kernels (registers / static smem / stack / spill bytes): "
+    missing = [name for name in names
+               if not any(key.split("<")[0] == name for key in rep)]
+    if missing:
+        raise AssertionError(f"ptxas report lacks {missing}: {rep}")
+    log("split kernels (registers / static smem / stack / spill bytes): "
         + ", ".join(f"{k} {v.get('registers')}/{v.get('static_smem_bytes')}"
                     f"/{v.get('stack_bytes')}/{v.get('spill_bytes')}"
                     for k, v in rep.items()))
@@ -569,7 +584,13 @@ def compare_nld_phase(dev) -> dict:
             (ROUND, SLOTS, NLD_CFG.n_in, NLD_CFG.n_hidden, 2, "relu"),
             (NLD_CFG.n_steps, SLOTS, NLD_CFG.n_in, NLD_CFG.n_hidden, 2,
              "relu"),
-            (32, 37, 300, 50, 3, "sigmoid4")):
+            (32, 37, 300, 50, 3, "sigmoid4"),
+            # J*N = 100: no padding, so neuron p's branches on other lanes
+            (ROUND, SLOTS, NLD_CFG.n_in, 50, 2, "relu"),
+            # J*N = 1024 at the training length
+            (NLD_CFG.n_steps, SLOTS, NLD_CFG.n_in, 512, 2, "relu"),
+            # more branches than the LIF holds in registers
+            (ROUND, 16, 96, 24, 6, "sigmoid4")):
         fw, mcfg = _nld_weights(kdim, n, n_branches, activation,
                                 SEED + n_cases, dev)
         x = _events(rs, t, m, kdim, dev, density=0.1)
@@ -660,7 +681,14 @@ def compare_stack_phase(dev) -> dict:
     for t, m, kdim, widths, ks in (
             (STACK_CFG.n_steps, STACK_BATCH, STACK_CFG.n_in,
              STACK_CFG.hidden_layers, STACK_CFG.k_layers),
-            (32, 37, 300, (40, 200, 20), (4, 12, 3))):
+            (32, 37, 300, (40, 200, 20), (4, 12, 3)),
+            (ROUND, 32, 256, (256,), (12,)),
+            (6, 24, 128, (128, 200, 64, 20), (12, 12, 6, 3)),
+            # more than the 32 register columns a lane the one-warp-a-row
+            # kernel held, which refused it
+            (3, 8, 64, (512, 512, 512), (4, 4, 4)),
+            (STACK_CFG.n_steps, STACK_BATCH, STACK_CFG.n_in, (1024, 200),
+             (24, 12))):
         for noisy in (False, True):
             args, kw = _stack_call(rs, t, m, kdim, widths, ks, noisy, dev)
             before = fused_macro.fused_macro_multi_seq.launches
@@ -683,12 +711,13 @@ def compare_stack_phase(dev) -> dict:
                 ("occupancy", occ_g, occ_w))}
             tag = (f"stack T={t} M={m} K={kdim} widths={widths} "
                    f"{'noisy' if noisy else 'clean'}")
+            # the hidden layers' spikes (a single layer: its own)
+            fired = int(cnt_w[:max(1, len(widths) - 1)].sum())
             log(f"compare {tag}: spike/mask mismatches {mism} of "
                 f"{2 * spk_w.numel()}, {same}, membranes {ulps} ulp, "
-                f"hidden spikes {int(cnt_w[:-1].sum())}, occupied K tiles "
+                f"hidden spikes {fired}, occupied K tiles "
                 f"{int(occ_w.sum())}")
-            if mism or ulps or not all(same.values()) \
-                    or not cnt_w[:-1].sum():
+            if mism or ulps or not all(same.values()) or not fired:
                 raise AssertionError(f"{tag}: kernel != plain version")
     return {"max_abs_err": worst, "mismatches": total_mismatch,
             "cases": n_cases}
@@ -865,6 +894,7 @@ def nld_timing_phase(dev) -> dict:
     plain = lambda: ref.fused_macro_seq_nld_ref(*operands, row_ctl=rc, **kw)
     kernel_ms = [_time_ms(launch, 200) for _ in range(3)]
     plain_ms = [_time_ms(plain, 5) for _ in range(2)]
+    device_ms = _device_ms_per_launch(launch, 50)
     nc, n_codes = nb * n, fw.levels.shape[0]
     in_bytes = (x.numel() + 2 * kdim * nc
                 + 4 * (2 * n_codes - 1 + nc + nb * n) + 4 * m * n
@@ -875,13 +905,15 @@ def nld_timing_phase(dev) -> dict:
              + 2 * t * m * nc)
     bound_ms, bound_by = _bound(in_bytes + out_bytes, n_ops)
     res = {"kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
+           "device_ms": device_ms,
            "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bytes": in_bytes + out_bytes, "ops": n_ops,
            "shape": {"R": t, "S": m, "K": kdim, "J": nb, "N": n}}
     log(f"NLD timing R={t} S={m} K={kdim} J={nb} N={n}: kernel "
-        f"{res['kernel_ms']:.4f} ms/round, plain {res['plain_ms']:.3f} "
-        f"ms/round, bound {bound_ms * 1e3:.3f} us ({bound_by})")
+        f"{res['kernel_ms']:.4f} ms/round (device {device_ms:.4f} under "
+        f"the profiler), plain {res['plain_ms']:.3f} ms/round, bound "
+        f"{bound_ms * 1e3:.3f} us ({bound_by})")
     return res
 
 
@@ -898,6 +930,7 @@ def stack_timing_phase(dev) -> dict:
     plain = lambda: ref.fused_macro_multi_seq_ref(*args, **kw)
     kernel_ms = [_time_ms(launch, 50) for _ in range(3)]
     plain_ms = [_time_ms(plain, 2) for _ in range(2)]
+    device_ms = _device_ms_per_launch(launch, 20)
     x, planes, vs, noises, act, ctl = args
     counts = launch()[4]
     n_codes, n_i = planes[0][3].shape[0], m // kw["bm"]
@@ -913,13 +946,41 @@ def stack_timing_phase(dev) -> dict:
         n_ops += 2 * int(counts[li - 1].sum().item()) * widths[li]
     bound_ms, bound_by = _bound(in_bytes + out_bytes, n_ops)
     res = {"kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
+           "device_ms": device_ms,
            "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bytes": in_bytes + out_bytes, "ops": n_ops,
-           "shape": {"T": t, "M": m, "K": kdim, "widths": list(widths)}}
+           "shape": {"T": t, "M": m, "K": kdim, "widths": list(widths)},
+           "spike_row_align": _spike_row_align_timing(rs, dev)}
     log(f"stack timing T={t} M={m} K={kdim} widths={widths}: kernel "
-        f"{res['kernel_ms']:.4f} ms/launch, plain {res['plain_ms']:.3f} "
-        f"ms/launch, bound {bound_ms * 1e3:.3f} us ({bound_by})")
+        f"{res['kernel_ms']:.4f} ms/launch (device {device_ms:.4f} under "
+        f"the profiler), plain {res['plain_ms']:.3f} ms/launch, bound "
+        f"{bound_ms * 1e3:.3f} us ({bound_by})")
+    return res
+
+
+def _spike_row_align_timing(rs, dev) -> dict:
+    """The stack's inter-layer spike scratch with rows padded to 16 bytes
+    (the next head stages them by bulk copies) against unpadded rows (plain
+    copies), in turns, at a deep width that is not a multiple of 16: 64
+    streams of 30 steps through 200 then 128 columns.  Device ms a launch
+    under the profiler, and CUDA-event ms through the wrapper."""
+    args, kw = _stack_call(rs, STACK_CFG.n_steps, STACK_BATCH,
+                           STACK_CFG.n_in, (200, 128), (12, 12), False, dev)
+    launch = lambda: fused_macro.fused_macro_multi_seq(*args, **kw)
+    res: dict = {}
+    default = fused_macro.SPIKE_ROW_ALIGN
+    try:
+        for align in (16, 1, 1, 16):
+            fused_macro.SPIKE_ROW_ALIGN = align
+            got = res.setdefault(str(align), {"device_ms": [], "ms": []})
+            got["device_ms"].append(_device_ms_per_launch(launch, 20))
+            got["ms"].append(_time_ms(launch, 50))
+    finally:
+        fused_macro.SPIKE_ROW_ALIGN = default
+    log("stack spike scratch, widths (200, 128): " + ", ".join(
+        f"rows padded to {a} B: device {min(r['device_ms']):.4f} ms, "
+        f"wrapper {min(r['ms']):.4f} ms" for a, r in res.items()))
     return res
 
 
@@ -2324,7 +2385,7 @@ def main() -> None:
     t0 = time.perf_counter()
     kind, smi = device_phase()
     dev = torch.device("cuda")
-    build_s, flash_build, seq_kwn_build = build_phase()
+    build_s, flash_build, split_build = build_phase()
     cmp = {"kwn": compare_phase(dev), "nld": compare_nld_phase(dev),
            "stack": compare_stack_phase(dev),
            "train": compare_train_phase(dev),
@@ -2362,9 +2423,9 @@ def main() -> None:
                             ("fused_macro_multi_seq_kwn", "stack",
                              "launch")):
         tm = timing[key]
-        log(f"[{smi}] {name}: {tm['kernel_ms']:.4f} ms/{unit}, plain "
-            f"{tm['plain_ms']:.3f} ms/{unit}, bound "
-            f"{tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
+        log(f"[{smi}] {name}: {tm['kernel_ms']:.4f} ms/{unit} (device "
+            f"{tm['device_ms']:.4f}), plain {tm['plain_ms']:.3f} ms/{unit}, "
+            f"bound {tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
     tt = timing["train"]
     for pol, tm in tt["bwd"].items():
         log(f"[{smi}] fused_macro_seq_kwn_bwd ({pol}): "
@@ -2417,13 +2478,16 @@ def main() -> None:
              device_ms_train=tt["fwd_ms"]["device_trace"],
              plain_ms_train=tt["fwd_ms"]["plain_trace"],
              bound_ms_train=tt["fwd_ms"]["bound_ms"]),
-        _record("fused_macro_seq_nld", f"{path}:583",
-                nld_res["clean"]["launches"] + nld_res["noisy"]["launches"],
-                cmp["nld"], timing["nld"]),
-        _record("fused_macro_multi_seq_kwn", f"{path}:896",
-                stack_res["clean"]["launches"]
-                + stack_res["noisy"]["launches"],
-                cmp["stack"], timing["stack"]),
+        dict(_record("fused_macro_seq_nld", f"{path}:583",
+                     nld_res["clean"]["launches"]
+                     + nld_res["noisy"]["launches"],
+                     cmp["nld"], timing["nld"]),
+             device_ms=timing["nld"]["device_ms"]),
+        dict(_record("fused_macro_multi_seq_kwn", f"{path}:896",
+                     stack_res["clean"]["launches"]
+                     + stack_res["noisy"]["launches"],
+                     cmp["stack"], timing["stack"]),
+             device_ms=timing["stack"]["device_ms"]),
         dict(_record("fused_macro_seq_kwn_bwd",
                      "src/repro/kernels/fused_macro_grad.py:73",
                      train_res["backward_launches"], cmp["train"]["bwd"],
@@ -2454,7 +2518,7 @@ def main() -> None:
                 max_abs_err_bf16=cmp["flash"]["max_abs_err_bf16"])]}
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "build_s": build_s, "flash_build": flash_build,
-         "seq_kwn_build": seq_kwn_build,
+         "split_build": split_build,
          "compare": cmp,
          "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
                        "train": train_res, "composed": composed_res,

@@ -413,7 +413,7 @@ def fused_multi_seq(spikes: torch.Tensor, stack, vs, noises=None, *, ks,
     (..., N_l) membranes, noises per-layer (T, ..., N_l) pre-drawn SNL
     noise or None for the counter streams, ks per-layer winner counts,
     seeds per-layer counter seeds (keep them distinct).  The inter-layer
-    spikes never leave the kernel.  Returns ``kernels.ops.MultiSeqOut``.
+    spikes are not returned.  Returns ``kernels.ops.MultiSeqOut``.
     """
     from repro_torch.kernels import ops
     if any(fw.mode != "kwn" for fw in stack):

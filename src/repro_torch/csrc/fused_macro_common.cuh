@@ -1,12 +1,11 @@
 // Device code shared by the fused macro kernels (fused_macro_seq_kwn.cu,
-// fused_macro_seq_nld.cu, fused_macro_multi_seq_kwn.cu) and the composed
-// chain's stages (ternary_mac.cu, nlq_lut.cu, kwn_topk.cu, lif_step.cu):
-// the counter PRNG
-// and the Fig. 7 noise model, the event-driven twin-cell MAC, the ramp
-// conversion, the KWN priority sweep and the LIF update; and, for the
-// seq-KWN forward's head and its backward's remat pass
-// (fused_macro_seq_kwn_bwd.cu), bulk-copy (TMA) staging on mbarriers and the
-// twin-cell MAC from weight planes staged in shared memory.
+// fused_macro_seq_nld.cu, fused_macro_multi_seq_kwn.cu, and the backward
+// fused_macro_seq_kwn_bwd.cu) and the composed chain's stages
+// (ternary_mac.cu, nlq_lut.cu, kwn_topk.cu, lif_step.cu): the counter PRNG
+// and the Fig. 7 noise model, the ramp conversion, the KWN priority sweep
+// and the LIF update; and, for the fused kernels' heads, bulk-copy (TMA)
+// staging on mbarriers and the event-driven twin-cell MAC from weight
+// planes staged in shared memory.
 //
 // Every function reproduces the JAX reference's rounding: the kernels are
 // built with -fmad=false, and the reference's fused multiply-adds are
@@ -16,6 +15,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -189,61 +189,9 @@ __device__ __noinline__ int noisy_code(int ideal, float x, uint32_t seed,
 }
 
 // ---------------------------------------------------------------------------
-// MAC, ramp, KWN and LIF.  Column c of a row's width lives on lane c % 32,
+// Ramp, KWN and LIF.  Column c of a row's width lives on lane c % 32,
 // register slot c / 32.
 // ---------------------------------------------------------------------------
-
-// Adds the weight rows of the inputs set in `live` (a ballot over 32 input
-// rows starting at the rows `msb`/`lsb` point to; lane b holds input b's
-// value in `xv`) to the accumulator.  `ld` is the planes' row stride,
-// `ncols` the number of columns to update.  Every partial is a small integer,
-// exact in f32 in any order.
-template <int CPL>
-__device__ __forceinline__ void mac_add_rows(float (&acc)[CPL], unsigned live,
-                                             int xv, const int8_t* msb,
-                                             const int8_t* lsb, int ld,
-                                             int ncols, float ratio,
-                                             int lane) {
-  while (live) {
-    const int b = __ffs(live) - 1;
-    live &= live - 1;
-    const float s = (float)__shfl_sync(kFull, xv, b);
-    const int8_t* mr = msb + (size_t)b * ld;
-    const int8_t* lr = lsb + (size_t)b * ld;
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int c = lane + 32 * j;
-      if (c < ncols) {
-        const float w = ratio * (float)mr[c] + (float)lr[c];
-        acc[j] = acc[j] + s * w;
-      }
-    }
-  }
-}
-
-// The MAC of one row's events xr (k_dim ternary int8 values), gated by the
-// row tile's occupancy words `occ` (n_k = k_dim / bk words, or null): a K
-// tile whose word is 0 holds no event in any row of the tile and is not
-// read.  Returns a bit per K tile that held an event of this row.
-template <int CPL>
-__device__ __forceinline__ unsigned mac_events(
-    float (&acc)[CPL], const int8_t* xr, const int32_t* occ, int k_dim,
-    int bk, const int8_t* msb, const int8_t* lsb, int ld, int ncols,
-    float ratio, int lane) {
-  unsigned bits = 0;
-  const int n_k = k_dim / bk;
-  for (int kt = 0; kt < n_k; ++kt) {
-    if (occ != nullptr && occ[kt] == 0) continue;
-    for (int k0 = kt * bk; k0 < (kt + 1) * bk; k0 += 32) {
-      const int xv = xr[k0 + lane];
-      const unsigned live = __ballot_sync(kFull, xv != 0);
-      if (live) bits |= 1u << kt;
-      mac_add_rows<CPL>(acc, live, xv, msb + (size_t)k0 * ld,
-                        lsb + (size_t)k0 * ld, ld, ncols, ratio, lane);
-    }
-  }
-  return bits;
-}
 
 // Ramp conversion: the number of boundaries strictly below x.
 __device__ __forceinline__ int ramp_code(float x, const float* bounds,
@@ -313,9 +261,9 @@ __device__ __forceinline__ float lif_update(float v, float drive, bool active,
 
 // ---------------------------------------------------------------------------
 // Staging through shared memory by bulk copies (TMA) on mbarriers, and the
-// staged twin-cell MAC of the seq-KWN forward's head and the backward's
-// remat pass: the work that does not depend on the membrane, spread over
-// every (step, row) pair.
+// staged twin-cell MAC of the fused kernels' heads and the backward's remat
+// pass: the work that does not depend on the membrane, spread over every
+// (step, row) pair.
 // ---------------------------------------------------------------------------
 
 constexpr int kStageRows = 128;   // K rows of one staged plane tile
@@ -379,23 +327,103 @@ __device__ __forceinline__ void bulk_tile(int8_t* dst, int dst_ld,
              bar);
 }
 
-// The same tile copied by plain loads and stores of every thread of the
-// block (rows the bulk copy cannot take).
-__device__ __forceinline__ void copy_tile(int8_t* dst, int dst_ld,
-                                          const int8_t* src, size_t src_ld,
-                                          int rows, int bytes) {
-  for (int i = threadIdx.x; i < rows * bytes; i += blockDim.x) {
-    const int r = i / bytes, c = i - r * bytes;
-    dst[r * dst_ld + c] = src[(size_t)r * src_ld + c];
+// copy_tile in words of type W (rows x bytes, every offset a multiple of
+// sizeof(W)).
+template <class W>
+__device__ __forceinline__ void copy_words(int8_t* dst, int dst_ld,
+                                           const int8_t* src, size_t src_ld,
+                                           int rows, int bytes) {
+  const int wpr = bytes / (int)sizeof(W);
+  for (int i = threadIdx.x; i < rows * wpr; i += blockDim.x) {
+    const int r = i / wpr, c = i - r * wpr;
+    reinterpret_cast<W*>(dst + r * dst_ld)[c] =
+        reinterpret_cast<const W*>(src + (size_t)r * src_ld)[c];
   }
 }
 
-// Whether the (K, n) int8 planes and the events at x can be staged by bulk
-// copies: 16-byte aligned rows.
-inline bool planes_bulk(const void* msb, const void* lsb, const void* x,
-                        int n) {
+// The same tile copied by plain loads and stores of every thread of the
+// block (rows the bulk copy cannot take), in the widest words (16, 8, 4, 2
+// or 1 bytes) that divide the addresses, the strides and the row length.
+__device__ __forceinline__ void copy_tile(int8_t* dst, int dst_ld,
+                                          const int8_t* src, size_t src_ld,
+                                          int rows, int bytes) {
+  const uintptr_t a = (uintptr_t)dst | (uintptr_t)src | (uintptr_t)dst_ld
+                      | (uintptr_t)src_ld | (uintptr_t)bytes;
+  if (a % 16 == 0) copy_words<int4>(dst, dst_ld, src, src_ld, rows, bytes);
+  else if (a % 8 == 0)
+    copy_words<int2>(dst, dst_ld, src, src_ld, rows, bytes);
+  else if (a % 4 == 0)
+    copy_words<int>(dst, dst_ld, src, src_ld, rows, bytes);
+  else if (a % 2 == 0)
+    copy_words<short>(dst, dst_ld, src, src_ld, rows, bytes);
+  else copy_words<int8_t>(dst, dst_ld, src, src_ld, rows, bytes);
+}
+
+// One TMA copy of a box of the 2D tensor `map` at (c0 = column, c1 = row)
+// into dst, completing on `bar`.  Elements past the tensor are zero-filled
+// and count toward the box's bytes.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(c0), "r"(c1), "r"(smem_u32(bar)) : "memory");
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up once through the runtime
+// (nothing links against libcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+        ? reinterpret_cast<EncodeTiled>(ptr) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a (k_dim, n) int8 plane read in boxes of box_cols
+// columns by kStageRows rows: one TMA copy a staged tile, whatever n.
+inline bool plane_map(CUtensorMap* map, const int8_t* plane, int k_dim,
+                      int n, int box_cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)k_dim};
+  const cuuint64_t strides[1] = {(cuuint64_t)n};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)kStageRows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+            const_cast<int8_t*>(plane), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Whether staged_mac can stage the (k_dim, n) int8 planes and the event
+// rows at x (row stride x_ld) by the TMA unit: 16-byte aligned rows and
+// tensor maps tm[0] (msb) and tm[1] (lsb) for boxes of box_cols columns.
+// Otherwise it copies them with plain loads.
+inline bool stage_by_tma(CUtensorMap (&tm)[2], const int8_t* msb,
+                         const int8_t* lsb, int k_dim, int n, int box_cols,
+                         const int8_t* x, int x_ld) {
   return ((uintptr_t)msb | (uintptr_t)lsb | (uintptr_t)x) % 16 == 0
-         && n % 16 == 0;
+         && n % 16 == 0 && x_ld % 16 == 0 && k_dim > 0
+         && plane_map(&tm[0], msb, k_dim, n, box_cols)
+         && plane_map(&tm[1], lsb, k_dim, n, box_cols);
 }
 
 // ramp_code for CPT values at once: each boundary is loaded once for all of
@@ -430,12 +458,14 @@ __device__ __forceinline__ float i8_to_f32(int v) {
   return __int_as_float(0x4B400000 + v) - 0x1.8p23f;
 }
 
-// mac_add_rows for a staged tile: rows of BN = 32 CPT columns, all in
-// bounds (columns past the layer hold stale bytes whose sums are never
-// read), so no column is guarded and each event's 2 CPT plane bytes load
-// together; two events a pass, added in order.  With ternary events and
-// planes every product (s * w, ratio * m) is exact, so fmaf rounds as
-// mac_add_rows' multiply-then-add does: the same bits.
+// Adds the staged weight rows of the inputs set in `live` (a ballot over 32
+// input rows; lane b holds input b's value in `xv`): rows of BN = 32 CPT
+// columns, all in bounds (columns past the layer hold stale bytes whose
+// sums are never read), so no column is guarded and each event's 2 CPT
+// plane bytes load together; two events a pass, added in order.  With
+// ternary events and planes every product (s * w, ratio * m) is exact, so
+// fmaf rounds as the reference's multiply-then-add does, and every partial
+// is a small integer: the same bits in any order.
 template <int CPT>
 __device__ __forceinline__ void mac_add_rows_staged(float (&acc)[CPT],
                                                     unsigned live, int xv,
@@ -483,28 +513,34 @@ __host__ __device__ constexpr int staged_mac_smem(int bn, int items) {
 // The MAC of IPW (step, row) items per warp for NCT column tiles of
 // BN = 32 CPT columns, the first starting at column c_base.  The CTA owns
 // kItemWarps * IPW consecutive items, of which the first n_rows exist; their
-// event rows (k_dim ternary int8 values each, the first at x_cta) and the
-// (K, n) planes stream through a kStages-stage ring in shared memory
-// (`ring`, staged_mac_smem(BN, kItemWarps * IPW) bytes, 16-byte aligned).
-// The block is kMacThreads threads: kItemWarps item warps and, last, a copy
-// warp.  With `bulk` (planes_bulk) the copy warp issues each tile as bulk
-// copies that complete on the stage's mbarrier, kStages - 1 tiles ahead of
-// the MAC, off the item warps' path; otherwise every thread copies it with
-// plain loads.  Each byte is read from global memory once per CTA.  Every
-// thread of the block must call it (it holds __syncthreads).
+// event rows (k_dim int8 values each, row stride x_ld >= k_dim, the first at
+// x_cta) and the (k_dim, n) planes stream through a kStages-stage ring in
+// shared memory (`ring`, staged_mac_smem(BN, kItemWarps * IPW) bytes,
+// 16-byte aligned).  The block is kMacThreads threads: kItemWarps item
+// warps and, last, a copy warp.  With `bulk` (stage_by_tma, which makes the
+// planes' tensor maps tm_msb and tm_lsb) the copy warp copies each tile as
+// one TMA copy a plane and a bulk copy an event row, completing on the
+// stage's mbarrier, kStages - 1 tiles ahead of the MAC, off the item warps'
+// path; otherwise every thread copies it with plain loads.
+// Each byte is read from global memory once per CTA.  Every thread of the
+// block must call it (it holds __syncthreads).
 //
 // Item i of warp w is slot w * IPW + i; on[i] false: no events (its MAC
 // stays 0).  occ[i] gates it (one word per bk rows of K, or null): a chunk
-// whose word is 0 is not read.  Events are added in ascending K, each as
-// acc + s * (ratio * msb + lsb) (mac_add_rows_staged): mac_events' order
-// and rounding, so the same bits.  After the last K tile of column tile ct,
-// epi(ct, acc) receives acc[i][j] for column c_base + BN ct + lane + 32 j.
+// whose word is 0 is not read.  K need not be a whole number of chunks:
+// lanes past k_dim read no event.  Events are added in ascending K, each as
+// acc + s * (ratio * msb + lsb) (mac_add_rows_staged): the plain version's
+// order and rounding, so the same bits.  bits[i] gets bit k / bk for each
+// 32-row chunk starting at k that held an event of item i.  After the last
+// K tile of column tile ct, epi(ct, acc) receives acc[i][j] for column
+// c_base + BN ct + lane + 32 j.
 template <int CPT, int NCT, int IPW, class Epi>
 __device__ __forceinline__ void staged_mac(
-    int8_t* ring, const int8_t* msb, const int8_t* lsb, int k_dim, int n,
-    int c_base, bool bulk, const int8_t* x_cta, int n_rows,
+    int8_t* ring, const int8_t* msb, const int8_t* lsb,
+    const CUtensorMap* tm_msb, const CUtensorMap* tm_lsb, int k_dim, int n,
+    int c_base, bool bulk, const int8_t* x_cta, int x_ld, int n_rows,
     const bool (&on)[IPW], const int32_t* const (&occ)[IPW], int bk,
-    float ratio, Epi&& epi) {
+    float ratio, unsigned (&bits)[IPW], Epi&& epi) {
   constexpr int BN = 32 * CPT;
   constexpr int kItems = kItemWarps * IPW;
   constexpr int kStage = kStageRows * (2 * BN + kItems);
@@ -512,6 +548,8 @@ __device__ __forceinline__ void staged_mac(
   const int n_kt = (k_dim + kStageRows - 1) / kStageRows;
   const int total = NCT * n_kt;
   uint64_t* bar = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+#pragma unroll
+  for (int i = 0; i < IPW; ++i) bits[i] = 0u;
   if (bulk && threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) mbar_init(&bar[i]);
     fence_mbar_init();
@@ -528,24 +566,27 @@ __device__ __forceinline__ void staged_mac(
     const size_t g = (size_t)k0 * n + c0;
     if (bulk) {
       if (warp != kItemWarps) return;
+      // the events' whole 16-byte rows, padding included (never read)
+      const int xb = min(kStageRows, x_ld - k0);
       uint64_t* b = &bar[q % kStages];
-      if (lane == 0)
-        mbar_expect(b, (uint32_t)((cols > 0 ? 2 * rows * cols : 0)
-                                  + n_rows * rows));
-      __syncwarp();
-      if (cols > 0) {
-        bulk_tile(st, BN, msb + g, n, rows, cols, b, lane);
-        bulk_tile(st + kStageRows * BN, BN, lsb + g, n, rows, cols, b,
-                  lane);
+      if (lane == 0) {
+        // whole boxes: the rows and columns past the planes count too
+        mbar_expect(b, (uint32_t)((cols > 0 ? 2 * kStageRows * BN : 0)
+                                  + n_rows * xb));
+        if (cols > 0) {
+          tma_load_2d(st, tm_msb, c0, k0, b);
+          tma_load_2d(st + kStageRows * BN, tm_lsb, c0, k0, b);
+        }
       }
-      bulk_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, k_dim,
-                n_rows, rows, b, lane);
+      __syncwarp();
+      bulk_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, x_ld,
+                n_rows, xb, b, lane);
     } else {
       if (cols > 0) {
         copy_tile(st, BN, msb + g, n, rows, cols);
         copy_tile(st + kStageRows * BN, BN, lsb + g, n, rows, cols);
       }
-      copy_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, k_dim,
+      copy_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, x_ld,
                 n_rows, rows);
     }
   };
@@ -583,8 +624,10 @@ __device__ __forceinline__ void staged_mac(
         const int8_t* xs = s_x + (warp * IPW + i) * kStageRows;
 #pragma unroll
         for (int u = 0; u < kStageRows / 32; ++u) {
-          const int xv = word[i][u] != 0 ? xs[32 * u + lane] : 0;
+          const int xv = word[i][u] != 0 && k0 + 32 * u + lane < k1
+                         ? xs[32 * u + lane] : 0;
           const unsigned live = __ballot_sync(kFull, xv != 0);
+          if (ct == 0 && live != 0u) bits[i] |= 1u << ((k0 + 32 * u) / bk);
           mac_add_rows_staged<CPT>(acc[i], live, xv, s_msb + 32 * u * BN,
                                    s_lsb + 32 * u * BN, ratio, lane);
         }
@@ -592,6 +635,20 @@ __device__ __forceinline__ void staged_mac(
     }
     epi(ct, acc);
   }
+}
+
+// staged_mac over event rows of stride k_dim, without the tile bits.
+template <int CPT, int NCT, int IPW, class Epi>
+__device__ __forceinline__ void staged_mac(
+    int8_t* ring, const int8_t* msb, const int8_t* lsb,
+    const CUtensorMap* tm_msb, const CUtensorMap* tm_lsb, int k_dim, int n,
+    int c_base, bool bulk, const int8_t* x_cta, int n_rows,
+    const bool (&on)[IPW], const int32_t* const (&occ)[IPW], int bk,
+    float ratio, Epi&& epi) {
+  unsigned bits[IPW];
+  staged_mac<CPT, NCT, IPW>(ring, msb, lsb, tm_msb, tm_lsb, k_dim, n,
+                            c_base, bulk, x_cta, k_dim, n_rows, on, occ, bk,
+                            ratio, bits, static_cast<Epi&&>(epi));
 }
 
 }  // namespace fm

@@ -23,8 +23,9 @@
 //
 //   A. fmsk_head, the head, parallel over all T x M (step, row) items: one
 //      warp an item, kItemWarps items a CTA, and a copy warp.  The copy
-//      warp streams the (K, N) weight planes and the CTA's event rows
-//      through a kStages-stage shared-memory ring by bulk copies (TMA) on
+//      warp streams the (K, N) weight planes (a tile one copy through a 2D
+//      tensor map, whatever N) and the CTA's event rows (a bulk copy a row)
+//      through a kStages-stage shared-memory ring by the TMA unit on
 //      mbarriers, two 128-row tiles ahead of the MAC (staged_mac in
 //      fused_macro_common.cuh; 99 KB at N >= 128, two CTAs an SM), so each
 //      byte is read from L2 once per CTA and no event waits on a global
@@ -32,7 +33,7 @@
 //      activity gate (a chunk whose occupancy word is 0 is not read): at 5 %
 //      events it touches a twentieth of the rows an int8 tensor-core
 //      product would, and it adds the events in ascending K with the
-//      rounding of mac_events, so its bits are the earlier kernel's for
+//      reference's rounding, so its bits are the plain version's for
 //      every ratio (integer ratios give exact small integers: the plain
 //      version's x @ w).  The per-event loop loads its plane bytes without
 //      a column branch and converts them without I2F; the ramp loads each
@@ -114,7 +115,9 @@ constexpr int kLifChunk = 8;     // steps whose operands phase B loads at once
 
 template <int CPL>
 __global__ void __launch_bounds__(kMacThreads, CPL >= 16 ? 1 : 2)
-fmsk_head(const FmskParams p, int bulk) {
+fmsk_head(const FmskParams p,
+          const __grid_constant__ CUtensorMap tm_msb,
+          const __grid_constant__ CUtensorMap tm_lsb, int bulk) {
   constexpr int CPT = CPL < 4 ? CPL : 4;
   constexpr int NCT = CPL / CPT;
   extern __shared__ __align__(16) int8_t smem[];
@@ -154,7 +157,7 @@ fmsk_head(const FmskParams p, int bulk) {
   // --- MAC, then ramp codes (+ Fig. 7 counter noise); padding -> -1 -----
   int code[CPL];
   staged_mac<CPT, NCT, 1>(
-      smem, p.msb, p.lsb, p.k_dim, n, 0, bulk != 0,
+      smem, p.msb, p.lsb, &tm_msb, &tm_lsb, p.k_dim, n, 0, bulk != 0,
       p.x + (size_t)first * p.k_dim,
       min(kItemWarps, items - first), on, occ, p.bk, p.ratio,
       [&](int ct, float (&acc)[1][CPT]) {
@@ -265,8 +268,11 @@ cudaError_t launch(const FmskParams& p, cudaStream_t stream) {
     smem_set = smem;
   }
   const int items = p.t_steps * p.m;
+  CUtensorMap tm[2] = {};
+  const bool bulk = stage_by_tma(tm, p.msb, p.lsb, p.k_dim, p.n, 32 * CPT,
+                                 p.x, p.k_dim);
   fmsk_head<CPL><<<(items + kItemWarps - 1) / kItemWarps, kMacThreads,
-                   smem, stream>>>(p, planes_bulk(p.msb, p.lsb, p.x, p.n));
+                   smem, stream>>>(p, tm[0], tm[1], bulk);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.n == 0) return err;
   fmsk_lif<<<(p.m * p.n + kLifThreads - 1) / kLifThreads, kLifThreads, 0,

@@ -25,7 +25,7 @@
 //   R. fmskb_mac (remat only): the MAC of every (step, row) item, one
 //      parallel pass with the forward's staged MAC (staged_mac in
 //      fused_macro_common.cuh: planes and events through a TMA ring in
-//      shared memory, events in ascending K with mac_events' rounding),
+//      shared memory, events in ascending K with the forward's rounding),
 //      into a (T, M, N) scratch.  So remat gives the residual's bits.  A
 //      (step, row tile) whose activity word is 0 holds no event and is not
 //      read.
@@ -103,9 +103,13 @@ constexpr int kDwWarps = 8;
 static_assert(kDwRows == 8 * kDwWarps, "a warp owns 8 K rows");
 
 // Pass R: warp w of CTA b -> items (b kItemWarps + w) kRematItems + i,
-// columns of tile blockIdx.y.
-__global__ void __launch_bounds__(kMacThreads)
-fmskb_mac(const FmskBwdParams p, int bulk) {
+// columns of tile blockIdx.y.  The launch bounds name one block an SM:
+// given the block size alone, ptxas held the kernel to 32 registers and
+// spilled.
+__global__ void __launch_bounds__(kMacThreads, 1)
+fmskb_mac(const FmskBwdParams p,
+          const __grid_constant__ CUtensorMap tm_msb,
+          const __grid_constant__ CUtensorMap tm_lsb, int bulk) {
   extern __shared__ __align__(16) int8_t ring[];
   const int lane = threadIdx.x & 31;
   constexpr int kItems = kItemWarps * kRematItems;
@@ -125,9 +129,9 @@ fmskb_mac(const FmskBwdParams p, int bulk) {
     occ[i] = nullptr;
   }
   staged_mac<4, 1, kRematItems>(
-      ring, p.msb, p.lsb, p.k_dim, p.n, c_base, bulk != 0,
-      p.x + (size_t)cta * p.k_dim, min(kItems, items - cta), on, occ,
-      p.k_dim, p.ratio, [&](int, float (&acc)[kRematItems][4]) {
+      ring, p.msb, p.lsb, &tm_msb, &tm_lsb, p.k_dim, p.n, c_base,
+      bulk != 0, p.x + (size_t)cta * p.k_dim, min(kItems, items - cta), on,
+      occ, p.k_dim, p.ratio, [&](int, float (&acc)[kRematItems][4]) {
 #pragma unroll
         for (int i = 0; i < kRematItems; ++i) {
           if (!item_warp || first + i >= items) continue;
@@ -338,8 +342,11 @@ extern "C" int fmskb_launch(const FmskBwdParams* p, void* stream) {
       smem_set = smem;
     }
     const int per_cta = kItemWarps * kRematItems;
+    CUtensorMap tm[2] = {};
+    const bool bulk = stage_by_tma(tm, p->msb, p->lsb, p->k_dim, p->n, 128,
+                                   p->x, p->k_dim);
     fmskb_mac<<<dim3((items + per_cta - 1) / per_cta, nb), kMacThreads,
-                smem, s>>>(*p, planes_bulk(p->msb, p->lsb, p->x, p->n));
+                smem, s>>>(*p, tm[0], tm[1], bulk);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (p->m > 0) {

@@ -10,26 +10,52 @@
 // What bounds it on the card: by the roofline, bytes.  At the DVS-Gesture
 // serving shape (64 rows, K=512, J=2 branches of 128 neurons, 8 steps a
 // round, 5 % events) one launch reads the events, the two int8 planes and
-// the membrane and writes spikes, mask, steps and membrane, about a MB; the
-// MAC the events need is a few M operations (chip_smoke.py computes both
-// from its inputs).  As in the KWN kernel, neither is reached: T dependent
-// steps per row (the membrane) make it latency-bound.
+// the membrane and writes spikes and membrane, about a MB; the MAC the
+// events need is a few M operations (chip_smoke.py computes both from its
+// inputs).  In practice latency bounds it: the TPU kernel walks T in a
+// sequential grid, and a port of that shape (one warp a row for all T steps,
+// J event-driven MACs a step from global memory) leaves the card M / 4 CTAs
+// of T dependent steps each.
 //
-// What the design does about that: one warp owns one batch row for the whole
-// sequence.  The kernel walks the J branches one after another; branch j's
-// column p and neuron p sit on the same lane and register slot (p % 32,
-// p / 32), so the soma combine is lane-local and the membrane stays in
-// registers, whatever the per-branch width.  The MAC is event-driven (a warp
-// ballot over 32 inputs, only the weight rows of the inputs that fired) and
-// gated by the host occupancy map; the events are re-read once per branch
-// (from L1).  Mask (all ones) and ADC steps (always the full ramp) are
-// constants of the NLD head: the wrapper fills them, the kernel writes
-// neither.
+// What the design does about it: only the LIF update needs the previous
+// step, so the launch is two kernels back to back on one stream.
+//
+//   A. fmsn_head, parallel over all T x M (step, row) items and the J x N
+//      columns: one warp an item, kItemWarps items and one column tile of
+//      32 CPT columns (128 from J x N = 128 up) a CTA, and a copy warp that
+//      streams the tile's plane columns and the CTA's event rows through a
+//      shared-memory ring by the TMA unit on mbarriers (staged_mac in
+//      fused_macro_common.cuh).  A plane tile is one copy through a 2D
+//      tensor map: 128 columns of wider planes cost what contiguous ones
+//      do, where one bulk copy a 128-byte row held the head to the copy
+//      unit's rate.  Rows that are not 16-byte multiples (J x N = 100) take
+//      the plain-copy path.  The MAC is event-driven from shared memory and
+//      keeps the activity gate.  No state crosses a
+//      column (there is no sweep), so the column tiles are CTAs of their own
+//      and any width fits.  Then, per (branch, column): the MAC telemetry,
+//      mac * scale, the activation ramp, the counter noise on the logical
+//      column j * logical_n + p, and the LUT, into a (T, M, J x N) f32
+//      scratch of activations the wrapper allocates (0.5 MB at the serving
+//      round, 2 MB at T=30: it stays in L2).
+//   B. fmsn_lif, the recurrence: one thread a (row, neuron) walks t with
+//      the membrane in a register.  The soma sum needs neuron p's J
+//      branches, which sit in J different column tiles (and on one lane only
+//      when the per-branch width is a multiple of 32: plan_tiles keeps
+//      n_pad = n whenever J x N <= 128, so J=2, N=50 straddles lanes), so it
+//      is done here and not in the head: the activations of kLifChunk steps
+//      are loaded a chunk ahead (kLifBranches branches in registers, the
+//      rest as they are needed) and summed by the fused multiply-add chain
+//      after the chunk before, so only the LIF update is serial.  Combining the branches in the head through shared
+//      memory would make each CTA hold every branch of its columns, so the
+//      column tiles could not be CTAs of their own.
+// Mask (all ones) and ADC steps (always the full ramp) are constants of the
+// NLD head: the LIF writes them beside the spikes.
 //
 // Bitwise parity with the reference: the MAC partials are small integers;
 // mac * scale is one f32 product (built with -fmad=false, nothing is
-// contracted into it); the soma sum is the fused multiply-add chain XLA
-// emits for jnp.sum(act3 * w_dend, axis=-2): the branch-0 product, then
+// contracted into it); the activations go through the scratch as the f32
+// they are; the soma sum is the fused multiply-add chain XLA emits for
+// jnp.sum(act3 * w_dend, axis=-2): the branch-0 product, then
 // fmaf(act_j, w_dend_j, sum) in branch order; then * drive_gain (rounded)
 // and fmaf(beta, v, drive).  The counter noise keys on the logical column
 // j * logical_n + p, so padding never moves a draw.
@@ -53,6 +79,9 @@ struct FmsnParams {
   float* mac;              // (T, M, J*N) raw MAC, or null
   float* v_out;            // (M, N)
   float* spikes;           // (T, M, N)
+  float* mask;             // (T, M, N): all ones
+  int32_t* steps;          // (T, M): all n_codes - 1
+  float* act;              // (T, M, J*N) scratch: the head's activations
   int t_steps, m, k_dim, n, n_branches, logical_n, n_codes, bm, bk, noisy;
   float ratio, drive_gain, beta, v_th1, v_reset, v_lim;
   float offset_lsb, sigma_lsb, inl_lsb, in_lo, in_span;
@@ -64,13 +93,25 @@ namespace {
 
 using namespace fm;
 
-// One warp per batch row, NPL neurons per lane (p = lane + 32 jp).
-template <int NPL>
-__global__ void __launch_bounds__(32 * kRowsPerCta)
-fmsn_kernel(const FmsnParams p) {
-  extern __shared__ float sh[];
-  float* s_bounds = sh;
-  float* s_levels = sh + p.n_codes;
+constexpr int kLifThreads = 64;    // M*N threads: spread over more SMs
+constexpr int kLifChunk = 8;       // steps whose operands phase B loads at once
+constexpr int kLifBranches = 4;    // branches a chunk holds in registers
+
+// ---------------------------------------------------------------------------
+// Phase A: CTA -> kItemWarps items x one tile of BN = 32 CPT columns of the
+// J*N; warp -> item t * M + row.
+// ---------------------------------------------------------------------------
+
+template <int CPT>
+__global__ void __launch_bounds__(kMacThreads, 2)
+fmsn_head(const FmsnParams p,
+          const __grid_constant__ CUtensorMap tm_msb,
+          const __grid_constant__ CUtensorMap tm_lsb, int bulk) {
+  constexpr int BN = 32 * CPT;
+  extern __shared__ __align__(16) int8_t smem[];
+  float* s_bounds = reinterpret_cast<float*>(
+      smem + staged_mac_smem(BN, kItemWarps));
+  float* s_levels = s_bounds + p.n_codes;
   for (int i = threadIdx.x; i < p.n_codes; i += blockDim.x) {
     if (i < p.n_codes - 1) s_bounds[i] = p.bounds[i];
     s_levels[i] = p.levels[i];
@@ -78,83 +119,151 @@ fmsn_kernel(const FmsnParams p) {
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerCta + (threadIdx.x >> 5);
-  if (row >= p.m) return;
-  const int n = p.n;
-  const int nc = p.n_branches * n;
+  const int items = p.t_steps * p.m, first = blockIdx.x * kItemWarps;
+  const int item = first + (threadIdx.x >> 5);
+  const bool live = (threadIdx.x >> 5) < kItemWarps && item < items;
+  const int n = p.n, nc = p.n_branches * n, c_base = blockIdx.y * BN;
+  const int t = live ? item / p.m : 0, row = item - t * p.m;
   const int n_i = p.m / p.bm, n_k = p.k_dim / p.bk;
-  const int tile_i = row / p.bm;
-  const uint32_t seed = (uint32_t)p.row_ctl[row * 3 + 0];
-  const int32_t step0 = p.row_ctl[row * 3 + 1];
-  const uint32_t rid = (uint32_t)p.row_ctl[row * 3 + 2];
+  const bool on[1] = {live};
+  const int32_t* occ[1] = {
+      live && p.activity != nullptr
+          ? p.activity + ((size_t)t * n_i + row / p.bm) * n_k : nullptr};
+  const uint32_t seed = live ? (uint32_t)p.row_ctl[row * 3 + 0] : 0u;
+  const int32_t step0 = live ? p.row_ctl[row * 3 + 1] : 0;
+  const uint32_t rid = live ? (uint32_t)p.row_ctl[row * 3 + 2] : 0u;
   const NoiseModel nm = {p.offset_lsb, p.sigma_lsb, p.inl_lsb, p.in_lo,
                          p.in_span, p.n_codes};
-  const LifParams lp = {p.beta, p.v_th1, p.v_th1, p.v_reset, p.v_lim};
-
-  float v[NPL];
+  const size_t base = (size_t)item * nc;
+  float sc[CPT];   // loaded now, read after the MAC
 #pragma unroll
-  for (int jp = 0; jp < NPL; ++jp) {
-    const int c = lane + 32 * jp;
-    v[jp] = c < n ? p.v0[(size_t)row * n + c] : 0.0f;
+  for (int j = 0; j < CPT; ++j) {
+    const int c = c_base + lane + 32 * j;
+    sc[j] = live && c < nc ? p.scale[c] : 0.0f;
   }
 
-  for (int t = 0; t < p.t_steps; ++t) {
-    const int8_t* xr = p.x + ((size_t)t * p.m + row) * p.k_dim;
-    const int32_t* occ = p.activity == nullptr ? nullptr
-        : p.activity + ((size_t)t * n_i + tile_i) * n_k;
-    float soma[NPL];
+  // --- MAC -> mac * scale -> activation ramp (+ noise) -> LUT ------------
+  staged_mac<CPT, 1, 1>(
+      smem, p.msb, p.lsb, &tm_msb, &tm_lsb, p.k_dim, nc, c_base,
+      bulk != 0, p.x + (size_t)first * p.k_dim,
+      min(kItemWarps, items - first), on, occ, p.bk, p.ratio,
+      [&](int, float (&acc)[1][CPT]) {
+        float xf[CPT];
 #pragma unroll
-    for (int jp = 0; jp < NPL; ++jp) soma[jp] = 0.0f;
-    for (int b = 0; b < p.n_branches; ++b) {
-      // --- branch b's MAC, event-driven and activity-gated ---------------
-      float acc[NPL];
+        for (int j = 0; j < CPT; ++j) xf[j] = acc[0][j] * sc[j];
+        int code[CPT];
+        ramp_codes<CPT>(xf, code, s_bounds, p.n_codes);
 #pragma unroll
-      for (int jp = 0; jp < NPL; ++jp) acc[jp] = 0.0f;
-      mac_events<NPL>(acc, xr, occ, p.k_dim, p.bk, p.msb + (size_t)b * n,
-                      p.lsb + (size_t)b * n, nc, n, p.ratio, lane);
-      // --- mac * scale -> activation ramp (+ noise) -> LUT -> soma -------
-#pragma unroll
-      for (int jp = 0; jp < NPL; ++jp) {
-        const int c = lane + 32 * jp;
-        if (c >= n) continue;
-        const int col = b * n + c;
-        if (p.mac != nullptr)
-          p.mac[((size_t)t * p.m + row) * nc + col] = acc[jp];
-        const float xf = acc[jp] * p.scale[col];
-        int cd = ramp_code(xf, s_bounds, p.n_codes);
-        if (p.noisy)
-          cd = noisy_code(cd, xf, seed, (uint32_t)(step0 + t), rid,
-                          (uint32_t)(b * p.logical_n + c), nm);
-        const float act = s_levels[cd];
-        const float wd = p.w_dend[col];
-        soma[jp] = b == 0 ? act * wd : fmaf(act, wd, soma[jp]);
-      }
-    }
-
-    // --- dense LIF update, no SNL (Eq. 2) ------------------------------
-    const size_t base = ((size_t)t * p.m + row) * n;
-#pragma unroll
-    for (int jp = 0; jp < NPL; ++jp) {
-      const int c = lane + 32 * jp;
-      if (c >= n) continue;
-      const float drive = soma[jp] * p.drive_gain;
-      float spike;
-      v[jp] = lif_update(v[jp], drive, true, 0.0f, false, lp, &spike);
-      p.spikes[base + c] = spike;
-    }
-  }
-#pragma unroll
-  for (int jp = 0; jp < NPL; ++jp) {
-    const int c = lane + 32 * jp;
-    if (c < n) p.v_out[(size_t)row * n + c] = v[jp];
-  }
+        for (int j = 0; j < CPT; ++j) {
+          const int c = c_base + lane + 32 * j;
+          if (!live || c >= nc) continue;
+          if (p.mac != nullptr) p.mac[base + c] = acc[0][j];
+          int cd = code[j];
+          if (p.noisy) {
+            const int b = c / n;
+            cd = noisy_code(cd, xf[j], seed, (uint32_t)(step0 + t), rid,
+                            (uint32_t)(b * p.logical_n + (c - b * n)), nm);
+          }
+          p.act[base + c] = s_levels[cd];
+        }
+      });
 }
 
-template <int NPL>
+// ---------------------------------------------------------------------------
+// Phase B: thread -> (row, neuron), the soma sum and the membrane across T.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kLifThreads) fmsn_lif(const FmsnParams p) {
+  const int idx = blockIdx.x * kLifThreads + threadIdx.x;
+  const int n = p.n, nb = p.n_branches;
+  if (idx >= p.m * n) return;
+  const int row = idx / n, c = idx - row * n;
+  const size_t nc = (size_t)nb * n;
+  const LifParams lp = {p.beta, p.v_th1, p.v_th1, p.v_reset, p.v_lim};
+  float wd[kLifBranches];
+#pragma unroll
+  for (int b = 0; b < kLifBranches; ++b)
+    wd[b] = b < nb ? p.w_dend[(size_t)b * n + c] : 0.0f;
+  // branch b of neuron c at step t
+  auto at = [&](int t, int b) {
+    return ((size_t)t * p.m + row) * nc + (size_t)b * n + c;
+  };
+  // the soma sums of kLifChunk steps.  The first kLifBranches branches'
+  // activations are loaded into registers a chunk ahead and summed after
+  // the current chunk's updates, so their loads are in flight meanwhile;
+  // further branches are loaded as they are summed.
+  float raw[kLifBranches][kLifChunk];
+  auto load = [&](int t0) {
+#pragma unroll
+    for (int b = 0; b < kLifBranches; ++b)
+#pragma unroll
+      for (int i = 0; i < kLifChunk; ++i)
+        raw[b][i] = b < nb && t0 + i < p.t_steps ? p.act[at(t0 + i, b)]
+                                                 : 0.0f;
+  };
+  auto sum = [&](int t0, float (&soma)[kLifChunk]) {
+#pragma unroll
+    for (int i = 0; i < kLifChunk; ++i) soma[i] = raw[0][i] * wd[0];
+#pragma unroll
+    for (int b = 1; b < kLifBranches; ++b)
+      if (b < nb)
+#pragma unroll
+        for (int i = 0; i < kLifChunk; ++i)
+          soma[i] = fmaf(raw[b][i], wd[b], soma[i]);
+    for (int b = kLifBranches; b < nb; ++b) {
+      const float w = p.w_dend[(size_t)b * n + c];
+#pragma unroll
+      for (int i = 0; i < kLifChunk; ++i)
+        if (t0 + i < p.t_steps) soma[i] = fmaf(p.act[at(t0 + i, b)], w,
+                                               soma[i]);
+    }
+  };
+  float v = p.v0[idx];
+  float soma[kLifChunk];
+  load(0);
+  sum(0, soma);
+  for (int t0 = 0; t0 < p.t_steps; t0 += kLifChunk) {
+    load(t0 + kLifChunk);
+#pragma unroll
+    for (int i = 0; i < kLifChunk; ++i) {
+      const int t = t0 + i;
+      if (t >= p.t_steps) break;
+      float spike;
+      v = lif_update(v, soma[i] * p.drive_gain, true, 0.0f, false, lp,
+                     &spike);
+      const size_t e = ((size_t)t * p.m + row) * n + c;
+      p.spikes[e] = spike;
+      p.mask[e] = 1.0f;
+      if (c == 0) p.steps[(size_t)t * p.m + row] = p.n_codes - 1;
+    }
+    sum(t0 + kLifChunk, soma);
+  }
+  p.v_out[idx] = v;
+}
+
+template <int CPT>
 cudaError_t launch(const FmsnParams& p, cudaStream_t stream) {
-  const dim3 grid((p.m + kRowsPerCta - 1) / kRowsPerCta);
-  const size_t smem = 2 * sizeof(float) * (size_t)p.n_codes;
-  fmsn_kernel<NPL><<<grid, 32 * kRowsPerCta, smem, stream>>>(p);
+  constexpr int BN = 32 * CPT;
+  static size_t smem_set = 48 * 1024;   // the default dynamic limit
+  const size_t smem = staged_mac_smem(BN, kItemWarps)
+                      + 2 * sizeof(float) * (size_t)p.n_codes;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fmsn_head<CPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const int items = p.t_steps * p.m, nc = p.n_branches * p.n;
+  const dim3 grid((items + kItemWarps - 1) / kItemWarps, (nc + BN - 1) / BN);
+  CUtensorMap tm[2] = {};
+  const bool bulk = stage_by_tma(tm, p.msb, p.lsb, p.k_dim, nc, BN, p.x,
+                                 p.k_dim);
+  fmsn_head<CPT><<<grid, kMacThreads, smem, stream>>>(p, tm[0], tm[1], bulk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fmsn_lif<<<(p.m * p.n + kLifThreads - 1) / kLifThreads, kLifThreads, 0,
+             stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -162,16 +271,12 @@ cudaError_t launch(const FmsnParams& p, cudaStream_t stream) {
 
 extern "C" int fmsn_launch(const FmsnParams* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int npl = (p->n + 31) / 32;
-  cudaError_t err;
-  if (p->m == 0 || p->t_steps == 0) return 0;
+  if (p->m == 0 || p->t_steps == 0 || p->n == 0) return 0;
   if (p->n_branches < 1) return (int)cudaErrorInvalidValue;
-  if (npl <= 1) err = launch<1>(*p, s);
-  else if (npl <= 2) err = launch<2>(*p, s);
-  else if (npl <= 4) err = launch<4>(*p, s);
-  else if (npl <= 8) err = launch<8>(*p, s);
-  else if (npl <= 16) err = launch<16>(*p, s);
-  else if (npl <= 32) err = launch<32>(*p, s);
-  else err = cudaErrorInvalidValue;
+  const int nc = p->n_branches * p->n;
+  cudaError_t err;
+  if (nc <= 32) err = launch<1>(*p, s);
+  else if (nc <= 64) err = launch<2>(*p, s);
+  else err = launch<4>(*p, s);
   return (int)err;
 }

@@ -14,12 +14,16 @@ replace the Pallas kernels (the backward of the first is in
   allocates.  Then one thread per (row, column) carries the membrane
   across T through the LIF update with SNL, writing for training the
   saturated membrane of every step (``train_trace``);
-* ``csrc/fused_macro_seq_nld.cu`` (``_seq_nld_kernel``): the same MAC,
-  ``mac * scale``, the activation ramp with optional noise, the LUT, the
-  branch-major soma combine with ``w_dend`` and a dense LIF without SNL;
+* ``csrc/fused_macro_seq_nld.cu`` (``_seq_nld_kernel``): the same split.
+  The head runs the same MAC over every (step, row) pair and column tile,
+  then ``mac * scale``, the activation ramp with optional noise and the
+  LUT, into a (T, M, J*N) scratch of activations; one thread per (row,
+  neuron) then does the branch-major soma combine with ``w_dend`` and a
+  dense LIF without SNL across T;
 * ``csrc/fused_macro_multi_seq_kwn.cu`` (``_multi_seq_kwn_kernel``): L
-  stacked KWN layers per step, the spikes handed from layer to layer in
-  registers.
+  stacked KWN layers, as 2L kernels: layer by layer, #1's head and LIF,
+  the head of a deeper layer reading the previous layer's spikes from an
+  int8 scratch.
 
 The wrappers take operands already padded to a ``TilePlan``
 (``kernels.ops`` does the padding).  A CUDA tensor launches the kernel,
@@ -105,7 +109,7 @@ class LayerSpec(NamedTuple):
     layers: the previous layer's exact width), ``n`` its columns, ``k`` its
     winners, ``bk`` the K-tile size of the occupancy counters (ragged tail
     allowed).  The reference's column tile does not exist here: the CUDA
-    kernel keeps whole rows in registers."""
+    kernel's head keeps a whole row's codes in registers for the sweep."""
 
     k_dim: int
     n: int
@@ -144,7 +148,8 @@ class _NldParams(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "x", "msb", "lsb", "bounds", "levels", "scale", "w_dend", "v0",
-        "activity", "row_ctl", "mac", "v_out", "spikes")] + [
+        "activity", "row_ctl", "mac", "v_out", "spikes", "mask", "steps",
+        "act")] + [
         (name, ctypes.c_int) for name in (
             "t_steps", "m", "k_dim", "n", "n_branches", "logical_n",
             "n_codes", "bm", "bk", "noisy")] + [
@@ -154,23 +159,27 @@ class _NldParams(ctypes.Structure):
 
 
 MAX_LAYERS = 4          # deepest stack the stacked kernel takes
+# row stride (bytes) of the stacked kernel's inter-layer spike scratch is a
+# multiple of this, so that the next layer's head can stage it by bulk
+# copies; 1 keeps rows unpadded (the plain-copy path), for comparison
+SPIKE_ROW_ALIGN = 16
 
 
 class _Layer(ctypes.Structure):
     """Mirror of ``FmmkLayer`` in ``csrc/fused_macro_multi_seq_kwn.cu``."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "msb", "lsb", "bounds", "levels", "scale", "v0", "noise",
-        "v_out")] + [
-        (name, ctypes.c_int) for name in ("k_dim", "n", "k", "bk")]
+        "msb", "lsb", "bounds", "levels", "scale", "v0", "noise", "v_out",
+        "mask", "spk")] + [
+        (name, ctypes.c_int) for name in ("k_dim", "n", "k", "bk", "ld")]
 
 
 class _MultiParams(ctypes.Structure):
     """Mirror of ``FmmkParams`` in ``csrc/fused_macro_multi_seq_kwn.cu``."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "x", "activity", "ctl", "spikes", "mask", "steps", "counts",
-        "tile_bits")] + [
+        "x", "activity", "ctl", "spikes", "steps", "counts", "tile_bits",
+        "drive", "snl")] + [
         ("layers", _Layer * MAX_LAYERS)] + [
         (name, ctypes.c_int) for name in (
             "n_layers", "t_steps", "m", "bm", "n_codes", "use_snl",
@@ -361,8 +370,8 @@ def _launch_nld(x, msb, lsb, boundaries, levels, scale, w_dend, v,
     if nc != n_branches * n:
         raise ValueError(f"NLD planes must have J*N = {n_branches * n} "
                          f"columns, got {nc}")
-    if n > MAX_COLS:
-        raise ValueError(f"fused seq-NLD kernel takes at most {MAX_COLS} "
+    if not 1 <= n <= MAX_COLS:
+        raise ValueError(f"fused seq-NLD kernel takes 1..{MAX_COLS} "
                          f"neurons, got {n}")
     _check_rows(m, bm, k_dim, bk)
     f32, i32 = torch.float32, torch.int32
@@ -382,7 +391,14 @@ def _launch_nld(x, msb, lsb, boundaries, levels, scale, w_dend, v,
         mac=torch.empty((t_steps, m, nc), dtype=f32, device=dev)
         if mac_telemetry else None,
         v_out=torch.empty((m, n), dtype=f32, device=dev),
-        spikes=torch.empty((t_steps, m, n), dtype=f32, device=dev))
+        spikes=torch.empty((t_steps, m, n), dtype=f32, device=dev),
+        # the NLD head updates every neuron and always runs the full ramp:
+        # the LIF writes ones and n_codes - 1
+        mask=torch.empty((t_steps, m, n), dtype=f32, device=dev),
+        steps=torch.empty((t_steps, m, 1), dtype=i32, device=dev),
+        # scratch the head hands the soma sum and LIF: every (branch,
+        # column)'s activation
+        act=torch.empty((t_steps, m, nc), dtype=f32, device=dev))
     params = _NldParams(
         **{name: _ptr(a) for name, a in {**ops, **outs}.items()},
         t_steps=t_steps, m=m, k_dim=k_dim, n=n, n_branches=n_branches,
@@ -392,10 +408,8 @@ def _launch_nld(x, msb, lsb, boundaries, levels, scale, w_dend, v,
         v_lim=v_lim, **_noise_kw(ima_noise))
     _run("fused_macro_seq_nld", "fmsn_launch", params, dev)
     fused_macro_seq_nld.launches += 1
-    # the NLD head updates every neuron and always runs the full ramp
-    mask = torch.ones((t_steps, m, n), dtype=f32, device=dev)
-    steps = torch.full((t_steps, m, 1), n_codes - 1, dtype=i32, device=dev)
-    return outs["mac"], outs["v_out"], outs["spikes"], mask, steps
+    return (outs["mac"], outs["v_out"], outs["spikes"], outs["mask"],
+            outs["steps"])
 
 
 def fused_macro_seq_nld(x, msb, lsb, boundaries, levels, scale, w_dend, v,
@@ -438,26 +452,11 @@ def fused_macro_seq_nld(x, msb, lsb, boundaries, levels, scale, w_dend, v,
 fused_macro_seq_nld.launches = 0
 
 
-def _stack_columns_per_lane(widths) -> int:
-    """Register columns per lane the stacked kernel keeps for every layer:
-    the widest layer's ``ceil(n / 32)``, rounded up to a power of two."""
-    cpl = 1
-    while 32 * cpl < max(widths):
-        cpl *= 2
-    return cpl
-
-
 def _check_stack(specs, k0):
-    """Raise ``ValueError`` for a stack the kernel cannot take."""
-    widths = [s.n for s in specs]
+    """Raise ``ValueError`` for a stack the kernels cannot take."""
     if not 1 <= len(specs) <= MAX_LAYERS:
         raise ValueError(f"the stacked kernel takes 1..{MAX_LAYERS} "
                          f"layers, got {len(specs)}")
-    if len(specs) * _stack_columns_per_lane(widths) > 32:
-        raise ValueError(
-            f"stack widths {widths} need more than the 32 register "
-            f"columns per lane the stacked kernel holds (layers x "
-            f"ceil(widest / 32), rounded up to a power of two)")
     if k0 % specs[0].bk or specs[0].bk % 32:
         raise ValueError(f"unsupported layer-0 K tiling: k_dim={k0} "
                          f"bk={specs[0].bk}")
@@ -478,39 +477,59 @@ def _launch_multi(x, planes, v0s, noises, activity, ctl, *, specs, ratio,
     dev = x.device
     t_steps, m, k0 = x.shape
     n_layers = len(specs)
+    widths = [spec.n for spec in specs]
+    if max(widths) > MAX_COLS:
+        raise ValueError(f"the stacked kernel takes at most {MAX_COLS} "
+                         f"columns a layer, got {widths}")
     n_codes = planes[0][3].shape[0]
-    f32, i32 = torch.float32, torch.int32
+    f32, i32, i8 = torch.float32, torch.int32, torch.int8
     n_i = m // bm
+    n_last = widths[-1]
+    outs = dict(
+        spikes=torch.empty((t_steps, m, n_last), dtype=f32, device=dev),
+        steps=torch.empty((n_layers, t_steps, m), dtype=i32, device=dev),
+        counts=torch.empty((n_layers, t_steps, m), dtype=f32, device=dev),
+        tile_bits=torch.empty((n_layers, t_steps, m), dtype=i32,
+                              device=dev),
+        # scratch the head of each layer in turn hands its LIF: the LUT
+        # drive, and the signs of the counter SNL stream
+        drive=torch.empty((t_steps, m, max(widths)), dtype=f32, device=dev),
+        snl=torch.empty((t_steps, m, max(widths)), dtype=i8, device=dev)
+        if noises is None and use_snl and snl_amp != 0.0 else None)
+    mask = torch.empty((t_steps, m, n_last), dtype=f32, device=dev)
+    # the hidden layers' winner masks and spikes (the next head's input,
+    # rows padded to SPIKE_ROW_ALIGN bytes), each buffer reused layer by
+    # layer
+    lds = [-(-w // SPIKE_ROW_ALIGN) * SPIKE_ROW_ALIGN for w in widths[:-1]]
+    hidden_mask = spk = None
+    if n_layers > 1:
+        hidden_mask = torch.empty((t_steps, m, max(widths[:-1])), dtype=f32,
+                                  device=dev)
+        spk = torch.empty((t_steps, m, max(lds)), dtype=i8, device=dev)
     layers = (_Layer * MAX_LAYERS)()
     v_outs = []
     for li, (spec, (msb, lsb, bounds, levels, scale)) in enumerate(
             zip(specs, planes)):
         shape = (spec.k_dim, spec.n)
+        last = li == n_layers - 1
         v_out = torch.empty((m, spec.n), dtype=f32, device=dev)
         v_outs.append(v_out)
         lay = dict(
-            msb=_operand(msb, torch.int8, shape, dev),
-            lsb=_operand(lsb, torch.int8, shape, dev),
+            msb=_operand(msb, i8, shape, dev),
+            lsb=_operand(lsb, i8, shape, dev),
             bounds=_operand(bounds, f32, (n_codes - 1,), dev),
             levels=_operand(levels, f32, (n_codes,), dev),
             scale=_operand(scale, f32, (spec.n,), dev),
             v0=_operand(v0s[li], f32, (m, spec.n), dev),
             noise=None if noises is None else _operand(
                 noises[li], f32, (t_steps, m, spec.n), dev),
-            v_out=v_out)
+            v_out=v_out, mask=mask if last else hidden_mask,
+            spk=None if last else spk)
         layers[li] = _Layer(**{k: _ptr(a) for k, a in lay.items()},
                             k_dim=spec.k_dim, n=spec.n, k=spec.k,
-                            bk=spec.bk)
-    n_last = specs[-1].n
-    outs = dict(
-        spikes=torch.empty((t_steps, m, n_last), dtype=f32, device=dev),
-        mask=torch.empty((t_steps, m, n_last), dtype=f32, device=dev),
-        steps=torch.empty((n_layers, t_steps, m), dtype=i32, device=dev),
-        counts=torch.empty((n_layers, t_steps, m), dtype=f32, device=dev),
-        tile_bits=torch.empty((n_layers, t_steps, m), dtype=i32,
-                              device=dev))
+                            bk=spec.bk, ld=0 if last else lds[li])
     ins = dict(
-        x=_operand(x, torch.int8, (t_steps, m, k0), dev),
+        x=_operand(x, i8, (t_steps, m, k0), dev),
         activity=_operand(activity, i32, (t_steps, n_i, specs[0].n_k), dev),
         ctl=_operand(ctl, i32, (n_layers + 1,), dev))
     params = _MultiParams(
@@ -523,16 +542,15 @@ def _launch_multi(x, planes, v0s, noises, activity, ctl, *, specs, ratio,
         **_noise_kw(ima_noise))
     _run("fused_macro_multi_seq_kwn", "fmmk_launch", params, dev)
     fused_macro_multi_seq.launches += 1
-    # occupied K tiles per (step, row tile): OR the per-row tile bits over
-    # the rows of each tile, then count the bits
-    occ = []
-    for li, spec in enumerate(specs):
-        shifts = torch.arange(spec.n_k, dtype=i32, device=dev)
-        bits = (outs["tile_bits"][li][..., None] >> shifts) & 1
-        occ.append(bits.reshape(t_steps, n_i, bm, spec.n_k).amax(2)
-                   .sum(-1).to(i32))
-    return (tuple(v_outs), outs["spikes"], outs["mask"], outs["steps"],
-            outs["counts"], torch.stack(occ))
+    # occupied K tiles per (layer, step, row tile): OR the per-row tile
+    # bits over the rows of each tile, then count the bits (at most 32 K
+    # tiles a layer, the higher bits 0)
+    shifts = torch.arange(32, dtype=i32, device=dev)
+    bits = (outs["tile_bits"][..., None] >> shifts) & 1
+    occ = bits.reshape(n_layers, t_steps, n_i, bm, 32).amax(3).sum(
+        -1, dtype=i32)
+    return (tuple(v_outs), outs["spikes"], mask, outs["steps"],
+            outs["counts"], occ)
 
 
 def fused_macro_multi_seq(x, planes, v0s, noises, activity, ctl, *,
@@ -542,7 +560,7 @@ def fused_macro_multi_seq(x, planes, v0s, noises, activity, ctl, *,
                           v_reset: float = 0.0, v_lim: float = 8.0,
                           use_snl: bool = True, bm: int = DEFAULT_BM,
                           ima_noise=None, snl_amp: float = 0.0):
-    """L stacked KWN layers over a whole event sequence in one launch.
+    """L stacked KWN layers over a whole event sequence in one call.
 
     x (T, M, K0) int8 (M a multiple of ``bm``, K0 of layer 0's K tile),
     planes per-layer (msb, lsb, boundaries, levels, scale) with
@@ -553,8 +571,9 @@ def fused_macro_multi_seq(x, planes, v0s, noises, activity, ctl, *,
     int32: per-layer counter seeds, then the step offset; the counters of
     row i at step t in layer l are ``(ctl[l], ctl[L] + t, i, column)``.
 
-    A stack the kernel cannot hold in registers (``_check_stack``) raises
-    ``ValueError`` on every device.
+    A stack of more than ``MAX_LAYERS`` layers or with a K tiling the
+    occupancy bits cannot hold (``_check_stack``) raises ``ValueError`` on
+    every device, and on the card a layer wider than ``MAX_COLS``.
 
     Returns (v_outs (per layer (M, n_l)), spikes (T, M, n_L) and mask
     (T, M, n_L) of the last layer, steps (L, T, M) int32, counts (L, T, M)

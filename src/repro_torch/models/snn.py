@@ -304,11 +304,11 @@ def _forward_steps(ev_t, fw, v, lif: dict, prbs_amp: float | None):
 
 
 def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds):
-    """A KWN layer stack in one launch of the stacked kernel: per-layer
-    membranes in registers across T, inter-layer spikes never leave the
-    kernel.  Hidden layers report through telemetry only: SOPs from the
-    per-layer spike counts, the skipped-block ratio from the per-layer
-    occupancy counters."""
+    """A KWN layer stack in one call of the stacked kernel: layer by layer,
+    a parallel head and a LIF recurrence across T, the inter-layer spikes
+    in a scratch the kernel's wrapper allocates.  Hidden layers report
+    through telemetry only: SOPs from the per-layer spike counts, the
+    skipped-block ratio from the per-layer occupancy counters."""
     dev = ev.device
     b, t_steps = ev.shape[0], ev.shape[1]
     widths = cfg.layer_widths

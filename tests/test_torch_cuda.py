@@ -167,7 +167,15 @@ def _nld_weights(kdim, n, n_branches, activation, seed=0):
 
 @pytest.mark.parametrize("shape", [(8, 64, 512, 128, 2, "relu"),
                                    (6, 37, 300, 40, 3, "sigmoid4"),
-                                   (5, 13, 96, 50, 3, "quadratic")],
+                                   (5, 13, 96, 50, 3, "quadratic"),
+                                   # J*N = 100 <= 128: no padding, neuron
+                                   # p's branches on different lanes
+                                   (7, 16, 96, 50, 2, "relu"),
+                                   # J*N = 1024, the training length
+                                   (30, 64, 512, 512, 2, "relu"),
+                                   # more branches than the LIF holds in
+                                   # registers
+                                   (4, 13, 96, 24, 6, "sigmoid4")],
                          ids=str)
 @pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
 def test_nld_kernel_matches_plain_version(cuda, shape, noisy):
@@ -209,7 +217,12 @@ def _stack(rs, kdim, widths):
 
 @pytest.mark.parametrize("shape", [(30, 64, 512, (128, 128), (12, 12)),
                                    (6, 37, 300, (300, 20), (12, 3)),
-                                   (5, 13, 96, (40, 200, 20), (4, 12, 3))],
+                                   (5, 13, 96, (40, 200, 20), (4, 12, 3)),
+                                   (8, 32, 256, (256,), (12,)),
+                                   (6, 24, 128, (128, 200, 64, 20),
+                                    (12, 12, 6, 3)),
+                                   (3, 8, 64, (512, 512, 512), (4, 4, 4)),
+                                   (30, 64, 512, (1024, 200), (24, 12))],
                          ids=str)
 @pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
 def test_stack_kernel_matches_plain_version(cuda, shape, noisy):
@@ -225,7 +238,7 @@ def test_stack_kernel_matches_plain_version(cuda, shape, noisy):
     kw = dict(ks=ks, drive_gain=0.25)
     if noisy:
         kw.update(ima_noise=macro_lib.fused_kernel_noise(stack[0], cfg),
-                  snl_amp=0.05, seeds=[5, 6, 7][:len(widths)],
+                  snl_amp=0.05, seeds=[5, 6, 7, 8][:len(widths)],
                   step_offset=4)
     before = fused_macro.fused_macro_multi_seq.launches
     got = macro_lib.fused_multi_seq(x.to(cuda), stack, vs, nz, **kw)
@@ -241,13 +254,53 @@ def test_stack_kernel_matches_plain_version(cuda, shape, noisy):
     assert want.spikes.sum() > 0
 
 
-def test_stack_too_wide_for_registers_raises(cuda):
+def test_stack_wider_than_the_old_register_limit_equals_plain(cuda):
+    """Three 512-column layers (48 register columns a lane in the earlier
+    one-warp-a-row kernel, which refused them) through the split kernels,
+    clean and noisy, against the plain version; a fifth layer still
+    raises."""
     rs = np.random.RandomState(3)
-    stack, _ = _stack(rs, 64, (512, 512, 512))
-    x = torch.zeros((2, 4, 64), device=cuda)
-    vs = [torch.zeros((4, 512)) for _ in range(3)]
-    with pytest.raises(ValueError, match="register columns"):
-        macro_lib.fused_multi_seq(x, stack, vs, None, ks=(4, 4, 4))
+    stack, cfg = _stack(rs, 64, (512, 512, 512))
+    x = torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], p=[0.1, 0.8, 0.1],
+                                   size=(3, 8, 64)).astype(np.float32))
+    vs = [torch.from_numpy(rs.uniform(-1, 1.2, (8, 512)).astype(np.float32))
+          for _ in range(3)]
+    for kw in (dict(), dict(ima_noise=macro_lib.fused_kernel_noise(
+            stack[0], cfg), snl_amp=0.05, seeds=[1, 2, 3], step_offset=5)):
+        got = macro_lib.fused_multi_seq(x.to(cuda), stack, vs, None,
+                                        ks=(4, 4, 4), **kw)
+        want = macro_lib.fused_multi_seq(x, stack, vs, None, ks=(4, 4, 4),
+                                         **kw)
+        for name in ("v_outs", "steps", "spike_counts", "occupancy"):
+            for a, b in zip(getattr(got, name), getattr(want, name)):
+                assert torch.equal(a.cpu(), b), name
+        assert torch.equal(got.spikes.cpu(), want.spikes)
+        assert torch.equal(got.mask.cpu(), want.mask)
+        assert sum(float(c.sum()) for c in want.spike_counts[:-1]) > 0
+    five = stack + stack[1:3]
+    with pytest.raises(ValueError, match="1..4 layers"):
+        macro_lib.fused_multi_seq(x.to(cuda), five, vs + vs[1:], None,
+                                  ks=(4,) * 5)
+
+
+@pytest.mark.parametrize("align", [1, 16])
+def test_stack_spike_scratch_row_stride(cuda, monkeypatch, align):
+    """The inter-layer spike scratch, rows unpadded (plain copies into the
+    next head) or padded to 16 bytes (bulk copies): the same bits."""
+    monkeypatch.setattr(fused_macro, "SPIKE_ROW_ALIGN", align)
+    rs = np.random.RandomState(4)
+    stack, _ = _stack(rs, 128, (200, 128, 20))
+    x = torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], p=[0.05, 0.9, 0.05],
+                                   size=(6, 16, 128)).astype(np.float32))
+    vs = [torch.from_numpy(rs.uniform(-1, 1.2, (16, w)).astype(np.float32))
+          for w in (200, 128, 20)]
+    kw = dict(ks=(12, 12, 3), snl_amp=0.05, seeds=[4, 5, 6])
+    got = macro_lib.fused_multi_seq(x.to(cuda), stack, vs, None, **kw)
+    want = macro_lib.fused_multi_seq(x, stack, vs, None, **kw)
+    for name in ("v_outs", "steps", "spike_counts", "occupancy"):
+        for a, b in zip(getattr(got, name), getattr(want, name)):
+            assert torch.equal(a.cpu(), b), name
+    assert torch.equal(got.spikes.cpu(), want.spikes)
 
 
 @pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])

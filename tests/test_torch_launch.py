@@ -213,3 +213,102 @@ def test_seq_grad_wrapper_allocates_the_kernels_scratch(fake_cuda,
         assert params.mac is None
     else:
         assert params.mac_s is None and params.mac == stack.data_ptr()
+
+
+def test_nld_wrapper_hands_the_lif_an_activation_scratch(fake_cuda,
+                                                        allocations):
+    """Kernel #2 is a head over every (step, row) pair and column tile and
+    a soma-and-LIF recurrence: its wrapper allocates the (T, M, J*N)
+    activations between them, and the LIF writes the constant mask and
+    ADC steps beside the spikes."""
+    t, m, k_dim, n, nb = 3, 8, 64, 5, 2
+    i8 = torch.int8
+    before = fused_macro.fused_macro_seq_nld.launches
+    mac, v_out, spikes, mask, steps = fused_macro._launch_nld(
+        torch.zeros((t, m, k_dim), dtype=i8),
+        torch.zeros((k_dim, nb * n), dtype=i8),
+        torch.zeros((k_dim, nb * n), dtype=i8), torch.zeros(3),
+        torch.zeros(4), torch.ones(nb * n), torch.ones((nb, n)),
+        torch.zeros((m, n)), None, torch.zeros((m, 3), dtype=torch.int32),
+        ratio=2.0, drive_gain=1.0, beta=0.9, v_th1=1.0, v_reset=0.0,
+        v_lim=8.0, bm=8, bk=32, logical_n=n, ima_noise=None,
+        mac_telemetry=True)
+    assert fused_macro.fused_macro_seq_nld.launches == before + 1
+    params = build._BOUND["fused_macro_seq_nld", "fmsn_launch"].params[-1]
+    assert allocations[params.act] == (t, m, nb * n)
+    outputs = {params.mac, params.v_out, params.spikes, params.mask,
+               params.steps}
+    assert params.act not in outputs and len(outputs) == 5
+    assert (params.mask, params.steps) == (mask.data_ptr(),
+                                           steps.data_ptr())
+    assert tuple(mask.shape) == (t, m, n) and steps.dtype == torch.int32
+    assert tuple(steps.shape) == (t, m, 1)
+    assert (params.n, params.n_branches, params.logical_n) == (n, nb, n)
+    with pytest.raises(ValueError, match="neurons"):
+        fused_macro._launch_nld(
+            torch.zeros((t, m, k_dim), dtype=i8),
+            torch.zeros((k_dim, 0), dtype=i8),
+            torch.zeros((k_dim, 0), dtype=i8), torch.zeros(3),
+            torch.zeros(4), torch.ones(0), torch.ones((nb, 0)),
+            torch.zeros((m, 0)), None, torch.zeros((m, 3), dtype=torch.int32),
+            ratio=2.0, drive_gain=1.0, beta=0.9, v_th1=1.0, v_reset=0.0,
+            v_lim=8.0, bm=8, bk=32, logical_n=0, ima_noise=None,
+            mac_telemetry=True)
+
+
+@pytest.mark.parametrize("align", [1, 16])
+@pytest.mark.parametrize("dense_noise", [False, True],
+                         ids=["counter", "dense"])
+def test_stack_wrapper_hands_each_layer_its_scratch(fake_cuda, allocations,
+                                                    monkeypatch, align,
+                                                    dense_noise):
+    """Kernel #4 is 2L kernels, a head and a LIF a layer: its wrapper
+    allocates one drive (and counter-SNL) scratch for every layer, one
+    winner mask for the hidden layers (the last layer's is the output) and
+    one int8 spike scratch, rows padded to ``SPIKE_ROW_ALIGN`` bytes, that
+    the next layer's head reads."""
+    monkeypatch.setattr(fused_macro, "SPIKE_ROW_ALIGN", align)
+    t, m, bm, k0 = 2, 8, 8, 64
+    specs = (fused_macro.LayerSpec(k0, 20, 3, 32),
+             fused_macro.LayerSpec(20, 200, 12, 20),
+             fused_macro.LayerSpec(200, 8, 2, 200))
+    i8 = torch.int8
+    planes = [(torch.zeros((s.k_dim, s.n), dtype=i8),
+               torch.zeros((s.k_dim, s.n), dtype=i8), torch.zeros(3),
+               torch.zeros(4), torch.ones(s.n)) for s in specs]
+    noises = [torch.zeros((t, m, s.n)) for s in specs] if dense_noise \
+        else None
+    before = fused_macro.fused_macro_multi_seq.launches
+    v_outs, spikes, mask, steps, counts, occ = fused_macro._launch_multi(
+        torch.zeros((t, m, k0), dtype=i8), planes,
+        [torch.zeros((m, s.n)) for s in specs], noises,
+        torch.zeros((t, m // bm, 2), dtype=torch.int32),
+        torch.zeros(4, dtype=torch.int32), specs=specs, ratio=2.0,
+        drive_gain=1.0, beta=0.9, v_th1=1.0, v_th2=0.6, v_reset=0.0,
+        v_lim=8.0, use_snl=True, bm=bm, ima_noise=None, snl_amp=0.05)
+    assert fused_macro.fused_macro_multi_seq.launches == before + 1
+    params = build._BOUND["fused_macro_multi_seq_kwn", "fmmk_launch"] \
+        .params[-1]
+    assert params.n_layers == 3
+    assert allocations[params.drive] == (t, m, 200)
+    if dense_noise:
+        assert params.snl is None
+    else:
+        assert allocations[params.snl] == (t, m, 200)
+    hidden, last = params.layers[:2], params.layers[2]
+    assert hidden[0].mask == hidden[1].mask
+    assert allocations[hidden[0].mask] == (t, m, 200)
+    assert last.mask == mask.data_ptr() and tuple(mask.shape) == (t, m, 8)
+    assert hidden[0].spk == hidden[1].spk and last.spk is None
+    lds = [-(-w // align) * align for w in (20, 200)]
+    assert [lay.ld for lay in params.layers[:3]] == lds + [0]
+    assert allocations[hidden[0].spk] == (t, m, max(lds))
+    scratch = {params.drive, params.snl, hidden[0].mask, hidden[0].spk}
+    outputs = {params.spikes, params.steps, params.counts,
+               params.tile_bits, last.mask} | {lay.v_out for lay in
+                                               params.layers[:3]}
+    assert not scratch & outputs
+    assert [v.data_ptr() for v in v_outs] == [lay.v_out for lay in
+                                               params.layers[:3]]
+    assert tuple(occ.shape) == (3, t, m // bm) and occ.dtype == torch.int32
+    assert tuple(counts.shape) == (3, t, m) == tuple(steps.shape)

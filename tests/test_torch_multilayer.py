@@ -5,7 +5,8 @@ port's plain version is held to it directly and to the composed oracle
 ``repro.kernels.ref.fused_macro_multi_seq_ref``: membranes, spikes, mask,
 ADC steps, row spike counts and the occupancy counters bit for bit, clean
 and with the counter noise, at a two-layer shape, a ragged plan (K=300
-and a deep layer wider than one K tile) and three layers.  Also the
+and a deep layer wider than one K tile), three layers, and three
+512-column layers.  Also the
 config checks, packing and plans, ``forward_silicon`` against JAX's
 ``forward_silicon(fused="seq")`` (with JAX's per-layer seeds), and stacks
 in the serving engine (drain path only).  The CUDA kernel is held to the
@@ -116,17 +117,49 @@ def test_plain_stack_equals_jax_kernel_and_oracle(shape, noisy):
     assert 0 < sum(int(o.sum()) for o in got.occupancy) < got.total_blocks
 
 
-def test_stack_too_wide_for_registers_raises():
-    """Three 512-column layers need 3 x 16 register columns a lane: the
-    stacked path refuses them on every device, without a fallback."""
-    x = torch.zeros((2, 4, 64))
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+def test_wide_stack_equals_jax_kernel(noisy):
+    """Three 512-column layers, which the port once refused (3 x 16
+    register columns a lane in its first stacked kernel), through the
+    plain version against JAX's stacked Pallas kernel, bit for bit."""
+    shape = (3, 8, 64, (512, 512, 512), (4, 4, 4))
+    stack, mcfg, x, vs, nz, ks = _case(shape, seed=3)
+    kw = dict(ks=ks, drive_gain=0.25)
+    if noisy:
+        kw.update(ima_noise=j_macro.fused_kernel_noise(stack[0], mcfg),
+                  snl_amp=0.05, seeds=[7, 8, 9], step_offset=2)
+    planes = _planes(stack)
+    want = j_ops.fused_macro_multi_seq(
+        jnp.asarray(x), planes, [jnp.asarray(v) for v in vs],
+        None if noisy else [jnp.asarray(a) for a in nz], **kw)
+    got = t_ops.fused_macro_multi_seq(
+        torch.from_numpy(x), [tuple(torch.from_numpy(a) for a in p)
+                              for p in planes],
+        [torch.from_numpy(v) for v in vs],
+        None if noisy else [torch.from_numpy(a) for a in nz],
+        device="cpu", **kw)
+    for name in ("v_outs", "steps", "spike_counts", "occupancy"):
+        for li, (a, b) in enumerate(zip(getattr(want, name),
+                                        getattr(got, name))):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                          err_msg=f"{name}[{li}]")
+    np.testing.assert_array_equal(np.asarray(want.spikes), got.spikes)
+    np.testing.assert_array_equal(np.asarray(want.mask), got.mask)
+    assert sum(float(c.sum()) for c in got.spike_counts[:-1]) > 0
+
+
+def test_stack_deeper_than_max_layers_raises():
+    """The stacked kernel's parameter struct holds MAX_LAYERS layers: one
+    more raises on every device, without a fallback."""
+    n_layers = t_fused.MAX_LAYERS + 1
     plane = lambda k, n: (torch.zeros((k, n), dtype=torch.int8),
                           torch.zeros((k, n), dtype=torch.int8),
                           torch.zeros(31), torch.zeros(32), torch.ones(n))
-    stack = [plane(64, 512), plane(512, 512), plane(512, 512)]
-    with pytest.raises(ValueError, match="register columns"):
-        t_ops.fused_macro_multi_seq(x, stack, [torch.zeros((4, 512))] * 3,
-                                    None, ks=(4, 4, 4), device="cpu")
+    stack = [plane(64, 16)] + [plane(16, 16)] * (n_layers - 1)
+    with pytest.raises(ValueError, match=f"1..{t_fused.MAX_LAYERS} layers"):
+        t_ops.fused_macro_multi_seq(torch.zeros((2, 4, 64)), stack,
+                                    [torch.zeros((4, 16))] * n_layers, None,
+                                    ks=(4,) * n_layers, device="cpu")
 
 
 def test_cpu_tensors_never_launch_the_stack_kernel():
