@@ -11,10 +11,10 @@ Phases (any failure raises, so the exit code is non-zero):
    the tensor-core instructions (HGMMA, HMMA) in the flash library's SASS
    (``cuobjdump -sass``): the bf16 kernels must have them; report the
    registers, static shared memory, stack frame and spills of the
-   kernels of #1 (``fmsk_head<CPL>``, ``fmsk_lif``), #3
-   (``fmskb_mac``, ``fmskb_chain``, ``fmskb_dw_part``, ``fmskb_dw_sum``),
-   #2 (``fmsn_head<CPT>``, ``fmsn_lif``) and #4 (``fmmk_head<CPL>``,
-   ``fmmk_lif``), failing if one is missing;
+   kernels of #1 and #4 (the KWN layer's ``kwn_head<CPL>``, ``kwn_lif``,
+   in each library), #3 (``fmskb_mac``, ``fmskb_chain``,
+   ``fmskb_dw_part``, ``fmskb_dw_sum``) and #2 (``fmsn_head<CPT>``,
+   ``fmsn_lif``), failing if one is missing;
 3. kernels vs plain versions, on the same inputs on the card:
    - KWN: the public wrapper ``ops.fused_macro_seq`` (padding,
      ``n_valid``, activity gating, ``row_ctl`` or a scalar seed) against
@@ -250,33 +250,33 @@ def build_phase() -> tuple[float, dict, dict]:
 
 
 SPLIT_KERNELS = {   # source -> its kernels: a parallel head, a serial LIF
-    "fused_macro_seq_kwn": ("fmsk_head", "fmsk_lif"),
+    "fused_macro_seq_kwn": ("kwn_head", "kwn_lif"),
     "fused_macro_seq_kwn_bwd": ("fmskb_mac", "fmskb_chain", "fmskb_dw_part",
                                 "fmskb_dw_sum"),
     "fused_macro_seq_nld": ("fmsn_head", "fmsn_lif"),
-    "fused_macro_multi_seq_kwn": ("fmmk_head", "fmmk_lif")}
+    "fused_macro_multi_seq_kwn": ("kwn_head", "kwn_lif")}
 
 
 def split_build_report() -> dict:
     """Registers, static shared memory, stack frame and spill bytes
-    (``-Xptxas -v``) of each kernel of #1 (``fmsk_head<CPL>``,
-    ``fmsk_lif``), #3 (``fmskb_*``), #2 (``fmsn_head<CPT>``, ``fmsn_lif``)
-    and #4 (``fmmk_head<CPL>``, ``fmmk_lif``).  The staged-MAC kernels take
+    (``-Xptxas -v``) of each kernel of #1 and #4 (``kwn_head<CPL>``,
+    ``kwn_lif``), #3 (``fmskb_*``) and #2 (``fmsn_head<CPT>``,
+    ``fmsn_lif``), keyed ``source/kernel``.  The staged-MAC kernels take
     their plane ring as dynamic shared memory (64 KB at 128 columns a
     tile), which ptxas does not report."""
-    names = [k for ks in SPLIT_KERNELS.values() for k in ks]
     rep: dict = {}
-    pat = re.compile(r"\d+(" + "|".join(names) + r")(?:ILi(\d+)E)?")
-    for src in SPLIT_KERNELS:
+    for src, names in SPLIT_KERNELS.items():
+        # a length-prefixed name in the mangled one, with its template
+        # argument
+        pat = re.compile(r"\d(" + "|".join(names) + r")(?:ILi(\d+)E)?")
         cur = None
         for ln in build.BUILD_LOG.get(src, "").splitlines():
-            m = re.search(r"Function properties for _ZN(\d+)(\S+)", ln)
+            m = re.search(r"Function properties for (_Z\S+)", ln)
             if m:
-                # past the anonymous namespace's length-prefixed name
-                k = pat.match(m.group(2)[int(m.group(1)):])
+                k = pat.search(m.group(1))
                 cur = None if k is None else rep.setdefault(
-                    k.group(1) + (f"<{k.group(2)}>" if k.group(2) else ""),
-                    {})
+                    f"{src}/{k.group(1)}"
+                    + (f"<{k.group(2)}>" if k.group(2) else ""), {})
             elif cur is not None and "spill stores" in ln:
                 cur["stack_bytes"] = int(re.search(
                     r"(\d+) bytes stack frame", ln).group(1))
@@ -288,8 +288,10 @@ def split_build_report() -> dict:
                 sm = re.search(r"(\d+) bytes smem", ln)
                 cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
                 cur = None
-    missing = [name for name in names
-               if not any(key.split("<")[0] == name for key in rep)]
+    missing = [f"{src}/{name}" for src, names in SPLIT_KERNELS.items()
+               for name in names
+               if not any(key.split("<")[0] == f"{src}/{name}"
+                          for key in rep)]
     if missing:
         raise AssertionError(f"ptxas report lacks {missing}: {rep}")
     log("split kernels (registers / static smem / stack / spill bytes): "
@@ -836,7 +838,8 @@ def timing_phase(dev) -> dict:
     kernel_ms = [_time_ms(launch, 200) for _ in range(2)]
     plain_ms = [_time_ms(plain, 5) for _ in range(2)]
     kernel_ms += [_time_ms(launch, 200)]
-    device_ms = _device_ms_per_launch(launch, 50)
+    split: dict = {}
+    device_ms = _device_ms_per_launch(launch, 50, split)
     # the least the card could take: each operand read once, each output
     # written once; the MAC the data needs (2 ops per active input and
     # column) plus the ramp compares
@@ -849,7 +852,7 @@ def timing_phase(dev) -> dict:
     ops_s = ops_count / F32_FLOPS
     bound_ms = 1e3 * max(bytes_s, ops_s)
     res = {"kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
-           "device_ms": device_ms,
+           "device_ms": device_ms, "device_ms_by_kernel": split,
            "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
            "bound_ms": bound_ms,
            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
@@ -894,7 +897,8 @@ def nld_timing_phase(dev) -> dict:
     plain = lambda: ref.fused_macro_seq_nld_ref(*operands, row_ctl=rc, **kw)
     kernel_ms = [_time_ms(launch, 200) for _ in range(3)]
     plain_ms = [_time_ms(plain, 5) for _ in range(2)]
-    device_ms = _device_ms_per_launch(launch, 50)
+    split: dict = {}
+    device_ms = _device_ms_per_launch(launch, 50, split)
     nc, n_codes = nb * n, fw.levels.shape[0]
     in_bytes = (x.numel() + 2 * kdim * nc
                 + 4 * (2 * n_codes - 1 + nc + nb * n) + 4 * m * n
@@ -905,7 +909,7 @@ def nld_timing_phase(dev) -> dict:
              + 2 * t * m * nc)
     bound_ms, bound_by = _bound(in_bytes + out_bytes, n_ops)
     res = {"kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
-           "device_ms": device_ms,
+           "device_ms": device_ms, "device_ms_by_kernel": split,
            "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bytes": in_bytes + out_bytes, "ops": n_ops,
@@ -930,7 +934,8 @@ def stack_timing_phase(dev) -> dict:
     plain = lambda: ref.fused_macro_multi_seq_ref(*args, **kw)
     kernel_ms = [_time_ms(launch, 50) for _ in range(3)]
     plain_ms = [_time_ms(plain, 2) for _ in range(2)]
-    device_ms = _device_ms_per_launch(launch, 20)
+    split: dict = {}
+    device_ms = _device_ms_per_launch(launch, 20, split)
     x, planes, vs, noises, act, ctl = args
     counts = launch()[4]
     n_codes, n_i = planes[0][3].shape[0], m // kw["bm"]
@@ -946,41 +951,15 @@ def stack_timing_phase(dev) -> dict:
         n_ops += 2 * int(counts[li - 1].sum().item()) * widths[li]
     bound_ms, bound_by = _bound(in_bytes + out_bytes, n_ops)
     res = {"kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
-           "device_ms": device_ms,
+           "device_ms": device_ms, "device_ms_by_kernel": split,
            "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "bytes": in_bytes + out_bytes, "ops": n_ops,
-           "shape": {"T": t, "M": m, "K": kdim, "widths": list(widths)},
-           "spike_row_align": _spike_row_align_timing(rs, dev)}
+           "shape": {"T": t, "M": m, "K": kdim, "widths": list(widths)}}
     log(f"stack timing T={t} M={m} K={kdim} widths={widths}: kernel "
         f"{res['kernel_ms']:.4f} ms/launch (device {device_ms:.4f} under "
         f"the profiler), plain {res['plain_ms']:.3f} ms/launch, bound "
         f"{bound_ms * 1e3:.3f} us ({bound_by})")
-    return res
-
-
-def _spike_row_align_timing(rs, dev) -> dict:
-    """The stack's inter-layer spike scratch with rows padded to 16 bytes
-    (the next head stages them by bulk copies) against unpadded rows (plain
-    copies), in turns, at a deep width that is not a multiple of 16: 64
-    streams of 30 steps through 200 then 128 columns.  Device ms a launch
-    under the profiler, and CUDA-event ms through the wrapper."""
-    args, kw = _stack_call(rs, STACK_CFG.n_steps, STACK_BATCH,
-                           STACK_CFG.n_in, (200, 128), (12, 12), False, dev)
-    launch = lambda: fused_macro.fused_macro_multi_seq(*args, **kw)
-    res: dict = {}
-    default = fused_macro.SPIKE_ROW_ALIGN
-    try:
-        for align in (16, 1, 1, 16):
-            fused_macro.SPIKE_ROW_ALIGN = align
-            got = res.setdefault(str(align), {"device_ms": [], "ms": []})
-            got["device_ms"].append(_device_ms_per_launch(launch, 20))
-            got["ms"].append(_time_ms(launch, 50))
-    finally:
-        fused_macro.SPIKE_ROW_ALIGN = default
-    log("stack spike scratch, widths (200, 128): " + ", ".join(
-        f"rows padded to {a} B: device {min(r['device_ms']):.4f} ms, "
-        f"wrapper {min(r['ms']):.4f} ms" for a, r in res.items()))
     return res
 
 
@@ -1311,7 +1290,8 @@ def train_timing_phase(params, dev) -> dict:
         launch = lambda trace=trace: fused_macro.fused_macro_seq(
             *fwd_ops, mac_telemetry=trace, train_trace=trace, **fwd_kw)
         fwd_ms[trace] = [_time_ms(launch, 100) for _ in range(3)]
-    fwd_device_ms = _device_ms_per_launch(launch, 50)   # with the trace
+    fwd_split: dict = {}   # with the trace
+    fwd_device_ms = _device_ms_per_launch(launch, 50, fwd_split)
     out = fused_macro.fused_macro_seq(*fwd_ops, mac_telemetry=True,
                                       train_trace=True, **fwd_kw)
     ref_kw = {k: v for k, v in fwd_kw.items() if k not in ("bm", "bk")}
@@ -1401,6 +1381,7 @@ def train_timing_phase(params, dev) -> dict:
                       "trace_all": fwd_ms[True],
                       "no_trace_all": fwd_ms[False],
                       "device_trace": fwd_device_ms,
+                      "device_trace_by_kernel": fwd_split,
                       "plain_trace": min(fwd_plain_ms),
                       "plain_trace_all": fwd_plain_ms,
                       "bound_ms": fwd_bound_ms, "bound_by": fwd_bound_by},
@@ -1756,10 +1737,17 @@ def composed_path_phase(dev) -> dict:
     return res
 
 
-def _device_ms_per_launch(fn, reps: int) -> float:
+def _kernel_name(key: str) -> str:
+    """A device event's kernel name without namespaces and arguments."""
+    head = key.replace("(anonymous namespace)::", "").split("(")[0]
+    return re.sub(r"^(void )?(\w+::)*", "", head).strip()
+
+
+def _device_ms_per_launch(fn, reps: int, split: dict | None = None) -> float:
     """Device time per call of ``fn`` under ``torch.profiler`` (every
     device event of ``reps`` calls, over ``reps``): the kernel's own time,
-    without the host's launch gaps that CUDA events include."""
+    without the host's launch gaps that CUDA events include.  ``split``,
+    when given, receives the ms per call of each device kernel by name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1770,8 +1758,12 @@ def _device_ms_per_launch(fn, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(_device_us(e) for e in prof.key_averages()
-               if e.device_type == cuda) / 1e3 / reps
+    events = [(_kernel_name(e.key), _device_us(e) / 1e3 / reps)
+              for e in prof.key_averages() if e.device_type == cuda]
+    if split is not None:
+        for name, ms in events:
+            split[name] = split.get(name, 0.0) + ms
+    return sum(ms for _, ms in events)
 
 
 def stage_timing_phase(dev) -> dict:

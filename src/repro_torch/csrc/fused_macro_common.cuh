@@ -397,11 +397,12 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The tensor map of a (k_dim, n) int8 plane read in boxes of box_cols
-// columns by kStageRows rows: one TMA copy a staged tile, whatever n.
-inline bool plane_map(CUtensorMap* map, const int8_t* plane, int k_dim,
-                      int n, int box_cols) {
+// columns by kStageRows rows: one TMA copy a staged tile, whatever n.  A
+// missing encoder or a refused map is an error, never a silent fallback.
+inline cudaError_t plane_map(CUtensorMap* map, const int8_t* plane,
+                             int k_dim, int n, int box_cols) {
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)k_dim};
   const cuuint64_t strides[1] = {(cuuint64_t)n};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)kStageRows};
@@ -410,20 +411,24 @@ inline bool plane_map(CUtensorMap* map, const int8_t* plane, int k_dim,
             const_cast<int8_t*>(plane), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+      ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Whether staged_mac can stage the (k_dim, n) int8 planes and the event
-// rows at x (row stride x_ld) by the TMA unit: 16-byte aligned rows and
-// tensor maps tm[0] (msb) and tm[1] (lsb) for boxes of box_cols columns.
-// Otherwise it copies them with plain loads.
-inline bool stage_by_tma(CUtensorMap (&tm)[2], const int8_t* msb,
-                         const int8_t* lsb, int k_dim, int n, int box_cols,
-                         const int8_t* x, int x_ld) {
-  return ((uintptr_t)msb | (uintptr_t)lsb | (uintptr_t)x) % 16 == 0
-         && n % 16 == 0 && x_ld % 16 == 0 && k_dim > 0
-         && plane_map(&tm[0], msb, k_dim, n, box_cols)
-         && plane_map(&tm[1], lsb, k_dim, n, box_cols);
+// How staged_mac stages the (k_dim, n) int8 planes and the event rows at x
+// (k_dim bytes each): by the TMA unit when every row is 16-byte aligned
+// (*bulk true, with tensor maps tm[0] of msb and tm[1] of lsb for boxes of
+// box_cols columns), else by plain loads (*bulk false).
+inline cudaError_t stage_by_tma(CUtensorMap (&tm)[2], bool* bulk,
+                                const int8_t* msb, const int8_t* lsb,
+                                int k_dim, int n, int box_cols,
+                                const int8_t* x) {
+  *bulk = ((uintptr_t)msb | (uintptr_t)lsb | (uintptr_t)x) % 16 == 0
+          && n % 16 == 0 && k_dim % 16 == 0 && k_dim > 0;
+  if (!*bulk) return cudaSuccess;
+  const cudaError_t err = plane_map(&tm[0], msb, k_dim, n, box_cols);
+  return err != cudaSuccess ? err
+                            : plane_map(&tm[1], lsb, k_dim, n, box_cols);
 }
 
 // ramp_code for CPT values at once: each boundary is loaded once for all of
@@ -513,8 +518,8 @@ __host__ __device__ constexpr int staged_mac_smem(int bn, int items) {
 // The MAC of IPW (step, row) items per warp for NCT column tiles of
 // BN = 32 CPT columns, the first starting at column c_base.  The CTA owns
 // kItemWarps * IPW consecutive items, of which the first n_rows exist; their
-// event rows (k_dim int8 values each, row stride x_ld >= k_dim, the first at
-// x_cta) and the (k_dim, n) planes stream through a kStages-stage ring in
+// event rows (k_dim int8 values each, the first at x_cta) and the (k_dim, n)
+// planes stream through a kStages-stage ring in
 // shared memory (`ring`, staged_mac_smem(BN, kItemWarps * IPW) bytes,
 // 16-byte aligned).  The block is kMacThreads threads: kItemWarps item
 // warps and, last, a copy warp.  With `bulk` (stage_by_tma, which makes the
@@ -530,17 +535,24 @@ __host__ __device__ constexpr int staged_mac_smem(int bn, int items) {
 // whose word is 0 is not read.  K need not be a whole number of chunks:
 // lanes past k_dim read no event.  Events are added in ascending K, each as
 // acc + s * (ratio * msb + lsb) (mac_add_rows_staged): the plain version's
-// order and rounding, so the same bits.  bits[i] gets bit k / bk for each
-// 32-row chunk starting at k that held an event of item i.  After the last
+// order and rounding, so the same bits.  With kBits it returns the tile
+// bits: bit k / bk of word i for each 32-row chunk starting at k that held
+// an event of item i (kept in registers; without kBits none is computed, so
+// a caller that needs none pays nothing in the event loop).  After the last
 // K tile of column tile ct, epi(ct, acc) receives acc[i][j] for column
 // c_base + BN ct + lane + 32 j.
-template <int CPT, int NCT, int IPW, class Epi>
-__device__ __forceinline__ void staged_mac(
+template <int IPW>
+struct TileBits {
+  unsigned w[IPW];
+};
+
+template <int CPT, int NCT, int IPW, bool kBits = false, class Epi>
+__device__ __forceinline__ TileBits<IPW> staged_mac(
     int8_t* ring, const int8_t* msb, const int8_t* lsb,
     const CUtensorMap* tm_msb, const CUtensorMap* tm_lsb, int k_dim, int n,
-    int c_base, bool bulk, const int8_t* x_cta, int x_ld, int n_rows,
+    int c_base, bool bulk, const int8_t* x_cta, int n_rows,
     const bool (&on)[IPW], const int32_t* const (&occ)[IPW], int bk,
-    float ratio, unsigned (&bits)[IPW], Epi&& epi) {
+    float ratio, Epi&& epi) {
   constexpr int BN = 32 * CPT;
   constexpr int kItems = kItemWarps * IPW;
   constexpr int kStage = kStageRows * (2 * BN + kItems);
@@ -548,8 +560,9 @@ __device__ __forceinline__ void staged_mac(
   const int n_kt = (k_dim + kStageRows - 1) / kStageRows;
   const int total = NCT * n_kt;
   uint64_t* bar = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  TileBits<IPW> bits;
 #pragma unroll
-  for (int i = 0; i < IPW; ++i) bits[i] = 0u;
+  for (int i = 0; i < IPW; ++i) bits.w[i] = 0u;
   if (bulk && threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) mbar_init(&bar[i]);
     fence_mbar_init();
@@ -566,27 +579,25 @@ __device__ __forceinline__ void staged_mac(
     const size_t g = (size_t)k0 * n + c0;
     if (bulk) {
       if (warp != kItemWarps) return;
-      // the events' whole 16-byte rows, padding included (never read)
-      const int xb = min(kStageRows, x_ld - k0);
       uint64_t* b = &bar[q % kStages];
       if (lane == 0) {
         // whole boxes: the rows and columns past the planes count too
         mbar_expect(b, (uint32_t)((cols > 0 ? 2 * kStageRows * BN : 0)
-                                  + n_rows * xb));
+                                  + n_rows * rows));
         if (cols > 0) {
           tma_load_2d(st, tm_msb, c0, k0, b);
           tma_load_2d(st + kStageRows * BN, tm_lsb, c0, k0, b);
         }
       }
       __syncwarp();
-      bulk_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, x_ld,
-                n_rows, xb, b, lane);
+      bulk_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, k_dim,
+                n_rows, rows, b, lane);
     } else {
       if (cols > 0) {
         copy_tile(st, BN, msb + g, n, rows, cols);
         copy_tile(st + kStageRows * BN, BN, lsb + g, n, rows, cols);
       }
-      copy_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, x_ld,
+      copy_tile(st + 2 * kStageRows * BN, kStageRows, x_cta + k0, k_dim,
                 n_rows, rows);
     }
   };
@@ -627,7 +638,8 @@ __device__ __forceinline__ void staged_mac(
           const int xv = word[i][u] != 0 && k0 + 32 * u + lane < k1
                          ? xs[32 * u + lane] : 0;
           const unsigned live = __ballot_sync(kFull, xv != 0);
-          if (ct == 0 && live != 0u) bits[i] |= 1u << ((k0 + 32 * u) / bk);
+          if (kBits && ct == 0 && live != 0u)
+            bits.w[i] |= 1u << ((k0 + 32 * u) / bk);
           mac_add_rows_staged<CPT>(acc[i], live, xv, s_msb + 32 * u * BN,
                                    s_lsb + 32 * u * BN, ratio, lane);
         }
@@ -635,20 +647,7 @@ __device__ __forceinline__ void staged_mac(
     }
     epi(ct, acc);
   }
-}
-
-// staged_mac over event rows of stride k_dim, without the tile bits.
-template <int CPT, int NCT, int IPW, class Epi>
-__device__ __forceinline__ void staged_mac(
-    int8_t* ring, const int8_t* msb, const int8_t* lsb,
-    const CUtensorMap* tm_msb, const CUtensorMap* tm_lsb, int k_dim, int n,
-    int c_base, bool bulk, const int8_t* x_cta, int n_rows,
-    const bool (&on)[IPW], const int32_t* const (&occ)[IPW], int bk,
-    float ratio, Epi&& epi) {
-  unsigned bits[IPW];
-  staged_mac<CPT, NCT, IPW>(ring, msb, lsb, tm_msb, tm_lsb, k_dim, n,
-                            c_base, bulk, x_cta, k_dim, n_rows, on, occ, bk,
-                            ratio, bits, static_cast<Epi&&>(epi));
+  return bits;
 }
 
 }  // namespace fm

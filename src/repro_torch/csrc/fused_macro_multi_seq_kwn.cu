@@ -23,41 +23,41 @@
 // on one stream, layer by layer, as the seq-KWN forward's two
 // (fused_macro_seq_kwn.cu):
 //
-//   A. fmmk_head<CPL> of layer l, parallel over all T x M (step, row) items:
-//      one warp an item, kItemWarps items a CTA and a copy warp that streams
-//      the layer's (k_dim, n) planes (a tile one copy through a 2D tensor
-//      map) and the CTA's input rows (a bulk copy a row) through a
+//   A. the head of layer l (kwn_head<CPL> of fused_macro_kwn_layer.cuh,
+//      shared with the seq-KWN forward), parallel over all T x M (step, row)
+//      items: one warp an item, kItemWarps items a CTA and a copy warp that
+//      streams the layer's (k_dim, n) planes (a tile one copy through a 2D
+//      tensor map) and the CTA's input rows (a bulk copy a row) through a
 //      shared-memory ring by the TMA unit on mbarriers (staged_mac in
 //      fused_macro_common.cuh).  The input is the events (layer 0, gated by
-//      the host occupancy map) or layer l-1's spikes, an int8 (T, M, ld)
-//      scratch whose row stride the wrapper pads to 16 bytes so that a deep
-//      width such as 200 does not force the plain-copy path on the next
-//      layer (chip_smoke.py times the unpadded stride beside it; planes
-//      whose width is not a multiple of 16 take that path anyway).  The
-//      MAC writes a bit per K tile that held an input that fired (the
-//      reference counts occupied K tiles per (step, row tile); a warp sees
-//      one row, so the wrapper ORs the rows of each tile).  Then, keyed on
-//      (ctl[l], ctl[L] + t, absolute row, column): ramp codes with the
-//      counter noise, the KWN sweep over the whole row in column order (a
-//      lane keeps CPL codes, up to MAX_COLS = 1024 columns a layer), the LUT
-//      drive and the counter SNL signs, into (T, M, n) scratch the wrapper
-//      allocates (reused by every layer), with the mask, the ADC steps and
-//      the tile bits; it zeroes the row's spike count.
-//   B. fmmk_lif of layer l: one thread a (row, column), a warp 32 columns of
-//      one row, walks t with the membrane in a register; drive, mask and SNL
-//      noise are loaded kLifChunk steps ahead, so only the fmaf / clip /
-//      compare chain is serial.  It writes the spike scratch the next head
-//      reads (the last layer: spikes), every layer's v_out, and the row
-//      spike counts: a ballot a warp and one atomicAdd of its popcount, small
-//      integers in f32, so exact in any order.
+//      the host occupancy map) or layer l-1's spikes, an int8 (T, M, n_{l-1})
+//      scratch with unpadded rows: a deep width that is not a multiple of 16
+//      (20, 200) is staged by plain copies, as are planes of such a width.
+//      Padding the rows to 16 bytes for the TMA path measured the same
+//      (PERF.md).  The MAC writes a bit per K tile that held an input that
+//      fired (the reference counts occupied K tiles per (step, row tile); a
+//      warp sees one row, so the wrapper ORs the rows of each tile).  Then,
+//      keyed on (ctl[l], ctl[L] + t, absolute row, column): ramp codes with
+//      the counter noise, the KWN sweep over the whole row in column order
+//      (a lane keeps CPL codes, up to MAX_COLS = 1024 columns a layer), the
+//      LUT drive and the counter SNL signs, into (T, M, n) scratch the
+//      wrapper allocates (reused by every layer), with the mask, the ADC
+//      steps and the tile bits; it zeroes the row's spike count.
+//   B. kwn_lif of layer l: one thread a (row, column) walks t with the
+//      membrane in a register; drive, mask and SNL noise are loaded
+//      kLifChunk steps ahead, so only the fmaf / clip / compare chain is
+//      serial.  It writes the spike scratch the next head reads (the last
+//      layer: spikes), every layer's v_out, and the row spike counts: one
+//      atomicAdd of 1 a spike, small integers in f32, so exact in any
+//      order.
 // No layer's membrane is held across layers, so the width is bounded by the
 // sweep's 32 codes a lane per layer, not by the stack.
 //
-// Bitwise parity: as the single-layer KWN kernel (fused_macro_common.cuh).
+// Bitwise parity: as the single-layer KWN kernel (fused_macro_seq_kwn.cu).
 // The drive goes through the scratch as the f32 it is, so splitting the
 // launch moves no bit.
 
-#include "fused_macro_common.cuh"
+#include "fused_macro_kwn_layer.cuh"
 
 extern "C" {
 
@@ -74,9 +74,8 @@ struct FmmkLayer {
   const float* noise;   // (T, M, n) SNL noise, or null (counter stream)
   float* v_out;         // (M, n)
   float* mask;          // (T, M, n) winners: output (last layer) or scratch
-  int8_t* spk;          // (T, M, ld) spike scratch for the next layer, or null
+  int8_t* spk;          // (T, M, n) spike scratch for the next layer, or null
   int k_dim, n, k, bk;  // input rows, columns, winners, occupancy K tile
-  int ld;               // row stride of spk
 };
 
 // Mirrored by repro_torch/kernels/fused_macro.py::_MultiParams.
@@ -100,234 +99,66 @@ struct FmmkParams {
 
 }  // extern "C"
 
-namespace {
-
-using namespace fm;
-
-constexpr int kLifThreads = 64;  // M*N threads: spread over more SMs
-constexpr int kLifChunk = 8;     // steps whose operands phase B loads at once
-
-// ---------------------------------------------------------------------------
-// Phase A of layer l: warp -> item t * M + row; CPL columns per lane
-// (c = lane + 32 j), staged as NCT column tiles of CPT per lane.  The input
-// rows (x_in, stride x_ld) are the events or the previous layer's spikes.
-// ---------------------------------------------------------------------------
-
-template <int CPL>
-__global__ void __launch_bounds__(kMacThreads, CPL >= 16 ? 1 : 2)
-fmmk_head(const FmmkParams p, const FmmkLayer ly, int l,
-          const int8_t* x_in, int x_ld,
-          const __grid_constant__ CUtensorMap tm_msb,
-          const __grid_constant__ CUtensorMap tm_lsb, int bulk) {
-  constexpr int CPT = CPL < 4 ? CPL : 4;
-  constexpr int NCT = CPL / CPT;
-  extern __shared__ __align__(16) int8_t smem[];
-  float* s_bounds = reinterpret_cast<float*>(
-      smem + staged_mac_smem(32 * CPT, kItemWarps));
-  float* s_levels = s_bounds + p.n_codes;
-  for (int i = threadIdx.x; i < p.n_codes; i += blockDim.x) {
-    if (i < p.n_codes - 1) s_bounds[i] = ly.bounds[i];
-    s_levels[i] = ly.levels[i];
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int items = p.t_steps * p.m, first = blockIdx.x * kItemWarps;
-  const int item = first + (threadIdx.x >> 5);
-  const bool live = (threadIdx.x >> 5) < kItemWarps && item < items;
-  const int n = ly.n;
-  const int t = live ? item / p.m : 0, row = item - t * p.m;
-  const bool on[1] = {live};
-  // layer 0 is gated by the host occupancy map; a deeper layer's chunk of
-  // 32 spikes that holds none is skipped by its ballot
-  const int32_t* occ[1] = {
-      live && l == 0
-          ? p.activity + ((size_t)t * (p.m / p.bm) + row / p.bm)
-                * (ly.k_dim / ly.bk) : nullptr};
-  const uint32_t seed = (uint32_t)p.ctl[l];
-  const uint32_t step = (uint32_t)(p.ctl[p.n_layers] + t);
-  const NoiseModel nm = {p.offset_lsb, p.sigma_lsb, p.inl_lsb, p.in_lo,
-                         p.in_span, p.n_codes};
-  const size_t base = (size_t)item * n;
-  float sc[CPL];   // loaded now, read by the drive at the end
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int c = lane + 32 * j;
-    sc[j] = live && c < n ? ly.scale[c] : 0.0f;
-  }
-
-  // --- MAC, then ramp codes (+ Fig. 7 counter noise); padding -> -1 -----
-  int code[CPL];
-  unsigned bits[1];
-  staged_mac<CPT, NCT, 1>(
-      smem, ly.msb, ly.lsb, &tm_msb, &tm_lsb, ly.k_dim, n, 0,
-      bulk != 0, x_in + (size_t)first * x_ld, x_ld,
-      min(kItemWarps, items - first), on, occ, ly.bk, p.ratio, bits,
-      [&](int ct, float (&acc)[1][CPT]) {
-        int ideal[CPT];
-        ramp_codes<CPT>(acc[0], ideal, s_bounds, p.n_codes);
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int c = lane + 32 * (ct * CPT + j);
-          int cd = -1;
-          if (live && c < n) {
-            cd = ideal[j];
-            if (p.noisy)
-              cd = noisy_code(cd, acc[0][j], seed, step, (uint32_t)row,
-                              (uint32_t)c, nm);
-            if (p.snl != nullptr)
-              p.snl[base + c] = (int8_t)counter_sign(seed, step,
-                                                     (uint32_t)row,
-                                                     (uint32_t)c);
-          }
-          code[ct * CPT + j] = cd;
-        }
-      });
-  if (!live) return;
-
-  // --- KWN: descending ramp, priority encoder in column order -----------
-  bool win[CPL];
-  const int steps = kwn_sweep<CPL>(code, win, ly.k, p.n_codes, lane);
-
-  // --- LUT drive ---------------------------------------------------------
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c >= n) continue;
-    const float maskf = win[j] ? 1.0f : 0.0f;
-    const float recon = code[j] >= 0 ? s_levels[code[j]] : 0.0f;
-    p.drive[base + c] = recon * sc[j] * maskf * p.drive_gain;
-    ly.mask[base + c] = maskf;
-  }
-  if (lane == 0) {
-    const size_t o = (size_t)l * items + item;
-    p.steps[o] = steps;
-    p.tile_bits[o] = (int32_t)bits[0];
-    p.counts[o] = 0.0f;   // the LIF adds the row's spikes
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Phase B of layer l: thread -> (row, column), the membrane across T (Eq. 1);
-// a warp holds 32 columns of one row (columns padded to whole warps).
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kLifThreads)
-fmmk_lif(const FmmkParams p, const FmmkLayer ly, int l) {
-  const int n = ly.n, cpr = (n + 31) & ~31;
-  const int g = blockIdx.x * kLifThreads + threadIdx.x;
-  if (g >= p.m * cpr) return;   // whole warps
-  const int row = g / cpr, c = g - row * cpr;
-  const bool in = c < n;
-  const bool last = l == p.n_layers - 1;
-  const LifParams lp = {p.beta, p.v_th1, p.v_th2, p.v_reset, p.v_lim};
-  const size_t plane = (size_t)p.m * n, idx = (size_t)row * n + c;
-  const size_t items = (size_t)p.t_steps * p.m;
-  // operands that do not depend on the membrane, loaded into registers
-  // and not read until their step: chunk t0 + kLifChunk is in flight while
-  // chunk t0 is computed
-  struct Chunk {
-    float drive[kLifChunk], maskf[kLifChunk], nz[kLifChunk];
-    int sign[kLifChunk];
-  };
-  auto load = [&](int t0, Chunk& ck) {
-#pragma unroll
-    for (int i = 0; i < kLifChunk; ++i) {
-      const int t = t0 + i;
-      const size_t e = t * plane + idx;
-      const bool ok = in && t < p.t_steps;
-      ck.drive[i] = ok ? p.drive[e] : 0.0f;
-      ck.maskf[i] = ok ? ly.mask[e] : 0.0f;
-      ck.nz[i] = ok && ly.noise != nullptr ? ly.noise[e] : 0.0f;
-      ck.sign[i] = ok && p.snl != nullptr ? p.snl[e] : 0;
-    }
-  };
-  float v = in ? ly.v0[idx] : 0.0f;
-  Chunk cur;
-  load(0, cur);
-  for (int t0 = 0; t0 < p.t_steps; t0 += kLifChunk) {
-    Chunk next;
-    load(t0 + kLifChunk, next);
-#pragma unroll
-    for (int i = 0; i < kLifChunk; ++i) {
-      const int t = t0 + i;
-      if (t >= p.t_steps) break;
-      const float nz = p.snl != nullptr ? p.snl_amp * (float)cur.sign[i]
-                                        : cur.nz[i];
-      const float vc = lif_clip(v, cur.drive[i], cur.maskf[i] > 0.0f, nz,
-                                p.use_snl, lp);
-      const bool fire = in && vc >= lp.v_th1;
-      v = fire ? lp.v_reset : vc;
-      if (in) {
-        if (last)
-          p.spikes[t * plane + idx] = fire ? 1.0f : 0.0f;
-        else
-          ly.spk[((size_t)t * p.m + row) * ly.ld + c] = fire ? 1 : 0;
-      }
-      const unsigned b = __ballot_sync(kFull, fire);
-      if ((threadIdx.x & 31) == 0 && b != 0u)
-        atomicAdd(&p.counts[(size_t)l * items + (size_t)t * p.m + row],
-                  (float)__popc(b));
-    }
-    cur = next;
-  }
-  if (in) ly.v_out[idx] = v;
-}
-
-template <int CPL>
-cudaError_t launch_head(const FmmkParams& p, int l, const int8_t* x_in,
-                        int x_ld, cudaStream_t stream) {
-  constexpr int CPT = CPL < 4 ? CPL : 4;
-  static size_t smem_set = 48 * 1024;   // the default dynamic limit
-  const size_t smem = staged_mac_smem(32 * CPT, kItemWarps)
-                      + 2 * sizeof(float) * (size_t)p.n_codes;
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fmmk_head<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
-  const FmmkLayer& ly = p.layers[l];
-  const int items = p.t_steps * p.m;
-  CUtensorMap tm[2] = {};
-  const bool bulk = stage_by_tma(tm, ly.msb, ly.lsb, ly.k_dim, ly.n, 32 * CPT,
-                                 x_in, x_ld);
-  fmmk_head<CPL><<<(items + kItemWarps - 1) / kItemWarps, kMacThreads, smem,
-                   stream>>>(p, ly, l, x_in, x_ld, tm[0], tm[1], bulk);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_layer(const FmmkParams& p, int l, cudaStream_t stream) {
-  const FmmkLayer& ly = p.layers[l];
-  const int8_t* x_in = l == 0 ? p.x : p.layers[l - 1].spk;
-  const int x_ld = l == 0 ? ly.k_dim : p.layers[l - 1].ld;
-  const int cpl = (ly.n + 31) / 32;
-  cudaError_t err;
-  if (cpl <= 1) err = launch_head<1>(p, l, x_in, x_ld, stream);
-  else if (cpl <= 2) err = launch_head<2>(p, l, x_in, x_ld, stream);
-  else if (cpl <= 4) err = launch_head<4>(p, l, x_in, x_ld, stream);
-  else if (cpl <= 8) err = launch_head<8>(p, l, x_in, x_ld, stream);
-  else if (cpl <= 16) err = launch_head<16>(p, l, x_in, x_ld, stream);
-  else if (cpl <= 32) err = launch_head<32>(p, l, x_in, x_ld, stream);
-  else err = cudaErrorInvalidValue;
-  if (err != cudaSuccess) return err;
-  const int threads = p.m * 32 * cpl;
-  fmmk_lif<<<(threads + kLifThreads - 1) / kLifThreads, kLifThreads, 0,
-             stream>>>(p, ly, l);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" int fmmk_launch(const FmmkParams* p, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace fm;
   if (p->m == 0 || p->t_steps == 0) return 0;
   if (p->n_layers < 1 || p->n_layers > kMaxLayers)
     return (int)cudaErrorInvalidValue;
+  const int items = p->t_steps * p->m;
   for (int l = 0; l < p->n_layers; ++l) {
-    if (p->layers[l].n < 1) return (int)cudaErrorInvalidValue;
-    const cudaError_t err = launch_layer(*p, l, s);
+    const FmmkLayer& ly = p->layers[l];
+    if (ly.n < 1) return (int)cudaErrorInvalidValue;
+    const bool last = l == p->n_layers - 1;
+    KwnHead h = {};
+    h.x = l == 0 ? p->x : p->layers[l - 1].spk;
+    h.msb = ly.msb;
+    h.lsb = ly.lsb;
+    h.bounds = ly.bounds;
+    h.levels = ly.levels;
+    h.scale = ly.scale;
+    // layer 0 is gated by the host occupancy map; a deeper layer's chunk
+    // of 32 spikes that holds none is skipped by its ballot
+    h.activity = l == 0 ? p->activity : nullptr;
+    h.seed = p->ctl + l;
+    h.step_offset = p->ctl + p->n_layers;
+    h.drive = p->drive;
+    h.snl = p->snl;
+    h.mask = ly.mask;
+    h.steps = p->steps + (size_t)l * items;
+    h.tile_bits = p->tile_bits + (size_t)l * items;
+    h.counts = p->counts + (size_t)l * items;
+    h.t_steps = p->t_steps;
+    h.m = p->m;
+    h.k_dim = ly.k_dim;
+    h.n = ly.n;
+    h.n_valid = ly.n;
+    h.k = ly.k;
+    h.n_codes = p->n_codes;
+    h.bm = p->bm;
+    h.bk = ly.bk;
+    h.noisy = p->noisy;
+    h.ratio = p->ratio;
+    h.drive_gain = p->drive_gain;
+    h.nm = {p->offset_lsb, p->sigma_lsb, p->inl_lsb, p->in_lo, p->in_span,
+            p->n_codes};
+    KwnLif b = {};
+    b.drive = p->drive;
+    b.mask = ly.mask;
+    b.noise = ly.noise;
+    b.snl = p->snl;
+    b.v0 = ly.v0;
+    b.v_out = ly.v_out;
+    b.spikes = last ? p->spikes : nullptr;
+    b.spk = last ? nullptr : ly.spk;
+    b.counts = h.counts;
+    b.t_steps = p->t_steps;
+    b.m = p->m;
+    b.n = ly.n;
+    b.use_snl = p->use_snl;
+    b.snl_amp = p->snl_amp;
+    b.lp = {p->beta, p->v_th1, p->v_th2, p->v_reset, p->v_lim};
+    const cudaError_t err = launch_kwn_layer<true>(
+        h, b, static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -19,9 +19,10 @@
 // dependent steps of MAC, ramp, noise, sweep and LIF.
 //
 // What the design does about it: only the LIF update needs the previous
-// step, so the launch is two kernels back to back on one stream.
+// step, so the launch is two kernels back to back on one stream, the KWN
+// layer of fused_macro_kwn_layer.cuh (shared with the stacked kernel):
 //
-//   A. fmsk_head, the head, parallel over all T x M (step, row) items: one
+//   A. kwn_head, the head, parallel over all T x M (step, row) items: one
 //      warp an item, kItemWarps items a CTA, and a copy warp.  The copy
 //      warp streams the (K, N) weight planes (a tile one copy through a 2D
 //      tensor map, whatever N) and the CTA's event rows (a bulk copy a row)
@@ -42,12 +43,12 @@
 //      1024 are 1 MB, past shared memory); the warp keeps every column's
 //      code in registers across the tiles, so the KWN sweep still spans the
 //      whole row in column order.  Then the Fig. 7 counter noise and the
-//      counter SNL signs (keyed on seed, step, row, column: no membrane),
-//      the sweep with its early-stop count, and the LUT drive.  The drive
-//      (f32) and the SNL signs (int8) go to (T, M, N) scratch the wrapper
-//      allocates (1.25 MB at the training shape: it stays in L2), with the
-//      mask, steps and MAC telemetry.
-//   B. fmsk_lif, the recurrence: one thread a (row, column) walks t with
+//      counter SNL signs (keyed on the row's seed, step and row id, column:
+//      no membrane), the sweep with its early-stop count, and the LUT drive.
+//      The drive (f32) and the SNL signs (int8) go to (T, M, N) scratch the
+//      wrapper allocates (1.25 MB at the training shape: it stays in L2),
+//      with the mask, steps and MAC telemetry.
+//   B. kwn_lif, the recurrence: one thread a (row, column) walks t with
 //      the membrane in a register.  Drive, mask and SNL noise (the dense
 //      operand, or amp x the head's signs) are loaded into registers
 //      kLifChunk steps at a time, a chunk ahead of their arithmetic, so
@@ -67,10 +68,10 @@
 // with FMAs) and the C library's double-precision sinf/cosf, with IEEE
 // sqrtf and division; see repro_torch/core/f32math.py for the plain version.
 // The drive goes through the scratch as the f32 it is, so splitting the
-// launch moves no bit.  That device code, the KWN sweep and the LIF update
-// are shared with the NLD and stacked kernels (fused_macro_common.cuh).
+// launch moves no bit.  The noise code, the KWN sweep and the LIF update
+// are shared with the NLD kernel (fused_macro_common.cuh).
 
-#include "fused_macro_common.cuh"
+#include "fused_macro_kwn_layer.cuh"
 
 extern "C" {
 
@@ -101,198 +102,52 @@ struct FmskParams {
 
 }  // extern "C"
 
-namespace {
-
-using namespace fm;
-
-constexpr int kLifThreads = 64;    // M*N threads: spread over more SMs
-constexpr int kLifChunk = 8;     // steps whose operands phase B loads at once
-
-// ---------------------------------------------------------------------------
-// Phase A: warp -> item t * M + row; CPL columns per lane (c = lane + 32 j),
-// staged as NCT column tiles of CPT per lane.
-// ---------------------------------------------------------------------------
-
-template <int CPL>
-__global__ void __launch_bounds__(kMacThreads, CPL >= 16 ? 1 : 2)
-fmsk_head(const FmskParams p,
-          const __grid_constant__ CUtensorMap tm_msb,
-          const __grid_constant__ CUtensorMap tm_lsb, int bulk) {
-  constexpr int CPT = CPL < 4 ? CPL : 4;
-  constexpr int NCT = CPL / CPT;
-  extern __shared__ __align__(16) int8_t smem[];
-  float* s_bounds = reinterpret_cast<float*>(
-      smem + staged_mac_smem(32 * CPT, kItemWarps));
-  float* s_levels = s_bounds + p.n_codes;
-  for (int i = threadIdx.x; i < p.n_codes; i += blockDim.x) {
-    if (i < p.n_codes - 1) s_bounds[i] = p.bounds[i];
-    s_levels[i] = p.levels[i];
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int items = p.t_steps * p.m, first = blockIdx.x * kItemWarps;
-  const int item = first + (threadIdx.x >> 5);
-  const bool live = (threadIdx.x >> 5) < kItemWarps && item < items;
-  const int n = p.n;
-  const int t = live ? item / p.m : 0, row = item - t * p.m;
-  const int n_i = p.m / p.bm, n_k = p.k_dim / p.bk;
-  const bool on[1] = {live};
-  const int32_t* occ[1] = {
-      live && p.activity != nullptr
-          ? p.activity + ((size_t)t * n_i + row / p.bm) * n_k : nullptr};
-  const uint32_t seed = live ? (uint32_t)p.row_ctl[row * 3 + 0] : 0u;
-  const int32_t step0 = live ? p.row_ctl[row * 3 + 1] : 0;
-  const uint32_t rid = live ? (uint32_t)p.row_ctl[row * 3 + 2] : 0u;
-  const NoiseModel nm = {p.offset_lsb, p.sigma_lsb, p.inl_lsb, p.in_lo,
-                         p.in_span, p.n_codes};
-  const size_t base = (size_t)item * n;
-  float sc[CPL];   // loaded now, read by the drive at the end
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int c = lane + 32 * j;
-    sc[j] = live && c < n ? p.scale[c] : 0.0f;
-  }
-
-  // --- MAC, then ramp codes (+ Fig. 7 counter noise); padding -> -1 -----
-  int code[CPL];
-  staged_mac<CPT, NCT, 1>(
-      smem, p.msb, p.lsb, &tm_msb, &tm_lsb, p.k_dim, n, 0, bulk != 0,
-      p.x + (size_t)first * p.k_dim,
-      min(kItemWarps, items - first), on, occ, p.bk, p.ratio,
-      [&](int ct, float (&acc)[1][CPT]) {
-        int ideal[CPT];
-        ramp_codes<CPT>(acc[0], ideal, s_bounds, p.n_codes);
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int c = lane + 32 * (ct * CPT + j);
-          int cd = -1;
-          if (live && c < n && c < p.n_valid) {
-            cd = ideal[j];
-            if (p.noisy)
-              cd = noisy_code(cd, acc[0][j], seed, (uint32_t)(step0 + t), rid,
-                              (uint32_t)c, nm);
-          }
-          code[ct * CPT + j] = cd;
-          if (live && c < n) {
-            if (p.mac != nullptr) p.mac[base + c] = acc[0][j];
-            if (p.snl != nullptr)
-              p.snl[base + c] = (int8_t)counter_sign(
-                  seed, (uint32_t)(step0 + t), rid, (uint32_t)c);
-          }
-        }
-      });
-  if (!live) return;
-
-  // --- KWN: descending ramp, priority encoder in column order -----------
-  bool win[CPL];
-  const int steps = kwn_sweep<CPL>(code, win, p.k, p.n_codes, lane);
-
-  // --- LUT drive ---------------------------------------------------------
-#pragma unroll
-  for (int j = 0; j < CPL; ++j) {
-    const int c = lane + 32 * j;
-    if (c >= n) continue;
-    const float maskf = win[j] ? 1.0f : 0.0f;
-    const float recon = code[j] >= 0 ? s_levels[code[j]] : 0.0f;
-    p.drive[base + c] = recon * sc[j] * maskf * p.drive_gain;
-    p.mask[base + c] = maskf;
-  }
-  if (lane == 0) p.steps[item] = steps;
-}
-
-// ---------------------------------------------------------------------------
-// Phase B: thread -> (row, column), the membrane across T (Eq. 1).
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kLifThreads) fmsk_lif(const FmskParams p) {
-  const int idx = blockIdx.x * kLifThreads + threadIdx.x;
-  if (idx >= p.m * p.n) return;
-  const LifParams lp = {p.beta, p.v_th1, p.v_th2, p.v_reset, p.v_lim};
-  const size_t plane = (size_t)p.m * p.n;
-  // operands that do not depend on the membrane, loaded into registers
-  // and not read until their step: chunk t0 + kLifChunk is in flight while
-  // chunk t0 is computed
-  struct Chunk {
-    float drive[kLifChunk], maskf[kLifChunk], nz[kLifChunk];
-    int sign[kLifChunk];
-  };
-  auto load = [&](int t0, Chunk& ck) {
-#pragma unroll
-    for (int i = 0; i < kLifChunk; ++i) {
-      const int t = t0 + i;
-      const size_t e = t * plane + idx;
-      const bool in = t < p.t_steps;
-      ck.drive[i] = in ? p.drive[e] : 0.0f;
-      ck.maskf[i] = in ? p.mask[e] : 0.0f;
-      ck.nz[i] = in && p.noise != nullptr ? p.noise[e] : 0.0f;
-      ck.sign[i] = in && p.snl != nullptr ? p.snl[e] : 0;
-    }
-  };
-  float v = p.v0[idx];
-  Chunk cur;
-  load(0, cur);
-  for (int t0 = 0; t0 < p.t_steps; t0 += kLifChunk) {
-    Chunk next;
-    load(t0 + kLifChunk, next);
-#pragma unroll
-    for (int i = 0; i < kLifChunk; ++i) {
-      const int t = t0 + i;
-      if (t >= p.t_steps) break;
-      const size_t e = t * plane + idx;
-      const float nz = p.snl != nullptr ? p.snl_amp * (float)cur.sign[i]
-                                        : cur.nz[i];
-      const float vc = lif_clip(v, cur.drive[i], cur.maskf[i] > 0.0f, nz,
-                                p.use_snl, lp);
-      const float spike = vc >= lp.v_th1 ? 1.0f : 0.0f;
-      v = spike > 0.0f ? lp.v_reset : vc;
-      if (p.vtrace != nullptr) p.vtrace[e] = vc;
-      p.spikes[e] = spike;
-    }
-    cur = next;
-  }
-  p.v_out[idx] = v;
-}
-
-template <int CPL>
-cudaError_t launch(const FmskParams& p, cudaStream_t stream) {
-  constexpr int CPT = CPL < 4 ? CPL : 4;
-  static size_t smem_set = 48 * 1024;   // the default dynamic limit
-  const size_t smem = staged_mac_smem(32 * CPT, kItemWarps)
-                      + 2 * sizeof(float) * (size_t)p.n_codes;
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fmsk_head<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
-  }
-  const int items = p.t_steps * p.m;
-  CUtensorMap tm[2] = {};
-  const bool bulk = stage_by_tma(tm, p.msb, p.lsb, p.k_dim, p.n, 32 * CPT,
-                                 p.x, p.k_dim);
-  fmsk_head<CPL><<<(items + kItemWarps - 1) / kItemWarps, kMacThreads,
-                   smem, stream>>>(p, tm[0], tm[1], bulk);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.n == 0) return err;
-  fmsk_lif<<<(p.m * p.n + kLifThreads - 1) / kLifThreads, kLifThreads, 0,
-             stream>>>(p);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" int fmsk_launch(const FmskParams* p, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cpl = (p->n + 31) / 32;
-  cudaError_t err;
+  using namespace fm;
   if (p->m == 0 || p->t_steps == 0) return 0;
-  if (cpl <= 1) err = launch<1>(*p, s);
-  else if (cpl <= 2) err = launch<2>(*p, s);
-  else if (cpl <= 4) err = launch<4>(*p, s);
-  else if (cpl <= 8) err = launch<8>(*p, s);
-  else if (cpl <= 16) err = launch<16>(*p, s);
-  else if (cpl <= 32) err = launch<32>(*p, s);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+  KwnHead h = {};
+  h.x = p->x;
+  h.msb = p->msb;
+  h.lsb = p->lsb;
+  h.bounds = p->bounds;
+  h.levels = p->levels;
+  h.scale = p->scale;
+  h.activity = p->activity;
+  h.row_ctl = p->row_ctl;
+  h.mac = p->mac;
+  h.drive = p->drive;
+  h.snl = p->snl;
+  h.mask = p->mask;
+  h.steps = p->steps;
+  h.t_steps = p->t_steps;
+  h.m = p->m;
+  h.k_dim = p->k_dim;
+  h.n = p->n;
+  h.n_valid = p->n_valid;
+  h.k = p->k;
+  h.n_codes = p->n_codes;
+  h.bm = p->bm;
+  h.bk = p->bk;
+  h.noisy = p->noisy;
+  h.ratio = p->ratio;
+  h.drive_gain = p->drive_gain;
+  h.nm = {p->offset_lsb, p->sigma_lsb, p->inl_lsb, p->in_lo, p->in_span,
+          p->n_codes};
+  KwnLif b = {};
+  b.drive = p->drive;
+  b.mask = p->mask;
+  b.noise = p->noise;
+  b.snl = p->snl;
+  b.v0 = p->v0;
+  b.v_out = p->v_out;
+  b.spikes = p->spikes;
+  b.vtrace = p->vtrace;
+  b.t_steps = p->t_steps;
+  b.m = p->m;
+  b.n = p->n;
+  b.use_snl = p->use_snl;
+  b.snl_amp = p->snl_amp;
+  b.lp = {p->beta, p->v_th1, p->v_th2, p->v_reset, p->v_lim};
+  return (int)launch_kwn_layer<false>(h, b,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -343,8 +343,9 @@ extern "C" int fmskb_launch(const FmskBwdParams* p, void* stream) {
     }
     const int per_cta = kItemWarps * kRematItems;
     CUtensorMap tm[2] = {};
-    const bool bulk = stage_by_tma(tm, p->msb, p->lsb, p->k_dim, p->n, 128,
-                                   p->x, p->k_dim);
+    bool bulk = false;
+    err = stage_by_tma(tm, &bulk, p->msb, p->lsb, p->k_dim, p->n, 128, p->x);
+    if (err != cudaSuccess) return (int)err;
     fmskb_mac<<<dim3((items + per_cta - 1) / per_cta, nb), kMacThreads,
                 smem, s>>>(*p, tm[0], tm[1], bulk);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -45,9 +45,10 @@
 //      is done here and not in the head: the activations of kLifChunk steps
 //      are loaded a chunk ahead (kLifBranches branches in registers, the
 //      rest as they are needed) and summed by the fused multiply-add chain
-//      after the chunk before, so only the LIF update is serial.  Combining the branches in the head through shared
-//      memory would make each CTA hold every branch of its columns, so the
-//      column tiles could not be CTAs of their own.
+//      after the chunk before, so only the LIF update is serial.  Combining
+//      the branches in the head through shared memory would make each CTA
+//      hold every branch of its columns, so the column tiles could not be
+//      CTAs of their own.
 // Mask (all ones) and ADC steps (always the full ramp) are constants of the
 // NLD head: the LIF writes them beside the spikes.
 //
@@ -257,11 +258,12 @@ cudaError_t launch(const FmsnParams& p, cudaStream_t stream) {
   const int items = p.t_steps * p.m, nc = p.n_branches * p.n;
   const dim3 grid((items + kItemWarps - 1) / kItemWarps, (nc + BN - 1) / BN);
   CUtensorMap tm[2] = {};
-  const bool bulk = stage_by_tma(tm, p.msb, p.lsb, p.k_dim, nc, BN, p.x,
-                                 p.k_dim);
-  fmsn_head<CPT><<<grid, kMacThreads, smem, stream>>>(p, tm[0], tm[1], bulk);
-  const cudaError_t err = cudaGetLastError();
+  bool bulk = false;
+  cudaError_t err = stage_by_tma(tm, &bulk, p.msb, p.lsb, p.k_dim, nc, BN,
+                                 p.x);
   if (err != cudaSuccess) return err;
+  fmsn_head<CPT><<<grid, kMacThreads, smem, stream>>>(p, tm[0], tm[1], bulk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   fmsn_lif<<<(p.m * p.n + kLifThreads - 1) / kLifThreads, kLifThreads, 0,
              stream>>>(p);
   return cudaGetLastError();

@@ -159,10 +159,6 @@ class _NldParams(ctypes.Structure):
 
 
 MAX_LAYERS = 4          # deepest stack the stacked kernel takes
-# row stride (bytes) of the stacked kernel's inter-layer spike scratch is a
-# multiple of this, so that the next layer's head can stage it by bulk
-# copies; 1 keeps rows unpadded (the plain-copy path), for comparison
-SPIKE_ROW_ALIGN = 16
 
 
 class _Layer(ctypes.Structure):
@@ -171,7 +167,7 @@ class _Layer(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "msb", "lsb", "bounds", "levels", "scale", "v0", "noise", "v_out",
         "mask", "spk")] + [
-        (name, ctypes.c_int) for name in ("k_dim", "n", "k", "bk", "ld")]
+        (name, ctypes.c_int) for name in ("k_dim", "n", "k", "bk")]
 
 
 class _MultiParams(ctypes.Structure):
@@ -497,15 +493,14 @@ def _launch_multi(x, planes, v0s, noises, activity, ctl, *, specs, ratio,
         snl=torch.empty((t_steps, m, max(widths)), dtype=i8, device=dev)
         if noises is None and use_snl and snl_amp != 0.0 else None)
     mask = torch.empty((t_steps, m, n_last), dtype=f32, device=dev)
-    # the hidden layers' winner masks and spikes (the next head's input,
-    # rows padded to SPIKE_ROW_ALIGN bytes), each buffer reused layer by
-    # layer
-    lds = [-(-w // SPIKE_ROW_ALIGN) * SPIKE_ROW_ALIGN for w in widths[:-1]]
+    # the hidden layers' winner masks and spikes (the next head's input),
+    # each buffer reused layer by layer
     hidden_mask = spk = None
     if n_layers > 1:
         hidden_mask = torch.empty((t_steps, m, max(widths[:-1])), dtype=f32,
                                   device=dev)
-        spk = torch.empty((t_steps, m, max(lds)), dtype=i8, device=dev)
+        spk = torch.empty((t_steps, m, max(widths[:-1])), dtype=i8,
+                          device=dev)
     layers = (_Layer * MAX_LAYERS)()
     v_outs = []
     for li, (spec, (msb, lsb, bounds, levels, scale)) in enumerate(
@@ -527,7 +522,7 @@ def _launch_multi(x, planes, v0s, noises, activity, ctl, *, specs, ratio,
             spk=None if last else spk)
         layers[li] = _Layer(**{k: _ptr(a) for k, a in lay.items()},
                             k_dim=spec.k_dim, n=spec.n, k=spec.k,
-                            bk=spec.bk, ld=0 if last else lds[li])
+                            bk=spec.bk)
     ins = dict(
         x=_operand(x, i8, (t_steps, m, k0), dev),
         activity=_operand(activity, i32, (t_steps, n_i, specs[0].n_k), dev),

@@ -218,6 +218,7 @@ def _stack(rs, kdim, widths):
 @pytest.mark.parametrize("shape", [(30, 64, 512, (128, 128), (12, 12)),
                                    (6, 37, 300, (300, 20), (12, 3)),
                                    (5, 13, 96, (40, 200, 20), (4, 12, 3)),
+                                   (6, 16, 128, (200, 128, 20), (12, 12, 3)),
                                    (8, 32, 256, (256,), (12,)),
                                    (6, 24, 128, (128, 200, 64, 20),
                                     (12, 12, 6, 3)),
@@ -281,26 +282,6 @@ def test_stack_wider_than_the_old_register_limit_equals_plain(cuda):
     with pytest.raises(ValueError, match="1..4 layers"):
         macro_lib.fused_multi_seq(x.to(cuda), five, vs + vs[1:], None,
                                   ks=(4,) * 5)
-
-
-@pytest.mark.parametrize("align", [1, 16])
-def test_stack_spike_scratch_row_stride(cuda, monkeypatch, align):
-    """The inter-layer spike scratch, rows unpadded (plain copies into the
-    next head) or padded to 16 bytes (bulk copies): the same bits."""
-    monkeypatch.setattr(fused_macro, "SPIKE_ROW_ALIGN", align)
-    rs = np.random.RandomState(4)
-    stack, _ = _stack(rs, 128, (200, 128, 20))
-    x = torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], p=[0.05, 0.9, 0.05],
-                                   size=(6, 16, 128)).astype(np.float32))
-    vs = [torch.from_numpy(rs.uniform(-1, 1.2, (16, w)).astype(np.float32))
-          for w in (200, 128, 20)]
-    kw = dict(ks=(12, 12, 3), snl_amp=0.05, seeds=[4, 5, 6])
-    got = macro_lib.fused_multi_seq(x.to(cuda), stack, vs, None, **kw)
-    want = macro_lib.fused_multi_seq(x, stack, vs, None, **kw)
-    for name in ("v_outs", "steps", "spike_counts", "occupancy"):
-        for a, b in zip(getattr(got, name), getattr(want, name)):
-            assert torch.equal(a.cpu(), b), name
-    assert torch.equal(got.spikes.cpu(), want.spikes)
 
 
 @pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])

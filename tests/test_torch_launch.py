@@ -256,22 +256,20 @@ def test_nld_wrapper_hands_the_lif_an_activation_scratch(fake_cuda,
             mac_telemetry=True)
 
 
-@pytest.mark.parametrize("align", [1, 16])
+@pytest.mark.parametrize("widths", [(20, 200, 8), (200, 20, 8)], ids=str)
 @pytest.mark.parametrize("dense_noise", [False, True],
                          ids=["counter", "dense"])
 def test_stack_wrapper_hands_each_layer_its_scratch(fake_cuda, allocations,
-                                                    monkeypatch, align,
-                                                    dense_noise):
+                                                    widths, dense_noise):
     """Kernel #4 is 2L kernels, a head and a LIF a layer: its wrapper
     allocates one drive (and counter-SNL) scratch for every layer, one
     winner mask for the hidden layers (the last layer's is the output) and
-    one int8 spike scratch, rows padded to ``SPIKE_ROW_ALIGN`` bytes, that
-    the next layer's head reads."""
-    monkeypatch.setattr(fused_macro, "SPIKE_ROW_ALIGN", align)
+    one int8 spike scratch, as wide as the widest hidden layer, that the
+    next layer's head reads."""
     t, m, bm, k0 = 2, 8, 8, 64
-    specs = (fused_macro.LayerSpec(k0, 20, 3, 32),
-             fused_macro.LayerSpec(20, 200, 12, 20),
-             fused_macro.LayerSpec(200, 8, 2, 200))
+    fan_ins = (k0,) + widths[:-1]
+    specs = tuple(fused_macro.LayerSpec(a, b, 2, 32 if li == 0 else a)
+                  for li, (a, b) in enumerate(zip(fan_ins, widths)))
     i8 = torch.int8
     planes = [(torch.zeros((s.k_dim, s.n), dtype=i8),
                torch.zeros((s.k_dim, s.n), dtype=i8), torch.zeros(3),
@@ -300,9 +298,7 @@ def test_stack_wrapper_hands_each_layer_its_scratch(fake_cuda, allocations,
     assert allocations[hidden[0].mask] == (t, m, 200)
     assert last.mask == mask.data_ptr() and tuple(mask.shape) == (t, m, 8)
     assert hidden[0].spk == hidden[1].spk and last.spk is None
-    lds = [-(-w // align) * align for w in (20, 200)]
-    assert [lay.ld for lay in params.layers[:3]] == lds + [0]
-    assert allocations[hidden[0].spk] == (t, m, max(lds))
+    assert allocations[hidden[0].spk] == (t, m, 200)
     scratch = {params.drive, params.snl, hidden[0].mask, hidden[0].spk}
     outputs = {params.spikes, params.steps, params.counts,
                params.tile_bits, last.mask} | {lay.v_out for lay in
