@@ -14,7 +14,10 @@ Phases (any failure raises, so the exit code is non-zero):
    kernels of #1 and #4 (the KWN layer's ``kwn_head<CPL>``, ``kwn_lif``,
    in each library), #3 (``fmskb_mac``, ``fmskb_chain``,
    ``fmskb_dw_part``, ``fmskb_dw_sum``) and #2 (``fmsn_head<CPT>``,
-   ``fmsn_lif``), failing if one is missing;
+   ``fmsn_lif``), failing if one is missing; and the registers, stack
+   frame and spills of #5's ``tmac_kernel<KT>`` and #7's
+   ``kwn_kernel<CPL, VEC>`` with the int8 tensor-core instructions (IMMA,
+   IGMMA) in #5's SASS: #5 must have them, and neither may spill;
 3. kernels vs plain versions, on the same inputs on the card:
    - KWN: the public wrapper ``ops.fused_macro_seq`` (padding,
      ``n_valid``, activity gating, ``row_ctl`` or a scalar seed) against
@@ -46,7 +49,10 @@ Phases (any failure raises, so the exit code is non-zero):
      (128, 256, 128) and a ragged one (37, 300, 100): the MAC at ratios 2,
      3 and 2.05, the ramp at nlq / linear / activation codebooks of 5 and
      6 bits, KWN at k = 0, 1, 12, N, N + 5, the LIF with SNL on and off;
-     every output exact, membranes 0 ULP;
+     and the edges of #5's split-K tensor-core design (M = 1 and 17; K =
+     0, 32, 48 and 1000; N = 8, 100 and 1024; the stack chain's layer 2,
+     64 x 128 x 128) at 5 % and 67 % events, and #7 with a 6-bit codebook
+     (n_codes 64) and at N = 1024; every output exact, membranes 0 ULP;
    - the flash-attention kernel (#9) through its wrapper against
      ``ref.flash_attention_ref``: f32 and bf16, causal and full, D in 16,
      32, 64, 128 at S in 128, 192, 1000 (ragged) and 2048, BH 72 at
@@ -123,9 +129,12 @@ Phases (any failure raises, so the exit code is non-zero):
    kernels #5-#8 per launch at the
    chain's step shape (CUDA events, and device time under the profiler)
    against their plain versions, bounds and, where one PyTorch call
-   computes the same function, ``torch.matmul`` / ``torch.bucketize``;
-   one chain step against one fused step launch, and the composed
-   forward against ``"seq"``; kernel #9 at BH=72, D=64, bf16, causal,
+   computes the same function, ``torch.matmul`` / ``torch.bucketize``
+   (both clocks); #5 also at 67 % events and at the stack chain's layer 2
+   (K = 128), beside ``torch._int_mm`` on the int8 operands (the integer
+   sums only);
+   one chain step against one fused step launch (both clocks), and the
+   composed forward against ``"seq"``; kernel #9 at BH=72, D=64, bf16, causal,
    S=2048 and 512, and at BH=16, S=2048, D=256 (gemma2's head_dim),
    against its plain version, its bound and
    ``scaled_dot_product_attention`` (timed only), the smollm prefill of
@@ -241,12 +250,13 @@ def device_phase() -> tuple[str, str]:
     return torch.cuda.get_device_name(0), smi
 
 
-def build_phase() -> tuple[float, dict, dict]:
+def build_phase() -> tuple[float, dict, dict, dict]:
     secs = build.build_all()
     for name, text in build.BUILD_LOG.items():
         log(f"[nvcc {name}]\n{text.strip()}")
     log(f"build: {secs:.1f} s for {build.sources()}")
-    return secs, flash_build_report(), split_build_report()
+    return (secs, flash_build_report(), split_build_report(),
+            stage_build_report())
 
 
 SPLIT_KERNELS = {   # source -> its kernels: a parallel head, a serial LIF
@@ -301,6 +311,64 @@ def split_build_report() -> dict:
     return rep
 
 
+STAGE_BUILD = {"ternary_mac": "tmac_kernel", "kwn_topk": "kwn_kernel"}
+
+
+def _sass(source: str) -> str:
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass",
+                           str(build._target(source))], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def stage_build_report() -> dict:
+    """Registers, stack frame and spill bytes (``-Xptxas -v``) of each
+    instantiation of #5's ``tmac_kernel<KT>`` and #7's ``kwn_kernel<CPL,
+    VEC>``, and the int8 tensor-core instructions (IMMA, IGMMA) in #5's
+    SASS.  Fails if either kernel spills, or if #5 has no int8 tensor-core
+    instruction: its product would not be on the tensor cores."""
+    rep: dict = {}
+    for src, name in STAGE_BUILD.items():
+        cur = None
+        for ln in build.BUILD_LOG.get(src, "").splitlines():
+            m = re.search(r"Function properties for (_Z\S+)", ln)
+            if m:
+                k = re.search(r"\d" + name + r"I((?:Li\d+E)+)E", m.group(1))
+                cur = None if k is None else rep.setdefault(
+                    f"{src}/{name}<"
+                    + ",".join(re.findall(r"Li(\d+)E", k.group(1))) + ">",
+                    {})
+            elif cur is not None and "spill stores" in ln:
+                cur["stack_bytes"] = int(re.search(
+                    r"(\d+) bytes stack frame", ln).group(1))
+                cur["spill_bytes"] = sum(int(x) for x in re.findall(
+                    r"(\d+) bytes spill", ln))
+            elif cur is not None and "Used" in ln:
+                cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 ln).group(1))
+                cur = None
+    sass = _sass("ternary_mac")
+    for fn in re.split(r"\n\s+Function : ", sass)[1:]:
+        m = re.search(r"tmac_kernelILi(\d+)E", fn.split("\n")[0])
+        if m:
+            entry = rep.setdefault(f"ternary_mac/tmac_kernel<{m.group(1)}>",
+                                   {})
+            entry["IMMA"] = len(re.findall(r"\bIMMA\.", fn))
+            entry["IGMMA"] = len(re.findall(r"\bIGMMA\.", fn))
+    tmac = {k: v for k, v in rep.items() if k.startswith("ternary_mac/")}
+    kwn = {k: v for k, v in rep.items() if k.startswith("kwn_topk/")}
+    if len(tmac) != 3 or not all(v.get("IMMA", 0) + v.get("IGMMA", 0) > 0
+                                 for v in tmac.values()):
+        raise AssertionError(f"#5 without int8 tensor-core SASS: {tmac}")
+    if not kwn or any(v.get("spill_bytes", 1) for v in rep.values()):
+        raise AssertionError(f"#5 or #7 spills or lacks a report: {rep}")
+    log("stage kernels #5 / #7 (registers / stack / spill bytes / IMMA): "
+        + ", ".join(f"{k} {v.get('registers')}/{v.get('stack_bytes')}/"
+                    f"{v.get('spill_bytes')}/{v.get('IMMA', '-')}"
+                    for k, v in rep.items()))
+    return rep
+
+
 def flash_build_report() -> dict:
     """Registers and spill bytes of each flash-kernel instantiation (from
     ``-Xptxas -v``), ptxas's notes that it serialized wgmma, and the
@@ -323,11 +391,7 @@ def flash_build_report() -> dict:
             cur["registers"] = int(re.search(r"Used (\d+) registers",
                                              ln).group(1))
             cur = None
-    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(build._target("flash_attention"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+    sass = _sass("flash_attention")
     for fn in re.split(r"\n\s+Function : ", sass)[1:]:
         m = re.search(r"flash_(bf16|f32)_kernelILi(\d+)E", fn.split("\n")[0])
         if m:
@@ -1425,6 +1489,13 @@ STAGE_KERNELS = ("ternary_mac", "nlq_lut", "kwn_topk", "lif_step")
 STAGE_SHAPES = ((TRAIN_BATCH, CFG.n_in, CFG.n_hidden),   # the chain's step
                 (128, 256, 128),                         # the bench's macro
                 (37, 300, 100))                          # ragged
+# the edges of #5's split-K tensor-core design: one row, a ragged row tile,
+# no K, one and one-and-a-half mma steps, eight slices of 128, a column
+# tile of 8, ragged N, 32 column tiles; the stack chain's layer 2
+TMAC_EDGES = ((1, 512, 128), (17, 512, 128), (64, 0, 128), (64, 32, 128),
+              (64, 48, 128), (64, 1000, 128), (64, 512, 8), (64, 512, 100),
+              (64, 512, 1024), (64, 128, 128))
+STACK_LAYER2 = (TRAIN_BATCH, 128, 128)
 
 
 def _tern(rs, shape, density, dev):
@@ -1447,7 +1518,10 @@ def compare_stage_phase(dev) -> dict:
     shape, the bench's macro shape and a ragged one: the MAC at ratios 2,
     3 and 2.05; the ramp at nlq, linear and activation codebooks of 5 and
     6 bits with boundary ties; KWN at k = 0, 1, 12, N and N + 5 on integral
-    MACs (ties); the LIF with SNL on and off.  Every output exact."""
+    MACs (ties); the LIF with SNL on and off.  Then #5 at its design's
+    edges (``TMAC_EDGES``) at 5 % and 67 % events, ratios 2 and 2.05, and
+    #7 with a 6-bit codebook (n_codes 64) at each shape and at N = 1024
+    with both codebooks, boundary ties planted.  Every output exact."""
     rs = np.random.RandomState(SEED + 13)
     res = {name: {"max_abs_err": 0.0, "mismatches": 0, "cases": 0}
            for name in STAGE_KERNELS}
@@ -1513,6 +1587,27 @@ def compare_stage_phase(dev) -> dict:
             check("lif_step", KERNELS["lif_step"], got,
                   ref.lif_step_ref(*args, use_snl=use_snl, **LIF_KW),
                   f"M={m} N={n} snl={use_snl}")
+    for m, kdim, n in TMAC_EDGES:
+        msb, lsb = (_tern(rs, (kdim, n), 0.67, dev) for _ in range(2))
+        for density in (0.05, 0.67):
+            x = _tern(rs, (m, kdim), density, dev)
+            for ratio in (2.0, 2.05):
+                got = ops.ternary_mac(x, msb, lsb, ratio=ratio, device=dev)
+                check("ternary_mac", KERNELS["ternary_mac"], [got],
+                      [ref.ternary_mac_ref(x, msb, lsb, ratio)],
+                      f"M={m} K={kdim} N={n} d={density} ratio={ratio}")
+    kwn_cases = [(m, n, 6) for m, _, n in STAGE_SHAPES] + [
+        (TRAIN_BATCH, 1024, 5), (TRAIN_BATCH, 1024, 6)]
+    for m, n, bits in kwn_cases:
+        bounds = ima_lib.nlq_codebook(bits, -24.0, 24.0).boundaries.to(dev)
+        mac = torch.from_numpy(np.round(rs.normal(0, 10, (m, n)))
+                               .astype(np.float32)).to(dev)
+        mac.view(-1)[:bounds.numel()] = bounds                   # ties
+        for k in (0, 1, 12, n, n + 5):
+            mask, steps = ops.kwn_topk(mac, bounds, k, device=dev)
+            check("kwn_topk", KERNELS["kwn_topk"], [mask, steps[:, None]],
+                  ref.kwn_topk_ref(mac, bounds, k),
+                  f"M={m} N={n} {bits} bits k={k}")
     for name, r in res.items():
         log(f"compare {name}: {r['cases']} cases on the card equal to the "
             f"plain version ({r['mismatches']} mismatches, membranes 0 ulp)")
@@ -1769,12 +1864,16 @@ def _device_ms_per_launch(fn, reps: int, split: dict | None = None) -> float:
 def stage_timing_phase(dev) -> dict:
     """Kernels #5-#8 per launch at the chain's step shape (M=64, K=512,
     N=128, the model's planes, 5 % events) with CUDA events, best of three
-    runs of 200 launches, beside the plain version on the card, the bound
-    and one PyTorch call where one computes the same function
-    (``torch.matmul`` on decoded f32 weights for #5, ``torch.bucketize``
-    for #6's codes); then one chain step against one
-    ``ops.fused_macro_step`` launch, and the composed forward (30 steps)
-    against ``"seq"``."""
+    runs of 200 launches, and under the profiler (device time), beside the
+    plain version on the card, the bound and one PyTorch call where one
+    computes the same function (``torch.matmul`` on decoded f32 weights
+    for #5, ``torch.bucketize`` for #6's codes), by both clocks; #5 also
+    at 67 % events (``ternary_mac_dense``) and at the stack chain's layer
+    2, K = 128 (``ternary_mac_layer2``), and ``torch._int_mm`` on the int8
+    events and the two planes side by side (the integer sums only, no
+    epilogue) at the step shape; then one chain step against one
+    ``ops.fused_macro_step`` launch (both clocks, the chain's device time
+    by kernel), and the composed forward (30 steps) against ``"seq"``."""
     rs = np.random.RandomState(SEED + 15)
     m, kdim, n = TRAIN_BATCH, CFG.n_in, CFG.n_hidden
     params = snn.init_params(CFG, torch.Generator().manual_seed(SEED),
@@ -1792,12 +1891,31 @@ def stage_timing_phase(dev) -> dict:
     nnz = int((x != 0).sum())
     w_f = 2.0 * fw.msb.float() + fw.lsb.float()
     x_f = x.float()
+    x_dense = _tern(rs, (m, kdim), 0.67, dev)
+    x_dense_f = x_dense.float()
+    m2, k2, n2 = STACK_LAYER2
+    x2 = _tern(rs, (m2, k2), 0.05, dev)
+    msb2, lsb2 = (_tern(rs, (k2, n2), 0.67, dev) for _ in range(2))
+    w2_f = 2.0 * msb2.float() + lsb2.float()
+    x2_f = x2.float()
     cases = {
         "ternary_mac": (
             lambda: tmac_lib.ternary_mac(x, fw.msb, fw.lsb),
             lambda: ref.ternary_mac_ref(x, fw.msb, fw.lsb),
             lambda: torch.matmul(x_f, w_f),
             x.numel() + 2 * kdim * n + 4 * m * n, 2 * 2 * nnz * n, INT8_OPS),
+        "ternary_mac_dense": (
+            lambda: tmac_lib.ternary_mac(x_dense, fw.msb, fw.lsb),
+            lambda: ref.ternary_mac_ref(x_dense, fw.msb, fw.lsb),
+            lambda: torch.matmul(x_dense_f, w_f),
+            x.numel() + 2 * kdim * n + 4 * m * n,
+            2 * 2 * int((x_dense != 0).sum()) * n, INT8_OPS),
+        "ternary_mac_layer2": (
+            lambda: tmac_lib.ternary_mac(x2, msb2, lsb2),
+            lambda: ref.ternary_mac_ref(x2, msb2, lsb2),
+            lambda: torch.matmul(x2_f, w2_f),
+            x2.numel() + 2 * k2 * n2 + 4 * m2 * n2,
+            2 * 2 * int((x2 != 0).sum()) * n2, INT8_OPS),
         "nlq_lut": (
             lambda: nlq_lib.nlq_convert(mac, fw.boundaries, fw.levels),
             lambda: ref.nlq_convert_ref(mac, fw.boundaries, fw.levels),
@@ -1824,20 +1942,35 @@ def stage_timing_phase(dev) -> dict:
         plain_ms = [_time_ms(plain, 20) for _ in range(2)]
         lib_ms = None if library is None else min(
             _time_ms(library, 200) for _ in range(3))
+        lib_device_ms = (None if library is None
+                         else _device_ms_per_launch(library, 200))
         bytes_s, ops_s = n_bytes / HBM_BYTES_PER_S, n_ops / peak
         res[name] = {"kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
                      "plain_ms": min(plain_ms), "plain_ms_all": plain_ms,
-                     "library_ms": lib_ms, "device_ms": device_ms,
+                     "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+                     "device_ms": device_ms,
                      "bound_ms": 1e3 * max(bytes_s, ops_s),
                      "bound_by": "bytes" if bytes_s >= ops_s
                      else "operations", "bytes": n_bytes, "ops": n_ops}
-        log(f"{name} timing M={m} K={kdim} N={n}: kernel "
+        sm, sk, sn = STACK_LAYER2 if name == "ternary_mac_layer2" else (
+            m, kdim, n)
+        log(f"{name} timing M={sm} K={sk} N={sn}: kernel "
             f"{res[name]['kernel_ms']:.4f} ms/launch (device "
             f"{device_ms:.4f} ms under the profiler), plain "
             f"{res[name]['plain_ms']:.4f} ms, library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'} (device "
+            f"{'none' if lib_device_ms is None else f'{lib_device_ms:.4f}'})"
+            f", bound "
             f"{res[name]['bound_ms'] * 1e3:.4f} us ({res[name]['bound_by']},"
             f" {n_bytes} B)")
+
+    # the integer sums alone on PyTorch's int8 product, both planes at once
+    planes = torch.cat([fw.msb, fw.lsb], dim=1)
+    int_mm = lambda: torch._int_mm(x, planes)
+    res["int_mm_ms"] = min(_time_ms(int_mm, 200) for _ in range(3))
+    res["int_mm_device_ms"] = _device_ms_per_launch(int_mm, 200)
+    log(f"torch._int_mm (M={m}, K={kdim}, 2N={2 * n}, int32 sums only): "
+        f"{res['int_mm_ms']:.4f} ms (device {res['int_mm_device_ms']:.4f})")
 
     # one chain step against one fused step launch, on the same operands
     v0 = torch.zeros((m, n), device=dev)
@@ -1847,6 +1980,10 @@ def stage_timing_phase(dev) -> dict:
         k=CFG.k, drive_gain=CFG.drive_gain, mac_telemetry=False, device=dev)
     res["chain_step_ms"] = min(_time_ms(chain, 200) for _ in range(3))
     res["fused_step_ms"] = min(_time_ms(fused, 200) for _ in range(3))
+    split: dict = {}
+    res["chain_step_device_ms"] = _device_ms_per_launch(chain, 200, split)
+    res["chain_step_device_by_kernel"] = split
+    res["fused_step_device_ms"] = _device_ms_per_launch(fused, 200)
     u = rs.random_sample((m, CFG.n_steps, kdim))
     ev = (u > 0.975).astype(np.float32) - (u < 0.025)
     for label, fz in (("composed", False), ("seq", "seq")):
@@ -1854,7 +1991,10 @@ def stage_timing_phase(dev) -> dict:
                                                 device=dev)
         res[f"{label}_forward_ms"] = min(_time_ms(run, 3) for _ in range(3))
     log(f"chain step (4 kernels + the drive) {res['chain_step_ms']:.4f} ms "
-        f"against one fused step launch {res['fused_step_ms']:.4f} ms; "
+        f"(device {res['chain_step_device_ms']:.4f}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f") against one fused step launch {res['fused_step_ms']:.4f} ms "
+        f"(device {res['fused_step_device_ms']:.4f}); "
         f"forward_silicon at batch {m}, {CFG.n_steps} steps: composed "
         f"{res['composed_forward_ms']:.2f} ms, seq "
         f"{res['seq_forward_ms']:.3f} ms")
@@ -2373,11 +2513,25 @@ def _record(name, replaces, launches, cmp, timing,
             "mismatches": cmp["mismatches"]}
 
 
+def _tmac_extra(st: dict) -> dict:
+    """#5's record beyond the common keys: 67 % events, the stack chain's
+    layer 2, and ``torch._int_mm``'s time at the step shape."""
+    out = {"int_mm_ms": st["int_mm_ms"],
+           "int_mm_device_ms": st["int_mm_device_ms"]}
+    for key, name in (("dense", "ternary_mac_dense"),
+                      ("layer2", "ternary_mac_layer2")):
+        for field in ("kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                      "library_ms", "library_device_ms"):
+            label = "ms" if field == "kernel_ms" else field
+            out[f"{label}_{key}"] = st[name][field]
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, smi = device_phase()
     dev = torch.device("cuda")
-    build_s, flash_build, split_build = build_phase()
+    build_s, flash_build, split_build, stage_build = build_phase()
     cmp = {"kwn": compare_phase(dev), "nld": compare_nld_phase(dev),
            "stack": compare_stack_phase(dev),
            "train": compare_train_phase(dev),
@@ -2433,11 +2587,25 @@ def main() -> None:
             f"{tm['device_ms']:.4f}), plain "
             f"{tm['plain_ms']:.4f} ms, library {lib}, bound "
             f"{tm['bound_ms'] * 1e3:.4f} us ({tm['bound_by']})")
+    for name, label in (("ternary_mac_dense", "67 % events"),
+                        ("ternary_mac_layer2", "stack chain layer 2, K=128")):
+        tm = st[name]
+        log(f"[{smi}] ternary_mac ({label}): {tm['kernel_ms']:.4f} ms/launch"
+            f" (device {tm['device_ms']:.4f}), plain {tm['plain_ms']:.4f} "
+            f"ms, torch.matmul {tm['library_ms']:.4f} ms (device "
+            f"{tm['library_device_ms']:.4f}), bound "
+            f"{tm['bound_ms'] * 1e3:.4f} us ({tm['bound_by']})")
     log(f"[{smi}] ternary_mac through its wrapper "
-        f"{st['ternary_mac']['kernel_ms']:.4f} ms against torch.matmul "
-        f"{st['ternary_mac']['library_ms']:.4f} ms at the same shape")
-    log(f"[{smi}] chain step {st['chain_step_ms']:.4f} ms, fused step "
-        f"{st['fused_step_ms']:.4f} ms; composed forward "
+        f"{st['ternary_mac']['kernel_ms']:.4f} ms (device "
+        f"{st['ternary_mac']['device_ms']:.4f}) against torch.matmul "
+        f"{st['ternary_mac']['library_ms']:.4f} ms (device "
+        f"{st['ternary_mac']['library_device_ms']:.4f}) and torch._int_mm "
+        f"{st['int_mm_ms']:.4f} ms (device {st['int_mm_device_ms']:.4f}) "
+        f"at the same shape")
+    log(f"[{smi}] chain step {st['chain_step_ms']:.4f} ms (device "
+        f"{st['chain_step_device_ms']:.4f}), fused step "
+        f"{st['fused_step_ms']:.4f} ms (device "
+        f"{st['fused_step_device_ms']:.4f}); composed forward "
         f"{st['composed_forward_ms']:.2f} ms, seq "
         f"{st['seq_forward_ms']:.3f} ms")
     lt = timing["lm"]
@@ -2494,7 +2662,9 @@ def main() -> None:
                         + composed_res["stack_chain"]["launches"][name],
                         cmp["stage"][name], st[name],
                         library_ms=st[name]["library_ms"]),
-                device_ms=st[name]["device_ms"])
+                device_ms=st[name]["device_ms"],
+                library_device_ms=st[name]["library_device_ms"],
+                **(_tmac_extra(st) if name == "ternary_mac" else {}))
            for name, src, line in (("ternary_mac", "ternary_mac", 30),
                                    ("nlq_lut", "nlq_lut", 22),
                                    ("kwn_topk", "kwn_topk", 26),
@@ -2510,7 +2680,7 @@ def main() -> None:
                 max_abs_err_bf16=cmp["flash"]["max_abs_err_bf16"])]}
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "build_s": build_s, "flash_build": flash_build,
-         "split_build": split_build,
+         "split_build": split_build, "stage_build": stage_build,
          "compare": cmp,
          "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
                        "train": train_res, "composed": composed_res,

@@ -397,19 +397,23 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The tensor map of a (k_dim, n) int8 plane read in boxes of box_cols
-// columns by kStageRows rows: one TMA copy a staged tile, whatever n.  A
-// missing encoder or a refused map is an error, never a silent fallback.
-inline cudaError_t plane_map(CUtensorMap* map, const int8_t* plane,
-                             int k_dim, int n, int box_cols) {
+// columns by box_rows rows (kStageRows unless given), laid out in shared
+// memory with `swizzle` (none unless given): one TMA copy a staged tile,
+// whatever n.  A missing encoder or a refused map is an error, never a
+// silent fallback.
+inline cudaError_t plane_map(
+    CUtensorMap* map, const int8_t* plane, int k_dim, int n, int box_cols,
+    int box_rows = kStageRows,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {(cuuint64_t)n, (cuuint64_t)k_dim};
   const cuuint64_t strides[1] = {(cuuint64_t)n};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)kStageRows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
             const_cast<int8_t*>(plane), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
       ? cudaSuccess : cudaErrorInvalidValue;
@@ -418,17 +422,20 @@ inline cudaError_t plane_map(CUtensorMap* map, const int8_t* plane,
 // How staged_mac stages the (k_dim, n) int8 planes and the event rows at x
 // (k_dim bytes each): by the TMA unit when every row is 16-byte aligned
 // (*bulk true, with tensor maps tm[0] of msb and tm[1] of lsb for boxes of
-// box_cols columns), else by plain loads (*bulk false).
-inline cudaError_t stage_by_tma(CUtensorMap (&tm)[2], bool* bulk,
-                                const int8_t* msb, const int8_t* lsb,
-                                int k_dim, int n, int box_cols,
-                                const int8_t* x) {
+// box_cols columns by box_rows rows, laid out with `swizzle`), else by
+// plain loads (*bulk false).
+inline cudaError_t stage_by_tma(
+    CUtensorMap (&tm)[2], bool* bulk, const int8_t* msb, const int8_t* lsb,
+    int k_dim, int n, int box_cols, const int8_t* x,
+    int box_rows = kStageRows,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   *bulk = ((uintptr_t)msb | (uintptr_t)lsb | (uintptr_t)x) % 16 == 0
           && n % 16 == 0 && k_dim % 16 == 0 && k_dim > 0;
   if (!*bulk) return cudaSuccess;
-  const cudaError_t err = plane_map(&tm[0], msb, k_dim, n, box_cols);
-  return err != cudaSuccess ? err
-                            : plane_map(&tm[1], lsb, k_dim, n, box_cols);
+  const cudaError_t err = plane_map(&tm[0], msb, k_dim, n, box_cols,
+                                    box_rows, swizzle);
+  return err != cudaSuccess ? err : plane_map(&tm[1], lsb, k_dim, n,
+                                              box_cols, box_rows, swizzle);
 }
 
 // ramp_code for CPT values at once: each boundary is loaded once for all of

@@ -3,10 +3,12 @@ stage.
 
 Counterpart of ``repro.kernels.kwn_topk`` (``kwn_topk``, the Pallas kernel
 ``_kwn_kernel``).  The hand-written CUDA kernel ``csrc/kwn_topk.cu``
-replaces it: one warp per row, the ramp codes and the fused kernels'
-descending priority sweep (a ballot per level in column order), which
-stops at the K-th winner; ``K <= 0`` reports step 0 as the TPU kernel's
-full sweep does.  Any width up to ``MAX_COLS`` columns.
+replaces it: one warp per row, the row's MAC loaded (16 bytes a lane
+where the row allows) while the codebook is staged, the ramp codes, then
+a select with a fixed cost: the K-th winner's code found bit by bit in
+``ceil(log2 n_codes)`` warp-wide counts, ties admitted in column order by
+a prefix popcount.  ``K <= 0`` reports step 0 as the TPU kernel's full
+sweep does.  Any width up to ``MAX_COLS`` columns.
 
 A CUDA tensor launches the kernel, counted in ``kwn_topk.launches``; a CPU
 tensor runs the plain version ``kernels.ref.kwn_topk_ref``.

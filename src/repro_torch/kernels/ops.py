@@ -11,6 +11,7 @@ plain versions) and takes leading batch dimensions as the reference does.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -30,9 +31,10 @@ from repro_torch.kernels import ternary_mac as _tmac
 # --- the composed chain: one kernel a stage -----------------------------------
 
 def _rows(a, dev, dtype) -> torch.Tensor:
-    """``a`` on ``dev`` as a contiguous (rows, last) ``dtype`` matrix."""
+    """``a`` on ``dev`` as a contiguous (rows, last) ``dtype`` matrix (the
+    rows counted, so that an empty last axis, K = 0, keeps them)."""
     a = torch.as_tensor(a).to(dev, dtype)
-    return a.reshape(-1, a.shape[-1]).contiguous()
+    return a.reshape(math.prod(a.shape[:-1]), a.shape[-1]).contiguous()
 
 
 def ternary_mac(x, msb, lsb, ratio: float = 2.0, device=None) -> torch.Tensor:

@@ -483,12 +483,26 @@ def _same(got, want):
         assert torch.equal(a.cpu(), b), (a.cpu() != b).sum()
 
 
+# the edges of #5's split-K tensor-core design: one row, a ragged row
+# tile, no K, one and one-and-a-half mma steps, eight slices of 128, a
+# column tile of 8, ragged N, 32 column tiles, the stack chain's layer 2
+TMAC_EDGE_SHAPES = [(1, 512, 128), (17, 512, 128), (64, 0, 128),
+                    (64, 32, 128), (64, 48, 128), (64, 1000, 128),
+                    (64, 512, 8), (64, 512, 100), (64, 512, 1024),
+                    (64, 128, 128)]
+
+
 @pytest.mark.parametrize("ratio", [2.0, 3.0, 2.05])
-@pytest.mark.parametrize("shape", STAGE_SHAPES, ids=str)
-def test_ternary_mac_kernel_matches_plain_version(cuda, shape, ratio):
+@pytest.mark.parametrize("density", [0.05, 0.67])
+@pytest.mark.parametrize("shape", STAGE_SHAPES + TMAC_EDGE_SHAPES, ids=str)
+def test_ternary_mac_kernel_matches_plain_version(cuda, shape, density,
+                                                  ratio):
     m, k, n = shape
     rs = np.random.RandomState(m)
-    x, msb, lsb = _tern(rs, m, k), _tern(rs, k, n), _tern(rs, k, n)
+    x = torch.from_numpy(rs.choice(
+        [-1, 0, 1], p=[density / 2, 1 - density, density / 2],
+        size=(m, k)).astype(np.int8))
+    msb, lsb = _tern(rs, k, n), _tern(rs, k, n)
     before = kernels_tmac.ternary_mac.launches
     got = ops.ternary_mac(x, msb, lsb, ratio=ratio, device=cuda)
     torch.cuda.synchronize()
@@ -513,15 +527,18 @@ def test_nlq_kernel_matches_plain_version(cuda, shape, kind, bits):
     _same(got, ops.nlq_convert(x, cb.boundaries, cb.levels, device="cpu"))
 
 
+@pytest.mark.parametrize("bits", [5, 6])
 @pytest.mark.parametrize("k", [0, 1, 12, "N", "N+5"])
-@pytest.mark.parametrize("shape", STAGE_SHAPES + [(16, 0, 256)], ids=str)
-def test_kwn_kernel_matches_plain_version(cuda, shape, k):
+@pytest.mark.parametrize("shape", STAGE_SHAPES + [(16, 0, 256),
+                                                  (64, 0, 1024)], ids=str)
+def test_kwn_kernel_matches_plain_version(cuda, shape, k, bits):
     m, _, n = shape
     k = {"N": n, "N+5": n + 5}.get(k, k)
     rs = np.random.RandomState(n)
-    cb = _codebook("nlq", 5)
+    cb = _codebook("nlq", bits)
     mac = torch.from_numpy(np.round(rs.normal(0, 10, (m, n)))
                            .astype(np.float32))
+    mac.view(-1)[:cb.boundaries.numel()] = cb.boundaries      # ties
     before = kernels_kwn.kwn_topk.launches
     got = ops.kwn_topk(mac, cb.boundaries, k, device=cuda)
     torch.cuda.synchronize()

@@ -308,3 +308,62 @@ def test_stack_wrapper_hands_each_layer_its_scratch(fake_cuda, allocations,
                                                params.layers[:3]]
     assert tuple(occ.shape) == (3, t, m // bm) and occ.dtype == torch.int32
     assert tuple(counts.shape) == (3, t, m) == tuple(steps.shape)
+
+
+@pytest.mark.parametrize("shape, want", [
+    ((64, 512, 128), (8, 64, 64, 4, 1)),      # the chain's step
+    ((64, 128, 128), (4, 32, 32, 4, 1)),      # the stack chain's layer 2
+    ((37, 300, 100), (8, 64, 64, 4, 1)),      # ragged K and N
+    ((17, 0, 8), (1, 32, 32, 1, 1)),          # K = 0: one empty slice
+    ((1, 48, 1024), (2, 32, 32, 32, 1)),
+    ((130, 1000, 33), (8, 128, 128, 2, 3)),
+    ((5, 4096, 64), (8, 512, 128, 2, 1)),     # four staged tiles a slice
+], ids=str)
+def test_ternary_mac_wrapper_hands_the_kernel_its_split(fake_cuda,
+                                                       allocations, shape,
+                                                       want):
+    """Kernel #5 splits K over a cluster of CTAs that add their partials in
+    shared memory: its wrapper hands it the split, the slice, the staged
+    tile and the grid, and allocates the output and no scratch."""
+    m, k_dim, n = shape
+    i8 = torch.int8
+    before = kernels_tmac.ternary_mac.launches
+    out = kernels_tmac._launch(torch.zeros((m, k_dim), dtype=i8),
+                               torch.zeros((k_dim, n), dtype=i8),
+                               torch.zeros((k_dim, n), dtype=i8), 2.05)
+    assert kernels_tmac.ternary_mac.launches == before + 1
+    params = build._BOUND["ternary_mac", "tmac_launch"].params[-1]
+    got = (params.k_split, params.k_chunk, params.k_tile, params.n_tiles,
+           params.m_tiles)
+    assert got == want
+    assert (params.m, params.k_dim, params.n) == shape
+    assert params.ratio == pytest.approx(2.05)
+    assert allocations == {out.data_ptr(): (m, n)}
+    assert params.out == out.data_ptr() and out.dtype == torch.float32
+    # the kernel's own checks: whole slices of whole tiles cover K
+    assert params.k_split in (1, 2, 4, 8)
+    assert params.k_chunk % params.k_tile == 0
+    assert params.k_tile in (32, 64, 128)
+    assert params.k_split * params.k_chunk >= k_dim
+    assert params.n_tiles * kernels_tmac.BN >= n
+    assert params.m_tiles * kernels_tmac.BM >= m
+
+
+def test_ternary_mac_plan_covers_every_k():
+    """Every K up to 4096: a power-of-two split, under twice the number of
+    32-row mma steps, of slices of whole tiles that cover K, each tile 32,
+    64 or 128 rows (a swizzle's width); the slice is the shortest such
+    that covers K."""
+    for k_dim in range(0, 4097):
+        p = kernels_tmac.plan(1, k_dim, 1)
+        assert p.k_split in (1, 2, 4, 8) and p.k_chunk % p.k_tile == 0
+        assert p.k_tile in (32, 64, 128)
+        assert p.k_split * p.k_chunk >= k_dim
+        assert p.k_split < 2 * max(1, -(-k_dim // 32))
+        shorter = p.k_chunk // 2 if p.k_chunk <= 128 else p.k_chunk - 128
+        assert shorter < 32 or p.k_split * shorter < k_dim
+    top = kernels_tmac.plan(1, kernels_tmac.MAX_K, 1)
+    assert top.k_split * top.k_chunk == kernels_tmac.MAX_K
+    assert top.k_chunk <= 32767      # a slice's sums fit 16 bits
+    with pytest.raises(ValueError, match="at most"):
+        kernels_tmac.plan(1, kernels_tmac.MAX_K + 1, 1)

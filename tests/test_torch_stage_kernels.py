@@ -69,6 +69,36 @@ def test_ternary_mac_matches_pallas_kernel(shape, ratio):
     assert got.dtype == torch.float32 and np.abs(want).max() > 0
 
 
+@pytest.mark.parametrize("shape, density", [
+    ((64, 512, 128), 0.67),     # the chain's step shape, dense events
+    ((37, 1000, 100), 0.05),    # a long ragged K
+    ((37, 1000, 100), 0.67)], ids=str)
+def test_ternary_mac_dense_events_and_long_k(shape, density):
+    """The plain version the card's tensor-core kernel is held to, against
+    the Pallas kernel at a density where most inputs fired and at K =
+    1000 (more than one macro's rows, not a multiple of 16)."""
+    m, k, n = shape
+    rs = np.random.RandomState(k + int(100 * density))
+    x = rs.choice([-1, 0, 1], p=[density / 2, 1 - density, density / 2],
+                  size=(m, k)).astype(np.int8)
+    msb, lsb = _tern(rs, k, n), _tern(rs, k, n)
+    want = np.asarray(j_ops.ternary_mac(jnp.asarray(x), jnp.asarray(msb),
+                                        jnp.asarray(lsb)))
+    got = t_ops.ternary_mac(x, msb, lsb, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert abs((x != 0).mean() - density) < 0.02
+
+
+def test_ternary_mac_without_inputs_is_zero():
+    """K = 0 (a layer with no inputs): every MAC is 0, leading batch
+    dimensions kept, as ``x @ w`` of an empty contraction gives."""
+    x = np.zeros((2, 3, 0), dtype=np.int8)
+    w = np.zeros((0, 5), dtype=np.int8)
+    got = t_ops.ternary_mac(x, w, w, ratio=2.05, device="cpu")
+    assert got.shape == (2, 3, 5) and got.dtype == torch.float32
+    assert not got.any()
+
+
 def test_ternary_mac_leading_batch_dims():
     rs = np.random.RandomState(3)
     x = _tern(rs, 2, 5, 300)
