@@ -15,9 +15,10 @@ Phases (any failure raises, so the exit code is non-zero):
    in each library), #3 (``fmskb_mac``, ``fmskb_chain``,
    ``fmskb_dw_part``, ``fmskb_dw_sum``) and #2 (``fmsn_head<CPT>``,
    ``fmsn_lif``), failing if one is missing; and the registers, stack
-   frame and spills of #5's ``tmac_kernel<KT>`` and #7's
-   ``kwn_kernel<CPL, VEC>`` with the int8 tensor-core instructions (IMMA,
-   IGMMA) in #5's SASS: #5 must have them, and neither may spill;
+   frame and spills of #5's ``tmac_kernel<KT>``, #6's ``nlq_kernel<VEC,
+   REG>``, #7's ``kwn_kernel<CPL, VEC>`` and #8's ``lif_kernel*`` with the
+   int8 tensor-core instructions (IMMA, IGMMA) in #5's SASS: #5 must have
+   them, none may spill, and #6 and #8 may have no stack frame;
 3. kernels vs plain versions, on the same inputs on the card:
    - KWN: the public wrapper ``ops.fused_macro_seq`` (padding,
      ``n_valid``, activity gating, ``row_ctl`` or a scalar seed) against
@@ -51,8 +52,12 @@ Phases (any failure raises, so the exit code is non-zero):
      6 bits, KWN at k = 0, 1, 12, N, N + 5, the LIF with SNL on and off;
      and the edges of #5's split-K tensor-core design (M = 1 and 17; K =
      0, 32, 48 and 1000; N = 8, 100 and 1024; the stack chain's layer 2,
-     64 x 128 x 128) at 5 % and 67 % events, and #7 with a 6-bit codebook
-     (n_codes 64) and at N = 1024; every output exact, membranes 0 ULP;
+     64 x 128 x 128) at 5 % and 67 % events, #7 with a 6-bit codebook
+     (n_codes 64) and at N = 1024, #6 at codebooks of 1, 2 and 8 bits,
+     unsorted and NaN-holding ones, NaN / +-inf / +-0 and every
+     boundary's f32 neighbours among the inputs, N = 100 and 101 and
+     operands offset by one element, #8 on offset views, and both once at
+     8192 x 1024; every output exact, membranes 0 ULP;
    - the flash-attention kernel (#9) through its wrapper against
      ``ref.flash_attention_ref``: f32 and bf16, causal and full, D in 16,
      32, 64, 128 at S in 128, 192, 1000 (ragged) and 2048, BH 72 at
@@ -132,7 +137,9 @@ Phases (any failure raises, so the exit code is non-zero):
    computes the same function, ``torch.matmul`` / ``torch.bucketize``
    (both clocks); #5 also at 67 % events and at the stack chain's layer 2
    (K = 128), beside ``torch._int_mm`` on the int8 operands (the integer
-   sums only);
+   sums only); #6 and #8 also at M = 8192, N = 1024 (#6 at 5 and 6 bits,
+   sorted and permuted) with the share of the bound they reach, beside
+   the card's per-launch floor (``zero_()`` of one element);
    one chain step against one fused step launch (both clocks), and the
    composed forward against ``"seq"``; kernel #9 at BH=72, D=64, bf16, causal,
    S=2048 and 512, and at BH=16, S=2048, D=256 (gemma2's head_dim),
@@ -311,7 +318,8 @@ def split_build_report() -> dict:
     return rep
 
 
-STAGE_BUILD = {"ternary_mac": "tmac_kernel", "kwn_topk": "kwn_kernel"}
+STAGE_BUILD = {"ternary_mac": "tmac_kernel", "kwn_topk": "kwn_kernel",
+               "nlq_lut": "nlq_kernel", "lif_step": "lif_kernel"}
 
 
 def _sass(source: str) -> str:
@@ -323,21 +331,27 @@ def _sass(source: str) -> str:
 
 def stage_build_report() -> dict:
     """Registers, stack frame and spill bytes (``-Xptxas -v``) of each
-    instantiation of #5's ``tmac_kernel<KT>`` and #7's ``kwn_kernel<CPL,
-    VEC>``, and the int8 tensor-core instructions (IMMA, IGMMA) in #5's
-    SASS.  Fails if either kernel spills, or if #5 has no int8 tensor-core
-    instruction: its product would not be on the tensor cores."""
+    kernel of #5-#8 (``tmac_kernel<KT>``, ``nlq_kernel<VEC>``,
+    ``kwn_kernel<CPL, VEC>``, ``lif_kernel``; a name's suffix and template
+    arguments are kept in its key), and the int8 tensor-core instructions
+    (IMMA, IGMMA) in #5's SASS.  Fails if any of them spills, if #6 or #8
+    has a stack frame, if one lacks a report, or if #5 has no int8
+    tensor-core instruction: its product would not be on the tensor
+    cores."""
     rep: dict = {}
     for src, name in STAGE_BUILD.items():
         cur = None
         for ln in build.BUILD_LOG.get(src, "").splitlines():
             m = re.search(r"Function properties for (_Z\S+)", ln)
             if m:
-                k = re.search(r"\d" + name + r"I((?:Li\d+E)+)E", m.group(1))
+                # a length-prefixed name, a suffix, template arguments
+                k = re.search(r"\d(" + name + r"\w*?)(?:I((?:L[a-z]+\d+E)+)E)?"
+                              r"(?=E)", m.group(1))
+                args = [] if k is None or not k.group(2) else re.findall(
+                    r"L[a-z]+(\d+)E", k.group(2))
                 cur = None if k is None else rep.setdefault(
-                    f"{src}/{name}<"
-                    + ",".join(re.findall(r"Li(\d+)E", k.group(1))) + ">",
-                    {})
+                    f"{src}/{k.group(1)}"
+                    + (f"<{','.join(args)}>" if args else ""), {})
             elif cur is not None and "spill stores" in ln:
                 cur["stack_bytes"] = int(re.search(
                     r"(\d+) bytes stack frame", ln).group(1))
@@ -356,13 +370,19 @@ def stage_build_report() -> dict:
             entry["IMMA"] = len(re.findall(r"\bIMMA\.", fn))
             entry["IGMMA"] = len(re.findall(r"\bIGMMA\.", fn))
     tmac = {k: v for k, v in rep.items() if k.startswith("ternary_mac/")}
-    kwn = {k: v for k, v in rep.items() if k.startswith("kwn_topk/")}
     if len(tmac) != 3 or not all(v.get("IMMA", 0) + v.get("IGMMA", 0) > 0
                                  for v in tmac.values()):
         raise AssertionError(f"#5 without int8 tensor-core SASS: {tmac}")
-    if not kwn or any(v.get("spill_bytes", 1) for v in rep.values()):
-        raise AssertionError(f"#5 or #7 spills or lacks a report: {rep}")
-    log("stage kernels #5 / #7 (registers / stack / spill bytes / IMMA): "
+    if not all(any(k.startswith(f"{src}/") for k in rep)
+               for src in STAGE_BUILD) \
+            or any(v.get("spill_bytes", 1) for v in rep.values()):
+        raise AssertionError(f"#5-#8 spill or lack a report: {rep}")
+    framed = {k: v for k, v in rep.items()
+              if k.split("/")[0] in ("nlq_lut", "lif_step")
+              and v.get("stack_bytes", 1)}
+    if framed:
+        raise AssertionError(f"#6 or #8 with a stack frame: {framed}")
+    log("stage kernels #5-#8 (registers / stack / spill bytes / IMMA): "
         + ", ".join(f"{k} {v.get('registers')}/{v.get('stack_bytes')}/"
                     f"{v.get('spill_bytes')}/{v.get('IMMA', '-')}"
                     for k, v in rep.items()))
@@ -1512,6 +1532,39 @@ def _stage_codebook(kind, bits):
     return ima_lib.activation_codebook(bits, ima_lib.quadratic, -4.0, 4.0)
 
 
+LARGE_SHAPE = (8192, 1024)    # #6 and #8 at a shape bound by bytes
+
+
+def _on_card(a: torch.Tensor, dev, offset: int = 0) -> torch.Tensor:
+    """``a`` copied to ``dev`` into a contiguous view that starts ``offset``
+    elements into a larger buffer (not 16-byte aligned for offset % 4)."""
+    buf = torch.empty(a.numel() + offset, dtype=a.dtype, device=dev)
+    view = buf[offset:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+def _ramp_edges(rs, bounds, shape, span, dev, offset=0):
+    """Values across ``span`` on the card with NaN, +-inf, +-0, every
+    boundary and its two f32 neighbours planted at the front."""
+    x = rs.uniform(-span, span, shape).astype(np.float32)
+    b = bounds.cpu().numpy()
+    special = np.concatenate([
+        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32), b,
+        np.nextafter(b, np.float32(np.inf)),
+        np.nextafter(b, np.float32(-np.inf))])
+    x.flat[:special.size] = special[:x.size]
+    return _on_card(torch.from_numpy(x), dev, offset)
+
+
+def _lif_operands(rs, shape, dev, offset=0):
+    m, n = shape
+    return [_on_card(torch.from_numpy(a.astype(np.float32)), dev, offset)
+            for a in (rs.uniform(-1.5, 1.5, (m, n)), rs.normal(0, 0.5, (m, n)),
+                      rs.uniform(size=(m, n)) < 0.3,
+                      0.05 * rs.choice([-1.0, 1.0], size=(m, n)))]
+
+
 def compare_stage_phase(dev) -> dict:
     """Kernels #5-#8 through their ``ops`` wrappers on the card against
     their plain versions on the same card tensors, at the chain's step
@@ -1521,7 +1574,13 @@ def compare_stage_phase(dev) -> dict:
     MACs (ties); the LIF with SNL on and off.  Then #5 at its design's
     edges (``TMAC_EDGES``) at 5 % and 67 % events, ratios 2 and 2.05, and
     #7 with a 6-bit codebook (n_codes 64) at each shape and at N = 1024
-    with both codebooks, boundary ties planted.  Every output exact."""
+    with both codebooks, boundary ties planted.  Then #6 at the edges of
+    its design: codebooks of 1, 2 and 8 bits of each kind, permuted 5- and
+    8-bit, descending and NaN-holding codebooks (the linear count), NaN,
+    +-inf, +-0, every boundary and its f32 neighbours among the inputs, N
+    = 100, a total that is not a multiple of 4, operands offset by one
+    element (not 16-byte aligned); #8 on views offset by one element; both
+    once at ``LARGE_SHAPE``.  Every output exact."""
     rs = np.random.RandomState(SEED + 13)
     res = {name: {"max_abs_err": 0.0, "mismatches": 0, "cases": 0}
            for name in STAGE_KERNELS}
@@ -1579,10 +1638,7 @@ def compare_stage_phase(dev) -> dict:
             check("kwn_topk", KERNELS["kwn_topk"], [mask, steps[:, None]],
                   ref.kwn_topk_ref(mac, bounds, k), f"M={m} N={n} k={k}")
         for use_snl in (True, False):
-            args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
-                rs.uniform(-1.5, 1.5, (m, n)), rs.normal(0, 0.5, (m, n)),
-                rs.uniform(size=(m, n)) < 0.3,
-                0.05 * rs.choice([-1.0, 1.0], size=(m, n)))]
+            args = _lif_operands(rs, (m, n), dev)
             got = ops.lif_step(*args, use_snl=use_snl, device=dev, **LIF_KW)
             check("lif_step", KERNELS["lif_step"], got,
                   ref.lif_step_ref(*args, use_snl=use_snl, **LIF_KW),
@@ -1608,6 +1664,47 @@ def compare_stage_phase(dev) -> dict:
             check("kwn_topk", KERNELS["kwn_topk"], [mask, steps[:, None]],
                   ref.kwn_topk_ref(mac, bounds, k),
                   f"M={m} N={n} {bits} bits k={k}")
+    cb5 = ima_lib.nlq_codebook(5, -24.0, 24.0)
+
+    def nlq(x, bounds, levels, tag):
+        bounds, levels = bounds.to(dev), levels.to(dev)
+        check("nlq_lut", KERNELS["nlq_lut"],
+              ops.nlq_convert(x, bounds, levels, device=dev),
+              ref.nlq_convert_ref(x, bounds, levels), tag)
+
+    for kind in ("nlq", "linear", "activation"):
+        span = 5.0 if kind == "activation" else 30.0
+        for bits in (1, 2, 8):
+            cb = _stage_codebook(kind, bits)
+            for shape in ((TRAIN_BATCH, CFG.n_hidden), (5, 101)):
+                nlq(_ramp_edges(rs, cb.boundaries, shape, span, dev),
+                    cb.boundaries, cb.levels, f"{shape} {kind} {bits} bits")
+    cb8 = ima_lib.nlq_codebook(8, -24.0, 24.0)
+    unsorted = {"permuted": (cb5, cb5.boundaries[torch.from_numpy(
+                    rs.permutation(cb5.boundaries.numel()))]),
+                "permuted 8-bit": (cb8, cb8.boundaries[torch.from_numpy(
+                    rs.permutation(cb8.boundaries.numel()))]),
+                "descending": (cb5, cb5.boundaries.flip(0)),
+                "nan": (cb5, cb5.boundaries.clone().index_fill_(
+                    0, torch.tensor([7]), float("nan")))}
+    for label, (cb, bounds) in unsorted.items():
+        nlq(_ramp_edges(rs, cb.boundaries, (TRAIN_BATCH, CFG.n_hidden),
+                        30.0, dev), bounds, cb.levels, f"{label} codebook")
+    for shape in ((TRAIN_BATCH, CFG.n_hidden), (37, 100)):
+        nlq(_ramp_edges(rs, cb5.boundaries, shape, 30.0, dev, offset=1),
+            cb5.boundaries, cb5.levels, f"{shape} offset 1")
+        for use_snl in (True, False):
+            args = _lif_operands(rs, shape, dev, offset=1)
+            check("lif_step", KERNELS["lif_step"],
+                  ops.lif_step(*args, use_snl=use_snl, device=dev, **LIF_KW),
+                  ref.lif_step_ref(*args, use_snl=use_snl, **LIF_KW),
+                  f"{shape} offset 1 snl={use_snl}")
+    nlq(_ramp_edges(rs, cb5.boundaries, LARGE_SHAPE, 30.0, dev),
+        cb5.boundaries, cb5.levels, f"{LARGE_SHAPE}")
+    args = _lif_operands(rs, LARGE_SHAPE, dev)
+    check("lif_step", KERNELS["lif_step"],
+          ops.lif_step(*args, device=dev, **LIF_KW),
+          ref.lif_step_ref(*args, **LIF_KW), f"{LARGE_SHAPE}")
     for name, r in res.items():
         log(f"compare {name}: {r['cases']} cases on the card equal to the "
             f"plain version ({r['mismatches']} mismatches, membranes 0 ulp)")
@@ -1871,9 +1968,11 @@ def stage_timing_phase(dev) -> dict:
     at 67 % events (``ternary_mac_dense``) and at the stack chain's layer
     2, K = 128 (``ternary_mac_layer2``), and ``torch._int_mm`` on the int8
     events and the two planes side by side (the integer sums only, no
-    epilogue) at the step shape; then one chain step against one
+    epilogue) at the step shape; #6 and #8 at ``LARGE_SHAPE``
+    (``_large_cases``); then one chain step against one
     ``ops.fused_macro_step`` launch (both clocks, the chain's device time
-    by kernel), and the composed forward (30 steps) against ``"seq"``."""
+    by kernel), the composed forward (30 steps) against ``"seq"``, and the
+    card's per-launch floor."""
     rs = np.random.RandomState(SEED + 15)
     m, kdim, n = TRAIN_BATCH, CFG.n_in, CFG.n_hidden
     params = snn.init_params(CFG, torch.Generator().manual_seed(SEED),
@@ -1932,6 +2031,7 @@ def stage_timing_phase(dev) -> dict:
             lambda: lif_lib.lif_step_fused(v, drive, mask, noise, **LIF_KW),
             lambda: ref.lif_step_ref(v, drive, mask, noise, **LIF_KW),
             None, 4 * 4 * m * n + 2 * 4 * m * n, 8 * m * n, F32_FLOPS)}
+    cases.update(_large_cases(dev))
     if not torch.equal(torch.bucketize(mac, fw.boundaries).int(), codes):
         raise AssertionError("torch.bucketize is not the ramp's code")
     res = {}
@@ -1951,10 +2051,15 @@ def stage_timing_phase(dev) -> dict:
                      "device_ms": device_ms,
                      "bound_ms": 1e3 * max(bytes_s, ops_s),
                      "bound_by": "bytes" if bytes_s >= ops_s
-                     else "operations", "bytes": n_bytes, "ops": n_ops}
+                     else "operations", "bytes": n_bytes, "ops": n_ops,
+                     # nan where the profiler dropped the kernel's events
+                     "bound_share": (1e3 * max(bytes_s, ops_s) / device_ms
+                                     if device_ms else float("nan"))}
         sm, sk, sn = STACK_LAYER2 if name == "ternary_mac_layer2" else (
             m, kdim, n)
-        log(f"{name} timing M={sm} K={sk} N={sn}: kernel "
+        shape = (f"M={LARGE_SHAPE[0]} N={LARGE_SHAPE[1]}" if "_large" in name
+                 else f"M={sm} K={sk} N={sn}")
+        log(f"{name} timing {shape}: kernel "
             f"{res[name]['kernel_ms']:.4f} ms/launch (device "
             f"{device_ms:.4f} ms under the profiler), plain "
             f"{res[name]['plain_ms']:.4f} ms, library "
@@ -1962,7 +2067,8 @@ def stage_timing_phase(dev) -> dict:
             f"{'none' if lib_device_ms is None else f'{lib_device_ms:.4f}'})"
             f", bound "
             f"{res[name]['bound_ms'] * 1e3:.4f} us ({res[name]['bound_by']},"
-            f" {n_bytes} B)")
+            f" {n_bytes} B), {res[name]['bound_share']:.4f} of it on the "
+            f"device")
 
     # the integer sums alone on PyTorch's int8 product, both planes at once
     planes = torch.cat([fw.msb, fw.lsb], dim=1)
@@ -1998,7 +2104,58 @@ def stage_timing_phase(dev) -> dict:
         f"forward_silicon at batch {m}, {CFG.n_steps} steps: composed "
         f"{res['composed_forward_ms']:.2f} ms, seq "
         f"{res['seq_forward_ms']:.3f} ms")
+    res["floor"] = launch_floor(dev)
     return res
+
+
+def launch_floor(dev) -> dict:
+    """The per-launch floor of the card, a yardstick the port never calls:
+    ``zero_()`` of a one-element tensor, its device time under the
+    profiler and its CUDA-event time (best of three runs of 200)."""
+    z = torch.zeros(1, device=dev)
+    fill = lambda: z.zero_()
+    res = {"device_ms": _device_ms_per_launch(fill, 200),
+           "event_ms": min(_time_ms(fill, 200) for _ in range(3))}
+    log(f"launch floor (zero_ of one element): device "
+        f"{res['device_ms']:.4f} ms, CUDA events {res['event_ms']:.4f} ms")
+    return res
+
+
+def _large_cases(dev) -> dict:
+    """#6 and #8 at ``LARGE_SHAPE``, where bytes and not the launch set the
+    pace (100-200 MB of operands, beyond the 50 MB L2), in
+    ``stage_timing_phase``'s form: #6 at the model's 5-bit codebook and at
+    6 bits, each also permuted (``_unsorted``: the linear count in place of
+    the binary search), beside ``torch.bucketize`` (the codes only) on the
+    sorted ones; #8 with SNL."""
+    rs = np.random.RandomState(SEED + 16)
+    m, n = LARGE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x = torch.round(10.0 * torch.randn((m, n), generator=gen, device=dev))
+    v, drive, noise = (torch.randn((m, n), generator=gen, device=dev) * sd
+                       for sd in (1.0, 0.5, 0.05))
+    mask = (torch.rand((m, n), generator=gen, device=dev) < 0.3).float()
+    cases = {}
+    for bits, label in ((5, ""), (6, "_6bit")):
+        cb = ima_lib.nlq_codebook(bits, -CFG.mac_range, CFG.mac_range)
+        b, lv = cb.boundaries.to(dev), cb.levels.to(dev)
+        perm = b[torch.from_numpy(rs.permutation(b.numel())).to(dev)]
+        for name, bounds, library in (
+                (f"nlq_lut_large{label}", b,
+                 lambda b=b: torch.bucketize(x, b)),
+                (f"nlq_lut_large{label}_unsorted", perm, None)):
+            cases[name] = (
+                lambda bounds=bounds, lv=lv: nlq_lib.nlq_convert(x, bounds,
+                                                                 lv),
+                lambda bounds=bounds, lv=lv: ref.nlq_convert_ref(x, bounds,
+                                                                 lv),
+                library, 12 * m * n + 4 * (2 * lv.numel() - 1),
+                m * n * (lv.numel() - 1), F32_FLOPS)
+    cases["lif_step_large"] = (
+        lambda: lif_lib.lif_step_fused(v, drive, mask, noise, **LIF_KW),
+        lambda: ref.lif_step_ref(v, drive, mask, noise, **LIF_KW),
+        None, 24 * m * n, 8 * m * n, F32_FLOPS)
+    return cases
 
 
 # --- slice 5: the dense LM path and kernel #9 (flash attention) --------------
@@ -2527,6 +2684,23 @@ def _tmac_extra(st: dict) -> dict:
     return out
 
 
+def _large_extra(st: dict, name: str) -> dict:
+    """#6's and #8's records beyond the common keys: ``LARGE_SHAPE`` (#6
+    at the model's 5-bit codebook, ``_6bit`` at 6 bits, ``_unsorted`` with
+    the linear count), and the card's per-launch floor."""
+    out = {"floor_device_ms": st["floor"]["device_ms"],
+           "floor_event_ms": st["floor"]["event_ms"]}
+    suffixes = (("large", "large_6bit", "large_unsorted",
+                 "large_6bit_unsorted") if name == "nlq_lut" else ("large",))
+    for suffix in suffixes:
+        tm = st[f"{name}_{suffix}"]
+        for field in ("kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                      "library_ms"):
+            label = "ms" if field == "kernel_ms" else field
+            out[f"{label}_{suffix}"] = tm[field]
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, smi = device_phase()
@@ -2602,6 +2776,20 @@ def main() -> None:
         f"{st['ternary_mac']['library_device_ms']:.4f}) and torch._int_mm "
         f"{st['int_mm_ms']:.4f} ms (device {st['int_mm_device_ms']:.4f}) "
         f"at the same shape")
+    log(f"[{smi}] launch floor (zero_ of one element): device "
+        f"{st['floor']['device_ms']:.4f} ms, CUDA events "
+        f"{st['floor']['event_ms']:.4f} ms")
+    for name in ("nlq_lut", "lif_step"):
+        tm = st[name]
+        log(f"[{smi}] {name} at M={TRAIN_BATCH} N={CFG.n_hidden}: device "
+            f"{tm['device_ms']:.4f} ms, bound {tm['bound_ms'] * 1e3:.4f} us,"
+            f" {tm['bound_share']:.4f} of it")
+    for case in (k for k in st if "_large" in k):
+        tm = st[case]
+        log(f"[{smi}] {case} at M={LARGE_SHAPE[0]} N={LARGE_SHAPE[1]}: "
+            f"{tm['kernel_ms']:.4f} ms/launch (device {tm['device_ms']:.4f})"
+            f", bound {tm['bound_ms'] * 1e3:.2f} us ({tm['bound_by']}), "
+            f"{tm['bound_share']:.3f} of it on the device")
     log(f"[{smi}] chain step {st['chain_step_ms']:.4f} ms (device "
         f"{st['chain_step_device_ms']:.4f}), fused step "
         f"{st['fused_step_ms']:.4f} ms (device "
@@ -2664,7 +2852,9 @@ def main() -> None:
                         library_ms=st[name]["library_ms"]),
                 device_ms=st[name]["device_ms"],
                 library_device_ms=st[name]["library_device_ms"],
-                **(_tmac_extra(st) if name == "ternary_mac" else {}))
+                **(_tmac_extra(st) if name == "ternary_mac" else {}),
+                **(_large_extra(st, name) if name in ("nlq_lut", "lif_step")
+                   else {}))
            for name, src, line in (("ternary_mac", "ternary_mac", 30),
                                    ("nlq_lut", "nlq_lut", 22),
                                    ("kwn_topk", "kwn_topk", 26),

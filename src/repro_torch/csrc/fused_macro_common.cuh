@@ -193,14 +193,6 @@ __device__ __noinline__ int noisy_code(int ideal, float x, uint32_t seed,
 // register slot c / 32.
 // ---------------------------------------------------------------------------
 
-// Ramp conversion: the number of boundaries strictly below x.
-__device__ __forceinline__ int ramp_code(float x, const float* bounds,
-                                         int n_codes) {
-  int cd = 0;
-  for (int i = 0; i < n_codes - 1; ++i) cd += x > bounds[i];
-  return cd;
-}
-
 // KWN: the descending ramp admits winners per level in column order (the
 // priority encoder), until k have won.  Code -1 never wins.  Returns the
 // early-stop step count: n_codes - 1 - the K-th winner's code, or n_codes - 1
@@ -438,8 +430,9 @@ inline cudaError_t stage_by_tma(
                                               box_cols, box_rows, swizzle);
 }
 
-// ramp_code for CPT values at once: each boundary is loaded once for all of
-// them, eight loads in flight at a time.  The same count, so the same codes.
+// Ramp conversion of CPT values at once: the number of boundaries strictly
+// below each, in any boundary order.  Each boundary is loaded once for all
+// of them, eight loads in flight at a time.
 template <int CPT>
 __device__ __forceinline__ void ramp_codes(const float (&x)[CPT],
                                            int (&code)[CPT],

@@ -7,16 +7,23 @@
 // fused multiply-add fma(beta, v, drive), the rest hold; with SNL a membrane
 // in (v_th2, v_th1) takes the noise; clip to +-v_lim; spike at v_th1; reset.
 //
-// What bounds it on the card: bytes, and nothing else.  At the chain's step
-// shape (64 x 128) it reads 128 KB and writes 64 KB: 196,608 B, 0.06 us at
-// 3.35 TB/s, about ten flops an element.  A launch of this size is bound by
-// the launch itself.
+// What bounds it on the card.  At the chain's step shape (64 x 128) the
+// launch: it reads 128 KB and writes 64 KB, 196,608 B, 0.06 us at 3.35
+// TB/s and about ten flops an element, far below what any launch costs on
+// the card (a one-element zero_ takes about 1 us of device time).  At a
+// large shape (8192 x 1024: 201 MB, 60.1 us, beyond the 50 MB L2) bytes,
+// and nothing else.
 //
 // What the design does about that: one pass, each input read once and each
 // output written once, four elements a thread through 16-byte loads and
 // stores when every pointer is 16-byte aligned (the wrapper checks), one
-// element a thread otherwise.  The update is the fused kernels' own
-// (fm::lif_update in fused_macro_common.cuh).
+// element a thread otherwise; four loads in flight a thread and 2,048
+// threads an SM keep enough bytes in flight for the memory rate.  The
+// update is the fused kernels' own (fm::lif_update in
+// fused_macro_common.cuh).  Measured against streaming loads and stores
+// (__ldcs / __stcs), two 16-byte vectors an operand a thread, and a grid
+// of eight CTAs an SM striding over the rows, this design was as fast or
+// faster at both shapes, so it stays as it is.
 //
 // Bitwise parity with the reference: the TPU kernel's body is compiled by
 // XLA, which contracts beta * v + drive into a fused multiply-add; the

@@ -3,9 +3,12 @@ stage.
 
 Counterpart of ``repro.kernels.nlq_lut`` (``nlq_convert``, the Pallas
 kernel ``_nlq_kernel``).  The hand-written CUDA kernel ``csrc/nlq_lut.cu``
-replaces it: one thread per element, the codebook in shared memory, the
-code a count of boundaries strictly below, the reconstruction a gather
-(the Pallas one-hot sum, whose other terms are zeros).
+replaces it: four values a thread, loaded before the codebook (in each
+warp's registers up to 64 codes, else in shared memory); the code, the
+count of boundaries strictly below, by a binary search where the
+boundaries are sorted and by the linear count where not; the
+reconstruction a gather (the Pallas one-hot sum, whose other terms are
+zeros).
 
 A CUDA tensor launches the kernel, counted in ``nlq_convert.launches``; a
 CPU tensor runs the plain version ``kernels.ref.nlq_convert_ref``.

@@ -562,6 +562,131 @@ def test_lif_kernel_matches_plain_version(cuda, shape, use_snl):
     _same(got, ops.lif_step(*args, use_snl=use_snl, device="cpu", **LIF_KW))
 
 
+# --- #6 and #8 at the edges of their designs: codebook widths, unsorted
+# codebooks, NaN / inf / signed zeros, operands that are not 16-byte
+# aligned, totals that are not a multiple of 4, one large shape
+
+def _on_card(a, dev, offset=0):
+    """``a`` copied to ``dev`` into a contiguous view that starts ``offset``
+    elements into a larger buffer (not 16-byte aligned for offset % 4)."""
+    buf = torch.empty(a.numel() + offset, dtype=a.dtype, device=dev)
+    view = buf[offset:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+def _ramp_edges(rs, bounds, shape, span):
+    """Values across ``span`` with NaN, +-inf, +-0, every boundary and its
+    two neighbours in f32 planted at the front (as many as fit)."""
+    x = rs.uniform(-span, span, shape).astype(np.float32)
+    b = bounds.numpy()
+    special = np.concatenate([
+        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32), b,
+        np.nextafter(b, np.float32(np.inf)),
+        np.nextafter(b, np.float32(-np.inf))])
+    x.flat[:special.size] = special
+    return torch.from_numpy(x)
+
+
+def _nlq_case(cuda, x, bounds, levels, offset=0):
+    """The kernel on card copies of ``x`` (at ``offset``) against the
+    plain version on the same card tensors, the launch counted."""
+    xc = _on_card(x, cuda, offset)
+    bc, lc = bounds.to(cuda), levels.to(cuda)
+    before = kernels_nlq.nlq_convert.launches
+    got = ops.nlq_convert(xc, bc, lc, device=cuda)
+    torch.cuda.synchronize()
+    assert kernels_nlq.nlq_convert.launches == before + 1
+    want = ref.nlq_convert_ref(xc, bc, lc)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b), (a != b).sum()
+    return got
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (5, 101)], ids=str)
+@pytest.mark.parametrize("bits", [1, 2, 8])
+@pytest.mark.parametrize("kind", ["nlq", "linear", "activation"])
+def test_nlq_kernel_at_every_codebook_width(cuda, kind, bits, shape):
+    cb = _codebook(kind, bits)
+    x = _ramp_edges(np.random.RandomState(bits), cb.boundaries, shape,
+                    5.0 if kind == "activation" else 30.0)
+    codes, _ = _nlq_case(cuda, x, cb.boundaries, cb.levels)
+    assert int(codes.max()) == cb.boundaries.numel()      # +inf's code
+
+
+@pytest.mark.parametrize("case", ["permuted5", "permuted6", "permuted8",
+                                  "descending", "nan_boundary"])
+def test_nlq_kernel_unsorted_codebook(cuda, case):
+    """Boundaries out of order or with a NaN: still the count of those
+    strictly below, as the reference's compare-and-sum gives (8 bits: the
+    codebook in shared memory, the others in registers)."""
+    rs = np.random.RandomState(len(case))
+    cb = _codebook("nlq", {"permuted6": 6, "permuted8": 8}.get(case, 5))
+    b = cb.boundaries.clone()
+    if case.startswith("permuted"):
+        b = b[torch.from_numpy(rs.permutation(b.numel()))]
+    elif case == "descending":
+        b = b.flip(0)
+    else:
+        b[7] = float("nan")
+    _nlq_case(cuda, _ramp_edges(rs, cb.boundaries, (64, 128), 30.0), b,
+              cb.levels)
+
+
+@pytest.mark.parametrize("n", [128, 100], ids=lambda n: f"N{n}")
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_nlq_kernel_misaligned_operand(cuda, offset, n):
+    cb = _codebook("nlq", 5)
+    x = _ramp_edges(np.random.RandomState(offset), cb.boundaries, (37, n),
+                    30.0)
+    _nlq_case(cuda, x, cb.boundaries, cb.levels, offset)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 7), (1, 2049), (9, 999),
+                                   (64, 0)], ids=str)
+def test_nlq_kernel_ragged_totals(cuda, shape):
+    cb = _codebook("linear", 5)
+    x = _ramp_edges(np.random.RandomState(7), cb.boundaries[:0], shape, 30.0)
+    _nlq_case(cuda, x, cb.boundaries, cb.levels)
+
+
+def test_nlq_kernel_large_shape(cuda):
+    """8192 x 1024: operands beyond the L2, 16,384 CTAs."""
+    cb = _codebook("nlq", 5)
+    x = _ramp_edges(np.random.RandomState(8), cb.boundaries, (8192, 1024),
+                    30.0)
+    _nlq_case(cuda, x, cb.boundaries, cb.levels)
+
+
+def _lif_case(cuda, shape, offset, use_snl, seed):
+    rs = np.random.RandomState(seed)
+    m, n = shape
+    args = [_on_card(torch.from_numpy(a.astype(np.float32)), cuda, offset)
+            for a in (rs.uniform(-1.5, 1.5, (m, n)), rs.normal(0, 0.5, (m, n)),
+                      rs.uniform(size=(m, n)) < 0.3,
+                      0.05 * rs.choice([-1.0, 1.0], size=(m, n)))]
+    before = kernels_lif.lif_step_fused.launches
+    got = ops.lif_step(*args, use_snl=use_snl, device=cuda, **LIF_KW)
+    torch.cuda.synchronize()
+    assert kernels_lif.lif_step_fused.launches == before + 1
+    want = ref.lif_step_ref(*args, use_snl=use_snl, **LIF_KW)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b), (a != b).sum()
+
+
+@pytest.mark.parametrize("use_snl", [True, False], ids=["snl", "no_snl"])
+@pytest.mark.parametrize("shape", [(64, 128), (37, 100), (3, 7)], ids=str)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_lif_kernel_misaligned_view(cuda, offset, shape, use_snl):
+    _lif_case(cuda, shape, offset, use_snl, offset)
+
+
+def test_lif_kernel_large_shape(cuda):
+    _lif_case(cuda, (8192, 1024), 0, True, 8)
+
+
 def _chain(ev_t, fw, v, noise, k, drive_gain, dev):
     """The four-kernel chain over a (T, B, I) sequence: spikes (T, B, N),
     ADC steps (T, B) and the final membrane."""
