@@ -137,7 +137,8 @@ Phases (any failure raises, so the exit code is non-zero):
    computes the same function, ``torch.matmul`` / ``torch.bucketize``
    (both clocks); #5 also at 67 % events and at the stack chain's layer 2
    (K = 128), beside ``torch._int_mm`` on the int8 operands (the integer
-   sums only); #6 and #8 also at M = 8192, N = 1024 (#6 at 5 and 6 bits,
+   sums only); #6 also with its 5-bit codebook permuted (the linear
+   count); #6 and #8 also at M = 8192, N = 1024 (#6 at 5 and 6 bits,
    sorted and permuted) with the share of the bound they reach, beside
    the card's per-launch floor (``zero_()`` of one element);
    one chain step against one fused step launch (both clocks), and the
@@ -1968,7 +1969,9 @@ def stage_timing_phase(dev) -> dict:
     at 67 % events (``ternary_mac_dense``) and at the stack chain's layer
     2, K = 128 (``ternary_mac_layer2``), and ``torch._int_mm`` on the int8
     events and the two planes side by side (the integer sums only, no
-    epilogue) at the step shape; #6 and #8 at ``LARGE_SHAPE``
+    epilogue) at the step shape; #6 also with its codebook permuted
+    (``nlq_lut_unsorted``: the linear count in place of the binary
+    search); #6 and #8 at ``LARGE_SHAPE``
     (``_large_cases``); then one chain step against one
     ``ops.fused_macro_step`` launch (both clocks, the chain's device time
     by kernel), the composed forward (30 steps) against ``"seq"``, and the
@@ -1997,6 +2000,8 @@ def stage_timing_phase(dev) -> dict:
     msb2, lsb2 = (_tern(rs, (k2, n2), 0.67, dev) for _ in range(2))
     w2_f = 2.0 * msb2.float() + lsb2.float()
     x2_f = x2.float()
+    perm = fw.boundaries[torch.from_numpy(np.random.RandomState(
+        SEED + 17).permutation(n_codes - 1)).to(dev)]
     cases = {
         "ternary_mac": (
             lambda: tmac_lib.ternary_mac(x, fw.msb, fw.lsb),
@@ -2020,6 +2025,11 @@ def stage_timing_phase(dev) -> dict:
             lambda: ref.nlq_convert_ref(mac, fw.boundaries, fw.levels),
             lambda: torch.bucketize(mac, fw.boundaries),
             4 * m * n + 4 * (2 * n_codes - 1) + 2 * 4 * m * n,
+            m * n * (n_codes - 1), F32_FLOPS),
+        "nlq_lut_unsorted": (
+            lambda: nlq_lib.nlq_convert(mac, perm, fw.levels),
+            lambda: ref.nlq_convert_ref(mac, perm, fw.levels),
+            None, 4 * m * n + 4 * (2 * n_codes - 1) + 2 * 4 * m * n,
             m * n * (n_codes - 1), F32_FLOPS),
         "kwn_topk": (
             lambda: kwn_lib.kwn_topk(mac, fw.boundaries, CFG.k),
@@ -2687,10 +2697,11 @@ def _tmac_extra(st: dict) -> dict:
 def _large_extra(st: dict, name: str) -> dict:
     """#6's and #8's records beyond the common keys: ``LARGE_SHAPE`` (#6
     at the model's 5-bit codebook, ``_6bit`` at 6 bits, ``_unsorted`` with
-    the linear count), and the card's per-launch floor."""
+    the linear count, at the step shape too), and the card's per-launch
+    floor."""
     out = {"floor_device_ms": st["floor"]["device_ms"],
            "floor_event_ms": st["floor"]["event_ms"]}
-    suffixes = (("large", "large_6bit", "large_unsorted",
+    suffixes = (("unsorted", "large", "large_6bit", "large_unsorted",
                  "large_6bit_unsorted") if name == "nlq_lut" else ("large",))
     for suffix in suffixes:
         tm = st[f"{name}_{suffix}"]
@@ -2779,7 +2790,7 @@ def main() -> None:
     log(f"[{smi}] launch floor (zero_ of one element): device "
         f"{st['floor']['device_ms']:.4f} ms, CUDA events "
         f"{st['floor']['event_ms']:.4f} ms")
-    for name in ("nlq_lut", "lif_step"):
+    for name in ("nlq_lut", "nlq_lut_unsorted", "lif_step"):
         tm = st[name]
         log(f"[{smi}] {name} at M={TRAIN_BATCH} N={CFG.n_hidden}: device "
             f"{tm['device_ms']:.4f} ms, bound {tm['bound_ms'] * 1e3:.4f} us,"

@@ -20,10 +20,10 @@
 // element a thread otherwise; four loads in flight a thread and 2,048
 // threads an SM keep enough bytes in flight for the memory rate.  The
 // update is the fused kernels' own (fm::lif_update in
-// fused_macro_common.cuh).  Measured against streaming loads and stores
-// (__ldcs / __stcs), two 16-byte vectors an operand a thread, and a grid
-// of eight CTAs an SM striding over the rows, this design was as fast or
-// faster at both shapes, so it stays as it is.
+// fused_macro_common.cuh).  At the large shape this design takes about 0.9
+// of the byte bound and at the step shape about the launch floor
+// (chip_smoke.py on an H100, PERF.md), which leaves another design at most
+// a tenth to gain; so it stays as it is.
 //
 // Bitwise parity with the reference: the TPU kernel's body is compiled by
 // XLA, which contracts beta * v + drive into a fused multiply-add; the

@@ -31,11 +31,14 @@
 //   held to +inf, a NaN failing the compare.  Then the code is a
 //   branch-free binary search, ceil(log2 n_codes) steps of x > b[mid] over
 //   the boundaries padded with +inf to a power of two; an unsorted
-//   codebook takes the linear count, each boundary read once for all of a
-//   thread's values (fm::ramp_codes from shared memory).  On a
-//   non-decreasing array x > b[i] holds on a prefix of i, so both give the
-//   number of boundaries strictly below x; a NaN x fails every compare and
-//   lands at 0 in both.
+//   codebook takes the linear count, one loop over the boundaries, each
+//   read once for all of a thread's values.  On a non-decreasing array
+//   x > b[i] holds on a prefix of i, so both give the number of boundaries
+//   strictly below x; a NaN x fails every compare and lands at 0 in both.
+//   The search is the faster count at both shapes (PERF.md, "PR 20"): at
+//   the large shape the linear count's n_codes - 1 broadcasts an element,
+//   not the bytes, set the pace; at the step shape they lie in series
+//   inside a launch that is all latency.
 // * recon = levels[code] by a shuffle (or from shared memory); codes and
 //   recon go out in 16-byte stores.
 // Bitwise parity by construction: compares and a table read.
@@ -155,14 +158,13 @@ __global__ void __launch_bounds__(kThreads) nlq_kernel(const NlqParams p,
       for (int j = 0; j < kPer; ++j)
         code[j] += x[j] > bound(code[j] + step - 1) ? step : 0;
     }
-  } else if constexpr (REG) {
+  } else {
+    // i is the same in every lane: each boundary is one broadcast
     for (int i = 0; i < nb; ++i) {
-      const float b = __shfl_sync(kFull, i < 32 ? b_lo : b_hi, i & 31);
+      const float b = bound(i);
 #pragma unroll
       for (int j = 0; j < kPer; ++j) code[j] += x[j] > b;
     }
-  } else {
-    fm::ramp_codes<kPer>(x, code, s_bounds, p.n_codes);
   }
 
   float recon[kPer];

@@ -7,6 +7,9 @@ they skip with a reason where no CUDA device is present.  On the GPU
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -510,21 +513,67 @@ def test_ternary_mac_kernel_matches_plain_version(cuda, shape, density,
     _same([got], [ops.ternary_mac(x, msb, lsb, ratio=ratio, device="cpu")])
 
 
-@pytest.mark.parametrize("bits", [5, 6])
-@pytest.mark.parametrize("kind", ["nlq", "linear", "activation"])
-@pytest.mark.parametrize("shape", STAGE_SHAPES, ids=str)
-def test_nlq_kernel_matches_plain_version(cuda, shape, kind, bits):
-    m, _, n = shape
-    rs = np.random.RandomState(bits)
+KINDS = ("nlq", "linear", "activation")
+# #6 at the chain's shapes and at the edges of its design: (M, N), the
+# codebook's kind and bits, the boundaries' order, the operands' offset
+# in elements (not 16-byte aligned for 1-3); totals that are not a
+# multiple of 4, and one shape beyond the L2
+NLQ_CASES = (
+    [((m, n), kind, bits, "sorted", 0) for m, _, n in STAGE_SHAPES
+     for kind in KINDS for bits in (5, 6)]
+    + [(shape, kind, bits, "sorted", 0) for shape in ((64, 128), (5, 101))
+       for kind in KINDS for bits in (1, 2, 8)]
+    + [((64, 128), "nlq", bits, order, 0) for bits, order in (
+        (5, "permuted"), (6, "permuted"), (8, "permuted"),
+        (5, "descending"), (5, "nan_boundary"))]
+    + [((37, n), "nlq", 5, "sorted", offset) for n in (128, 100)
+       for offset in (1, 2, 3)]
+    + [(shape, "linear", 5, "sorted", 0)
+       for shape in ((1, 1), (3, 7), (1, 2049), (9, 999), (64, 0))]
+    + [((8192, 1024), "nlq", 5, "sorted", 0)])
+
+
+@pytest.fixture
+def smoke():
+    """``chip_smoke.py``'s builders of card operands (``_on_card``,
+    ``_ramp_edges``, ``_lif_operands``), imported once the card is
+    found."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def _ordered(bounds, order, rs):
+    """The boundaries as they are, permuted, reversed, or with a NaN."""
+    if order == "permuted":
+        return bounds[torch.from_numpy(rs.permutation(bounds.numel()))]
+    if order == "descending":
+        return bounds.flip(0)
+    if order == "nan_boundary":
+        return bounds.clone().index_fill_(0, torch.tensor([7]), float("nan"))
+    return bounds
+
+
+@pytest.mark.parametrize(
+    "case", NLQ_CASES,
+    ids=lambda c: f"{c[0][0]}x{c[0][1]}-{c[1]}-{c[2]}bit-{c[3]}-off{c[4]}")
+def test_nlq_kernel_matches_plain_version(cuda, smoke, case):
+    """Values across the codebook's span with NaN, +-inf, +-0, every
+    boundary and its f32 neighbours planted, against the plain version
+    on the same card tensors (the linear count for the unsorted
+    codebooks; 8 bits: the codebook in shared memory)."""
+    shape, kind, bits, order, offset = case
+    rs = np.random.RandomState(bits + 10 * offset)
     cb = _codebook(kind, bits)
-    span = 5.0 if kind == "activation" else 30.0
-    x = torch.from_numpy(rs.uniform(-span, span, (m, n)).astype(np.float32))
-    x.view(-1)[:cb.boundaries.numel()] = cb.boundaries      # ties
+    x = smoke._ramp_edges(rs, cb.boundaries, shape,
+                          5.0 if kind == "activation" else 30.0, cuda, offset)
+    bounds = _ordered(cb.boundaries, order, rs).to(cuda)
+    levels = cb.levels.to(cuda)
     before = kernels_nlq.nlq_convert.launches
-    got = ops.nlq_convert(x, cb.boundaries, cb.levels, device=cuda)
+    got = ops.nlq_convert(x, bounds, levels, device=cuda)
     torch.cuda.synchronize()
     assert kernels_nlq.nlq_convert.launches == before + 1
-    _same(got, ops.nlq_convert(x, cb.boundaries, cb.levels, device="cpu"))
+    _same(got, [t.cpu() for t in ref.nlq_convert_ref(x, bounds, levels)])
 
 
 @pytest.mark.parametrize("bits", [5, 6])
@@ -546,145 +595,27 @@ def test_kwn_kernel_matches_plain_version(cuda, shape, k, bits):
     _same(got, ops.kwn_topk(mac, cb.boundaries, k, device="cpu"))
 
 
+# #8 at the chain's shapes, on views offset by 1-3 elements (not 16-byte
+# aligned) and beyond the L2: (M, N), offset
+LIF_CASES = ([((m, n), 0) for m, _, n in STAGE_SHAPES + [(3, 0, 7)]]
+             + [(shape, offset) for shape in ((64, 128), (37, 100), (3, 7))
+                for offset in (1, 2, 3)]
+             + [((8192, 1024), 0)])
+
+
 @pytest.mark.parametrize("use_snl", [True, False], ids=["snl", "no_snl"])
-@pytest.mark.parametrize("shape", STAGE_SHAPES + [(3, 0, 7)], ids=str)
-def test_lif_kernel_matches_plain_version(cuda, shape, use_snl):
-    m, _, n = shape
-    rs = np.random.RandomState(m + n)
-    args = [torch.from_numpy(a.astype(np.float32)) for a in (
-        rs.uniform(-1.5, 1.5, (m, n)), rs.normal(0, 0.5, (m, n)),
-        rs.uniform(size=(m, n)) < 0.3,
-        0.05 * rs.choice([-1.0, 1.0], size=(m, n)))]
+@pytest.mark.parametrize("case", LIF_CASES,
+                         ids=lambda c: f"{c[0][0]}x{c[0][1]}-off{c[1]}")
+def test_lif_kernel_matches_plain_version(cuda, smoke, case, use_snl):
+    shape, offset = case
+    args = smoke._lif_operands(np.random.RandomState(sum(shape) + offset),
+                               shape, cuda, offset)
     before = kernels_lif.lif_step_fused.launches
     got = ops.lif_step(*args, use_snl=use_snl, device=cuda, **LIF_KW)
     torch.cuda.synchronize()
     assert kernels_lif.lif_step_fused.launches == before + 1
-    _same(got, ops.lif_step(*args, use_snl=use_snl, device="cpu", **LIF_KW))
-
-
-# --- #6 and #8 at the edges of their designs: codebook widths, unsorted
-# codebooks, NaN / inf / signed zeros, operands that are not 16-byte
-# aligned, totals that are not a multiple of 4, one large shape
-
-def _on_card(a, dev, offset=0):
-    """``a`` copied to ``dev`` into a contiguous view that starts ``offset``
-    elements into a larger buffer (not 16-byte aligned for offset % 4)."""
-    buf = torch.empty(a.numel() + offset, dtype=a.dtype, device=dev)
-    view = buf[offset:].view(a.shape)
-    view.copy_(a)
-    return view
-
-
-def _ramp_edges(rs, bounds, shape, span):
-    """Values across ``span`` with NaN, +-inf, +-0, every boundary and its
-    two neighbours in f32 planted at the front (as many as fit)."""
-    x = rs.uniform(-span, span, shape).astype(np.float32)
-    b = bounds.numpy()
-    special = np.concatenate([
-        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0], np.float32), b,
-        np.nextafter(b, np.float32(np.inf)),
-        np.nextafter(b, np.float32(-np.inf))])
-    x.flat[:special.size] = special
-    return torch.from_numpy(x)
-
-
-def _nlq_case(cuda, x, bounds, levels, offset=0):
-    """The kernel on card copies of ``x`` (at ``offset``) against the
-    plain version on the same card tensors, the launch counted."""
-    xc = _on_card(x, cuda, offset)
-    bc, lc = bounds.to(cuda), levels.to(cuda)
-    before = kernels_nlq.nlq_convert.launches
-    got = ops.nlq_convert(xc, bc, lc, device=cuda)
-    torch.cuda.synchronize()
-    assert kernels_nlq.nlq_convert.launches == before + 1
-    want = ref.nlq_convert_ref(xc, bc, lc)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        assert torch.equal(a, b), (a != b).sum()
-    return got
-
-
-@pytest.mark.parametrize("shape", [(64, 128), (5, 101)], ids=str)
-@pytest.mark.parametrize("bits", [1, 2, 8])
-@pytest.mark.parametrize("kind", ["nlq", "linear", "activation"])
-def test_nlq_kernel_at_every_codebook_width(cuda, kind, bits, shape):
-    cb = _codebook(kind, bits)
-    x = _ramp_edges(np.random.RandomState(bits), cb.boundaries, shape,
-                    5.0 if kind == "activation" else 30.0)
-    codes, _ = _nlq_case(cuda, x, cb.boundaries, cb.levels)
-    assert int(codes.max()) == cb.boundaries.numel()      # +inf's code
-
-
-@pytest.mark.parametrize("case", ["permuted5", "permuted6", "permuted8",
-                                  "descending", "nan_boundary"])
-def test_nlq_kernel_unsorted_codebook(cuda, case):
-    """Boundaries out of order or with a NaN: still the count of those
-    strictly below, as the reference's compare-and-sum gives (8 bits: the
-    codebook in shared memory, the others in registers)."""
-    rs = np.random.RandomState(len(case))
-    cb = _codebook("nlq", {"permuted6": 6, "permuted8": 8}.get(case, 5))
-    b = cb.boundaries.clone()
-    if case.startswith("permuted"):
-        b = b[torch.from_numpy(rs.permutation(b.numel()))]
-    elif case == "descending":
-        b = b.flip(0)
-    else:
-        b[7] = float("nan")
-    _nlq_case(cuda, _ramp_edges(rs, cb.boundaries, (64, 128), 30.0), b,
-              cb.levels)
-
-
-@pytest.mark.parametrize("n", [128, 100], ids=lambda n: f"N{n}")
-@pytest.mark.parametrize("offset", [1, 2, 3])
-def test_nlq_kernel_misaligned_operand(cuda, offset, n):
-    cb = _codebook("nlq", 5)
-    x = _ramp_edges(np.random.RandomState(offset), cb.boundaries, (37, n),
-                    30.0)
-    _nlq_case(cuda, x, cb.boundaries, cb.levels, offset)
-
-
-@pytest.mark.parametrize("shape", [(1, 1), (3, 7), (1, 2049), (9, 999),
-                                   (64, 0)], ids=str)
-def test_nlq_kernel_ragged_totals(cuda, shape):
-    cb = _codebook("linear", 5)
-    x = _ramp_edges(np.random.RandomState(7), cb.boundaries[:0], shape, 30.0)
-    _nlq_case(cuda, x, cb.boundaries, cb.levels)
-
-
-def test_nlq_kernel_large_shape(cuda):
-    """8192 x 1024: operands beyond the L2, 16,384 CTAs."""
-    cb = _codebook("nlq", 5)
-    x = _ramp_edges(np.random.RandomState(8), cb.boundaries, (8192, 1024),
-                    30.0)
-    _nlq_case(cuda, x, cb.boundaries, cb.levels)
-
-
-def _lif_case(cuda, shape, offset, use_snl, seed):
-    rs = np.random.RandomState(seed)
-    m, n = shape
-    args = [_on_card(torch.from_numpy(a.astype(np.float32)), cuda, offset)
-            for a in (rs.uniform(-1.5, 1.5, (m, n)), rs.normal(0, 0.5, (m, n)),
-                      rs.uniform(size=(m, n)) < 0.3,
-                      0.05 * rs.choice([-1.0, 1.0], size=(m, n)))]
-    before = kernels_lif.lif_step_fused.launches
-    got = ops.lif_step(*args, use_snl=use_snl, device=cuda, **LIF_KW)
-    torch.cuda.synchronize()
-    assert kernels_lif.lif_step_fused.launches == before + 1
-    want = ref.lif_step_ref(*args, use_snl=use_snl, **LIF_KW)
-    for a, b in zip(got, want):
-        assert a.dtype == b.dtype and a.shape == b.shape
-        assert torch.equal(a, b), (a != b).sum()
-
-
-@pytest.mark.parametrize("use_snl", [True, False], ids=["snl", "no_snl"])
-@pytest.mark.parametrize("shape", [(64, 128), (37, 100), (3, 7)], ids=str)
-@pytest.mark.parametrize("offset", [1, 2, 3])
-def test_lif_kernel_misaligned_view(cuda, offset, shape, use_snl):
-    _lif_case(cuda, shape, offset, use_snl, offset)
-
-
-def test_lif_kernel_large_shape(cuda):
-    _lif_case(cuda, (8192, 1024), 0, True, 8)
+    _same(got, [t.cpu() for t in ref.lif_step_ref(*args, use_snl=use_snl,
+                                                  **LIF_KW)])
 
 
 def _chain(ev_t, fw, v, noise, k, drive_gain, dev):
