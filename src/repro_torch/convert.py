@@ -56,7 +56,11 @@ def fused_weights_from_jax(fw, device=None) -> macro_lib.FusedMacroWeights:
 
 def lm_params_from_jax(tree: dict, device=None) -> dict:
     """The port's LM params from the reference's (``models.lm`` layout,
-    a nested dict of arrays), leaf for leaf, dtypes kept."""
+    a nested dict of arrays), leaf for leaf, dtypes kept: every block
+    kind's leaves alike, the attention projections and the recurrent
+    cells' (the mLSTM's ``wi`` / ``wf`` / ``wo_gate``, the sLSTM's ``wx``
+    and block-diagonal ``r``, the RG-LRU's ``conv``, ``w_a``, ``w_x`` and
+    ``lam``)."""
     dev = device_lib.resolve(device)
 
     def put(node):

@@ -1,7 +1,7 @@
 """f32 arithmetic that rounds exactly as the JAX reference does on the CPU.
 
 The reference's noise and membrane arithmetic is f32, compiled by XLA for
-the CPU.  Five of its operations do not round like PyTorch's CPU kernels,
+the CPU.  Six of its operations do not round like PyTorch's CPU kernels,
 so the plain PyTorch versions call these instead (the CUDA kernel carries
 the same algorithms as device functions in ``csrc/fused_macro_seq_kwn.cu``):
 
@@ -21,6 +21,8 @@ the same algorithms as device functions in ``csrc/fused_macro_seq_kwn.cu``):
   multiply-adds at the polynomial steps and at ``y * x^3 + q1 * e``
   (checked against ``jnp.log`` on every input ``counter_normal`` can
   produce).  ``torch.log`` differs from it by one ULP on ~14 % of inputs.
+* ``flush_subnormal``: XLA on the CPU compares a subnormal as a zero of
+  its sign; the ramp counts flush their inputs so before they compare.
 * ``cosf`` / ``sinf``: the reference calls the C library's single
   precision sine and cosine, which reduce the argument and evaluate
   their polynomials in double precision and round once to f32.  They are
@@ -62,6 +64,18 @@ def fma(a, b, c) -> torch.Tensor:
 def div(a: torch.Tensor, b) -> torch.Tensor:
     """IEEE ``a / b`` with ``b`` a number or a tensor, on any device."""
     return a / torch.as_tensor(b, dtype=a.dtype, device=a.device)
+
+
+FLT_MIN = float.fromhex("0x1p-126")
+
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every subnormal value replaced by a zero of its sign.
+
+    XLA on the CPU flushes subnormal inputs to zero before it compares
+    (``x > b`` and ``jnp.searchsorted`` alike); the ramp counts call this
+    first to compare as it does."""
+    return torch.where(torch.abs(x) < FLT_MIN, x * 0.0, x)
 
 
 def sqrtf(x: torch.Tensor) -> torch.Tensor:

@@ -163,10 +163,12 @@ def activation_codebook(code_bits: int, f, in_lo: float,
 
 
 def ima_convert(x: torch.Tensor, cb: RampCodebook) -> torch.Tensor:
-    """Ramp conversion: the count of boundaries strictly below ``x``."""
+    """Ramp conversion: the count of boundaries strictly below ``x`` (a
+    subnormal value compared as a zero, as ``jnp.searchsorted`` does on
+    the CPU)."""
     bounds = cb.boundaries.to(x.device)
-    return torch.searchsorted(bounds, x.float().contiguous(),
-                              right=False).to(torch.int32)
+    x = f32math.flush_subnormal(x.float()).contiguous()
+    return torch.searchsorted(bounds, x, right=False).to(torch.int32)
 
 
 def ima_reconstruct(code: torch.Tensor, cb: RampCodebook) -> torch.Tensor:
@@ -187,7 +189,8 @@ class _QuantizeSTE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, levels, boundaries):
         ctx.save_for_backward(x, levels)
-        code = torch.searchsorted(boundaries, x.contiguous())
+        code = torch.searchsorted(
+            boundaries, f32math.flush_subnormal(x).contiguous())
         return levels[code]
 
     @staticmethod

@@ -430,16 +430,27 @@ inline cudaError_t stage_by_tma(
                                               box_cols, box_rows, swizzle);
 }
 
+// x with a subnormal value replaced by a zero of its sign: XLA on the CPU
+// flushes a subnormal ramp input so before it compares.  Done here for the
+// ramps alone; -ftz=true would change the bits of the other f32 arithmetic.
+__device__ __forceinline__ float flush_subnormal(float x) {
+  return fabsf(x) < 0x1p-126f ? copysignf(0.0f, x) : x;
+}
+
 // Ramp conversion of CPT values at once: the number of boundaries strictly
-// below each, in any boundary order.  Each boundary is loaded once for all
-// of them, eight loads in flight at a time.
+// below each (subnormal values flushed first), in any boundary order.  Each
+// boundary is loaded once for all of them, eight loads in flight at a time.
 template <int CPT>
-__device__ __forceinline__ void ramp_codes(const float (&x)[CPT],
+__device__ __forceinline__ void ramp_codes(const float (&x_in)[CPT],
                                            int (&code)[CPT],
                                            const float* bounds,
                                            int n_codes) {
+  float x[CPT];
 #pragma unroll
-  for (int j = 0; j < CPT; ++j) code[j] = 0;
+  for (int j = 0; j < CPT; ++j) {
+    x[j] = flush_subnormal(x_in[j]);
+    code[j] = 0;
+  }
   int i = 0;
   for (; i + 8 <= n_codes - 1; i += 8) {
     float b[8];

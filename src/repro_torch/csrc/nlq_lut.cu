@@ -35,6 +35,8 @@
 //   read once for all of a thread's values.  On a non-decreasing array
 //   x > b[i] holds on a prefix of i, so both give the number of boundaries
 //   strictly below x; a NaN x fails every compare and lands at 0 in both.
+//   A subnormal x is flushed to a zero of its sign first, as XLA on the
+//   CPU compares it (fm::flush_subnormal).
 //   The search is the faster count at both shapes (PERF.md, "PR 20"): at
 //   the large shape the linear count's n_codes - 1 broadcasts an element,
 //   not the bytes, set the pace; at the step shape they lie in series
@@ -103,6 +105,8 @@ __global__ void __launch_bounds__(kThreads) nlq_kernel(const NlqParams p,
       x[j] = e < p.total ? p.x[e] : 0.0f;
     }
   }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) x[j] = fm::flush_subnormal(x[j]);
 
   // the codebook, loaded while the values are in flight
   const int nb = p.n_codes - 1;

@@ -38,7 +38,9 @@ from repro_torch.core.lif import lif_update
 
 
 def ramp_codes(mac: torch.Tensor, boundaries: torch.Tensor) -> torch.Tensor:
-    """Ramp conversion: code = number of boundaries strictly below."""
+    """Ramp conversion: code = number of boundaries strictly below (a
+    subnormal value compared as a zero, as XLA on the CPU does)."""
+    mac = f32math.flush_subnormal(mac)
     return (mac[..., None] > boundaries).sum(-1).to(torch.int32)
 
 

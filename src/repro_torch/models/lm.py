@@ -1,22 +1,24 @@
-"""The LM family's dense-attention path: a repeating block pattern over
-layer groups, prefill, and cache-based decode.
+"""The LM family: a repeating block pattern over layer groups, prefill,
+and cache-based decode, for dense, local/global attention (gemma2),
+xLSTM and RG-LRU hybrid (recurrentgemma) configurations.
 
-Counterpart of ``repro.models.lm`` for ``"attn"`` blocks: the parameters
-are the reference's nested dict (stacked ``layers/b{j}`` tensors with the
-group dimension first, then ``tail{j}`` blocks), and its ``lax.scan`` over
-groups is a Python loop here.  Paper integration points carried along:
-CIM-mode projections (``cim_linear``: ternary twin-cell weights and NLQ
-activations, paper C1/C2) and KWN-FFN activation sparsity (``kwn_ffn_k``,
-Eq. 1 with the FFN units as the neuron bank).
+Counterpart of ``repro.models.lm``: the parameters are the reference's
+nested dict (stacked ``layers/b{j}`` tensors with the group dimension
+first, then ``tail{j}`` blocks), and its ``lax.scan`` over groups is a
+Python loop here.  Paper integration points carried along: CIM-mode
+projections (``cim_linear``: ternary twin-cell weights and NLQ
+activations, paper C1/C2), KWN-FFN activation sparsity (``kwn_ffn_k``,
+Eq. 1 with the FFN units as the neuron bank) and the int8 / int4 KV cache
+(``kv_quant``, the NLQ idea applied to serving).
 
-Full-sequence attention goes through the flash kernel
-(``nn.attention.mha``).  Configurations this slice does not carry
-(local attention, recurrent blocks, MoE, a quantized KV cache, modality
-frontends, encoder-only models, attention softcaps in the full-sequence
-forward) raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.  Remat and chunking fields (``remat*``, ``attn_chunk``) shape the
-reference's training memory and do not change a forward's value; they
-are data here.
+Full-sequence attention goes through ``nn.attention.mha``: the flash
+kernel where the reference's function is the Pallas kernel's, the plain
+blockwise attention elsewhere.  The recurrent cells are ``nn.recurrent``.
+Configurations this port does not carry yet (MoE, modality frontends,
+encoder-only models) raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.  Remat and chunking fields other than
+``attn_chunk`` shape the reference's training memory and do not change
+a forward's value; they are data here.
 """
 
 from __future__ import annotations
@@ -27,10 +29,10 @@ from typing import Any
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.nn import attention, layers
+from repro_torch.nn import attention, kvq, layers, recurrent
 from repro_torch.nn.module import ParamSpec, count_params, tree_map
 
-_ROADMAP = "ROADMAP.md, Queue 1 item 13 (the rest of the LM stack)"
+_ROADMAP = "ROADMAP.md, Queue 1, the rest of the LM stack"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,28 +115,19 @@ class LMConfig:
         return self.param_count()
 
 
-def _unsupported(cfg: LMConfig, full_sequence: bool) -> str | None:
-    """Why this slice cannot run ``cfg``, or None."""
-    kinds = set(cfg.pattern)
-    if kinds - {"attn"} or cfg.window is not None:
-        return (f"block kinds {sorted(kinds - {'attn'})} / window "
-                f"{cfg.window} (local attention and recurrent blocks)")
+def _unsupported(cfg: LMConfig) -> str | None:
+    """Why this port cannot run ``cfg`` yet, or None."""
     if cfg.moe:
         return "MoE FFNs (nn/moe.py)"
-    if cfg.kv_quant:
-        return f"a {cfg.kv_quant} KV cache (nn/kvq.py, mha_decode_quant)"
     if cfg.frontend is not None:
         return f"the {cfg.frontend} frontend"
     if cfg.encoder_only:
         return "encoder-only models"
-    if full_sequence and cfg.attn_softcap is not None:
-        return "attention softcaps in the full-sequence forward"
     return None
 
 
-def _require_supported(cfg: LMConfig, where: str,
-                       full_sequence: bool = False) -> None:
-    why = _unsupported(cfg, full_sequence)
+def _require_supported(cfg: LMConfig, where: str) -> None:
+    why = _unsupported(cfg)
     if why is not None:
         raise NotImplementedError(
             f"{where}: {cfg.name} needs {why}, which this port does not "
@@ -156,16 +149,24 @@ def _ffn_specs(cfg: LMConfig) -> dict:
 
 def _block_specs(cfg: LMConfig, kind: str) -> dict:
     d = cfg.d_model
-    if kind not in ("attn", "attn_local") or cfg.moe:
-        raise NotImplementedError(
-            f"param_specs: {cfg.name} has {kind!r} blocks"
-            f"{' and MoE FFNs' if cfg.moe else ''}; {_ROADMAP}")
+    if cfg.moe:
+        raise NotImplementedError(f"param_specs: {cfg.name} has MoE FFNs; "
+                                  f"{_ROADMAP}")
     s: dict[str, Any] = {"norm1": layers.norm_spec(d)}
-    s["attn"] = attention.attention_specs(d, cfg.n_heads, cfg.n_kv, cfg.hd,
-                                          cfg.qkv_bias)
+    if kind in ("attn", "attn_local"):
+        s["attn"] = attention.attention_specs(d, cfg.n_heads, cfg.n_kv,
+                                              cfg.hd, cfg.qkv_bias)
+    elif kind == "mlstm":
+        s["cell"] = recurrent.mlstm_specs(d, cfg.n_heads)
+    elif kind == "slstm":
+        s["cell"] = recurrent.slstm_specs(d, cfg.n_heads)
+    elif kind == "rglru":
+        s["cell"] = recurrent.rglru_specs(d, cfg.d_rnn or d)
+    else:
+        raise ValueError(kind)
     if cfg.post_norms:
         s["norm1_post"] = layers.norm_spec(d)
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and kind not in ("mlstm", "slstm"):
         s["norm2"] = layers.norm_spec(d)
         s["ffn"] = _ffn_specs(cfg)
         if cfg.post_norms:
@@ -231,18 +232,41 @@ def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return x + h
 
 
-def _block_apply(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: LMConfig, prefill: bool = False):
-    """One ``"attn"`` block.  Returns (x, cache entry or None)."""
+def _block_apply(kind: str, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, cfg: LMConfig,
+                 prefill: bool = False):
+    """One block.  Returns (x, cache entry or None): K/V (ring-ordered
+    with ``slot_pos`` for a local layer over a prompt longer than its
+    window, quantized for a global one under ``kv_quant``) or the
+    recurrent state."""
     h = layers.rmsnorm(p["norm1"], x)
-    h = attention.mha(p["attn"], h, positions, n_heads=cfg.n_heads,
-                      n_kv=cfg.n_kv, head_dim=cfg.hd,
-                      causal=not cfg.encoder_only,
-                      rope_theta=cfg.rope_theta, return_kv=prefill)
     cache = None
-    if prefill:
-        h, (k, v) = h
-        cache = attention.prefill_cache_from_kv(k, v)
+    if kind in ("attn", "attn_local"):
+        window = cfg.window if kind == "attn_local" else None
+        h = attention.mha(p["attn"], h, positions, n_heads=cfg.n_heads,
+                          n_kv=cfg.n_kv, head_dim=cfg.hd,
+                          causal=not cfg.encoder_only, window=window,
+                          attn_softcap=cfg.attn_softcap,
+                          rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
+                          return_kv=prefill)
+        if prefill:
+            h, (k, v) = h
+            cache = attention.prefill_cache_from_kv(k, v, window)
+            if cfg.kv_quant and "slot_pos" not in cache:
+                kq, ks = kvq.quantize(cache["k"], cfg.kv_quant)
+                vq, vs = kvq.quantize(cache["v"], cfg.kv_quant)
+                cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    elif kind == "mlstm":
+        h = recurrent.mlstm_forward(p["cell"], h, cfg.n_heads,
+                                    return_state=prefill)
+    elif kind == "slstm":
+        h = recurrent.slstm_forward(p["cell"], h, cfg.n_heads,
+                                    return_state=prefill)
+    elif kind == "rglru":
+        h = recurrent.rglru_forward(p["cell"], h, return_state=prefill)
+    if prefill and cache is None:
+        h, st = h
+        cache = st._asdict()
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
     return _ffn_residual(p, x + h, cfg), cache
@@ -272,28 +296,33 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
     """Returns (logits, aux_loss[, cache]).
 
     ``prefill=True`` is the serving prefill: logits of the LAST position
-    only (B, V), and the per-layer decode cache (roped K/V, (B, S, n_kv,
-    hd) a layer, stacked over groups).  The full forward returns logits
-    (B, S, V).  Logits are f32; the aux loss is 0 (no MoE here).
+    only (B, V), and the per-layer decode cache (each entry's tensors
+    stacked over groups for the pattern blocks): roped K/V (B, S, n_kv,
+    hd), quantized under ``kv_quant``, ring-ordered for local layers over
+    a prompt longer than the window, recurrent states for xLSTM and
+    RG-LRU blocks.  The full forward returns logits (B, S, V).  Logits
+    are f32; the aux loss is 0 (no MoE here).
     """
-    _require_supported(cfg, "forward", full_sequence=True)
+    _require_supported(cfg, "forward")
     x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches: dict[str, list] = {f"b{j}": [] for j in range(len(cfg.pattern))}
     for g in range(cfg.n_groups):
         gp = _group(params["layers"], g)
-        for j in range(len(cfg.pattern)):
-            x, c = _block_apply(gp[f"b{j}"], x, positions, cfg, prefill)
+        for j, kind in enumerate(cfg.pattern):
+            x, c = _block_apply(kind, gp[f"b{j}"], x, positions, cfg,
+                                prefill)
             if prefill:
                 caches[f"b{j}"].append(c)
     cache: dict[str, dict] = {}
     if prefill:
         cache = {name: {key: torch.stack([c[key] for c in entries])
-                        for key in ("k", "v")}
+                        for key in entries[0]}
                  for name, entries in caches.items()}
-    for j in range(len(cfg.tail_pattern)):
-        x, c = _block_apply(params[f"tail{j}"], x, positions, cfg, prefill)
+    for j, kind in enumerate(cfg.tail_pattern):
+        x, c = _block_apply(kind, params[f"tail{j}"], x, positions, cfg,
+                            prefill)
         if prefill:
             cache[f"tail{j}"] = c
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -306,33 +335,72 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
 # Decode (serve_step)
 # ===========================================================================
 
-def _cache_spec_for(cfg: LMConfig, batch: int, s_max: int,
+def _cache_spec_for(kind: str, cfg: LMConfig, batch: int, s_max: int,
                     device) -> dict:
-    shape = (batch, s_max, cfg.n_kv, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+    hd = cfg.hd
+    if kind == "attn":
+        if cfg.kv_quant:
+            shape = (batch, s_max, cfg.n_kv,
+                     kvq.storage_shape(hd, cfg.kv_quant))
+            sd = kvq.storage_dtype(cfg.kv_quant)
+            scale = (batch, s_max, cfg.n_kv, 1)
+            return {"k": torch.zeros(shape, dtype=sd, device=device),
+                    "v": torch.zeros(shape, dtype=sd, device=device),
+                    "k_scale": torch.zeros(scale, device=device),
+                    "v_scale": torch.zeros(scale, device=device)}
+        shape = (batch, s_max, cfg.n_kv, hd)
+        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                 device=device),
+                "v": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                 device=device)}
+    if kind == "attn_local":
+        w = min(cfg.window or s_max, s_max)
+        shape = (batch, w, cfg.n_kv, hd)
+        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                 device=device),
+                "v": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                 device=device),
+                "slot_pos": torch.full((batch, w), -1, dtype=torch.int32,
+                                       device=device)}
+    hd_cell = cfg.d_model // cfg.n_heads
+    if kind == "mlstm":
+        st = recurrent.mlstm_init_state(batch, cfg.n_heads, hd_cell, device)
+    elif kind == "slstm":
+        st = recurrent.slstm_init_state(batch, cfg.n_heads, hd_cell, device)
+    elif kind == "rglru":
+        st = recurrent.rglru_init_state(batch, cfg.d_rnn or cfg.d_model,
+                                        device=device)
+    else:
+        raise ValueError(kind)
+    return {key: t.clone() for key, t in st._asdict().items()}
 
 
 def init_cache(cfg: LMConfig, batch: int, s_max: int, device=None) -> dict:
-    """A zero decode cache, K/V (G, B, s_max, n_kv, hd) for each pattern
-    block and (B, s_max, n_kv, hd) for each tail block, on ``device``
-    (``cuda`` unless the caller passes ``device="cpu"``)."""
+    """A fresh decode cache on ``device`` (``cuda`` unless the caller
+    passes ``device="cpu"``): for each pattern block its entry stacked
+    over groups (G, B, ...), for each tail block (B, ...).  Global
+    attention: K/V (B, s_max, n_kv, hd), or the int8 / int4 payload and
+    f32 scales under ``kv_quant``; local attention: a ring of min(window,
+    s_max) slots with ``slot_pos`` -1; recurrent blocks: their initial
+    states."""
     _require_supported(cfg, "init_cache")
     dev = device_lib.resolve(device)
     cache = {}
-    for j in range(len(cfg.pattern)):
-        one = _cache_spec_for(cfg, batch, s_max, dev)
+    for j, kind in enumerate(cfg.pattern):
+        one = _cache_spec_for(kind, cfg, batch, s_max, dev)
         cache[f"b{j}"] = {key: t.expand(cfg.n_groups, *t.shape).clone()
                           for key, t in one.items()}
-    for j in range(len(cfg.tail_pattern)):
-        cache[f"tail{j}"] = _cache_spec_for(cfg, batch, s_max, dev)
+    for j, kind in enumerate(cfg.tail_pattern):
+        cache[f"tail{j}"] = _cache_spec_for(kind, cfg, batch, s_max, dev)
     return cache
 
 
 def pad_cache(cache: dict, cfg: LMConfig, s_max: int) -> dict:
     """Grow a prefill-produced cache (seq = prompt length) to ``s_max``
-    slots so decode can append: K/V are zero-padded on the sequence dim
-    (the third dim from the end)."""
+    slots so decode can append: global-attention K/V (and scales) are
+    zero-padded on the sequence dim (the third from the end); ring
+    buffers and recurrent states are already final and stay as they
+    are."""
     def pad(t: torch.Tensor) -> torch.Tensor:
         cur = t.shape[-3]
         if cur >= s_max:
@@ -341,17 +409,73 @@ def pad_cache(cache: dict, cfg: LMConfig, s_max: int) -> dict:
         shape[-3] = s_max - cur
         return torch.cat([t, t.new_zeros(shape)], dim=-3)
 
-    return {name: {key: pad(t) for key, t in entry.items()}
-            for name, entry in cache.items()}
+    def pad_entry(entry: dict) -> dict:
+        if "slot_pos" in entry or "k" not in entry:
+            return entry
+        return {key: pad(t) for key, t in entry.items()}
+
+    return {name: pad_entry(entry) for name, entry in cache.items()}
 
 
-def _block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                  cfg: LMConfig) -> torch.Tensor:
+def _ring_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+                 cfg: LMConfig) -> torch.Tensor:
+    """Sliding-window ring-buffer decode of a local attention layer: the
+    new K/V go to slot pos % w, written into ``cache`` in place with their
+    position in ``slot_pos``; a slot is seen while its position is within
+    the window."""
+    if "slot_pos" not in cache:
+        raise ValueError(
+            "a local-attention cache without slot_pos: prefill over a "
+            "prompt no longer than the window returns plain K/V, which the "
+            "ring decode cannot continue (the reference raises KeyError "
+            "here); prefill a prompt longer than the window, or decode "
+            "token by token from init_cache")
+    b = x.shape[0]
+    w = cache["k"].shape[1]
+    q, k_new, v_new = attention._qkv_decode(p, x, pos, cfg.n_heads, cfg.n_kv,
+                                            cfg.hd, cfg.rope_theta, True)
+    slot = pos % w
+    attention.write_rows(cache["k"], slot, k_new[:, 0])
+    attention.write_rows(cache["v"], slot, v_new[:, 0])
+    attention.write_rows(cache["slot_pos"], slot, pos)
+    slot_pos = cache["slot_pos"]
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None]) & \
+        (slot_pos > pos[:, None] - (cfg.window or w))
+    o = attention._attend(q, cache["k"], cache["v"], valid, cfg.hd,
+                          cfg.attn_softcap, cfg.n_heads // cfg.n_kv)
+    return layers.linear(p["wo"], o.reshape(b, 1, cfg.n_heads * cfg.hd))
+
+
+_STATES = {"mlstm": (recurrent.MLSTMState, recurrent.mlstm_decode_step),
+           "slstm": (recurrent.SLSTMState, recurrent.slstm_decode_step),
+           "rglru": (recurrent.RGLRUState, recurrent.rglru_decode_step)}
+
+
+def _block_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
+                  pos: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """One block's decode step; its cache entry is updated in place."""
     h = layers.rmsnorm(p["norm1"], x)
-    h, _ = attention.mha_decode(
-        p["attn"], h, attention.KVCache(cache["k"], cache["v"]), pos,
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-        attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
+    if kind == "attn" and cfg.kv_quant:
+        h, _ = attention.mha_decode_quant(
+            p["attn"], h, cache, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            head_dim=cfg.hd, kv_quant=cfg.kv_quant,
+            attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
+    elif kind == "attn":
+        h, _ = attention.mha_decode(
+            p["attn"], h, attention.KVCache(cache["k"], cache["v"]), pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+            attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
+    elif kind == "attn_local":
+        h = _ring_decode(p["attn"], h, cache, pos, cfg)
+    else:
+        state_cls, step = _STATES[kind]
+        st = state_cls(**{key: cache[key] for key in state_cls._fields})
+        if kind == "rglru":
+            h, st = step(p["cell"], h, st)
+        else:
+            h, st = step(p["cell"], h, st, cfg.n_heads)
+        for key, t in st._asdict().items():
+            cache[key].copy_(t)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
     return _ffn_residual(p, x + h, cfg)
@@ -361,16 +485,17 @@ def _block_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 pos: torch.Tensor, cfg: LMConfig):
     """One token: tokens (B, 1), pos (B,).  Returns (logits (B, V) f32,
-    cache).  The new K/V are written into ``cache`` in place (the values
-    of the reference's functional update); the same dict is returned."""
+    cache).  The cache is updated in place (the values of the reference's
+    functional update); the same dict is returned."""
     _require_supported(cfg, "decode_step")
     x = layers.embed(params["embed"], tokens,
                      scale_by_dim=cfg.scale_embed).to(cfg.compute_dtype)
     for g in range(cfg.n_groups):
         gp = _group(params["layers"], g)
-        for j in range(len(cfg.pattern)):
-            x = _block_decode(gp[f"b{j}"], x, _group(cache[f"b{j}"], g),
-                              pos, cfg)
-    for j in range(len(cfg.tail_pattern)):
-        x = _block_decode(params[f"tail{j}"], x, cache[f"tail{j}"], pos, cfg)
+        for j, kind in enumerate(cfg.pattern):
+            x = _block_decode(kind, gp[f"b{j}"], x,
+                              _group(cache[f"b{j}"], g), pos, cfg)
+    for j, kind in enumerate(cfg.tail_pattern):
+        x = _block_decode(kind, params[f"tail{j}"], x, cache[f"tail{j}"],
+                          pos, cfg)
     return _logits(params, x, cfg)[:, 0], cache

@@ -1,14 +1,20 @@
 """GQA attention: the flash kernel for full-sequence and prefill attention,
-cache-based decode, QKV bias (qwen2.5).
+the blockwise online softmax where the flash kernel does not apply
+(sliding windows, logit softcaps), cache-based decode (full precision and
+int8 / int4), QKV bias (qwen2.5).
 
-Counterpart of ``repro.nn.attention``.  The reference computes full-sequence
-attention with XLA's ``blockwise_attention``; for global attention without
-a softcap that is the function of its Pallas ``_flash_kernel``, whose
-counterpart here (``kernels.flash_attention.flash_attention_fwd``) ``mha``
-calls: the CUDA kernel for a CUDA tensor, its plain version for a CPU one.
-Sliding-window attention, attention softcaps and the quantized-cache
-decode (``mha_decode_quant``) come with a later slice (ROADMAP, Queue 1
-item 13).
+Counterpart of ``repro.nn.attention``.  The reference computes
+full-sequence attention with XLA's ``blockwise_attention``; for attention
+without a softcap whose window (if any) spans the sequence, that is the
+function of its Pallas ``_flash_kernel``, whose counterpart here
+(``kernels.flash_attention.flash_attention_fwd``) ``mha`` calls: the CUDA
+kernel for a CUDA tensor, its plain version for a CPU one.  Everywhere
+else ``mha`` calls the plain ``blockwise_attention``, as the JAX package
+does outside Pallas: a loop over KV chunks carrying (acc, row max, row
+sum), or for a window shorter than the sequence each window-sized block
+against itself and the block before it.  Where the reference asserts
+that the sequence divides into chunks or windows, this raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.nn import layers
+from repro_torch.nn import kvq, layers
 
 NEG_INF = -1e30
 
@@ -54,12 +60,132 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
 
 
+def _chunk_attn_step(q, k_c, v_c, mask, softcap, scale):
+    """q (B, cq, H, hd); k_c / v_c (B, ck, H, hd); mask broadcastable to
+    (B, H, cq, ck) or None.  Returns the unnormalised (exp(scores) @ v,
+    row max, row sum)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k_c).float() * scale
+    s = layers.softcap(s, softcap)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    m = torch.amax(s, dim=-1)                                 # (B,H,cq)
+    p = torch.exp(s - m[..., None])
+    l = torch.sum(p, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v_c.dtype), v_c)
+    return o, m, l
+
+
+def _rows(t: torch.Tensor, dtype) -> torch.Tensor:
+    """(B, H, cq) -> (B, cq, H, 1) in ``dtype``: a per-row factor of o."""
+    return t.transpose(1, 2)[..., None].to(dtype)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        window: int | None = None,
+                        softcap: float | None = None,
+                        chunk: int = 1024) -> torch.Tensor:
+    """q, k, v (B, S, H, hd), kv already head-repeated -> (B, S, H, hd).
+
+    The reference's loop over KV chunks visits the chunks after a causal
+    query chunk too and masks them whole; their weight in the online
+    softmax is exactly 0 (exp(-1e30 - m) underflows), so they are skipped
+    here with the same result."""
+    b, s, h, hd = q.shape
+    scale = 1.0 / (hd ** 0.5)
+
+    if window is not None and window < s:
+        return _sliding_window_attention(q, k, v, window=window,
+                                         softcap=softcap, scale=scale)
+
+    if s <= chunk:
+        mask = None
+        if causal:
+            mask = torch.ones((s, s), dtype=torch.bool,
+                              device=q.device).tril()
+        o, m, l = _chunk_attn_step(q, k, v, mask, softcap, scale)
+        return o / _rows(l, o.dtype)
+
+    if s % chunk:
+        raise ValueError(f"blockwise attention over {s} positions needs a "
+                         f"multiple of its chunk {chunk} (the reference "
+                         f"asserts it)")
+    n_chunks = s // chunk
+    diag = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=q.device).tril()
+    out = []
+    for qi in range(n_chunks):
+        q_blk = q[:, qi * chunk:(qi + 1) * chunk]
+        acc = torch.zeros((b, chunk, h, hd), dtype=q.dtype, device=q.device)
+        m_run = torch.full((b, h, chunk), NEG_INF, dtype=torch.float32,
+                           device=q.device)
+        l_run = torch.zeros((b, h, chunk), dtype=torch.float32,
+                            device=q.device)
+        for kj in range(qi + 1 if causal else n_chunks):
+            sl = slice(kj * chunk, (kj + 1) * chunk)
+            mask = diag if causal and kj == qi else None
+            o, m, l = _chunk_attn_step(q_blk, k[:, sl], v[:, sl], mask,
+                                       softcap, scale)
+            m_new = torch.maximum(m_run, m)
+            alpha = torch.exp(m_run - m_new)
+            beta = torch.exp(m - m_new)
+            l_run = l_run * alpha + l * beta
+            acc = acc * _rows(alpha, acc.dtype) + o * _rows(beta, o.dtype)
+            m_run = m_new
+        out.append(acc / _rows(l_run, acc.dtype))
+    return torch.cat(out, dim=1)
+
+
+def _sliding_window_attention(q, k, v, *, window: int, softcap, scale):
+    """Exact sliding-window causal attention: each window-sized block
+    attends to itself (causal) and to the block before it (banded).  Block
+    0 has no block before it; the reference's fully masked term there has
+    weight exactly 0 and is skipped."""
+    b, s, h, hd = q.shape
+    blk = window
+    if s % blk:
+        raise ValueError(f"sliding-window attention over {s} positions "
+                         f"needs a multiple of the window {blk} (the "
+                         f"reference asserts it)")
+    i = torch.arange(blk, device=q.device)
+    diag_mask = i[:, None] >= i[None, :]
+    # position q_i of a block attends k_j of the one before when
+    # (q_i + blk - k_j) < window
+    prev_mask = (i[:, None] + blk - i[None, :]) < window
+    out = []
+    for n in range(s // blk):
+        cur = slice(n * blk, (n + 1) * blk)
+        q_blk = q[:, cur]
+        o1, m1, l1 = _chunk_attn_step(q_blk, k[:, cur], v[:, cur], diag_mask,
+                                      softcap, scale)
+        if n == 0:
+            out.append(o1 / _rows(l1, o1.dtype))
+            continue
+        prev = slice((n - 1) * blk, n * blk)
+        o2, m2, l2 = _chunk_attn_step(q_blk, k[:, prev], v[:, prev],
+                                      prev_mask, softcap, scale)
+        m = torch.maximum(m1, m2)
+        a1, a2 = torch.exp(m1 - m), torch.exp(m2 - m)
+        l = l1 * a1 + l2 * a2
+        o = o1 * _rows(a1, o1.dtype) + o2 * _rows(a2, o2.dtype)
+        out.append(o / _rows(l, o.dtype))
+    return torch.cat(out, dim=1)
+
+
+def uses_flash(s: int, window: int | None,
+               attn_softcap: float | None) -> bool:
+    """Whether ``mha`` over ``s`` positions computes the function of the
+    flash kernel (no softcap, no window shorter than the sequence)."""
+    return attn_softcap is None and (window is None or window >= s)
+
+
 def mha(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
         n_kv: int, head_dim: int, causal: bool = True,
-        rope_theta: float = 10000.0, use_rope: bool = True,
-        return_kv: bool = False):
+        window: int | None = None, attn_softcap: float | None = None,
+        rope_theta: float = 10000.0, chunk: int = 1024,
+        use_rope: bool = True, return_kv: bool = False):
     """Full-sequence attention layer, x (B, S, D); with ``return_kv`` also
-    the roped, unrepeated (k, v), (B, S, n_kv, hd) each."""
+    the roped, unrepeated (k, v), (B, S, n_kv, hd) each.  The flash kernel
+    where ``uses_flash``, else ``blockwise_attention``."""
     q = _split_heads(layers.linear(p["wq"], x), n_heads, head_dim)
     k = _split_heads(layers.linear(p["wk"], x), n_kv, head_dim)
     v = _split_heads(layers.linear(p["wv"], x), n_kv, head_dim)
@@ -70,19 +196,116 @@ def mha(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
     n_rep = n_heads // n_kv
     kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     b, s = x.shape[:2]
-    o = flash_attention_fwd(_heads_first(q), _heads_first(kr),
-                            _heads_first(vr), causal=causal)
-    o = o.reshape(b, n_heads, s, head_dim).transpose(1, 2)
+    if uses_flash(s, window, attn_softcap):
+        o = flash_attention_fwd(_heads_first(q), _heads_first(kr),
+                                _heads_first(vr), causal=causal)
+        o = o.reshape(b, n_heads, s, head_dim).transpose(1, 2)
+    else:
+        o = blockwise_attention(q, kr, vr, causal=causal, window=window,
+                                softcap=attn_softcap, chunk=chunk)
     out = layers.linear(p["wo"], o.reshape(b, s, n_heads * head_dim))
     if return_kv:
         return out, kv
     return out
 
 
-def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor) -> dict:
-    """Prefill-computed (roped) K/V as the decode cache of a global
-    attention layer: the cache is (k, v) itself."""
-    return {"k": k, "v": v}
+def prefill_cache_from_kv(k: torch.Tensor, v: torch.Tensor,
+                          window: int | None = None) -> dict:
+    """Prefill-computed (roped) K/V as the decode cache.
+
+    Global layers, and local ones whose window spans the prompt: (k, v)
+    itself.  Local layers over a longer prompt: the last ``window``
+    positions in ring-buffer order (slot = pos % window) with their
+    absolute positions, ``slot_pos`` (B, window) int32, as the ring decode
+    reads them."""
+    s = k.shape[1]
+    if window is None or window >= s:
+        return {"k": k, "v": v}
+    pos = torch.arange(s - window, s, device=k.device)
+    inv = torch.argsort(pos % window)
+    slot_pos = pos[inv].to(torch.int32).expand(k.shape[0], window)
+    return {"k": k[:, s - window:][:, inv], "v": v[:, s - window:][:, inv],
+            "slot_pos": slot_pos.contiguous()}
+
+
+def write_rows(buf: torch.Tensor, slot: torch.Tensor, new: torch.Tensor,
+               keep: torch.Tensor | None = None) -> None:
+    """``buf`` (B, S, ...) with row i's slot ``slot[i]`` set to ``new[i]``
+    (B, ...), in place: the values of the reference's one-hot update
+    (every other slot times 1 plus 0, the written one times 0 plus the new
+    value) without a second copy of the buffer.  Where ``keep`` (B,) is
+    set, the slot keeps its value (the reference's all-zero one-hot row).
+    ``buf`` is written through a flat view, so it must be contiguous."""
+    b, s_max = buf.shape[:2]
+    flat = buf.view(b * s_max, *buf.shape[2:])
+    idx = slot + torch.arange(0, b * s_max, s_max, device=buf.device)
+    new = new.to(buf.dtype)
+    if keep is not None:
+        keep = keep.view(-1, *([1] * (new.dim() - 1)))
+        new = torch.where(keep, flat.index_select(0, idx), new)
+    flat.index_copy_(0, idx, new)
+
+
+def _write_at_pos(bufs, news, pos: torch.Tensor, s_max: int) -> None:
+    """Each (buf, new (B, 1, ...)) written at row i's ``pos[i]``.  A row at
+    or past ``s_max`` has an all-zero one-hot row in the reference, so its
+    buffers keep their values: the write goes to the last slot and puts
+    its old value back, which needs no host sync on ``pos`` and indexes
+    nothing out of bounds."""
+    slot = torch.clamp(pos, max=s_max - 1)
+    past = pos >= s_max
+    for buf, new in zip(bufs, news):
+        write_rows(buf, slot, new[:, 0], past)
+
+
+def _attend(q, kk, vv, valid, head_dim, attn_softcap, n_rep):
+    """One query against a cache: q (B, 1, H, hd), kk / vv (B, S, n_kv,
+    hd), valid (B, S) -> (B, 1, H, hd) in vv's dtype."""
+    kk, vv = _repeat_kv(kk, n_rep), _repeat_kv(vv, n_rep)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk.to(q.dtype)).float()
+    s = s / (head_dim ** 0.5)
+    s = layers.softcap(s, attn_softcap)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(vv.dtype), vv)
+
+
+def _qkv_decode(p, x, pos, n_heads, n_kv, head_dim, rope_theta, use_rope):
+    q = _split_heads(layers.linear(p["wq"], x), n_heads, head_dim)
+    k_new = _split_heads(layers.linear(p["wk"], x), n_kv, head_dim)
+    v_new = _split_heads(layers.linear(p["wv"], x), n_kv, head_dim)
+    if use_rope:
+        q = layers.rope(q, pos[:, None], rope_theta)
+        k_new = layers.rope(k_new, pos[:, None], rope_theta)
+    return q, k_new, v_new
+
+
+def mha_decode_quant(p: dict, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor, *, n_heads: int, n_kv: int,
+                     head_dim: int, kv_quant: str,
+                     attn_softcap: float | None = None,
+                     rope_theta: float = 10000.0) -> tuple[torch.Tensor,
+                                                           dict]:
+    """Decode against a quantized KV cache (int8 / int4): payload and a
+    per-(position, head) scale are stored, and K/V dequantize to bf16
+    right before the attention products, as in the reference (whose
+    output is then bf16 whatever the config's dtype).  The new payload
+    and scales are written into ``cache`` in place."""
+    b = x.shape[0]
+    s_max = cache["k"].shape[1]
+    q, k_new, v_new = _qkv_decode(p, x, pos, n_heads, n_kv, head_dim,
+                                  rope_theta, True)
+    kq, ks = kvq.quantize(k_new, kv_quant)       # (B,1,G,hs), (B,1,G,1)
+    vq, vs = kvq.quantize(v_new, kv_quant)
+    _write_at_pos([cache[key] for key in ("k", "v", "k_scale", "v_scale")],
+                  [kq, vq, ks, vs], pos, s_max)
+    kk = kvq.dequantize(cache["k"], cache["k_scale"], kv_quant)
+    vv = kvq.dequantize(cache["v"], cache["v_scale"], kv_quant)
+    span = torch.arange(s_max, device=x.device)
+    valid = span[None, :] <= pos[:, None]
+    o = _attend(q, kk, vv, valid, head_dim, attn_softcap, n_heads // n_kv)
+    out = layers.linear(p["wo"], o.reshape(b, 1, n_heads * head_dim))
+    return out, cache
 
 
 class KVCache(NamedTuple):
@@ -92,48 +315,26 @@ class KVCache(NamedTuple):
 
 def mha_decode(p: dict, x: torch.Tensor, cache: KVCache, pos: torch.Tensor,
                *, n_heads: int, n_kv: int, head_dim: int,
+               window: int | None = None,
                attn_softcap: float | None = None,
                rope_theta: float = 10000.0,
                use_rope: bool = True) -> tuple[torch.Tensor, KVCache]:
     """x (B, 1, D); pos (B,) the current length.  Returns (out, cache).
 
     The new K/V are written into ``cache`` in place at each row's
-    position: the values the reference's one-hot update gives (every other
-    slot times 1 plus 0, the written one times 0 plus the new value),
-    without a second copy of the cache.  A row at or past ``s_max`` has an
-    all-zero one-hot row in the reference, so its cache is left as it is:
-    the write goes to the last slot and puts its old value back, which
-    needs no host sync on ``pos`` and indexes nothing out of bounds.  The
-    cache is written through a flat view, so it must be contiguous.
-    """
+    position (``write_rows``); a row at or past ``s_max`` writes nothing
+    and sees every slot, as in the reference.  With ``window`` a row sees
+    the slots of its last ``window`` positions only."""
     b = x.shape[0]
     s_max = cache.k.shape[1]
-    q = _split_heads(layers.linear(p["wq"], x), n_heads, head_dim)
-    k_new = _split_heads(layers.linear(p["wk"], x), n_kv, head_dim)
-    v_new = _split_heads(layers.linear(p["wv"], x), n_kv, head_dim)
-    if use_rope:
-        q = layers.rope(q, pos[:, None], rope_theta)
-        k_new = layers.rope(k_new, pos[:, None], rope_theta)
-
-    # row i's slot in the cache seen as (B * S_max, n_kv, hd)
-    slot = torch.clamp(pos, max=s_max - 1) + torch.arange(
-        0, b * s_max, s_max, device=x.device)
-    past = (pos >= s_max)[:, None, None]
-    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
-        flat = buf.view(b * s_max, *buf.shape[2:])
-        flat.index_copy_(0, slot, torch.where(
-            past, flat.index_select(0, slot), new[:, 0].to(buf.dtype)))
-
-    n_rep = n_heads // n_kv
-    kk = _repeat_kv(cache.k, n_rep)                           # (B,S,H,hd)
-    vv = _repeat_kv(cache.v, n_rep)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float()
-    s = s / (head_dim ** 0.5)
-    s = layers.softcap(s, attn_softcap)
+    q, k_new, v_new = _qkv_decode(p, x, pos, n_heads, n_kv, head_dim,
+                                  rope_theta, use_rope)
+    _write_at_pos([cache.k, cache.v], [k_new, v_new], pos, s_max)
     span = torch.arange(s_max, device=x.device)
     valid = span[None, :] <= pos[:, None]                     # causal fill
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", w.to(vv.dtype), vv)
+    if window is not None:
+        valid = valid & (span[None, :] > pos[:, None] - window)
+    o = _attend(q, cache.k, cache.v, valid, head_dim, attn_softcap,
+                n_heads // n_kv)
     out = layers.linear(p["wo"], o.reshape(b, 1, n_heads * head_dim))
     return out, cache

@@ -938,10 +938,14 @@ class BatchedEngine:
     step (teacher forcing), then decode until each request completes.
 
     The admission, position and ``max_rounds`` semantics are the
-    reference's: a prompt token steps the whole batch (the other slots
-    rewrite the K/V they will write again at their next decode), and
-    ``max_rounds`` budgets decode rounds only.  Decoding is greedy.  Runs
-    on ``cuda`` unless the caller passes ``device="cpu"``.
+    reference's: a prompt token steps the whole batch, and ``max_rounds``
+    budgets decode rounds only.  The other slots rewrite the K/V they
+    will write again at their next decode, but their recurrent states
+    (xLSTM, RG-LRU) advance, and no state is reset when a slot is reused:
+    on a recurrent configuration a request's tokens depend on what else
+    is in the batch, in the reference as here.  Every cache kind of
+    ``models.lm.init_cache`` is carried.  Decoding is greedy.  Runs on
+    ``cuda`` unless the caller passes ``device="cpu"``.
     """
 
     def __init__(self, cfg: lm.LMConfig, params, batch_slots: int = 4,

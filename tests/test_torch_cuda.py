@@ -530,7 +530,10 @@ NLQ_CASES = (
        for offset in (1, 2, 3)]
     + [(shape, "linear", 5, "sorted", 0)
        for shape in ((1, 1), (3, 7), (1, 2049), (9, 999), (64, 0))]
-    + [((8192, 1024), "nlq", 5, "sorted", 0)])
+    + [((8192, 1024), "nlq", 5, "sorted", 0)]
+    + [(shape, kind, bits, "zero_boundary", 0)
+       for shape in ((64, 128), (5, 101))
+       for kind, bits in (("nlq", 5), ("linear", 6))])
 
 
 @pytest.fixture
@@ -544,7 +547,11 @@ def smoke():
 
 
 def _ordered(bounds, order, rs):
-    """The boundaries as they are, permuted, reversed, or with a NaN."""
+    """The boundaries as they are, permuted, reversed, with a NaN, or with
+    the middle one (within an ULP of 0) set to 0."""
+    if order == "zero_boundary":
+        return bounds.clone().index_fill_(
+            0, torch.tensor([bounds.numel() // 2]), 0.0)
     if order == "permuted":
         return bounds[torch.from_numpy(rs.permutation(bounds.numel()))]
     if order == "descending":
@@ -559,9 +566,10 @@ def _ordered(bounds, order, rs):
     ids=lambda c: f"{c[0][0]}x{c[0][1]}-{c[1]}-{c[2]}bit-{c[3]}-off{c[4]}")
 def test_nlq_kernel_matches_plain_version(cuda, smoke, case):
     """Values across the codebook's span with NaN, +-inf, +-0, every
-    boundary and its f32 neighbours planted, against the plain version
-    on the same card tensors (the linear count for the unsorted
-    codebooks; 8 bits: the codebook in shared memory)."""
+    boundary and its f32 neighbours and subnormals of both signs planted,
+    against the plain version on the same card tensors (the linear count
+    for the unsorted codebooks; 8 bits: the codebook in shared memory;
+    a boundary of 0, where a subnormal counts as a zero)."""
     shape, kind, bits, order, offset = case
     rs = np.random.RandomState(bits + 10 * offset)
     cb = _codebook(kind, bits)
@@ -576,18 +584,29 @@ def test_nlq_kernel_matches_plain_version(cuda, smoke, case):
     _same(got, [t.cpu() for t in ref.nlq_convert_ref(x, bounds, levels)])
 
 
+@pytest.mark.parametrize("edges", ["ties", "subnormal"])
 @pytest.mark.parametrize("bits", [5, 6])
 @pytest.mark.parametrize("k", [0, 1, 12, "N", "N+5"])
 @pytest.mark.parametrize("shape", STAGE_SHAPES + [(16, 0, 256),
                                                   (64, 0, 1024)], ids=str)
-def test_kwn_kernel_matches_plain_version(cuda, shape, k, bits):
+def test_kwn_kernel_matches_plain_version(cuda, smoke, shape, k, bits,
+                                          edges):
+    """Integral MACs with every boundary planted (ties), or with
+    subnormals of both signs planted against the codebook with its middle
+    boundary set to 0."""
     m, _, n = shape
     k = {"N": n, "N+5": n + 5}.get(k, k)
     rs = np.random.RandomState(n)
     cb = _codebook("nlq", bits)
     mac = torch.from_numpy(np.round(rs.normal(0, 10, (m, n)))
                            .astype(np.float32))
-    mac.view(-1)[:cb.boundaries.numel()] = cb.boundaries      # ties
+    if edges == "ties":
+        mac.view(-1)[:cb.boundaries.numel()] = cb.boundaries
+    else:
+        cb = cb._replace(boundaries=_ordered(cb.boundaries, "zero_boundary",
+                                             rs))
+        sub = torch.from_numpy(smoke.SUBNORMALS)
+        mac.view(-1)[:sub.numel()] = sub[:mac.numel()]
     before = kernels_kwn.kwn_topk.launches
     got = ops.kwn_topk(mac, cb.boundaries, k, device=cuda)
     torch.cuda.synchronize()
@@ -884,3 +903,41 @@ def test_lm_forward_and_decode_on_card_equal_cpu(cuda, arch):
                                    torch.full((2,), 37, device=dev), cfg)
         steps.append(logits.cpu())
     torch.testing.assert_close(steps[0], steps[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "recurrentgemma-9b",
+                                  "xlstm-350m"])
+def test_lm_family_on_card_equals_cpu(cuda, smoke, arch):
+    """Reduced gemma2, recurrentgemma and xlstm in f32 (window 32):
+    forward, prefill at two windows with every cache entry, 8 decode
+    steps, the int8 and int4 caches on gemma2 and a 4-slot engine, on
+    the card against the CPU (``chip_smoke.reduced_family_phase``:
+    within 1e-5, xlstm within four times its own rounding change)."""
+    res = smoke.reduced_family_phase(arch, cuda)
+    for key in ("forward", "prefill", "cache", "decode"):
+        assert res[key] <= res["tol"], key
+
+
+def test_recurrentgemma_local_layers_launch_flash_within_a_window(cuda):
+    """recurrentgemma's 38-layer pattern (12 local attention layers) at
+    reduced width: a prefill over at most a window launches the flash
+    kernel once a local layer; over two windows the sliding-window plain
+    path launches none, and decode launches none."""
+    cfg = lm_base.reduced(get_config("recurrentgemma-9b"), n_layers=38)
+    params = nn_module.materialize(lm.param_specs(cfg),
+                                   torch.Generator(cuda).manual_seed(0),
+                                   device=cuda)
+    rs = np.random.RandomState(4)
+    for s, want in ((cfg.window, 12), (2 * cfg.window, 0)):
+        toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (4, s)))
+        before = kernels_flash.flash_attention_fwd.launches
+        logits, _, cache = lm.forward(params, {"tokens": toks.to(cuda)}, cfg,
+                                      prefill=True)
+        torch.cuda.synchronize()
+        assert kernels_flash.flash_attention_fwd.launches - before == want
+        assert bool(torch.isfinite(logits).all())
+    before = kernels_flash.flash_attention_fwd.launches
+    logits, _ = lm.decode_step(params, cache, toks[:, :1].to(cuda),
+                               torch.full((4,), s, device=cuda), cfg)
+    assert kernels_flash.flash_attention_fwd.launches == before
+    assert bool(torch.isfinite(logits).all())

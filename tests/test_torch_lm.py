@@ -435,16 +435,11 @@ def test_launch_serve_smoke_on_cpu(cim, capsys):
     assert f"cim_mode={cim}" in capsys.readouterr().out
 
 
-# --- what this slice does not carry -------------------------------------------
+# --- what the port does not carry yet -------------------------------------------
 
 UNSUPPORTED = {
-    "attn_local": ("gemma2-2b", {}),
-    "window": ("smollm-135m", dict(window=32)),
-    "mlstm_slstm": ("xlstm-350m", {}),
-    "rglru": ("recurrentgemma-9b", {}),
     "moe": ("kimi-k2-1t-a32b", {}),
     "moe_dense_residual": ("arctic-480b", {}),
-    "kv_quant": ("smollm-135m", dict(kv_quant="int8")),
     "vision_frontend": ("internvl2-26b", {}),
     "audio_encoder_only": ("hubert-xlarge", {}),
     "encoder_only": ("smollm-135m", dict(encoder_only=True)),
@@ -464,21 +459,3 @@ def test_unsupported_configs_raise(case):
     for call in calls:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
-
-
-def test_attention_softcap_refused_in_forward_only():
-    tc = dataclasses.replace(t_base.reduced(t_configs.ARCHS["smollm-135m"]),
-                             attn_softcap=50.0)
-    jc = dataclasses.replace(j_base.reduced(j_configs.ARCHS["smollm-135m"]),
-                             attn_softcap=50.0)
-    jp, tp = _params(jc)
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        t_lm.forward(tp, {"tokens": toks}, tc)
-    jcache = j_lm.init_cache(jc, 1, 4)
-    tcache = t_lm.init_cache(tc, 1, 4, device="cpu")
-    want, _ = j_lm.decode_step(jp, jcache, jnp.zeros((1, 1), jnp.int32),
-                               jnp.zeros((1,), jnp.int32), jc)
-    got, _ = t_lm.decode_step(tp, tcache, toks[:, :1],
-                              torch.zeros(1, dtype=torch.long), tc)
-    _close(got, want)

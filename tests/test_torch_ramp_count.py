@@ -8,12 +8,12 @@ linear count otherwise.  For every codebook the JAX package builds (nlq,
 linear and activation ramps at 1, 2, 5, 6 and 8 bits) the mirror of that
 choice and of the search must give ``ref.ramp_codes`` and the Pallas
 kernel's codes exactly, with ties on every boundary, their f32 neighbours,
-NaN, +-inf and +-0 among the inputs.  (XLA on the CPU flushes subnormal
-inputs to zero before it compares, and neither the port's plain version
-nor the kernel does: the neighbours of a boundary at 0 are held to the
-plain count only.)  A permuted codebook must take the
-linear count, which still equals the Pallas kernel; the search alone would
-not.  Inputs come from ``numpy.random.RandomState``.
+NaN, +-inf and +-0 among the inputs; the f32 neighbours of a boundary at
+0 are subnormal, which XLA on the CPU flushes to a zero of their sign
+before it compares, and the plain count and the mirror flush them so too.
+A permuted codebook must take the linear count, which still equals the
+Pallas kernel; the search alone would not.  Inputs come from
+``numpy.random.RandomState``.
 """
 
 import jax.numpy as jnp
@@ -61,10 +61,17 @@ def _sorted(bounds: np.ndarray) -> bool:
     return bool(np.all(bounds <= nxt))
 
 
+def _flush(x: np.ndarray) -> np.ndarray:
+    """The kernel's ``fm::flush_subnormal``: a subnormal to a signed 0."""
+    return np.where(np.abs(x) < np.finfo(np.float32).tiny,
+                    np.copysign(np.float32(0), x), x).astype(np.float32)
+
+
 def _search(x: np.ndarray, bounds: np.ndarray) -> np.ndarray:
     """The kernel's binary search: ceil(log2 n_codes) steps over the
     boundaries padded with +inf to 2^bits - 1 entries; each step adds
     ``step`` where x > b[code + step - 1]."""
+    x = _flush(x)
     bits = int(bounds.size).bit_length()          # ceil(log2 n_codes)
     padded = np.full((1 << bits) - 1, np.inf, np.float32)
     padded[:bounds.size] = bounds
@@ -78,17 +85,12 @@ def _search(x: np.ndarray, bounds: np.ndarray) -> np.ndarray:
 def _kernel_codes(x: np.ndarray, bounds: np.ndarray) -> np.ndarray:
     if _sorted(bounds):
         return _search(x, bounds)
-    return (x[..., None] > bounds).sum(-1).astype(np.int32)
+    return (_flush(x)[..., None] > bounds).sum(-1).astype(np.int32)
 
 
 def _pallas_codes(x, bounds, levels) -> np.ndarray:
     jc, _ = j_ops.nlq_convert(jnp.asarray(x), jnp.asarray(bounds), levels)
     return np.asarray(jc)
-
-
-def _normal(x: np.ndarray) -> np.ndarray:
-    """Where x is not subnormal (the values XLA compares as they are)."""
-    return (x == 0) | ~(np.abs(x) < np.finfo(np.float32).tiny)
 
 
 @pytest.mark.parametrize("bits", BITS)
@@ -104,7 +106,7 @@ def test_search_equals_plain_count_and_pallas_kernel(kind, bits):
     plain = t_ref.ramp_codes(torch.from_numpy(x), tcb.boundaries).numpy()
     np.testing.assert_array_equal(got, plain)
     want = _pallas_codes(x, jcb.boundaries, jcb.levels)
-    np.testing.assert_array_equal(got[_normal(x)], want[_normal(x)])
+    np.testing.assert_array_equal(got, want)
     assert got.flat[0] == 0 and got.flat[1] == bounds.size   # NaN, +inf
     assert got.flat[2] == 0                                  # -inf
 
@@ -121,7 +123,7 @@ def test_permuted_codebook_takes_the_plain_count(kind, bits):
                 5.0 if kind == "activation" else 30.0)
     got = _kernel_codes(x, bounds)
     want = _pallas_codes(x, bounds, jcb.levels)
-    np.testing.assert_array_equal(got[_normal(x)], want[_normal(x)])
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, t_ref.ramp_codes(
         torch.from_numpy(x), torch.from_numpy(bounds)).numpy())
     # the order check is what keeps the search off this codebook
@@ -136,6 +138,30 @@ def test_nan_boundary_takes_the_plain_count():
     x = _inputs(np.random.RandomState(3), tcb.boundaries.numpy(), 30.0)
     got = _kernel_codes(x, bounds)
     want = _pallas_codes(x, bounds, jcb.levels)
-    np.testing.assert_array_equal(got[_normal(x)], want[_normal(x)])
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, t_ref.ramp_codes(
         torch.from_numpy(x), torch.from_numpy(bounds)).numpy())
+
+
+def test_subnormal_inputs_count_as_zero_like_jax():
+    """Subnormal inputs at boundaries of 0 and +-FLT_MIN: the plain count,
+    ``ima_convert``'s ``torch.searchsorted`` and the straight-through
+    quantizer give ``jnp.searchsorted``'s codes and the Pallas kernel's."""
+    tiny = np.finfo(np.float32).tiny
+    bounds = np.array([-1.0, -tiny, 0.0, tiny, 1.0], np.float32)
+    levels = np.arange(6, dtype=np.float32)
+    sub = np.array([1e-45, 1e-40, tiny / 2, np.nextafter(tiny, 0)],
+                   np.float32)
+    x = np.concatenate([sub, -sub, [0.0, -0.0, tiny, -tiny,
+                                    np.nextafter(tiny, 1)]]).astype(np.float32)
+    want = np.asarray(jnp.searchsorted(jnp.asarray(bounds), jnp.asarray(x)))
+    np.testing.assert_array_equal(want[:8], 2)     # flushed: above -tiny only
+    cb = t_ima.RampCodebook(torch.from_numpy(levels),
+                            torch.from_numpy(bounds), -2.0, 2.0)
+    xt = torch.from_numpy(x)
+    np.testing.assert_array_equal(t_ref.ramp_codes(xt, cb.boundaries), want)
+    np.testing.assert_array_equal(t_ima.ima_convert(xt, cb), want)
+    np.testing.assert_array_equal(t_ima.ima_quantize_ste(xt, cb),
+                                  levels[want])
+    np.testing.assert_array_equal(_kernel_codes(x, bounds), want)
+    np.testing.assert_array_equal(_pallas_codes(x, bounds, levels), want)

@@ -9,6 +9,7 @@ the port imports neither JAX nor ``repro``, and the rule that entry points
 do not fall back to the CPU.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -237,7 +238,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert len(files) > 15
     for rel in ("core/dendrite.py", "kernels/fused_macro_grad.py",
                 "train/silicon.py", "data/events.py", "nn/attention.py",
-                "models/lm.py", "kernels/flash_attention.py"):
+                "models/lm.py", "kernels/flash_attention.py",
+                "nn/kvq.py", "nn/recurrent.py"):
         assert ROOT / "src" / "repro_torch" / rel in files, rel
     for path in files:
         hits = pattern.findall(path.read_text())
@@ -272,6 +274,18 @@ def test_entry_points_do_not_fall_back_to_cpu():
         BatchedEngine(lcfg, lp)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_serve.main(["--smoke"])
+    for arch in ("gemma2-2b", "recurrentgemma-9b", "xlstm-350m"):
+        fcfg = t_base.reduced(get_config(arch))
+        for kw in ({}, {"kv_quant": "int8"}):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                t_lm.init_cache(dataclasses.replace(fcfg, **kw), 1, 8)
+        fp = t_module.materialize(t_lm.param_specs(fcfg),
+                                  torch.Generator().manual_seed(0),
+                                  device="cpu")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            BatchedEngine(fcfg, fp)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_serve.main(["--smoke", "--arch", arch])
     # lm.forward and lm.decode_step run where their tensors are (params
     # from materialize, caches from init_cache); off the CPU the forward's
     # attention launches the kernel or raises, never the plain version
