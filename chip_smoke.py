@@ -147,8 +147,10 @@ Phases (any failure raises, so the exit code is non-zero):
    the card's per-launch floor (``zero_()`` of one element);
    one chain step against one fused step launch (both clocks), and the
    composed forward against ``"seq"``; kernel #9 at BH=72, D=64, bf16, causal,
-   S=2048 and 512, and at BH=16, S=2048, D=256 (gemma2's head_dim),
-   against its plain version, its bound and
+   S=2048 and 512, at BH=16, S=2048, D=256 (gemma2's head_dim), and at
+   phase 7's prefill shapes (BH x S x D) 64 x 1024 x 112 and 48 x 2048 x
+   128 causal and 128 x 1024 x 80 full, against its plain version, its
+   bound and
    ``scaled_dot_product_attention`` (timed only), the smollm prefill of
    8 x 2048 (with the kernel's share of device time), a decode step at
    batch 8 against 2080 slots, and ``BatchedEngine`` tokens/s with its
@@ -175,7 +177,27 @@ Phases (any failure raises, so the exit code is non-zero):
    int4 caches (``optimized(serving=True)``); a 1-slot engine in f32
    against teacher-forced decode of its prompts in turn (one cache
    carried across them, as the slot's recurrent state is); and their
-   timings (see phase 5).
+   timings (see phase 5);
+7. the MoE configurations and the frontends, each main path with every
+   launch counter set to 0 just before it and read just after: reduced
+   kimi-k2-1t-a32b, arctic-480b, internvl2-26b and hubert-xlarge (f32; 8
+   experts, top-2; 4 patches or frames of 16 features) on the card
+   against the CPU (forward and prefill: logits, aux loss, every cache
+   entry and every router's selected experts, which must be equal, the
+   flash kernel once a layer, hubert's non-causal; 4 decode steps; all
+   within 1e-5), on the card prefill against teacher-forced decode within
+   2e-3 and a 4-slot engine step by step with the near-tie rule; hubert's
+   decode step raises ``ValueError``; then each at full width with bf16
+   weights drawn on the card, one model at a time: ``launch.serve.main
+   --arch --param-dtype bfloat16`` with its defaults (kimi-k2 cut to 1
+   layer and arctic to 2 with ``--layers``; hubert refused with
+   ``ValueError``), the prefill (kimi-k2 and arctic 1 x 1024, 1 and 2
+   flash launches; internvl2 256 patches and 1792 tokens, 48; hubert's
+   forward of 8 x 1024 frames, 48 non-causal), ``pad_cache`` and 16 greedy
+   decode steps (no launch), a decode step's time, one MoE layer by piece
+   (router, experts, combine) at the prefill's tokens beside the experts'
+   bound, the engine's tokens/s with its device idle share, and the peak
+   memory allocated.
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
@@ -219,6 +241,7 @@ from repro_torch.kernels import ternary_mac as tmac_lib  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
 from repro_torch.models import lm, snn  # noqa: E402
 from repro_torch.nn import attention as attn_lib  # noqa: E402
+from repro_torch.nn import moe as moe_lib  # noqa: E402
 from repro_torch.nn import module as nn_module  # noqa: E402
 from repro_torch.nn import recurrent as rec_lib  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
@@ -2272,6 +2295,10 @@ LM_HEADS = 72                           # BH of the smollm prefill: 8 x 9
 # context and at 512, and gemma2's head_dim
 FLASH_TIMED = ((LM_HEADS, 2048, 64), (LM_HEADS, 512, 64), (16, 2048, 256))
 FLASH_MAIN = "72x2048x64"
+# and the prefill shapes of phase 7's configurations, (BH, S, D, causal):
+# kimi-k2's, internvl2's and hubert's (non-causal)
+FLASH_TIMED_MOE = ((64, 1024, 112, True), (48, 2048, 128, True),
+                   (128, 1024, 80, False))
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -3093,6 +3120,46 @@ def _device_busy_ms(prof) -> float:
                if e.device_type() == cuda) / 1e6
 
 
+def _time_flash(bh, s, d, causal, rs, dev) -> dict:
+    """Kernel #9 in bf16 at (BH, S, D): ms per launch through the wrapper
+    (CUDA events, best of three runs) and the device ms under the
+    profiler, the plain version, the bound (q, k, v read once and o
+    written once; the two products over the unmasked scores) and
+    ``scaled_dot_product_attention`` (timed only; the port never calls
+    it)."""
+    q, k, v = (torch.from_numpy(rs.randn(bh, s, d).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+    launch = lambda: flash_lib.flash_attention_fwd(q, k, v, causal=causal)
+    plain = lambda: ref.flash_attention_ref(q, k, v, causal)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal)
+    reps = 20 if s == 2048 else 100
+    kernel_ms = [_time_ms(launch, reps) for _ in range(3)]
+    device_ms = _device_ms_per_launch(launch, reps)
+    plain_ms = [_time_ms(plain, 5) for _ in range(2)]
+    lib_ms = [_time_ms(library, 5 * reps) for _ in range(3)]
+    n_bytes = 4 * bh * s * d * 2
+    n_ops = (4 * bh * d * (s * s + s) // 2 if causal
+             else 4 * bh * d * s * s)
+    bytes_s, ops_s = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
+    lib_err = float((library().reshape(bh, s, d).float()
+                     - launch().float()).abs().max())
+    tm = {"kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
+          "device_ms": device_ms, "plain_ms": min(plain_ms),
+          "plain_ms_all": plain_ms, "library_ms": min(lib_ms),
+          "library_ms_all": lib_ms, "library_max_abs_diff": lib_err,
+          "bound_ms": 1e3 * max(bytes_s, ops_s),
+          "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+          "bytes": n_bytes, "ops": n_ops, "causal": causal}
+    log(f"flash_attention BH={bh} S={s} D={d} bf16 "
+        f"{'causal' if causal else 'full'}: kernel {tm['kernel_ms']:.4f} "
+        f"ms/launch (device {device_ms:.4f}), plain {tm['plain_ms']:.4f} ms,"
+        f" SDPA {tm['library_ms']:.4f} ms (max diff {lib_err:.3g}), bound "
+        f"{tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
+    return tm
+
+
 def lm_timing_phase(params, dev) -> dict:
     """Kernel #9 (bf16, causal) at ``FLASH_TIMED``: ms per launch through
     the wrapper (CUDA events, best of three runs) and the
@@ -3108,38 +3175,11 @@ def lm_timing_phase(params, dev) -> dict:
     res: dict = {"flash": {}}
     t_phase = time.perf_counter()
     for bh, s, d in FLASH_TIMED:
-        q, k, v = (torch.from_numpy(rs.randn(bh, s, d).astype(
-            np.float32)).to(dev, torch.bfloat16) for _ in range(3))
-        q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
-        launch = lambda: flash_lib.flash_attention_fwd(q, k, v, causal=True)
-        plain = lambda: ref.flash_attention_ref(q, k, v, True)
-        library = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True)
-        reps = 20 if s == 2048 else 100
-        kernel_ms = [_time_ms(launch, reps) for _ in range(3)]
-        device_ms = _device_ms_per_launch(launch, reps)
-        plain_ms = [_time_ms(plain, 5) for _ in range(2)]
-        lib_ms = [_time_ms(library, 5 * reps) for _ in range(3)]
-        n_bytes = 4 * bh * s * d * 2
-        n_ops = 4 * bh * d * (s * s + s) // 2
-        bytes_s, ops_s = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
-        lib_err = float((library().reshape(bh, s, d).float()
-                         - launch().float()).abs().max())
-        key = f"{bh}x{s}x{d}"
-        res["flash"][key] = {
-            "kernel_ms": min(kernel_ms), "kernel_ms_all": kernel_ms,
-            "device_ms": device_ms, "plain_ms": min(plain_ms),
-            "plain_ms_all": plain_ms, "library_ms": min(lib_ms),
-            "library_ms_all": lib_ms, "library_max_abs_diff": lib_err,
-            "bound_ms": 1e3 * max(bytes_s, ops_s),
-            "bound_by": "bytes" if bytes_s >= ops_s else "operations",
-            "bytes": n_bytes, "ops": n_ops}
-        tm = res["flash"][key]
-        log(f"flash_attention BH={bh} S={s} D={d} bf16 causal: "
-            f"kernel {tm['kernel_ms']:.4f} ms/launch (device "
-            f"{device_ms:.4f}), plain {tm['plain_ms']:.4f} ms, SDPA "
-            f"{tm['library_ms']:.4f} ms (max diff {lib_err:.3g}), bound "
-            f"{tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
+        res["flash"][f"{bh}x{s}x{d}"] = _time_flash(bh, s, d, True, rs, dev)
+    rs_moe = np.random.RandomState(SEED + 62)
+    for bh, s, d, causal in FLASH_TIMED_MOE:
+        res["flash"][f"{bh}x{s}x{d}"] = _time_flash(bh, s, d, causal, rs_moe,
+                                                    dev)
 
     toks = torch.from_numpy(rs.randint(
         0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))).to(dev)
@@ -3206,6 +3246,396 @@ def lm_timing_phase(params, dev) -> dict:
         f"{res['engine']['device_idle_share']:.3f}); LM timing "
         f"{time.perf_counter() - t_phase:.1f} s")
     return res
+
+
+# --- slice 12: kimi-k2, arctic, internvl2 and hubert at full width ---------
+
+# (arch, layers on the card (None: all of them), prefill (batch, text
+# tokens or audio frames), flash launches a prefill, decode steps after
+# it): kimi-k2 (61 layers) and arctic (35) cut to the depth that fits one
+# card beside the dense combine's intermediates; internvl2's prompt is its
+# 256 patches before 1792 tokens; hubert a forward of 8 x 1024 frames
+# (non-causal), with no decode
+MOE_FRONTENDS = (("kimi-k2-1t-a32b", 1, (1, 1024), 1, 16),
+                 ("arctic-480b", 2, (1, 1024), 2, 16),
+                 ("internvl2-26b", None, (1, 1792), 48, 16),
+                 ("hubert-xlarge", None, (8, 1024), 48, 0))
+REDUCED_MOE_SEQ, REDUCED_MOE_STEPS = 64, 4
+
+
+def _model_batch(cfg, rs, b, s, dev) -> dict:
+    """``b`` sequences on ``dev``: ``s`` audio frames, else ``s`` tokens
+    (after ``n_patches`` ViT patch embeddings for the VLM)."""
+    if cfg.frontend == "audio_frames":
+        return {"frames": torch.from_numpy(rs.randn(
+            b, s, cfg.frontend_dim).astype(np.float32)).to(dev)}
+    out = {"tokens": torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                                 (b, s))).to(dev)}
+    if cfg.frontend == "vision_patches":
+        out["patches"] = torch.from_numpy(rs.randn(
+            b, cfg.n_patches, cfg.frontend_dim).astype(np.float32)).to(dev)
+    return out
+
+
+class _Routing:
+    """Within the block, every ``moe.router_topk`` call's selected experts
+    are appended to ``log`` (on the host)."""
+
+    def __init__(self, log: list):
+        self.log, self.route = log, moe_lib.router_topk
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            out = self.route(*args, **kw)
+            self.log.append(out[1].cpu())
+            return out
+
+        moe_lib.router_topk = rec
+
+    def __exit__(self, *exc):
+        moe_lib.router_topk = self.route
+
+
+def reduced_moe_phase(arch: str, dev) -> dict:
+    """The reduced configuration (f32; 8 experts, top-2; 4 patches or
+    frames of 16 features) on the card against the same call on the CPU:
+    the full forward and prefill (logits, the aux loss, every cache entry
+    and every router's selected experts, which must be equal), the flash
+    kernel once a layer in each (hubert's non-causal), ``pad_cache`` and
+    4 decode steps, within 1e-5; on the card, the full forward against a
+    prefill of the first half and teacher-forced decode of the rest at
+    2e-3 (the JAX suite's), and for the text-only decoders decode from
+    ``init_cache`` against the prefill; a 4-slot ``BatchedEngine`` on
+    both, step by step with the near-tie rule; hubert's decode step
+    raises ``ValueError``."""
+    cfg = config_base.reduced(configs.get_config(arch))
+    p_cpu = nn_module.materialize(lm.param_specs(cfg),
+                                  torch.Generator().manual_seed(SEED + 50),
+                                  device="cpu")
+    p_gpu = nn_module.tree_map(lambda t: t.to(dev), p_cpu)
+    rs = np.random.RandomState(SEED + 51)
+    batch = _model_batch(cfg, rs, 2, REDUCED_MOE_SEQ, "cpu")
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    res: dict = {}
+    routes: dict = {"card": [], "cpu": []}
+    reset_counts()
+    with _Routing(routes["card"]):
+        got = lm.forward(p_gpu, on_card, cfg)
+        got_p = lm.forward(p_gpu, on_card, cfg, prefill=True)
+    torch.cuda.synchronize()
+    flash, others = _lm_counts()
+    with _Routing(routes["cpu"]):
+        want = lm.forward(p_cpu, batch, cfg)
+        want_p = lm.forward(p_cpu, batch, cfg, prefill=True)
+    res["forward"] = _tensor_err(got[0], want[0])
+    res["aux"] = max(_tensor_err(got[1], want[1]),
+                     _tensor_err(got_p[1], want_p[1]))
+    res["prefill"] = _tensor_err(got_p[0], want_p[0])
+    res["cache"] = max(_tensor_err(got_p[2][name][key], t)
+                       / max(1.0, float(t.abs().max()))
+                       for name, entry in want_p[2].items()
+                       for key, t in entry.items())
+    res["flash_launches"] = flash
+    res["router_calls"] = len(routes["cpu"])
+    if flash != 2 * cfg.n_layers or any(others.values()):
+        raise AssertionError(f"reduced {arch}: {flash} flash launches, want "
+                             f"{2 * cfg.n_layers}; others {others}")
+    if len(routes["card"]) != len(routes["cpu"]) or \
+            len(routes["cpu"]) != (2 * cfg.n_layers if cfg.moe else 0) or \
+            not all(torch.equal(a, b) for a, b in zip(routes["card"],
+                                                       routes["cpu"])):
+        raise AssertionError(f"reduced {arch}: the card's routing differs "
+                             "from the CPU's")
+    res["decode"] = 0.0
+    if cfg.encoder_only:
+        try:
+            lm.decode_step(p_gpu, lm.init_cache(cfg, 2, 8, device=dev),
+                           torch.zeros((2, 1), dtype=torch.long, device=dev),
+                           torch.zeros(2, dtype=torch.long, device=dev), cfg)
+        except ValueError:
+            res["decode_refused"] = True
+        else:
+            raise AssertionError(f"reduced {arch}: decode_step ran")
+    else:
+        s0 = got[0].shape[1]
+        gcache = lm.pad_cache(got_p[2], cfg, s0 + REDUCED_MOE_STEPS)
+        ccache = lm.pad_cache(want_p[2], cfg, s0 + REDUCED_MOE_STEPS)
+        for t in range(REDUCED_MOE_STEPS):
+            nt = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 1)))
+            pos = torch.full((2,), s0 + t)
+            g, gcache = lm.decode_step(p_gpu, gcache, nt.to(dev),
+                                       pos.to(dev), cfg)
+            w, ccache = lm.decode_step(p_cpu, ccache, nt, pos, cfg)
+            res["decode"] = max(res["decode"], _tensor_err(g, w))
+    for key in ("forward", "aux", "prefill", "cache", "decode"):
+        if not res[key] <= 1e-5:
+            raise AssertionError(f"reduced {arch} {key}: card {res[key]:.3g}"
+                                 " from the CPU (tol 1e-5)")
+    if not cfg.encoder_only:
+        res["teacher_forced"] = _teacher_forced_moe(p_gpu, cfg, on_card,
+                                                    got[0], dev)
+        prompts = [[int(t) for t in rs.randint(0, cfg.vocab_size, 3 + u % 3)]
+                   for u in range(6)]
+        res["engine"] = _engines_agree(
+            _engine_run(cfg, p_gpu, prompts, 4, dev, s_max=32, new=6,
+                        trace=True),
+            _engine_run(cfg, p_cpu, prompts, 4, "cpu", s_max=32, new=6,
+                        trace=True), 1e-5)
+    log(f"reduced {arch} on the card against the CPU: forward "
+        f"{res['forward']:.3g}, aux {res['aux']:.3g}, prefill "
+        f"{res['prefill']:.3g}, caches {res['cache']:.3g}, "
+        f"{REDUCED_MOE_STEPS} decode steps {res['decode']:.3g} (tol 1e-5); "
+        f"{res['router_calls']} router calls with equal experts; "
+        f"{flash} flash launches; teacher-forced "
+        f"{res.get('teacher_forced')}; engine {res.get('engine')}")
+    return res
+
+
+def _teacher_forced_moe(params, cfg, batch, full, dev) -> dict:
+    """On the card: a prefill of the first half of the tokens (after the
+    patches), then teacher-forced decode of the rest, against the full
+    forward ``full`` at the same positions; for a text-only decoder also
+    decode from ``init_cache`` over the whole prompt against the
+    prefill's logits; within ``F32_TOL``."""
+    toks = batch["tokens"]
+    b, s = toks.shape
+    p0 = full.shape[1] - s
+    half = s // 2
+    _, _, cache = lm.forward(params, dict(batch, tokens=toks[:, :half]), cfg,
+                             prefill=True)
+    cache = lm.pad_cache(cache, cfg, p0 + s)
+    res = {"after_prefill": 0.0}
+    for t in range(half, s):
+        got, cache = lm.decode_step(params, cache, toks[:, t:t + 1],
+                                    torch.full((b,), p0 + t, device=dev), cfg)
+        res["after_prefill"] = max(res["after_prefill"],
+                                   _tensor_err(got, full[:, p0 + t]))
+    if cfg.frontend is None:
+        want, _, _ = lm.forward(params, batch, cfg, prefill=True)
+        cache = lm.init_cache(cfg, b, s, device=dev)
+        for t in range(s):
+            got, cache = lm.decode_step(params, cache, toks[:, t:t + 1],
+                                        torch.full((b,), t, device=dev), cfg)
+        res["from_init_cache"] = _tensor_err(got, want)
+    if max(res.values()) > F32_TOL:
+        raise AssertionError(f"{cfg.name} prefill vs teacher-forced decode: "
+                             f"{res}")
+    return res
+
+
+def _moe_layer_times(cfg, params, n_tokens, rs, dev) -> dict:
+    """Layer 0's ``moe_ref`` in bf16 at ``n_tokens`` tokens, whole and by
+    piece (CUDA events): the router (its product and the top-k), the
+    experts (every chunk's gated FFN) and the combine (every chunk's
+    ``einsum``, summed in f32), beside the bound of the
+    experts alone (every expert's weights read once, 6 D F operations a
+    token and expert)."""
+    p = lm._group(params["layers"]["b0"], 0)["moe"]
+    e, d, f = p["w_in"].shape
+    k, act = cfg.moe_top_k, cfg.activation
+    x = torch.from_numpy(rs.randn(n_tokens, d).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    route = lambda: moe_lib.router_topk(x @ p["router"].to(x.dtype), k)
+    gate, idx, _ = route()
+    combine = (torch.nn.functional.one_hot(idx, e).to(x.dtype)
+               * gate[..., None].to(x.dtype)).sum(-2)
+    chunks = moe_lib.expert_chunks(e, n_tokens, max(d, f))
+
+    def experts():
+        return [moe_lib._expert_ffn(p["w_in"][a:b], p["w_gate"][a:b],
+                                    p["w_out"][a:b], x[None], act)
+                for a, b in chunks]
+
+    outs = experts()
+
+    def combined():
+        return sum(torch.einsum("te,etd->td", combine[:, a:b], o).float()
+                   for (a, b), o in zip(chunks, outs))
+
+    whole = lambda: moe_lib.moe_ref(p, x, k=k, activation=act)
+    res = {"tokens": n_tokens, "chunks": len(chunks)}
+    for name, fn in (("router_ms", route), ("experts_ms", experts),
+                     ("combine_ms", combined), ("moe_ref_ms", whole)):
+        res[name] = min(_time_ms(fn, 2) for _ in range(2))
+    del outs
+    n_bytes = 3 * e * d * f * 2
+    n_ops = 6 * n_tokens * e * d * f
+    bytes_s, ops_s = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
+    res["experts_bound_ms"] = 1e3 * max(bytes_s, ops_s)
+    res["experts_bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
+    return res
+
+
+def moe_frontend_phase(arch, n_layers, shape, flash_want, n_steps,
+                       dev) -> dict:
+    """One configuration at full width (bf16 weights from the seed, the
+    depth cut to ``n_layers`` where given), each driven step with the
+    counters zeroed just before and read just after:
+    ``launch.serve.main --arch`` with its defaults and bf16 weights (8
+    requests, 4 slots, 12 new tokens, no flash launch; hubert refused
+    with ``ValueError``, as the reference asserts); the prefill (hubert:
+    the forward) at ``shape``, the flash kernel ``flash_want`` times;
+    ``pad_cache`` and the greedy decode steps (none); then timings: the
+    prefill (and its device time by op under the profiler), a decode
+    step, one MoE layer by piece at the prefill's tokens, the engine's
+    tokens/s with its device idle share, and the peak memory
+    allocated."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    res: dict = {"arch": arch, "layers": cfg.n_layers,
+                 "params": cfg.param_count()}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    argv = ["--arch", arch, "--seed", str(SEED), "--param-dtype",
+            "bfloat16"] + (["--layers", str(n_layers)] if n_layers else [])
+    reset_counts()
+    t0 = time.perf_counter()
+    if cfg.encoder_only:
+        try:
+            serve_lib.main(argv)
+        except ValueError as e:
+            res["serve"] = {"refused": str(e)}
+        else:
+            raise AssertionError(f"{arch} launch.serve served")
+        prompts = []
+    else:
+        done = serve_lib.main(argv)
+        torch.cuda.synchronize()
+        flash, others = _lm_counts()
+        if len(done) != 8 or flash or any(others.values()) or any(
+                len(r.generated) != FAMILY_ENGINE_NEW or not all(
+                    0 <= t < cfg.vocab_size for t in r.generated)
+                for r in done):
+            raise AssertionError(f"{arch} launch.serve: {len(done)} done, "
+                                 f"flash {flash}, others {others}")
+        prompts = [r.prompt for r in sorted(done, key=lambda r: r.uid)]
+        res["serve"] = {"requests": len(done), "launches": flash,
+                        "wall_s_first": time.perf_counter() - t0}
+        del done
+    torch.cuda.empty_cache()
+
+    params = _family_params(cfg, dev, SEED + 60)
+    rs = np.random.RandomState(SEED + 61)
+    b, s = shape
+    batch = _model_batch(cfg, rs, b, s, dev)
+    prefill = not cfg.encoder_only
+    run = lambda: lm.forward(params, batch, cfg, prefill=prefill)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    ms_first = 1e3 * (time.perf_counter() - t0)
+    flash, others = _lm_counts()
+    s_all = s + (cfg.n_patches if cfg.frontend == "vision_patches" else 0)
+    want_shape = ((b, s, cfg.vocab_size) if cfg.encoder_only
+                  else (b, cfg.padded_vocab))
+    if flash != flash_want or any(others.values()) or \
+            tuple(out[0].shape) != want_shape or \
+            not torch.isfinite(out[0]).all() or \
+            not torch.isfinite(out[1]) or (float(out[1]) > 0) != cfg.moe:
+        raise AssertionError(f"{arch} prefill {b} x {s_all}: {flash} flash "
+                             f"launches (want {flash_want}), others "
+                             f"{others}, logits {tuple(out[0].shape)}, aux "
+                             f"{float(out[1])}")
+    res["prefill"] = {"batch": b, "positions": s_all, "launches": flash,
+                      "ms_first": ms_first, "aux": float(out[1]),
+                      "ms": min(_time_ms(run, 1) for _ in range(2))}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(_device_us(e) for e in events) / 1e3
+    res["prefill"].update(
+        device_ms=busy,
+        flash_device_ms=sum(_device_us(e) for e in events
+                            if _is_flash(e.key)) / 1e3,
+        top_device=[(e.key[:90], e.count, _device_us(e) / 1e3)
+                    for e in sorted(events, key=_device_us,
+                                    reverse=True)[:6]])
+    log(f"{arch} ({cfg.n_layers} layers) {'prefill' if prefill else 'forward'}"
+        f" {b} x {s_all}: {flash} flash launches, {res['prefill']['ms']:.2f} "
+        f"ms ({ms_first:.1f} the first call; device busy {busy:.2f} ms, "
+        f"flash {res['prefill']['flash_device_ms']:.2f}), aux "
+        f"{float(out[1]):.4g}; top device ops {res['prefill']['top_device']}")
+
+    if prefill:
+        nxt = torch.argmax(out[0][:, :cfg.vocab_size], dim=-1)
+        cache = lm.pad_cache(out[2], cfg, s_all + n_steps)
+        del out
+        reset_counts()
+        for i in range(n_steps):
+            logits, cache = lm.decode_step(
+                params, cache, nxt[:, None],
+                torch.full((b,), s_all + i, device=dev), cfg)
+            nxt = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+        torch.cuda.synchronize()
+        d_flash, others = _lm_counts()
+        if d_flash or any(others.values()) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch} decode: flash {d_flash}, others "
+                                 f"{others}")
+        tok, pos = batch["tokens"][:, :1], torch.full((b,), s_all, device=dev)
+        res["decode_step_ms"] = min(_time_ms(lambda: lm.decode_step(
+            params, cache, tok, pos, cfg), 5) for _ in range(2))
+        del cache
+    else:
+        del out
+    if cfg.moe:
+        res["moe_layer"] = _moe_layer_times(cfg, params, b * s_all, rs, dev)
+        log(f"{arch} one MoE layer at {b * s_all} tokens: {res['moe_layer']}")
+
+    if prompts:
+        def serve() -> tuple[float, int]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _ = _engine_run(cfg, params, prompts, 4, dev)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, sum(len(g) for g in got.values())
+
+        serve()
+        wall, n_tok = serve()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall_prof, _ = serve()
+        busy = _device_busy_ms(prof)
+        res["engine"] = {"tokens": n_tok, "wall_s": wall,
+                         "tokens_per_s": n_tok / wall,
+                         "wall_s_profiled": wall_prof,
+                         "device_busy_ms": busy,
+                         "device_idle_share": 1.0 - busy / (1e3 * wall_prof)}
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["param_gb"] = sum(t.numel() * t.element_size()
+                          for t in nn_module.leaves(params)) / 1e9
+    log(f"{arch}: prefill {res['prefill']['ms']:.2f} ms"
+        + (f", decode step {res['decode_step_ms']:.3f} ms at batch {b} after "
+           f"{s_all} positions" if prefill else "")
+        + (f", BatchedEngine {res['engine']['tokens_per_s']:.1f} tokens/s "
+           f"(device idle share {res['engine']['device_idle_share']:.3f})"
+           if prompts else ", launch.serve refused (encoder-only)")
+        + f", weights {res['param_gb']:.1f} GB, peak {res['peak_gb']:.1f} GB;"
+        f" {time.perf_counter() - t_phase:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_frontends_phase(dev) -> dict:
+    """Phase 7: the four configurations reduced on the card against the
+    CPU, then each at full width, one model on the card at a time (kernel
+    #9 at their prefill shapes is timed in phase 5, ``FLASH_TIMED_MOE``,
+    before any profiled engine run)."""
+    out = {arch: {"reduced": reduced_moe_phase(arch, dev)}
+           for arch, *_ in MOE_FRONTENDS}
+    for arch, *case in MOE_FRONTENDS:
+        out[arch].update(moe_frontend_phase(arch, *case, dev))
+    return out
 
 
 def _record(name, replaces, launches, cmp, timing,
@@ -3286,6 +3716,8 @@ def main() -> None:
     for arch, cases in FAMILIES:
         families[arch].update(family_phase(arch, cases, dev))
     log(f"phase 6 done at {time.perf_counter() - t0:.1f} s")
+    moe_frontends = moe_frontends_phase(dev)
+    log(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
     b = serving["burst"]
     log(f"[{smi}] engine, {b['requests']}-request clean burst: "
         f"{b['requests_per_s']:.1f} req/s, round ms p50 "
@@ -3355,7 +3787,8 @@ def main() -> None:
         f"{st['seq_forward_ms']:.3f} ms")
     lt = timing["lm"]
     for shape, tm in lt["flash"].items():
-        log(f"[{smi}] flash_attention (BH x S x D) {shape} bf16 causal: "
+        log(f"[{smi}] flash_attention (BH x S x D) {shape} bf16 "
+            f"{'causal' if tm['causal'] else 'full'}: "
             f"{tm['kernel_ms']:.4f} ms/launch (device {tm['device_ms']:.4f}"
             f"), plain {tm['plain_ms']:.4f} ms, SDPA {tm['library_ms']:.4f} "
             f"ms, bound {tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
@@ -3373,6 +3806,23 @@ def main() -> None:
             f"{fr['engine']['tokens_per_s']:.1f} tokens/s, idle share "
             f"{fr['engine']['device_idle_share']:.3f}, flash launches "
             f"{ {k: v['launches'] for k, v in fr['prefill'].items()} }")
+    for arch, fr in moe_frontends.items():
+        pf = fr["prefill"]
+        log(f"[{smi}] {arch} ({fr['layers']} layers): "
+            f"{pf['batch']} x {pf['positions']} in {pf['ms']:.2f} ms (device "
+            f"{pf['device_ms']:.2f}, flash {pf['flash_device_ms']:.2f}), "
+            f"{pf['launches']} flash launches"
+            + (f", decode step {fr['decode_step_ms']:.3f} ms, BatchedEngine "
+               f"{fr['engine']['tokens_per_s']:.1f} tokens/s, idle share "
+               f"{fr['engine']['device_idle_share']:.3f}"
+               if "engine" in fr else "")
+            + (f", one MoE layer {fr['moe_layer']['moe_ref_ms']:.2f} ms "
+               f"(router {fr['moe_layer']['router_ms']:.3f}, experts "
+               f"{fr['moe_layer']['experts_ms']:.2f}, combine "
+               f"{fr['moe_layer']['combine_ms']:.3f}; experts' bound "
+               f"{fr['moe_layer']['experts_bound_ms']:.2f})"
+               if "moe_layer" in fr else "")
+            + f", peak {fr['peak_gb']:.1f} GB")
     log(f"[{smi}] silicon training step, DVS-Gesture batch "
         f"{TRAIN_BATCH}: {tt['step_ms']:.3f} ms, {tt['steps_per_s']:.1f} "
         f"steps/s, device idle share {tt['device_idle_share']:.3f}; "
@@ -3385,7 +3835,10 @@ def main() -> None:
                             for c in lm_res["consistency"].values())
                       + sum(c["launches"] for fr in families.values()
                             for part in ("prefill", "consistency")
-                            for c in fr[part].values()))
+                            for c in fr[part].values())
+                      + sum(fr["prefill"]["launches"]
+                            + fr["reduced"]["flash_launches"]
+                            for fr in moe_frontends.values()))
     kwn_launches = (main_res["clean"]["launches"]
                     + main_res["noisy"]["launches"]
                     + train_res["forward_launches"]
@@ -3437,14 +3890,23 @@ def main() -> None:
                         cmp["flash"], lt["flash"][FLASH_MAIN],
                         library_ms=lt["flash"][FLASH_MAIN]["library_ms"]),
                 device_ms=lt["flash"][FLASH_MAIN]["device_ms"],
-                max_abs_err_bf16=cmp["flash"]["max_abs_err_bf16"])]}
+                max_abs_err_bf16=cmp["flash"]["max_abs_err_bf16"],
+                **{f"{field}_{shape}": tm[key]
+                   for shape, tm in lt["flash"].items()
+                   if shape != FLASH_MAIN
+                   for field, key in (("ms", "kernel_ms"),
+                                      ("device_ms", "device_ms"),
+                                      ("plain_ms", "plain_ms"),
+                                      ("bound_ms", "bound_ms"),
+                                      ("library_ms", "library_ms"))})]}
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(
         {"device": smi, "build_s": build_s, "flash_build": flash_build,
          "split_build": split_build, "stage_build": stage_build,
          "compare": cmp,
          "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
                        "train": train_res, "composed": composed_res,
-                       "lm": lm_res, "families": families},
+                       "lm": lm_res, "families": families,
+                       "moe_frontends": moe_frontends},
          "timing": timing, "serving": serving, "nld_serving": nld_serving,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(json.dumps(record), flush=True)

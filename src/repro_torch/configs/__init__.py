@@ -3,8 +3,7 @@
 Counterpart of ``repro.configs``, data only: each architecture has its own
 module with the published config, field for field the reference's.
 ``get_config(id)`` resolves by the public id (dashes/dots as assigned).
-Which families the port can run grows slice by slice (``models.lm``
-refuses the rest).
+``models.lm`` runs every one of them.
 """
 
 from repro_torch.configs import (arctic_480b, gemma2_2b, hubert_xlarge,

@@ -60,7 +60,10 @@ def lm_params_from_jax(tree: dict, device=None) -> dict:
     kind's leaves alike, the attention projections and the recurrent
     cells' (the mLSTM's ``wi`` / ``wf`` / ``wo_gate``, the sLSTM's ``wx``
     and block-diagonal ``r``, the RG-LRU's ``conv``, ``w_a``, ``w_x`` and
-    ``lam``)."""
+    ``lam``), an MoE block's ``moe`` (``router``, ``w_in``, ``w_gate``,
+    ``w_out``, stacked over groups), arctic's dense residual ``ffn`` and
+    kimi-k2's ``shared`` expert, the frontends' ``patch_proj`` and
+    ``frontend_proj`` and an encoder-only model's class ``head``."""
     dev = device_lib.resolve(device)
 
     def put(node):

@@ -2,19 +2,24 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         [--smoke] [--requests 8] [--slots 4] [--max-new 12] [--cim] \
-        [--seed 0] [--device cpu]
+        [--seed 0] [--device cpu] [--layers N] [--param-dtype bfloat16]
 
 Counterpart of ``repro.launch.serve``: a model with random weights from
 ``--seed`` serves batched requests through ``BatchedEngine``, optionally
 with the NeuDW-CIM execution mode (ternary twin-cell weights and NLQ
 activations on the FFN projections), with per-request token accounting.
-``--arch`` takes every configuration the port runs (smollm-135m,
-qwen2.5-32b, nemotron-4-340b, gemma2-2b, recurrentgemma-9b, xlstm-350m);
-``--smoke`` serves its reduced form.  The weights (f32, as the
-reference's) are drawn on the run's device from a generator seeded with
-``--seed``, so a 9.4 B-parameter model is drawn in about a second on the
-card.  Prompts (4-7 tokens) come from ``numpy.random.RandomState(seed)``.
-It runs on ``cuda`` unless ``--device cpu`` is given.
+``--arch`` takes every decoder configuration of the registry (all but
+the encoder-only hubert-xlarge, which has no decode step: the engine
+raises ``ValueError`` for it, as the reference's asserts); ``--smoke``
+serves its reduced form.  internvl2-26b is served from text prompts, as
+the reference's engine serves it.  The weights (f32, as the reference's,
+or ``--param-dtype bfloat16``) are drawn on the run's device from a
+generator seeded with ``--seed``, so a 9.4 B-parameter model is drawn in
+about a second on the card.  ``--layers N`` cuts the depth to N layers
+(the widths stay), for the configurations that do not fit one card whole
+(kimi-k2-1t-a32b and arctic-480b).  Prompts (4-7 tokens) come from
+``numpy.random.RandomState(seed)``.  It runs on ``cuda`` unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -46,6 +51,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
+    ap.add_argument("--param-dtype", default=None,
+                    choices=("float32", "bfloat16"),
+                    help="the weights' dtype (default: the specs', f32)")
     args = ap.parse_args(argv)
 
     dev = device_lib.resolve(args.device)
@@ -54,10 +64,13 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.cim:
         cfg = dataclasses.replace(cfg, cim_linear=True)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
 
+    dtype = args.param_dtype and getattr(torch, args.param_dtype)
     params = module.materialize(lm.param_specs(cfg),
                                 torch.Generator(dev).manual_seed(args.seed),
-                                device=dev)
+                                dtype=dtype, device=dev)
     engine = BatchedEngine(cfg, params, batch_slots=args.slots, s_max=128,
                            device=dev)
 

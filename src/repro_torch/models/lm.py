@@ -1,6 +1,8 @@
 """The LM family: a repeating block pattern over layer groups, prefill,
-and cache-based decode, for dense, local/global attention (gemma2),
-xLSTM and RG-LRU hybrid (recurrentgemma) configurations.
+and cache-based decode, for dense, MoE (kimi-k2, arctic), local/global
+attention (gemma2), xLSTM and RG-LRU hybrid (recurrentgemma), the VLM
+backbone (internvl2) and the encoder-only audio model (hubert)
+configurations.
 
 Counterpart of ``repro.models.lm``: the parameters are the reference's
 nested dict (stacked ``layers/b{j}`` tensors with the group dimension
@@ -8,17 +10,20 @@ first, then ``tail{j}`` blocks), and its ``lax.scan`` over groups is a
 Python loop here.  Paper integration points carried along: CIM-mode
 projections (``cim_linear``: ternary twin-cell weights and NLQ
 activations, paper C1/C2), KWN-FFN activation sparsity (``kwn_ffn_k``,
-Eq. 1 with the FFN units as the neuron bank) and the int8 / int4 KV cache
+Eq. 1 with the FFN units as the neuron bank), the MoE router as a KWN
+selection (``nn.moe``, paper C3) and the int8 / int4 KV cache
 (``kv_quant``, the NLQ idea applied to serving).
 
 Full-sequence attention goes through ``nn.attention.mha``: the flash
 kernel where the reference's function is the Pallas kernel's, the plain
-blockwise attention elsewhere.  The recurrent cells are ``nn.recurrent``.
-Configurations this port does not carry yet (MoE, modality frontends,
-encoder-only models) raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.  Remat and chunking fields other than
-``attn_chunk`` shape the reference's training memory and do not change
-a forward's value; they are data here.
+blockwise attention elsewhere.  The recurrent cells are ``nn.recurrent``;
+an MoE block's FFN is ``nn.moe.moe_ref``, the function the reference
+computes on one device.  The modality frontends are the reference's
+stubs: precomputed audio frames or ViT patch embeddings through a learned
+projector.  An encoder-only model has no decode step, here as in the
+reference.  Remat and chunking fields other than ``attn_chunk`` shape
+the reference's training memory and do not change a forward's value;
+they are data here.
 """
 
 from __future__ import annotations
@@ -29,10 +34,8 @@ from typing import Any
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.nn import attention, kvq, layers, recurrent
+from repro_torch.nn import attention, kvq, layers, moe, recurrent
 from repro_torch.nn.module import ParamSpec, count_params, tree_map
-
-_ROADMAP = "ROADMAP.md, Queue 1, the rest of the LM stack"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,31 +110,19 @@ class LMConfig:
         return count_params(param_specs(self))
 
     def active_param_count(self) -> int:
-        """Params touched per token (MoE: only the top-k experts count)."""
-        if self.moe:
-            raise NotImplementedError(f"MoE configs ({self.name}): "
-                                      f"nn/moe.py is not ported yet; "
-                                      f"{_ROADMAP}")
-        return self.param_count()
+        """Params touched per token (MoE: only the top-k experts count).
 
-
-def _unsupported(cfg: LMConfig) -> str | None:
-    """Why this port cannot run ``cfg`` yet, or None."""
-    if cfg.moe:
-        return "MoE FFNs (nn/moe.py)"
-    if cfg.frontend is not None:
-        return f"the {cfg.frontend} frontend"
-    if cfg.encoder_only:
-        return "encoder-only models"
-    return None
-
-
-def _require_supported(cfg: LMConfig, where: str) -> None:
-    why = _unsupported(cfg)
-    if why is not None:
-        raise NotImplementedError(
-            f"{where}: {cfg.name} needs {why}, which this port does not "
-            f"carry yet; {_ROADMAP}")
+        The reference's reckoning, kept as it is: every layer counts as an
+        MoE layer, and ``dense_frac`` counts the shared experts among the
+        routed ones although their weights sit outside the expert tree."""
+        total = self.param_count()
+        if not self.moe:
+            return total
+        expert = moe.moe_specs(self.d_model, self.d_ff, self.n_experts)
+        expert_total = count_params({k: v for k, v in expert.items()
+                                     if k != "router"})
+        dense_frac = (self.moe_top_k + self.n_shared_experts) / self.n_experts
+        return int(total - expert_total * self.n_layers * (1 - dense_frac))
 
 
 # ===========================================================================
@@ -149,9 +140,6 @@ def _ffn_specs(cfg: LMConfig) -> dict:
 
 def _block_specs(cfg: LMConfig, kind: str) -> dict:
     d = cfg.d_model
-    if cfg.moe:
-        raise NotImplementedError(f"param_specs: {cfg.name} has MoE FFNs; "
-                                  f"{_ROADMAP}")
     s: dict[str, Any] = {"norm1": layers.norm_spec(d)}
     if kind in ("attn", "attn_local"):
         s["attn"] = attention.attention_specs(d, cfg.n_heads, cfg.n_kv,
@@ -168,7 +156,15 @@ def _block_specs(cfg: LMConfig, kind: str) -> dict:
         s["norm1_post"] = layers.norm_spec(d)
     if cfg.d_ff > 0 and kind not in ("mlstm", "slstm"):
         s["norm2"] = layers.norm_spec(d)
-        s["ffn"] = _ffn_specs(cfg)
+        if cfg.moe:
+            s["moe"] = moe.moe_specs(d, cfg.d_ff, cfg.n_experts)
+            if cfg.moe_dense_residual:
+                s["ffn"] = _ffn_specs(cfg)
+            if cfg.n_shared_experts:
+                s["shared"] = _ffn_specs(dataclasses.replace(
+                    cfg, d_ff=cfg.d_ff * cfg.n_shared_experts))
+        else:
+            s["ffn"] = _ffn_specs(cfg)
         if cfg.post_norms:
             s["norm2_post"] = layers.norm_spec(d)
     return s
@@ -223,22 +219,43 @@ def _ffn_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return lin(p["w_out"], h)
 
 
-def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig):
+    """The MoE FFN on one device (the reference's path with no mesh):
+    the dense-combine experts, then arctic's dense residual FFN, then
+    kimi's shared experts, added in that order.  Returns (y, aux)."""
+    y, aux = moe.moe_ref(p["moe"], x, k=cfg.moe_top_k,
+                         activation=cfg.activation)
+    if cfg.moe_dense_residual:
+        y = y + _ffn_apply(p["ffn"], x, cfg)
+    if cfg.n_shared_experts:
+        y = y + _ffn_apply(p["shared"], x, cfg)
+    return y, aux
+
+
+def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig):
+    """The block's FFN half: (x + FFN(norm2(x)), aux loss f32 (0 without
+    MoE))."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "norm2" not in p:
-        return x
-    h = _ffn_apply(p["ffn"], layers.rmsnorm(p["norm2"], x), cfg)
+        return x, aux
+    h = layers.rmsnorm(p["norm2"], x)
+    if cfg.moe:
+        h, aux = _moe_apply(p, h, cfg)
+    else:
+        h = _ffn_apply(p["ffn"], h, cfg)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm2_post"], h)
-    return x + h
+    return x + h, aux
 
 
 def _block_apply(kind: str, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cfg: LMConfig,
                  prefill: bool = False):
-    """One block.  Returns (x, cache entry or None): K/V (ring-ordered
-    with ``slot_pos`` for a local layer over a prompt longer than its
-    window, quantized for a global one under ``kv_quant``) or the
-    recurrent state."""
+    """One block.  Returns (x, aux loss, cache entry or None): K/V
+    (ring-ordered with ``slot_pos`` for a local layer over a prompt longer
+    than its window, quantized for a global one under ``kv_quant``) or the
+    recurrent state.  Attention is causal unless the model is
+    encoder-only."""
     h = layers.rmsnorm(p["norm1"], x)
     cache = None
     if kind in ("attn", "attn_local"):
@@ -269,12 +286,25 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
         cache = st._asdict()
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
-    return _ffn_residual(p, x + h, cfg), cache
+    x, aux = _ffn_residual(p, x + h, cfg)
+    return x, aux, cache
 
 
 def _embed_inputs(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
-    return layers.embed(params["embed"], batch["tokens"],
-                        scale_by_dim=cfg.scale_embed).to(cfg.compute_dtype)
+    """The model's input sequence (B, S, D): audio frames (B, S,
+    frontend_dim) through ``frontend_proj``; else the token embeddings,
+    after the ViT patches (B, n_patches, frontend_dim) through
+    ``patch_proj`` for the VLM."""
+    if cfg.frontend == "audio_frames":
+        return layers.linear(params["frontend_proj"],
+                             batch["frames"].to(cfg.compute_dtype))
+    x = layers.embed(params["embed"], batch["tokens"],
+                     scale_by_dim=cfg.scale_embed).to(cfg.compute_dtype)
+    if cfg.frontend == "vision_patches":
+        patches = layers.linear(params["patch_proj"],
+                                batch["patches"].to(cfg.compute_dtype))
+        x = torch.cat([patches, x], dim=1)
+    return x
 
 
 def _group(tree: dict, g: int) -> dict:
@@ -283,8 +313,10 @@ def _group(tree: dict, g: int) -> dict:
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """f32 logits: the vocabulary padded to ``padded_vocab``, or an
+    encoder-only model's ``vocab_size`` classes."""
     x = layers.rmsnorm(params["final_norm"], x)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and not cfg.encoder_only:
         logits = layers.unembed(params["embed"], x)
     else:
         logits = layers.linear(params["head"], x)
@@ -300,32 +332,40 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
     stacked over groups for the pattern blocks): roped K/V (B, S, n_kv,
     hd), quantized under ``kv_quant``, ring-ordered for local layers over
     a prompt longer than the window, recurrent states for xLSTM and
-    RG-LRU blocks.  The full forward returns logits (B, S, V).  Logits
-    are f32; the aux loss is 0 (no MoE here).
+    RG-LRU blocks.  The full forward returns logits (B, S, V).  ``batch``
+    holds ``tokens`` (B, S), with ``patches`` (B, n_patches,
+    frontend_dim) before them for the VLM, or ``frames`` (B, S,
+    frontend_dim) for the audio model.  Logits are f32; the aux loss (f32)
+    is the MoE blocks' load-balancing loss, summed over each group's
+    blocks, then over the groups, then over the tail, as the reference
+    sums it (0 without MoE).
     """
-    _require_supported(cfg, "forward")
     x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches: dict[str, list] = {f"b{j}": [] for j in range(len(cfg.pattern))}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
         gp = _group(params["layers"], g)
+        aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
         for j, kind in enumerate(cfg.pattern):
-            x, c = _block_apply(kind, gp[f"b{j}"], x, positions, cfg,
-                                prefill)
+            x, aux_b, c = _block_apply(kind, gp[f"b{j}"], x, positions, cfg,
+                                       prefill)
+            aux_g = aux_g + aux_b
             if prefill:
                 caches[f"b{j}"].append(c)
+        aux = aux + aux_g
     cache: dict[str, dict] = {}
     if prefill:
         cache = {name: {key: torch.stack([c[key] for c in entries])
                         for key in entries[0]}
                  for name, entries in caches.items()}
     for j, kind in enumerate(cfg.tail_pattern):
-        x, c = _block_apply(kind, params[f"tail{j}"], x, positions, cfg,
-                            prefill)
+        x, aux_t, c = _block_apply(kind, params[f"tail{j}"], x, positions,
+                                   cfg, prefill)
+        aux = aux + aux_t
         if prefill:
             cache[f"tail{j}"] = c
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if prefill:
         return _logits(params, x[:, -1:], cfg)[:, 0], aux, cache
     return _logits(params, x, cfg), aux
@@ -383,7 +423,6 @@ def init_cache(cfg: LMConfig, batch: int, s_max: int, device=None) -> dict:
     f32 scales under ``kv_quant``; local attention: a ring of min(window,
     s_max) slots with ``slot_pos`` -1; recurrent blocks: their initial
     states."""
-    _require_supported(cfg, "init_cache")
     dev = device_lib.resolve(device)
     cache = {}
     for j, kind in enumerate(cfg.pattern):
@@ -478,7 +517,7 @@ def _block_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
             cache[key].copy_(t)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
-    return _ffn_residual(p, x + h, cfg)
+    return _ffn_residual(p, x + h, cfg)[0]
 
 
 @torch.no_grad()
@@ -486,8 +525,11 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 pos: torch.Tensor, cfg: LMConfig):
     """One token: tokens (B, 1), pos (B,).  Returns (logits (B, V) f32,
     cache).  The cache is updated in place (the values of the reference's
-    functional update); the same dict is returned."""
-    _require_supported(cfg, "decode_step")
+    functional update); the same dict is returned.  An encoder-only model
+    has no decode step: ``ValueError`` (the reference asserts)."""
+    if cfg.encoder_only:
+        raise ValueError(f"decode_step: {cfg.name} is encoder-only and has "
+                         "no decode step")
     x = layers.embed(params["embed"], tokens,
                      scale_by_dim=cfg.scale_embed).to(cfg.compute_dtype)
     for g in range(cfg.n_groups):

@@ -59,6 +59,14 @@ def leaves(tree: Tree) -> list:
     return [tree]
 
 
+# A leaf of more elements is drawn in slices of this many along its
+# flattened (row-major) order, so that the f32 draw held beside the
+# leaf is one slice: a kimi-k2 expert leaf (5.6 G elements) drawn whole
+# would hold 45 GB of f32 at once.  Every leaf of a smaller size keeps
+# the draw of one ``randn`` over its shape.
+DRAW_SLICE_ELEMENTS = 1 << 30
+
+
 def _init_leaf(spec: ParamSpec, generator: torch.Generator,
                dtype=None) -> torch.Tensor:
     dtype = dtype or spec.dtype
@@ -67,13 +75,24 @@ def _init_leaf(spec: ParamSpec, generator: torch.Generator,
         return torch.zeros(spec.shape, dtype=dtype, device=gdev)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=gdev)
-    z = torch.randn(spec.shape, generator=generator, device=gdev)
     if spec.init == "embed":
-        return (z * (spec.scale or 0.02)).to(dtype)
-    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-    scale = spec.scale if spec.scale is not None \
-        else 1.0 / math.sqrt(max(fan_in, 1))
-    return (z * scale).to(dtype)
+        scale = spec.scale or 0.02
+    else:
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        scale = spec.scale if spec.scale is not None \
+            else 1.0 / math.sqrt(max(fan_in, 1))
+    n = math.prod(spec.shape)
+    if n <= DRAW_SLICE_ELEMENTS:
+        z = torch.randn(spec.shape, generator=generator, device=gdev)
+        return z.mul_(scale).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=gdev)
+    flat = out.view(-1)
+    for lo in range(0, n, DRAW_SLICE_ELEMENTS):
+        hi = min(n, lo + DRAW_SLICE_ELEMENTS)
+        z = torch.randn(hi - lo, generator=generator, device=gdev)
+        flat[lo:hi].copy_(z.mul_(scale))
+        del z
+    return out
 
 
 def materialize(specs: Tree, generator: torch.Generator, dtype=None,

@@ -941,3 +941,39 @@ def test_recurrentgemma_local_layers_launch_flash_within_a_window(cuda):
                                torch.full((4,), s, device=cuda), cfg)
     assert kernels_flash.flash_attention_fwd.launches == before
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "arctic-480b",
+                                  "internvl2-26b", "hubert-xlarge"])
+def test_lm_moe_and_frontends_on_card_equal_cpu(cuda, smoke, arch):
+    """Reduced kimi-k2, arctic, internvl2 and hubert in f32: forward and
+    prefill (logits, aux loss, caches, every router's experts equal, the
+    flash kernel once a layer, hubert's non-causal), 4 decode steps, on
+    the card against the CPU within 1e-5; prefill against teacher-forced
+    decode within 2e-3 and a 4-slot engine
+    (``chip_smoke.reduced_moe_phase``)."""
+    res = smoke.reduced_moe_phase(arch, cuda)
+    for key in ("forward", "aux", "prefill", "cache", "decode"):
+        assert res[key] <= 1e-5, key
+    cfg = lm_base.reduced(get_config(arch))
+    assert res["flash_launches"] == 2 * cfg.n_layers
+    assert res["router_calls"] == (2 * cfg.n_layers if cfg.moe else 0)
+    assert res.get("decode_refused", False) == cfg.encoder_only
+
+
+@pytest.mark.parametrize("shape,causal", [((128, 1024, 80), False),
+                                          ((64, 1024, 112), True),
+                                          ((48, 2048, 128), True)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_at_moe_and_frontend_shapes(cuda, shape, causal, dtype):
+    """The prefill shapes of the four configurations at full width:
+    hubert's non-causal D = 80 (BH 16 x 8), kimi-k2's D = 112 (BH 64) and
+    internvl2's D = 128 over 2048 positions (BH 48), under the flash
+    gates."""
+    q, k, v = _flash_inputs(shape, dtype, cuda, seed=shape[2])
+    before = kernels_flash.flash_attention_fwd.launches
+    got = kernels_flash.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels_flash.flash_attention_fwd.launches == before + 1
+    _assert_flash_gate(got, ref.flash_attention_ref(q, k, v, causal), dtype)

@@ -22,6 +22,7 @@ import torch
 
 from repro import configs as j_configs
 from repro.configs import base as j_base
+from repro.launch import serve as j_serve
 from repro.models import lm as j_lm
 from repro.nn import attention as j_attention
 from repro.nn import layers as j_layers
@@ -435,27 +436,66 @@ def test_launch_serve_smoke_on_cpu(cim, capsys):
     assert f"cim_mode={cim}" in capsys.readouterr().out
 
 
-# --- what the port does not carry yet -------------------------------------------
+# --- what both packages refuse -----------------------------------------------
 
+def _refusal_decode_step(jc, tc):
+    jp, tp = _params(jc)
+    jcache = j_lm.init_cache(jc, 1, 8)
+    tcache = t_lm.init_cache(tc, 1, 8, device="cpu")
+    return (lambda: j_lm.decode_step(jp, jcache, jnp.zeros((1, 1), jnp.int32),
+                                     jnp.zeros((1,), jnp.int32), jc),
+            lambda: t_lm.decode_step(tp, tcache,
+                                     torch.zeros((1, 1), dtype=torch.long),
+                                     torch.zeros(1, dtype=torch.long), tc))
+
+
+def _refusal_engine(jc, tc):
+    jp, tp = _params(jc)
+
+    def run(eng, req):
+        eng.submit(req(uid=0, prompt=[1, 2], max_new_tokens=2))
+        return eng.run()
+
+    return (lambda: run(j_engine.BatchedEngine(
+                jc, jax.tree.map(jnp.asarray, jp), batch_slots=1, s_max=8),
+                j_engine.Request),
+            lambda: run(t_engine.BatchedEngine(tc, tp, batch_slots=1,
+                                               s_max=8, device="cpu"),
+                        t_engine.Request))
+
+
+def _refusal_launch_serve(jc, tc):
+    argv = ["--smoke", "--arch", tc.name, "--requests", "1", "--max-new",
+            "1"]
+    return (lambda: j_serve.main(argv),
+            lambda: t_serve.main(argv + ["--device", "cpu"]))
+
+
+# encoder-only models have no decode step: the reference asserts, the port
+# raises ValueError, through decode_step, BatchedEngine and launch.serve
 UNSUPPORTED = {
-    "moe": ("kimi-k2-1t-a32b", {}),
-    "moe_dense_residual": ("arctic-480b", {}),
-    "vision_frontend": ("internvl2-26b", {}),
-    "audio_encoder_only": ("hubert-xlarge", {}),
-    "encoder_only": ("smollm-135m", dict(encoder_only=True)),
+    "audio_encoder_only_decode_step": ("hubert-xlarge", {},
+                                       _refusal_decode_step),
+    "audio_encoder_only_engine": ("hubert-xlarge", {}, _refusal_engine),
+    "audio_encoder_only_launch_serve": ("hubert-xlarge", {},
+                                        _refusal_launch_serve),
+    "encoder_only_decode_step": ("smollm-135m", dict(encoder_only=True),
+                                 _refusal_decode_step),
+    "encoder_only_engine": ("smollm-135m", dict(encoder_only=True),
+                            _refusal_engine),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_unsupported_configs_raise(case):
-    arch, kw = UNSUPPORTED[case]
-    tc = dataclasses.replace(t_base.reduced(t_configs.ARCHS[arch]), **kw)
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    calls = (lambda: t_lm.forward({}, {"tokens": toks}, tc),
-             lambda: t_lm.forward({}, {"tokens": toks}, tc, prefill=True),
-             lambda: t_lm.decode_step({}, {}, toks[:, :1],
-                                      torch.zeros(1, dtype=torch.long), tc),
-             lambda: t_lm.init_cache(tc, 1, 8, device="cpu"))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    """What both packages refuse: a decode step on an encoder-only model,
+    called directly, through ``BatchedEngine`` and through
+    ``launch.serve`` (hubert-xlarge, and smollm-135m with
+    ``encoder_only=True``).  Each case shows both raise."""
+    arch, kw, calls = UNSUPPORTED[case]
+    jc, tc = _cfgs(arch, **kw)
+    reference, port = calls(jc, tc)
+    with pytest.raises(AssertionError, match="encoder-only"):
+        reference()
+    with pytest.raises(ValueError, match="encoder-only"):
+        port()
