@@ -148,9 +148,10 @@ Phases (any failure raises, so the exit code is non-zero):
    one chain step against one fused step launch (both clocks), and the
    composed forward against ``"seq"``; kernel #9 at BH=72, D=64, bf16, causal,
    S=2048 and 512, at BH=16, S=2048, D=256 (gemma2's head_dim), and at
-   phase 7's prefill shapes (BH x S x D) 64 x 1024 x 112 and 48 x 2048 x
-   128 causal and 128 x 1024 x 80 full, against its plain version, its
-   bound and
+   phase 7's prefill shapes (BH x S x D) 64 x 1024 x 112, 56 x 1024 x 128
+   and 48 x 2048 x 128 causal and 128 x 1024 x 80 full (each first held
+   within one bf16 ULP of its plain version on the same tensors), against
+   its plain version, its bound and
    ``scaled_dot_product_attention`` (timed only), the smollm prefill of
    8 x 2048 (with the kernel's share of device time), a decode step at
    batch 8 against 2080 slots, and ``BatchedEngine`` tokens/s with its
@@ -2296,15 +2297,34 @@ LM_HEADS = 72                           # BH of the smollm prefill: 8 x 9
 FLASH_TIMED = ((LM_HEADS, 2048, 64), (LM_HEADS, 512, 64), (16, 2048, 256))
 FLASH_MAIN = "72x2048x64"
 # and the prefill shapes of phase 7's configurations, (BH, S, D, causal):
-# kimi-k2's, internvl2's and hubert's (non-causal)
-FLASH_TIMED_MOE = ((64, 1024, 112, True), (48, 2048, 128, True),
-                   (128, 1024, 80, False))
+# kimi-k2's, arctic's, internvl2's and hubert's (non-causal), each also
+# held against the plain version
+FLASH_TIMED_MOE = ((64, 1024, 112, True), (56, 1024, 128, True),
+                   (48, 2048, 128, True), (128, 1024, 80, False))
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bf16 ULP at |x| (8 significant bits)."""
     e = torch.floor(torch.log2(torch.clamp(x.abs(), min=2.0 ** -126)))
     return torch.exp2(e - 7)
+
+
+def _check_flash_bf16(got: torch.Tensor, want: torch.Tensor,
+                      case: str) -> tuple[float, float]:
+    """#9's bf16 gate: ``got`` within one bf16 ULP of the plain version's
+    ``want`` (or 2e-5 where an output cancels to near zero); raises
+    otherwise.  Returns the max abs error and the max error in ULPs where
+    an ULP is the tolerance."""
+    g, w = got.float(), want.float()
+    if got.dtype != torch.bfloat16 or not torch.isfinite(g).all():
+        raise AssertionError(f"flash {case}: bad output")
+    err = (g - w).abs()
+    ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    if not (err <= torch.clamp(ulp, min=2e-5)).all():
+        raise AssertionError(f"flash {case}: beyond one bf16 ULP")
+    big = ulp >= 2e-5
+    ulps = float((err[big] / ulp[big]).max()) if big.any() else 0.0
+    return float(err.max()), ulps
 
 
 def compare_flash_phase(dev) -> dict:
@@ -2331,30 +2351,22 @@ def compare_flash_phase(dev) -> dict:
                                                     causal=causal)
                 want = ref.flash_attention_ref(q, k, v, causal)
                 torch.cuda.synchronize()
-                g, w = got.float(), want.float()
-                err = (g - w).abs()
                 case = f"{dtype} causal={causal} D={d} S={s} BH={bh}"
-                if got.dtype != dtype or not torch.isfinite(g).all():
-                    raise AssertionError(f"flash {case}: bad output")
                 if dtype == torch.float32:
+                    err = (got - want).abs()
+                    if got.dtype != dtype or \
+                            not torch.isfinite(got).all():
+                        raise AssertionError(f"flash {case}: bad output")
                     if not torch.allclose(got, want, **FLASH_TOL):
                         raise AssertionError(
                             f"flash {case}: max err {err.max():.3g}")
                     res["max_abs_err"] = max(res["max_abs_err"],
                                              float(err.max()))
                 else:
-                    ulp = _bf16_ulp(torch.maximum(g.abs(), w.abs()))
-                    if not (err <= torch.clamp(ulp, min=2e-5)).all():
-                        raise AssertionError(
-                            f"flash {case}: beyond one bf16 ULP")
-                    res["max_abs_err_bf16"] = max(
-                        res["max_abs_err_bf16"], float(err.max()))
-                    # in ULPs where an ULP is the tolerance
-                    big = ulp >= 2e-5
-                    if big.any():
-                        res["max_bf16_ulps"] = max(
-                            res["max_bf16_ulps"],
-                            float((err[big] / ulp[big]).max()))
+                    err, ulps = _check_flash_bf16(got, want, case)
+                    res["max_abs_err_bf16"] = max(res["max_abs_err_bf16"],
+                                                  err)
+                    res["max_bf16_ulps"] = max(res["max_bf16_ulps"], ulps)
                 res["cases"] += 1
     for d, s in ((16, 128), (21, 1000), (64, 1000), (64, 2048), (256, 1000)):
         q, k, v = (torch.round(30.0 * torch.from_numpy(
@@ -3121,12 +3133,13 @@ def _device_busy_ms(prof) -> float:
 
 
 def _time_flash(bh, s, d, causal, rs, dev) -> dict:
-    """Kernel #9 in bf16 at (BH, S, D): ms per launch through the wrapper
-    (CUDA events, best of three runs) and the device ms under the
-    profiler, the plain version, the bound (q, k, v read once and o
-    written once; the two products over the unmasked scores) and
-    ``scaled_dot_product_attention`` (timed only; the port never calls
-    it)."""
+    """Kernel #9 in bf16 at (BH, S, D): held against its plain version on
+    the same tensors (``_check_flash_bf16``; raises beyond it), then ms
+    per launch through the wrapper (CUDA events, best of three runs) and
+    the device ms under the profiler, the plain version, the bound (q, k,
+    v read once and o written once; the two products over the unmasked
+    scores) and ``scaled_dot_product_attention`` (timed only; the port
+    never calls it)."""
     q, k, v = (torch.from_numpy(rs.randn(bh, s, d).astype(
         np.float32)).to(dev, torch.bfloat16) for _ in range(3))
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
@@ -3134,6 +3147,8 @@ def _time_flash(bh, s, d, causal, rs, dev) -> dict:
     plain = lambda: ref.flash_attention_ref(q, k, v, causal)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=causal)
+    shape = f"bf16 {'causal' if causal else 'full'} D={d} S={s} BH={bh}"
+    plain_err, plain_ulps = _check_flash_bf16(launch(), plain(), shape)
     reps = 20 if s == 2048 else 100
     kernel_ms = [_time_ms(launch, reps) for _ in range(3)]
     device_ms = _device_ms_per_launch(launch, reps)
@@ -3149,6 +3164,7 @@ def _time_flash(bh, s, d, causal, rs, dev) -> dict:
           "device_ms": device_ms, "plain_ms": min(plain_ms),
           "plain_ms_all": plain_ms, "library_ms": min(lib_ms),
           "library_ms_all": lib_ms, "library_max_abs_diff": lib_err,
+          "max_abs_err": plain_err, "max_bf16_ulps": plain_ulps,
           "bound_ms": 1e3 * max(bytes_s, ops_s),
           "bound_by": "bytes" if bytes_s >= ops_s else "operations",
           "bytes": n_bytes, "ops": n_ops, "causal": causal}
@@ -3156,12 +3172,15 @@ def _time_flash(bh, s, d, causal, rs, dev) -> dict:
         f"{'causal' if causal else 'full'}: kernel {tm['kernel_ms']:.4f} "
         f"ms/launch (device {device_ms:.4f}), plain {tm['plain_ms']:.4f} ms,"
         f" SDPA {tm['library_ms']:.4f} ms (max diff {lib_err:.3g}), bound "
-        f"{tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']})")
+        f"{tm['bound_ms'] * 1e3:.3f} us ({tm['bound_by']}); against the "
+        f"plain version max abs err {plain_err:.3g}, {plain_ulps:.2f} ULP")
     return tm
 
 
 def lm_timing_phase(params, dev) -> dict:
-    """Kernel #9 (bf16, causal) at ``FLASH_TIMED``: ms per launch through
+    """Kernel #9 (bf16, causal) at ``FLASH_TIMED`` and at phase 7's
+    prefill shapes ``FLASH_TIMED_MOE`` (each held against its plain
+    version first): ms per launch through
     the wrapper (CUDA events, best of three runs) and the
     device ms under the profiler, the plain version, the bound and
     ``scaled_dot_product_attention`` (timed only; the port never calls
@@ -3425,33 +3444,25 @@ def _teacher_forced_moe(params, cfg, batch, full, dev) -> dict:
 
 def _moe_layer_times(cfg, params, n_tokens, rs, dev) -> dict:
     """Layer 0's ``moe_ref`` in bf16 at ``n_tokens`` tokens, whole and by
-    piece (CUDA events): the router (its product and the top-k), the
-    experts (every chunk's gated FFN) and the combine (every chunk's
-    ``einsum``, summed in f32), beside the bound of the
-    experts alone (every expert's weights read once, 6 D F operations a
-    token and expert)."""
+    the pieces it is made of (CUDA events): the router (``moe.route``),
+    the experts (``moe.run_experts`` over every chunk) and the combine
+    (``moe.combine_chunk`` over every chunk, summed in f32), beside the
+    bound of the experts alone (every expert's weights read once, 6 D F
+    operations a token and expert)."""
     p = lm._group(params["layers"]["b0"], 0)["moe"]
     e, d, f = p["w_in"].shape
     k, act = cfg.moe_top_k, cfg.activation
     x = torch.from_numpy(rs.randn(n_tokens, d).astype(np.float32)).to(
         dev, torch.bfloat16)
-    route = lambda: moe_lib.router_topk(x @ p["router"].to(x.dtype), k)
+    route = lambda: moe_lib.route(p, x, k)
     gate, idx, _ = route()
-    combine = (torch.nn.functional.one_hot(idx, e).to(x.dtype)
-               * gate[..., None].to(x.dtype)).sum(-2)
+    combine = moe_lib.combine_weights(gate, idx, e, x.dtype)
     chunks = moe_lib.expert_chunks(e, n_tokens, max(d, f))
-
-    def experts():
-        return [moe_lib._expert_ffn(p["w_in"][a:b], p["w_gate"][a:b],
-                                    p["w_out"][a:b], x[None], act)
-                for a, b in chunks]
-
+    experts = lambda: [moe_lib.run_experts(p, x[None], a, b, act)
+                       for a, b in chunks]
     outs = experts()
-
-    def combined():
-        return sum(torch.einsum("te,etd->td", combine[:, a:b], o).float()
-                   for (a, b), o in zip(chunks, outs))
-
+    combined = lambda: sum(moe_lib.combine_chunk(combine[:, a:b], o)
+                           for (a, b), o in zip(chunks, outs))
     whole = lambda: moe_lib.moe_ref(p, x, k=k, activation=act)
     res = {"tokens": n_tokens, "chunks": len(chunks)}
     for name, fn in (("router_ms", route), ("experts_ms", experts),

@@ -219,12 +219,14 @@ def _ffn_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return lin(p["w_out"], h)
 
 
-def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig):
+def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
+               with_aux: bool = True):
     """The MoE FFN on one device (the reference's path with no mesh):
     the dense-combine experts, then arctic's dense residual FFN, then
-    kimi's shared experts, added in that order.  Returns (y, aux)."""
+    kimi's shared experts, added in that order.  Returns (y, aux or
+    None)."""
     y, aux = moe.moe_ref(p["moe"], x, k=cfg.moe_top_k,
-                         activation=cfg.activation)
+                         activation=cfg.activation, with_aux=with_aux)
     if cfg.moe_dense_residual:
         y = y + _ffn_apply(p["ffn"], x, cfg)
     if cfg.n_shared_experts:
@@ -232,15 +234,16 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig):
     return y, aux
 
 
-def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig):
-    """The block's FFN half: (x + FFN(norm2(x)), aux loss f32 (0 without
-    MoE))."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig,
+                  with_aux: bool = True):
+    """The block's FFN half: (x + FFN(norm2(x)), aux loss f32, or None
+    without MoE or ``with_aux``)."""
+    aux = None
     if "norm2" not in p:
         return x, aux
     h = layers.rmsnorm(p["norm2"], x)
     if cfg.moe:
-        h, aux = _moe_apply(p, h, cfg)
+        h, aux = _moe_apply(p, h, cfg, with_aux)
     else:
         h = _ffn_apply(p["ffn"], h, cfg)
     if cfg.post_norms:
@@ -251,7 +254,7 @@ def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig):
 def _block_apply(kind: str, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cfg: LMConfig,
                  prefill: bool = False):
-    """One block.  Returns (x, aux loss, cache entry or None): K/V
+    """One block.  Returns (x, aux loss or None, cache entry or None): K/V
     (ring-ordered with ``slot_pos`` for a local layer over a prompt longer
     than its window, quantized for a global one under ``kv_quant``) or the
     recurrent state.  Attention is causal unless the model is
@@ -323,6 +326,15 @@ def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return layers.softcap(logits.float(), cfg.final_softcap)
 
 
+def _add_aux(acc, aux):
+    """``acc + aux`` where None stands for 0: the reference's sum from
+    zeros (0 + a is a in f32), with no tensor made or added for blocks
+    without MoE."""
+    if aux is None:
+        return acc
+    return aux if acc is None else acc + aux
+
+
 @torch.no_grad()
 def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
     """Returns (logits, aux_loss[, cache]).
@@ -344,17 +356,17 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches: dict[str, list] = {f"b{j}": [] for j in range(len(cfg.pattern))}
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = None
     for g in range(cfg.n_groups):
         gp = _group(params["layers"], g)
-        aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_g = None
         for j, kind in enumerate(cfg.pattern):
             x, aux_b, c = _block_apply(kind, gp[f"b{j}"], x, positions, cfg,
                                        prefill)
-            aux_g = aux_g + aux_b
+            aux_g = _add_aux(aux_g, aux_b)
             if prefill:
                 caches[f"b{j}"].append(c)
-        aux = aux + aux_g
+        aux = _add_aux(aux, aux_g)
     cache: dict[str, dict] = {}
     if prefill:
         cache = {name: {key: torch.stack([c[key] for c in entries])
@@ -363,9 +375,11 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
     for j, kind in enumerate(cfg.tail_pattern):
         x, aux_t, c = _block_apply(kind, params[f"tail{j}"], x, positions,
                                    cfg, prefill)
-        aux = aux + aux_t
+        aux = _add_aux(aux, aux_t)
         if prefill:
             cache[f"tail{j}"] = c
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if prefill:
         return _logits(params, x[:, -1:], cfg)[:, 0], aux, cache
     return _logits(params, x, cfg), aux
@@ -517,7 +531,7 @@ def _block_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
             cache[key].copy_(t)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
-    return _ffn_residual(p, x + h, cfg)[0]
+    return _ffn_residual(p, x + h, cfg, with_aux=False)[0]
 
 
 @torch.no_grad()

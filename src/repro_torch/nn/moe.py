@@ -93,33 +93,62 @@ def aux_load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
     return n_experts * torch.sum(me * ce)
 
 
+def route(p: dict, x: torch.Tensor, k: int, *, snl_rescue: float = 0.0,
+          gumbel: torch.Tensor | None = None):
+    """``router_topk`` over x (..., D)'s router logits, the router cast
+    to x's dtype as the reference does."""
+    return router_topk(x @ p["router"].to(x.dtype), k,
+                       snl_rescue=snl_rescue, gumbel=gumbel)
+
+
+def combine_weights(gate: torch.Tensor, idx: torch.Tensor, n_experts: int,
+                    dtype) -> torch.Tensor:
+    """(T, E): each token's gate on each of its k experts, 0 on the
+    rest, in ``dtype``."""
+    w = F.one_hot(idx, n_experts).to(dtype) * gate[..., None].to(dtype)
+    return w.sum(-2).reshape(-1, n_experts)
+
+
+def run_experts(p: dict, xt: torch.Tensor, e0: int, e1: int,
+                activation: str) -> torch.Tensor:
+    """Experts [e0, e1) on every token of xt (1, T, D) -> (e1 - e0, T,
+    D)."""
+    return _expert_ffn(p["w_in"][e0:e1], p["w_gate"][e0:e1],
+                       p["w_out"][e0:e1], xt, activation)
+
+
+def combine_chunk(combine: torch.Tensor, outs: torch.Tensor) -> torch.Tensor:
+    """One chunk's share of the output: the reference's ``einsum`` of its
+    experts' combine weights (T, c) with their outputs (c, T, D), in
+    f32."""
+    return torch.einsum("te,etd->td", combine, outs).float()
+
+
 def moe_ref(p: dict, x: torch.Tensor, *, k: int, activation: str = "silu",
-            snl_rescue: float = 0.0, gumbel: torch.Tensor | None = None):
+            snl_rescue: float = 0.0, gumbel: torch.Tensor | None = None,
+            with_aux: bool = True):
     """Dense-combine reference: every expert runs on every token, and
     each token sums its experts' outputs weighted by its gates.  x (...,
-    D) -> (y (..., D), aux loss f32).
+    D) -> (y (..., D), aux loss f32, or None where ``with_aux`` is
+    false: a decode step's, which the reference discards).
 
     The experts run in chunks of at most ``CHUNK_ELEMENTS`` elements of
     output, the tokens shared by every expert of a chunk (no copy per
     expert); each chunk's combine is the reference's ``einsum`` over its
     experts, the chunks summed in f32 (one chunk keeps its bits)."""
-    gate, idx, probs = router_topk(x @ p["router"].to(x.dtype), k,
-                                   snl_rescue=snl_rescue, gumbel=gumbel)
+    gate, idx, probs = route(p, x, k, snl_rescue=snl_rescue, gumbel=gumbel)
     n_experts = p["w_in"].shape[0]
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(1, -1, d)                                 # (1, T, D)
-    combine = F.one_hot(idx, n_experts).to(x.dtype) * \
-        gate[..., None].to(x.dtype)
-    combine = combine.sum(-2).reshape(-1, n_experts)         # (T, E)
+    combine = combine_weights(gate, idx, n_experts, x.dtype)  # (T, E)
     y = None
     for e0, e1 in expert_chunks(n_experts, xt.shape[1],
                                 max(d, p["w_in"].shape[-1])):
-        outs = _expert_ffn(p["w_in"][e0:e1], p["w_gate"][e0:e1],
-                           p["w_out"][e0:e1], xt, activation)  # (c, T, D)
-        part = torch.einsum("te,etd->td", combine[:, e0:e1], outs).float()
+        part = combine_chunk(combine[:, e0:e1],
+                             run_experts(p, xt, e0, e1, activation))
         y = part if y is None else y + part
-        del outs
-    aux = aux_load_balance_loss(probs, idx, n_experts, k)
+    aux = aux_load_balance_loss(probs, idx, n_experts, k) if with_aux \
+        else None
     return y.to(x.dtype).reshape(*lead, d), aux
 
 

@@ -963,14 +963,15 @@ def test_lm_moe_and_frontends_on_card_equal_cpu(cuda, smoke, arch):
 
 @pytest.mark.parametrize("shape,causal", [((128, 1024, 80), False),
                                           ((64, 1024, 112), True),
+                                          ((56, 1024, 128), True),
                                           ((48, 2048, 128), True)], ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_kernel_at_moe_and_frontend_shapes(cuda, shape, causal, dtype):
     """The prefill shapes of the four configurations at full width:
-    hubert's non-causal D = 80 (BH 16 x 8), kimi-k2's D = 112 (BH 64) and
-    internvl2's D = 128 over 2048 positions (BH 48), under the flash
-    gates."""
+    hubert's non-causal D = 80 (BH 16 x 8), kimi-k2's D = 112 (BH 64),
+    arctic's D = 128 (BH 56) and internvl2's D = 128 over 2048 positions
+    (BH 48), under the flash gates."""
     q, k, v = _flash_inputs(shape, dtype, cuda, seed=shape[2])
     before = kernels_flash.flash_attention_fwd.launches
     got = kernels_flash.flash_attention_fwd(q, k, v, causal=causal)

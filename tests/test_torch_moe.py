@@ -178,7 +178,8 @@ def _moe_params(rs, e, d, f):
 @pytest.mark.parametrize("e,k", [(8, 2), (16, 8)], ids=str)
 def test_moe_ref_matches_reference(e, k, chunk, monkeypatch):
     """The dense combine over every expert, the output and the aux loss;
-    also with the experts run in chunks (one expert a chunk, and three)."""
+    also with the experts run in chunks (one expert a chunk, and three);
+    without the aux loss (a decode step's) the same output."""
     if chunk is not None:
         monkeypatch.setattr(t_moe, "CHUNK_ELEMENTS", chunk)
     rs = np.random.RandomState(19 + e)
@@ -193,6 +194,9 @@ def test_moe_ref_matches_reference(e, k, chunk, monkeypatch):
     assert got.shape == x.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(g_aux.numpy(), np.asarray(w_aux), **TOL)
+    bare, none = t_moe.moe_ref(jax.tree.map(torch.from_numpy, p),
+                               torch.from_numpy(x), k=k, with_aux=False)
+    assert none is None and torch.equal(bare, got)
 
 
 def test_moe_specs_equal_reference():
