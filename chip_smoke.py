@@ -198,20 +198,47 @@ Phases (any failure raises, so the exit code is non-zero):
    decode steps (no launch), a decode step's time, one MoE layer by piece
    (router, experts, combine) at the prefill's tokens beside the experts'
    bound, the engine's tokens/s with its device idle share, and the peak
-   memory allocated.
+   memory allocated;
+8. LM training, each path with every launch counter set to 0 just before
+   it and read just after (``lm_training_phase``): every registry config
+   reduced (f32), and smollm in CIM mode and qwen2.5 with KWN-FFN
+   sparsity, on the card against the CPU (``reduced_train_phase``):
+   ``lm.loss_fn``'s loss within 1e-5 relative and every gradient leaf
+   within 1e-4 of its largest magnitude (xlstm: four times its own
+   rounding change), then one ``build_train_step`` with two
+   microbatches (loss, grad norm, lr, moments and parameters at the CPU
+   tests' tolerances), no kernel launched; then smollm-135m at full
+   width (``lm_train_phase``): f32 parameters and moments, bf16
+   activations, global batch 8 x 2048 in two microbatches, lr 3e-3,
+   warmup 5, through ``python -m repro_torch.launch.train`` in processes
+   of its own: run A 20 steps, run B exiting hard at step 12 after its
+   checkpoint of step 10 and started again; B's losses of steps 10-19
+   and its final checkpoint equal A's bit for bit, A's loss falls; in
+   this process, from A's final checkpoint, train steps that launch no
+   kernel (one timed, one under ``torch.profiler``: device idle share,
+   top device ops, peak memory), and ``build_eval_step`` on a held-out
+   batch launching #9 once a layer (30), its loss within 2e-3 of
+   ``loss_fn``'s through the blockwise attention; the median step ms
+   over steps 2-19, tokens/s and the model-FLOPs share of the bf16 peak
+   (``roofline.model_flops`` over step time x ``PEAK_FLOPS``).
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
 to ``chiprun_out/chip_smoke.json``, the profiler's op tables to
-``chiprun_out/chip_smoke_profile.txt`` (serving) and
-``chiprun_out/chip_smoke_train_profile.txt`` (training).
+``chiprun_out/chip_smoke_profile.txt`` (serving),
+``chiprun_out/chip_smoke_train_profile.txt`` (silicon training) and
+``chiprun_out/chip_smoke_lm_train_profile.txt`` (the LM's train step).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import os
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -231,6 +258,7 @@ from repro_torch.core import ima as ima_lib  # noqa: E402
 from repro_torch.core import macro as macro_lib  # noqa: E402
 from repro_torch.core import prbs as prbs_lib  # noqa: E402
 from repro_torch.data import events as events_lib  # noqa: E402
+from repro_torch.data import synthetic_lm as lm_data  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_lib  # noqa: E402
 from repro_torch.kernels import fused_macro, fused_macro_grad  # noqa: E402
@@ -240,6 +268,7 @@ from repro_torch.kernels import nlq_lut as nlq_lib  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ternary_mac as tmac_lib  # noqa: E402
 from repro_torch.launch import serve as serve_lib  # noqa: E402
+from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.models import lm, snn  # noqa: E402
 from repro_torch.nn import attention as attn_lib  # noqa: E402
 from repro_torch.nn import moe as moe_lib  # noqa: E402
@@ -248,7 +277,11 @@ from repro_torch.nn import recurrent as rec_lib  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import engine as engine_lib  # noqa: E402
 from repro_torch.serve import lifecycle  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
+from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.train import optim  # noqa: E402
 from repro_torch.train import silicon as silicon_lib  # noqa: E402
+from repro_torch.train import train_loop  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
@@ -2748,6 +2781,17 @@ def _engines_agree(card, cpu, tol) -> dict:
     return {"near_tie_at_step": None, "max_abs_err": worst}
 
 
+def _table_moved_one_ulp(p_cpu) -> dict:
+    """The parameters with each element of the embedding table moved by
+    one ULP, up or down at random."""
+    table = p_cpu["embed"]["table"]
+    gen = torch.Generator().manual_seed(SEED + 31)
+    up = torch.rand(table.shape, generator=gen) < 0.5
+    return dict(p_cpu, embed={"table": torch.nextafter(
+        table, torch.where(up, torch.tensor(float("inf")),
+                           torch.tensor(float("-inf"))))})
+
+
 def _noise_tol(cfg, p_cpu, toks) -> float:
     """1e-5, or for a configuration with mLSTM blocks four times the
     forward's own change on the CPU when the embedding table moves by one
@@ -2755,12 +2799,7 @@ def _noise_tol(cfg, p_cpu, toks) -> float:
     under rounding (``tests/test_torch_recurrent.py``)."""
     if "mlstm" not in cfg.pattern:
         return 1e-5
-    table = p_cpu["embed"]["table"]
-    gen = torch.Generator().manual_seed(SEED + 31)
-    up = torch.rand(table.shape, generator=gen) < 0.5
-    moved = dict(p_cpu, embed={"table": torch.nextafter(
-        table, torch.where(up, torch.tensor(float("inf")),
-                           torch.tensor(float("-inf"))))})
+    moved = _table_moved_one_ulp(p_cpu)
     base = lm.forward(p_cpu, {"tokens": toks}, cfg)[0]
     return max(1e-5, 4 * float((lm.forward(moved, {"tokens": toks}, cfg)[0]
                                 - base).abs().max()))
@@ -3649,6 +3688,329 @@ def moe_frontends_phase(dev) -> dict:
     return out
 
 
+# --- slice 13: LM training -------------------------------------------------
+
+# the ten registry configs reduced, then smollm in CIM mode and qwen2.5
+# with KWN-FFN sparsity (the paper paths that train through STEs)
+LM_TRAIN_CASES = tuple((arch, {}) for arch in sorted(configs.ARCHS)) + (
+    ("smollm-135m", {"cim_linear": True}), ("qwen2.5-32b", {"kwn_ffn_k": 16}))
+LM_TRAIN_SEQ = 64       # positions of a reduced training batch
+LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
+# the full-width run: smollm-135m on launch.train's defaults (global
+# batch 8, two microbatches, lr 3e-3, warmup 5) at SmolLM's 2048-token
+# context, 20 steps with a checkpoint every 10; run B exits hard at step
+# 12 and resumes from step 10
+LM_TRAIN_STEPS, LM_TRAIN_CRASH, LM_TRAIN_EVERY = 20, 12, 10
+LM_TRAIN_ARGS = ("--arch", LM_ARCH, "--steps", str(LM_TRAIN_STEPS),
+                 "--global-batch", str(PREFILL_BATCH), "--seq-len",
+                 str(PREFILL_LEN), "--n-micro", "2", "--lr", "3e-3",
+                 "--ckpt-every", str(LM_TRAIN_EVERY), "--seed", str(SEED))
+LM_TRAIN_OPT = optim.AdamWConfig(lr=3e-3, warmup_steps=5,
+                                 total_steps=LM_TRAIN_STEPS)
+EVAL_STEP = 1000        # the held-out batch: a step no run trains on
+EVAL_RTOL = 2e-3        # eval (flash) against loss_fn (blockwise), bf16
+
+
+def _lm_train_batch(cfg, rs, b, s, dev) -> dict:
+    """``b`` training sequences of ``s`` positions on ``dev``: audio frames
+    with class targets and a loss mask (hubert), else tokens, after the
+    ViT patches for the VLM (its text shortened so that the sequence
+    stays ``s``, a multiple of the attention chunk)."""
+    out = _model_batch(cfg, rs, b, s - cfg.n_patches, dev)
+    if cfg.encoder_only:
+        out["targets"] = torch.from_numpy(
+            rs.randint(0, cfg.vocab_size, (b, s))).to(dev)
+        out["loss_mask"] = torch.from_numpy(rs.rand(b, s) < 0.5).to(dev)
+    return out
+
+
+def _lm_loss_and_grads(params, batch, cfg):
+    """``lm.loss_fn`` and its gradient (a list in ``leaves`` order) under
+    autograd."""
+    live = nn_module.tree_map(lambda p: p.detach().requires_grad_(),
+                              params)
+    loss, parts = lm.loss_fn(live, batch, cfg)
+    flat = nn_module.leaves(live)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), parts["aux"].detach(), [
+        torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+
+
+def _leaf_err(got: list, want: list) -> float:
+    """The largest difference of a leaf over the leaf's largest
+    magnitude, over the leaves (``got`` on the card)."""
+    return max(float((g.cpu().float() - w.float()).abs().max())
+               / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want))
+
+
+def _grad_tol(cfg, p_cpu, batch, grads) -> float:
+    """``LEAF_TOL``, or for a configuration with mLSTM blocks four times
+    the CPU's own largest leaf change when the embedding table moves by
+    one ULP (the normalisers cancel, ``_noise_tol``)."""
+    if "mlstm" not in cfg.pattern:
+        return LEAF_TOL
+    moved = _lm_loss_and_grads(_table_moved_one_ulp(p_cpu), batch, cfg)[2]
+    return max(LEAF_TOL, 4 * _leaf_err(moved, grads))
+
+
+def _params_spread(got: dict, want: dict) -> dict:
+    """How far two AdamW runs' parameters part: the share of elements
+    more than 1e-6 and 1e-5 apart, and the largest distance.  Adam
+    divides each moment by its root second moment, so an element whose
+    gradient is near zero moves by a share of lr that follows the
+    gradient's last bits (``tests/test_torch_lm_train.py``)."""
+    d = torch.cat([(g.cpu().float() - w.float()).abs().ravel() for g, w in
+                   zip(nn_module.leaves(got), nn_module.leaves(want))])
+    return {"over_1e-6": float((d > 1e-6).float().mean()),
+            "over_1e-5": float((d > 1e-5).float().mean()),
+            "max": float(d.max())}
+
+
+def reduced_train_phase(arch: str, kw: dict, dev) -> dict:
+    """The reduced configuration (f32) on the card against the CPU:
+    ``lm.loss_fn``'s loss within 1e-5 relative and every gradient leaf
+    within 1e-4 of its largest magnitude (xlstm: four times its own
+    rounding change); then one ``build_train_step`` with two
+    microbatches from the same parameters: loss and lr within 1e-5, the
+    grad norm within 1e-5 and each moment leaf within the gradient's
+    tolerance of its largest magnitude (twice that for the second
+    moment), both scaled up with the gradient's tolerance for xlstm, and
+    the parameters as the CPU tests hold them (all but 1e-3 of the
+    elements within 1e-6, all but 1e-4 within 1e-5, every one within
+    the step's lr).  Neither launches a kernel: attention under autograd
+    is the plain blockwise one."""
+    cfg = dataclasses.replace(config_base.reduced(configs.get_config(arch)),
+                              **kw)
+    p_cpu = nn_module.materialize(lm.param_specs(cfg),
+                                  torch.Generator().manual_seed(SEED + 60),
+                                  device="cpu")
+    p_gpu = nn_module.tree_map(lambda t: t.to(dev), p_cpu)
+    rs = np.random.RandomState(SEED + 61)
+    batch = _lm_train_batch(cfg, rs, 2, LM_TRAIN_SEQ, "cpu")
+    on_card = {k: v.to(dev) for k, v in batch.items()}
+    reset_counts()
+    g_loss, g_aux, g_grads = _lm_loss_and_grads(p_gpu, on_card, cfg)
+    torch.cuda.synchronize()
+    launches = sum(read_counts().values())
+    c_loss, c_aux, c_grads = _lm_loss_and_grads(p_cpu, batch, cfg)
+    res = {"loss": abs(float(g_loss) - float(c_loss)) / abs(float(c_loss)),
+           "aux": abs(float(g_aux) - float(c_aux)),
+           "grads": _leaf_err(g_grads, c_grads),
+           "grad_tol": _grad_tol(cfg, p_cpu, batch, c_grads)}
+    step = train_loop.build_train_step(cfg, n_micro=2, opt_cfg=LM_TRAIN_OPT)
+    reset_counts()
+    gp, gs, gm = step(p_gpu, optim.adamw_init(p_gpu, LM_TRAIN_OPT),
+                      train_loop.microbatch(on_card, 2))
+    torch.cuda.synchronize()
+    launches += sum(read_counts().values())
+    cp, cs, cm = step(p_cpu, optim.adamw_init(p_cpu, LM_TRAIN_OPT),
+                      train_loop.microbatch(batch, 2))
+    res["step"] = {key: abs(float(gm[key]) - float(cm[key]))
+                   / abs(float(cm[key])) for key in ("loss", "grad_norm",
+                                                      "lr")}
+    res["step"]["params"] = _params_spread(gp, cp)
+    for key in ("mu", "nu"):
+        res["step"][key] = _leaf_err(nn_module.leaves(getattr(gs, key)),
+                                     nn_module.leaves(getattr(cs, key)))
+    res["launches"] = launches
+    spread, lr = res["step"]["params"], float(cm["lr"])
+    noise = res["grad_tol"] / LEAF_TOL
+    if not (res["loss"] <= LOSS_RTOL and res["aux"] <= 1e-6
+            and res["grads"] <= res["grad_tol"]
+            and max(res["step"][k] for k in ("loss", "lr")) <= 1e-5
+            and res["step"]["grad_norm"] <= 1e-5 * noise
+            and res["step"]["mu"] <= res["grad_tol"]
+            and res["step"]["nu"] <= 2 * res["grad_tol"]
+            and spread["over_1e-6"] <= 1e-3 and spread["over_1e-5"] <= 1e-4
+            and spread["max"] <= lr and launches == 0):
+        raise AssertionError(f"reduced {arch} {kw} training on the card "
+                             f"against the CPU: {res}")
+    log(f"reduced {arch}{''.join(f' {k}={v}' for k, v in kw.items())} "
+        f"training on the card against the CPU: loss {res['loss']:.3g}, "
+        f"grads {res['grads']:.3g} (tol {res['grad_tol']:.3g}); one step: "
+        f"{ {k: f'{v:.3g}' for k, v in res['step'].items() if k != 'params'} }"
+        f", params {spread}; {launches} kernel launches")
+    return res
+
+
+def _run_train(ckpt_dir: Path, metrics: Path, crash_at: int = -1):
+    """``python -m repro_torch.launch.train`` at full width in a process
+    of its own (run to its end; killed at its time limit)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *LM_TRAIN_ARGS,
+           "--ckpt-dir", str(ckpt_dir), "--metrics-out", str(metrics),
+           "--crash-at-step", str(crash_at)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUBLAS_WORKSPACE_CONFIG=train_lib.CUBLAS_WORKSPACE)
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=240)
+    return out, time.perf_counter() - t0
+
+
+def _npz_bytes(path: Path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k].tobytes() for k in z.files}
+
+
+def lm_train_phase(dev) -> dict:
+    """Phase 8's full-width run: smollm-135m (f32 parameters and
+    moments, bf16 activations) through ``launch.train`` in processes of
+    its own: run A 20 steps uninterrupted; run B exits hard at step 12
+    (``--crash-at-step``) after its checkpoint of step 10 and is started
+    again.  B's losses of steps 10-19 and its final checkpoint must be
+    A's bit for bit, and A's loss at step 19 below its first.  In this
+    process, from A's final checkpoint (deterministic algorithms on, as
+    the runs): a train step (no kernel launch), another timed, a third
+    under ``torch.profiler`` (device idle share, top device ops, peak
+    memory); then ``build_eval_step`` on a held-out batch, which must
+    launch #9 once a layer, its loss within 2e-3 of ``loss_fn``'s under
+    autograd (the blockwise attention, bf16) on the same batch."""
+    from torch.profiler import ProfilerActivity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "lm_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    runs = {}
+    for name, ckpt, crash in (("A", "a", -1), ("B1", "b", LM_TRAIN_CRASH),
+                              ("B2", "b", -1)):
+        out, secs = _run_train(work / ckpt, work / f"{name}.json", crash)
+        want_rc = 42 if crash >= 0 else 0
+        if out.returncode != want_rc:
+            raise AssertionError(f"launch.train run {name}: exit "
+                                 f"{out.returncode}, want {want_rc}\n"
+                                 f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        runs[name] = {"seconds": secs, "stdout_tail": out.stdout[-1500:]}
+        if name == "B1" and ckpt_lib.latest_step(str(work / "b")) != \
+                LM_TRAIN_EVERY:
+            raise AssertionError("run B left no checkpoint of step "
+                                 f"{LM_TRAIN_EVERY}")
+    hist_a = json.loads((work / "A.json").read_text())
+    hist_b = json.loads((work / "B2.json").read_text())
+    loss_a = {h["step"]: h["loss"] for h in hist_a}
+    if [h["step"] for h in hist_a] != list(range(LM_TRAIN_STEPS)) or \
+            [h["step"] for h in hist_b] != list(range(LM_TRAIN_EVERY,
+                                                      LM_TRAIN_STEPS)):
+        raise AssertionError("launch.train ran other steps than asked")
+    if any(h["loss"] != loss_a[h["step"]] for h in hist_b):
+        raise AssertionError("the resumed run's losses differ from the "
+                             f"uninterrupted run's: {hist_b} vs {hist_a}")
+    final = f"step_{LM_TRAIN_STEPS}"
+    for name in ("params.npz", "opt.npz"):
+        if _npz_bytes(work / "a" / final / name) != \
+                _npz_bytes(work / "b" / final / name):
+            raise AssertionError(f"the resumed run's {name} differs from the "
+                                 "uninterrupted run's")
+    if not hist_a[-1]["loss"] < hist_a[0]["loss"]:
+        raise AssertionError(f"the loss did not fall: {hist_a}")
+    step_s = statistics.median(h["sec"] for h in hist_a[2:])
+    tokens = PREFILL_BATCH * PREFILL_LEN
+    cfg = configs.get_config(LM_ARCH)
+    res = {"runs": runs, "losses": [h["loss"] for h in hist_a],
+           "step_ms": [1e3 * h["sec"] for h in hist_a],
+           "median_step_ms": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+           "mfu": roofline.model_flops(cfg.active_param_count(), tokens,
+                                       "train", 1)
+           / (step_s * roofline.PEAK_FLOPS),
+           "resume_bitwise": True}
+
+    tmpl = nn_module.materialize(lm.param_specs(cfg),
+                                 torch.Generator(dev).manual_seed(SEED),
+                                 device=dev)
+    state, _ = ckpt_lib.restore(str(work / "a"), LM_TRAIN_STEPS,
+                                {"params": tmpl,
+                                 "opt": optim.adamw_init(tmpl, LM_TRAIN_OPT)})
+    del tmpl
+    params, opt = state["params"], state["opt"]
+    data = lm_data.SyntheticLM(lm_data.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=PREFILL_LEN,
+        global_batch=PREFILL_BATCH, seed=SEED))
+    step = train_loop.build_train_step(cfg, n_micro=2, opt_cfg=LM_TRAIN_OPT)
+
+    def batch_at(i):
+        return {k: v.to(dev) for k, v in data.batch_at(i, n_micro=2).items()}
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG",
+                          train_lib.CUBLAS_WORKSPACE)
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_counts()
+        params, opt, m = step(params, opt, batch_at(LM_TRAIN_STEPS))
+        float(m["loss"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch_at(LM_TRAIN_STEPS + 1))
+        float(m["loss"])
+        timed_ms = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, opt, m = step(params, opt, batch_at(LM_TRAIN_STEPS + 2))
+            float(m["loss"])
+        counts = read_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if any(counts.values()):
+        raise AssertionError(f"the train steps launched kernels: {counts}")
+    busy = _device_busy_ms(prof)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    (ROOT / "chiprun_out" / "chip_smoke_lm_train_profile.txt").write_text(
+        prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    res.update(in_process_step_ms=timed_ms, device_busy_ms=busy,
+               device_idle_share=1.0 - busy / timed_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               top_device=[(e.key[:90], e.count, _device_us(e) / 1e3)
+                           for e in sorted(events, key=_device_us,
+                                           reverse=True)[:8]])
+    del prof, events
+
+    held = {k: v.to(dev) for k, v in data.batch_at(EVAL_STEP).items()}
+    reset_counts()
+    ev = train_loop.build_eval_step(cfg)(params, held)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with torch.enable_grad():
+        live = nn_module.tree_map(lambda p: p.detach().requires_grad_(),
+                              params)
+        want = float(lm.loss_fn(live, held, cfg)[0].detach())
+        del live
+    rel = abs(float(ev["loss"]) - want) / abs(want)
+    res["eval"] = {"loss": float(ev["loss"]), "loss_fn": want, "rel": rel,
+                   "flash_launches": counts["flash_attention"]}
+    if counts["flash_attention"] != cfg.n_layers or \
+            sum(counts.values()) != cfg.n_layers or not rel <= EVAL_RTOL:
+        raise AssertionError(f"eval step: {counts} launches (want "
+                             f"{cfg.n_layers} of #9), loss {res['eval']}")
+    shutil.rmtree(work, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"{LM_ARCH} training {PREFILL_BATCH} x {PREFILL_LEN}, 2 "
+        f"microbatches: loss {hist_a[0]['loss']:.4f} -> "
+        f"{hist_a[-1]['loss']:.4f} over {LM_TRAIN_STEPS} steps; resumed run "
+        f"bit for bit; median step {res['median_step_ms']:.1f} ms (steps "
+        f"2-19), {res['tokens_per_s']:.0f} tokens/s, mfu {res['mfu']:.4f}; "
+        f"in process {timed_ms:.1f} ms, device busy {busy:.1f} ms (idle "
+        f"share {res['device_idle_share']:.3f}), peak "
+        f"{res['peak_gb']:.2f} GB; eval {res['eval']}; runs "
+        f"{ {k: round(v['seconds'], 1) for k, v in runs.items()} } s; "
+        f"{res['seconds']:.1f} s")
+    for key, count, ms in res["top_device"]:
+        log(f"  device {ms:.3f} ms in {count} launches: {key}")
+    return res
+
+
+def lm_training_phase(dev) -> dict:
+    """Phase 8: every ``LM_TRAIN_CASES`` configuration reduced on the card
+    against the CPU, then smollm-135m's training at full width."""
+    t0 = time.perf_counter()
+    reduced = {arch + "".join(f"-{k}" for k in kw):
+               reduced_train_phase(arch, kw, dev)
+               for arch, kw in LM_TRAIN_CASES}
+    log(f"reduced training on the card: {time.perf_counter() - t0:.1f} s")
+    return {"reduced": reduced, "full": lm_train_phase(dev)}
+
+
 def _record(name, replaces, launches, cmp, timing,
             library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -3729,6 +4091,8 @@ def main() -> None:
     log(f"phase 6 done at {time.perf_counter() - t0:.1f} s")
     moe_frontends = moe_frontends_phase(dev)
     log(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
+    training = lm_training_phase(dev)
+    log(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
     b = serving["burst"]
     log(f"[{smi}] engine, {b['requests']}-request clean burst: "
         f"{b['requests_per_s']:.1f} req/s, round ms p50 "
@@ -3834,6 +4198,18 @@ def main() -> None:
                f"{fr['moe_layer']['experts_bound_ms']:.2f})"
                if "moe_layer" in fr else "")
             + f", peak {fr['peak_gb']:.1f} GB")
+    lt8 = training["full"]
+    log(f"[{smi}] {LM_ARCH} training {PREFILL_BATCH} x {PREFILL_LEN} "
+        f"(launch.train, 2 microbatches, f32 params, bf16 activations): "
+        f"median step {lt8['median_step_ms']:.1f} ms over steps 2-19, "
+        f"{lt8['tokens_per_s']:.0f} tokens/s, mfu {lt8['mfu']:.4f} (model "
+        f"FLOPs over {roofline.PEAK_FLOPS:.3g} FLOP/s), device idle share "
+        f"{lt8['device_idle_share']:.3f} of one step under the profiler, "
+        f"peak memory {lt8['peak_gb']:.2f} GB; loss "
+        f"{lt8['losses'][0]:.4f} -> {lt8['losses'][-1]:.4f}, resume bit for "
+        f"bit; eval step {lt8['eval']['flash_launches']} flash launches, "
+        f"within {lt8['eval']['rel']:.2e} of loss_fn; top device op "
+        f"{lt8['top_device'][0]}")
     log(f"[{smi}] silicon training step, DVS-Gesture batch "
         f"{TRAIN_BATCH}: {tt['step_ms']:.3f} ms, {tt['steps_per_s']:.1f} "
         f"steps/s, device idle share {tt['device_idle_share']:.3f}; "
@@ -3849,7 +4225,8 @@ def main() -> None:
                             for c in fr[part].values())
                       + sum(fr["prefill"]["launches"]
                             + fr["reduced"]["flash_launches"]
-                            for fr in moe_frontends.values()))
+                            for fr in moe_frontends.values())
+                      + lt8["eval"]["flash_launches"])
     kwn_launches = (main_res["clean"]["launches"]
                     + main_res["noisy"]["launches"]
                     + train_res["forward_launches"]
@@ -3917,7 +4294,8 @@ def main() -> None:
          "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
                        "train": train_res, "composed": composed_res,
                        "lm": lm_res, "families": families,
-                       "moe_frontends": moe_frontends},
+                       "moe_frontends": moe_frontends,
+                       "lm_training": training},
          "timing": timing, "serving": serving, "nld_serving": nld_serving,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(json.dumps(record), flush=True)

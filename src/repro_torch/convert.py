@@ -6,7 +6,8 @@ JAX nor ``repro``.  The layouts are the same on both sides: ``w_hid``
 (n_in, n_hidden) or a list of per-layer arrays for a stack, ``w_out``
 (n_hidden, n_classes), ``dend`` with ``w_syn`` / ``mask`` (J, n_in,
 n_hidden) and ``w_dend`` (J, n_hidden), twin-cell planes (n_in, NC); the
-LM's parameters are the same nested dict on both sides.
+LM's parameters, and the AdamW moments in their layout, are the same
+nested dict on both sides.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import dendrite as dendrite_lib
 from repro_torch.core import macro as macro_lib
+from repro_torch.train import optim
 
 
 def _put(a, dtype, dev) -> torch.Tensor:
@@ -54,6 +56,15 @@ def fused_weights_from_jax(fw, device=None) -> macro_lib.FusedMacroWeights:
         mode=fw.mode)
 
 
+def _leaf(a, dev) -> torch.Tensor:
+    """A numpy array as a tensor, dtype kept; a bf16 array (``ml_dtypes``
+    in numpy) through its bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
 def lm_params_from_jax(tree: dict, device=None) -> dict:
     """The port's LM params from the reference's (``models.lm`` layout,
     a nested dict of arrays), leaf for leaf, dtypes kept: every block
@@ -69,6 +80,15 @@ def lm_params_from_jax(tree: dict, device=None) -> dict:
     def put(node):
         if isinstance(node, dict):
             return {k: put(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node)).to(dev)
+        return _leaf(node, dev)
 
     return put(tree)
+
+
+def adamw_state_from_jax(state, device=None) -> optim.AdamWState:
+    """The port's ``AdamWState`` from the reference's (its ``step``, and
+    ``mu`` / ``nu`` in the parameters' layout, f32 or bf16 as kept)."""
+    dev = device_lib.resolve(device)
+    return optim.AdamWState(_leaf(np.asarray(state.step, np.int32), dev),
+                            lm_params_from_jax(state.mu, dev),
+                            lm_params_from_jax(state.nu, dev))

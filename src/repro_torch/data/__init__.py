@@ -1,1 +1,2 @@
-"""Event-stream datasets (counterpart of ``repro.data``)."""
+"""Event-stream datasets and the synthetic LM stream (counterpart of
+``repro.data``)."""

@@ -21,17 +21,27 @@ an MoE block's FFN is ``nn.moe.moe_ref``, the function the reference
 computes on one device.  The modality frontends are the reference's
 stubs: precomputed audio frames or ViT patch embeddings through a learned
 projector.  An encoder-only model has no decode step, here as in the
-reference.  Remat and chunking fields other than ``attn_chunk`` shape
-the reference's training memory and do not change a forward's value;
-they are data here.
+reference.
+
+Training (``features``, ``loss_fn``) runs under autograd: attention
+takes the plain ``blockwise_attention`` there (the flash kernel has no
+backward), and ``remat`` recomputes each layer group (``remat_mode``
+"group") or each attention call ("attn_only"), and always the head with
+its cross-entropy, in the backward (``torch.utils.checkpoint``, where
+the reference has ``jax.checkpoint``).  Every ``remat_policy`` saves
+nothing inside the recomputed unit here: the policy chooses what the
+reference keeps, which moves memory, not a value.  ``forward`` and
+``decode_step`` are serving's and run under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.nn import attention, kvq, layers, moe, recurrent
@@ -263,12 +273,14 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
     cache = None
     if kind in ("attn", "attn_local"):
         window = cfg.window if kind == "attn_local" else None
-        h = attention.mha(p["attn"], h, positions, n_heads=cfg.n_heads,
-                          n_kv=cfg.n_kv, head_dim=cfg.hd,
-                          causal=not cfg.encoder_only, window=window,
-                          attn_softcap=cfg.attn_softcap,
-                          rope_theta=cfg.rope_theta, chunk=cfg.attn_chunk,
-                          return_kv=prefill)
+        attn = functools.partial(
+            attention.mha, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            head_dim=cfg.hd, causal=not cfg.encoder_only, window=window,
+            attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+            chunk=cfg.attn_chunk, return_kv=prefill)
+        if cfg.remat and cfg.remat_mode == "attn_only":
+            attn = _remat(attn)
+        h = attn(p["attn"], h, positions)
         if prefill:
             h, (k, v) = h
             cache = attention.prefill_cache_from_kv(k, v, window)
@@ -291,6 +303,18 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
         h = layers.rmsnorm(p["norm1_post"], h)
     x, aux = _ffn_residual(p, x + h, cfg)
     return x, aux, cache
+
+
+def _remat(fn):
+    """``fn`` recomputed in the backward instead of keeping what it
+    saves (the reference's ``jax.checkpoint`` with nothing saveable);
+    called as it is where autograd records nothing."""
+    @functools.wraps(fn)
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return run
 
 
 def _embed_inputs(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
@@ -383,6 +407,96 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
     if prefill:
         return _logits(params, x[:, -1:], cfg)[:, 0], aux, cache
     return _logits(params, x, cfg), aux
+
+
+# ===========================================================================
+# Training: features, head + cross-entropy, loss
+# ===========================================================================
+
+def _groups(tree: dict, n: int) -> list[dict]:
+    """The stacked tree's ``n`` group slices, each leaf unbound once: its
+    backward stacks the groups' gradients into one tensor, where a slice
+    a group would add a full-size zero-padded gradient for each."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda ts: ts[g], parts) for g in range(n)]
+
+
+def features(params: dict, batch: dict, cfg: LMConfig):
+    """The forward up to, not including, the unembedding: (x after
+    ``final_norm`` (B, S, D), the aux loss f32, summed as ``forward``
+    sums it).  Each layer group is recomputed in the backward under
+    ``remat`` with ``remat_mode`` "group"."""
+    x = _embed_inputs(params, batch, cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+
+    def group_fn(x, gp):
+        aux_g = None
+        for j, kind in enumerate(cfg.pattern):
+            x, aux_b, _ = _block_apply(kind, gp[f"b{j}"], x, positions, cfg)
+            aux_g = _add_aux(aux_g, aux_b)
+        return x, aux_g
+
+    if cfg.remat and cfg.remat_mode == "group":
+        group_fn = _remat(group_fn)
+    aux = None
+    for gp in _groups(params["layers"], cfg.n_groups):
+        x, aux_g = group_fn(x, gp)
+        aux = _add_aux(aux, aux_g)
+    for j, kind in enumerate(cfg.tail_pattern):
+        x, aux_t, _ = _block_apply(kind, params[f"tail{j}"], x, positions,
+                                   cfg)
+        aux = _add_aux(aux, aux_t)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return layers.rmsnorm(params["final_norm"], x), aux
+
+
+def _cross_entropy(logits: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """Per-position -log softmax(logits)[target], f32."""
+    lse = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(lse, -1, targets.long()[..., None])[..., 0]
+
+
+def _masked_mean(ce: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    m = mask.float()
+    return torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def _head_and_ce(params: dict, x: torch.Tensor, batch: dict,
+                 cfg: LMConfig) -> torch.Tensor:
+    """Unembedding and cross-entropy, f32.  A decoder predicts each next
+    token over the padded vocabulary (the logits of the VLM's patch
+    prefix dropped), averaged over the positions, or over those
+    ``loss_mask`` keeps; an encoder-only model its ``targets`` over its
+    classes where ``loss_mask`` is set."""
+    if cfg.encoder_only:
+        logits = layers.linear(params["head"], x).float()
+        return _masked_mean(_cross_entropy(logits, batch["targets"]),
+                            batch["loss_mask"])
+    if cfg.tie_embeddings:
+        logits = layers.unembed(params["embed"], x)
+    else:
+        logits = layers.linear(params["head"], x)
+    logits = layers.softcap(logits.float(), cfg.final_softcap)
+    n_prefix = cfg.n_patches if cfg.frontend == "vision_patches" else 0
+    tokens = batch["tokens"]
+    ce = _cross_entropy(logits[:, n_prefix:][:, :-1], tokens[:, 1:])
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        return _masked_mean(ce, mask[:, 1:])
+    return torch.mean(ce)
+
+
+def loss_fn(params: dict, batch: dict, cfg: LMConfig):
+    """(ce + 0.01 * aux, {"ce", "aux"}), differentiable in ``params``.
+    The head and cross-entropy are recomputed in the backward as one
+    unit, so the (B, S, V) logits and their softmax are never kept."""
+    x, aux = features(params, batch, cfg)
+    head = {k: params[k] for k in ("head", "embed") if k in params}
+    ce = _remat(_head_and_ce)(head, x, batch, cfg)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ===========================================================================

@@ -9,7 +9,8 @@ without a softcap whose window (if any) spans the sequence, that is the
 function of its Pallas ``_flash_kernel``, whose counterpart here
 (``kernels.flash_attention.flash_attention_fwd``) ``mha`` calls: the CUDA
 kernel for a CUDA tensor, its plain version for a CPU one.  Everywhere
-else ``mha`` calls the plain ``blockwise_attention``, as the JAX package
+else, and under autograd (training: the kernel has no backward),
+``mha`` calls the plain ``blockwise_attention``, as the JAX package
 does outside Pallas: a loop over KV chunks carrying (acc, row max, row
 sum), or for a window shorter than the sequence each window-sized block
 against itself and the block before it.  Where the reference asserts
@@ -178,6 +179,14 @@ def uses_flash(s: int, window: int | None,
     return attn_softcap is None and (window is None or window >= s)
 
 
+def _under_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``ts``: grad mode on and one of
+    them requiring grad.  The flash kernel has no backward (nor has the
+    Pallas kernel), so a training forward takes the plain
+    ``blockwise_attention``, the function the reference trains through."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def mha(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
         n_kv: int, head_dim: int, causal: bool = True,
         window: int | None = None, attn_softcap: float | None = None,
@@ -185,7 +194,9 @@ def mha(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
         use_rope: bool = True, return_kv: bool = False):
     """Full-sequence attention layer, x (B, S, D); with ``return_kv`` also
     the roped, unrepeated (k, v), (B, S, n_kv, hd) each.  The flash kernel
-    where ``uses_flash``, else ``blockwise_attention``."""
+    where ``uses_flash`` and autograd records nothing (a forward under
+    ``torch.no_grad()``, or of tensors that require no grad), else
+    ``blockwise_attention``."""
     q = _split_heads(layers.linear(p["wq"], x), n_heads, head_dim)
     k = _split_heads(layers.linear(p["wk"], x), n_kv, head_dim)
     v = _split_heads(layers.linear(p["wv"], x), n_kv, head_dim)
@@ -196,7 +207,7 @@ def mha(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
     n_rep = n_heads // n_kv
     kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     b, s = x.shape[:2]
-    if uses_flash(s, window, attn_softcap):
+    if uses_flash(s, window, attn_softcap) and not _under_grad(q, kr, vr):
         o = flash_attention_fwd(_heads_first(q), _heads_first(kr),
                                 _heads_first(vr), causal=causal)
         o = o.reshape(b, n_heads, s, head_dim).transpose(1, 2)

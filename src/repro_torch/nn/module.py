@@ -44,11 +44,14 @@ def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
-def tree_map(fn, tree: Tree) -> Tree:
-    """``fn`` applied to every leaf of a tree of nested dicts."""
+def tree_map(fn, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` applied to every leaf of a tree of nested dicts, with the
+    matching leaves of ``rest`` (trees of the same keys) as further
+    arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(t[k] for t in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def leaves(tree: Tree) -> list:
@@ -57,6 +60,18 @@ def leaves(tree: Tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
     return [tree]
+
+
+def unflatten(tree: Tree, values: list) -> Tree:
+    """``values``, in ``leaves``' order, in the shape of ``tree``."""
+    it = iter(values)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(tree)
 
 
 # A leaf of more elements is drawn in slices of this many along its

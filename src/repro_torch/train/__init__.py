@@ -1,1 +1,2 @@
-"""Training through the fused macro (counterpart of ``repro.train``)."""
+"""Training: the SNN's silicon path, and the LM's optimizer, steps,
+checkpoints and gradient compression (counterpart of ``repro.train``)."""

@@ -1,0 +1,84 @@
+"""The LM's training and evaluation steps: gradient accumulation over
+microbatches, then the AdamW update.
+
+Counterpart of ``repro.train.train_loop`` on one device.
+``build_train_step(cfg, ...)`` returns
+
+    step(params, opt_state, batch) -> (params, opt_state, metrics)
+
+with ``batch`` already split into microbatches (``microbatch``, outside
+the step, as the reference's note asks): every leaf (n_micro, B /
+n_micro, ...).  Each microbatch's gradient is taken through
+``lm.loss_fn`` under autograd (the plain blockwise attention, no flash
+kernel), cast to ``grad_dtype`` and summed in microbatch order, then
+divided by ``n_micro``; the loss likewise.  ``metrics`` holds ``loss``,
+``grad_norm`` (before clipping) and ``lr``, device scalars.
+``build_eval_step`` runs ``lm.loss_fn`` under ``torch.no_grad()``, so
+on the card its attention is the flash kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core import f32math
+from repro_torch.models import lm
+from repro_torch.nn.module import leaves, tree_map, unflatten
+from repro_torch.train import optim
+
+Tree = Any
+
+
+def microbatch(batch: dict, n_micro: int) -> dict:
+    """(B, ...) -> (n_micro, B / n_micro, ...), every leaf."""
+    def split(x):
+        b = x.shape[0]
+        if b % n_micro:
+            raise ValueError(f"a batch of {b} does not split into {n_micro} "
+                             "microbatches")
+        return x.reshape(n_micro, b // n_micro, *x.shape[1:])
+    return {k: split(v) for k, v in batch.items()}
+
+
+def build_train_step(cfg: lm.LMConfig, *, n_micro: int = 1,
+                     opt_cfg: optim.AdamWConfig | None = None,
+                     grad_dtype: torch.dtype = torch.float32):
+    opt_cfg = opt_cfg or optim.AdamWConfig()
+
+    def train_step(params, opt_state, batch):
+        lead = next(iter(batch.values())).shape[0]
+        if lead != n_micro:
+            raise ValueError(f"the batch holds {lead} microbatches, the "
+                             f"step takes {n_micro}")
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        flat = leaves(live)
+        g_acc, loss_sum = None, None
+        for i in range(n_micro):
+            loss, _ = lm.loss_fn(live, {k: v[i] for k, v in batch.items()},
+                                 cfg)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = [(torch.zeros_like(p) if g is None else g).to(grad_dtype)
+                     for p, g in zip(flat, grads)]
+            g_acc = grads if g_acc is None else [
+                a + g for a, g in zip(g_acc, grads)]
+            loss_sum = loss.detach() if loss_sum is None \
+                else loss_sum + loss.detach()
+        with torch.no_grad():
+            grads = unflatten(params, [f32math.div(g, float(n_micro))
+                                        for g in g_acc])
+            params, opt_state, stats = optim.adamw_update(grads, opt_state,
+                                                          params, opt_cfg)
+        return params, opt_state, {
+            "loss": f32math.div(loss_sum, float(n_micro)), **stats}
+
+    return train_step
+
+
+def build_eval_step(cfg: lm.LMConfig):
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, parts = lm.loss_fn(params, batch, cfg)
+        return {"loss": loss, **parts}
+    return eval_step

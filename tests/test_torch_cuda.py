@@ -29,6 +29,8 @@ from repro_torch.kernels import nlq_lut as kernels_nlq
 from repro_torch.kernels import ternary_mac as kernels_tmac
 from repro_torch.models import lm, snn
 from repro_torch.nn import module as nn_module
+from repro_torch.train import optim
+from repro_torch.train import train_loop
 
 pytestmark = pytest.mark.cuda
 
@@ -978,3 +980,82 @@ def test_flash_kernel_at_moe_and_frontend_shapes(cuda, shape, causal, dtype):
     torch.cuda.synchronize()
     assert kernels_flash.flash_attention_fwd.launches == before + 1
     _assert_flash_gate(got, ref.flash_attention_ref(q, k, v, causal), dtype)
+
+
+TRAIN_CASES = [(arch, {}) for arch in (
+    "arctic-480b", "gemma2-2b", "hubert-xlarge", "internvl2-26b",
+    "kimi-k2-1t-a32b", "nemotron-4-340b", "qwen2.5-32b", "recurrentgemma-9b",
+    "smollm-135m", "xlstm-350m")] + [("smollm-135m", {"cim_linear": True}),
+                                     ("qwen2.5-32b", {"kwn_ffn_k": 16})]
+
+
+@pytest.mark.parametrize(
+    "case", TRAIN_CASES,
+    ids=lambda c: c[0] + "".join(f"-{k}" for k in c[1]))
+def test_lm_loss_grads_and_train_step_on_card_equal_cpu(cuda, smoke, case):
+    """Every reduced config (f32), and smollm in CIM mode and qwen2.5
+    with KWN-FFN sparsity: ``lm.loss_fn``'s loss and every gradient leaf,
+    then one ``build_train_step`` with two microbatches, on the card
+    against the CPU at the CPU tests' tolerances, with no kernel launched
+    (``chip_smoke.reduced_train_phase``, which raises on a miss)."""
+    res = smoke.reduced_train_phase(*case, cuda)
+    assert res["loss"] <= 1e-5 and res["grads"] <= res["grad_tol"]
+    assert res["launches"] == 0
+
+
+def test_lm_eval_step_launches_flash_once_a_layer(cuda):
+    """``build_eval_step`` runs under ``no_grad``: the flash kernel once a
+    layer, its loss within 1e-5 of ``loss_fn`` under autograd (the
+    blockwise attention, which launches nothing), f32."""
+    cfg = lm_base.reduced(get_config("smollm-135m"), n_layers=3)
+    params = nn_module.materialize(lm.param_specs(cfg),
+                                   torch.Generator(cuda).manual_seed(0),
+                                   device=cuda)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 128))).to(cuda)
+    before = kernels_flash.flash_attention_fwd.launches
+    got = train_loop.build_eval_step(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert kernels_flash.flash_attention_fwd.launches == before + 3
+    live = nn_module.tree_map(lambda p: p.detach().requires_grad_(),
+                              params)
+    want, _ = lm.loss_fn(live, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    assert kernels_flash.flash_attention_fwd.launches == before + 3
+    torch.testing.assert_close(got["loss"], want.detach(), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_lm_train_steps_on_card_repeat_bit_for_bit(cuda, monkeypatch):
+    """Under ``torch.use_deterministic_algorithms(True)`` (as
+    ``launch.train`` runs) two runs of three train steps from the same
+    state give the same parameters, moments and losses, bit for bit:
+    the embedding's, the cross-entropy's and the GQA repeat's backward
+    take their deterministic paths, and none raises."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = lm_base.reduced(get_config("smollm-135m"))
+    params = nn_module.materialize(lm.param_specs(cfg),
+                                   torch.Generator(cuda).manual_seed(1),
+                                   device=cuda)
+    ocfg = optim.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=20)
+    step = train_loop.build_train_step(cfg, n_micro=2, opt_cfg=ocfg)
+    rs = np.random.RandomState(2)
+    batches = [train_loop.microbatch({"tokens": torch.from_numpy(
+        rs.randint(0, cfg.vocab_size, (4, 64))).to(cuda)}, 2)
+        for _ in range(3)]
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            p, st, losses = params, optim.adamw_init(params, ocfg), []
+            for b in batches:
+                p, st, m = step(p, st, b)
+                losses.append(float(m["loss"]))
+            runs.append((p, st, losses))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (p0, s0, l0), (p1, s1, l1) = runs
+    assert l0 == l1 and l0[-1] < l0[0]
+    for a, b in zip(nn_module.leaves({"p": p0, "mu": s0.mu, "nu": s0.nu}),
+                    nn_module.leaves({"p": p1, "mu": s1.mu, "nu": s1.nu})):
+        assert torch.equal(a, b)

@@ -26,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import ima as t_ima
 from repro_torch.kernels import ops as t_ops
 from repro_torch.launch import serve as t_serve
+from repro_torch.launch import train as t_train
 from repro_torch.models import lm as t_lm
 from repro_torch.models import snn as t_snn
 from repro_torch.nn import module as t_module
@@ -239,7 +240,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     for rel in ("core/dendrite.py", "kernels/fused_macro_grad.py",
                 "train/silicon.py", "data/events.py", "nn/attention.py",
                 "models/lm.py", "kernels/flash_attention.py",
-                "nn/kvq.py", "nn/recurrent.py"):
+                "nn/kvq.py", "nn/recurrent.py", "train/optim.py",
+                "train/train_loop.py", "train/checkpoint.py",
+                "train/compression.py", "data/synthetic_lm.py",
+                "roofline/analysis.py", "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / rel in files, rel
     for path in files:
         hits = pattern.findall(path.read_text())
@@ -274,6 +278,8 @@ def test_entry_points_do_not_fall_back_to_cpu():
         BatchedEngine(lcfg, lp)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_serve.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_train.main(["--smoke", "--steps", "1"])
     for arch in ("gemma2-2b", "recurrentgemma-9b", "xlstm-350m"):
         fcfg = t_base.reduced(get_config(arch))
         for kw in ({}, {"kv_quant": "int8"}):
