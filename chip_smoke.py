@@ -220,7 +220,28 @@ Phases (any failure raises, so the exit code is non-zero):
    batch launching #9 once a layer (30), its loss within 2e-3 of
    ``loss_fn``'s through the blockwise attention; the median step ms
    over steps 2-19, tokens/s and the model-FLOPs share of the bf16 peak
-   (``roofline.model_flops`` over step time x ``PEAK_FLOPS``).
+   (``roofline.model_flops`` over step time x ``PEAK_FLOPS``);
+9. the tile-plan tuner and the plan cache (``tuner_phase``): kernel #1
+   under every candidate plan of ``autotune.enumerate_candidates`` for
+   the reference's four tuner cells and the serving round (64 x 512 x
+   128 x 128 x 8) at densities 0.02, 0.05 and 0.2, clean gated and dense
+   and with the Fig. 7 counter noise, each launch's MAC, membrane,
+   spikes, mask and ADC steps equal to the heuristic plan's launch and to
+   the plain version on the same card tensors; #2 (the NLD round), #3
+   (the training batch, residual and remat) and #4 (the DVS stack) under
+   bm = 32 / bk = 128, gated and dense, the same way; ``autotune.tune``
+   over those cells into ``chiprun_out/plan_cache_tuned.json`` (the
+   heuristic's and the winner's ms, the speedup and the candidates per
+   cell); then, the launch counters zeroed just before each run and read
+   just after, with no cache, the tuned cache and a cache forcing bm =
+   32 / bk = 128 on every shape of the phase's paths: 1024 DVS-Gesture
+   KWN requests through ``SNNEventEngine`` (every request's logits,
+   prediction, ADC steps and SOPs equal to the no-cache run; req/s), the
+   NLD and the stack ``forward_silicon`` on 64 streams and a noisy
+   silicon-training loss and gradients, one launch of each kernel, equal
+   to the no-cache run; and ``tools/tune_plans_torch.py --smoke``,
+   ``tools/chaos_serve_torch.py --smoke`` and ``tools/obs_report_torch.py
+   --smoke`` as subprocesses on the card (a nonzero exit fails).
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
@@ -233,6 +254,7 @@ to ``chiprun_out/chip_smoke.json``, the profiler's op tables to
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -282,10 +304,12 @@ from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
 from repro_torch.train import silicon as silicon_lib  # noqa: E402
 from repro_torch.train import train_loop  # noqa: E402
+from repro_torch.tune import autotune  # noqa: E402
+from repro_torch.tune import cache as cache_lib  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core ops
+INT8_OPS = roofline.PEAK_INT8_OPS   # H100 SXM dense int8 tensor-core ops
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core FLOP/s
 SEED = 0
 CFG = snn.SNNConfig(n_in=512, n_hidden=128, n_classes=11, n_steps=30,
@@ -4011,6 +4035,403 @@ def lm_training_phase(dev) -> dict:
     return {"reduced": reduced, "full": lm_train_phase(dev)}
 
 
+# --- phase 9: the tile-plan tuner and the plan cache ----------------------
+
+# The tuner's cells: the reference's four, and the serving round (64
+# slots, K = 512, N = 128, 8-step rounds) at three densities.
+TUNE_CELLS = autotune.CANONICAL_CELLS + tuple(
+    autotune.TuneCell(SLOTS, CFG.n_in, CFG.n_hidden, CFG.n_hidden, ROUND, d)
+    for d in (0.02, 0.05, 0.2))
+TUNE_ITERS = 20
+TUNE_SERVE = 1024               # requests served with and without a cache
+FORCED = {"bm": 32, "bk": 128, "bn": 128}   # no heuristic picks it at M=64
+# (shape, mode) of the phase's main paths, given the forced plan: the
+# serving round, the NLD batch, the stack's layer 0 and the training batch
+FORCED_SHAPES = ((f"{SLOTS}x{CFG.n_in}x{CFG.n_hidden}x{CFG.n_hidden}x{ROUND}",
+                  "kwn"),
+                 (f"{STACK_BATCH}x{NLD_CFG.n_in}x{2 * NLD_CFG.n_hidden}x"
+                  f"{NLD_CFG.n_hidden}x{NLD_CFG.n_steps}", "nld"),
+                 (f"{TRAIN_BATCH}x{CFG.n_in}x{CFG.n_hidden}x{CFG.n_hidden}x"
+                  f"{CFG.n_steps}", "kwn"))
+OUTS = ("mac", "v_out", "spikes", "mask", "adc_steps")
+
+
+def _equal_outs(got, want, tag: str) -> None:
+    for name, a, b in zip(OUTS, got, want):
+        if a is None and b is None:
+            continue
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {name} differs")
+
+
+def plans_phase(dev) -> dict:
+    """Kernel #1 under every candidate plan of each tuner cell, clean and
+    with the Fig. 7 counter noise, each launch equal (MAC, membrane,
+    spikes, mask, ADC steps) to the heuristic plan's and to the plain
+    version on the same card tensors, and dense (``gate=False``) equal to
+    gated; #2, #3 and #4 under a plan no heuristic picks, against the
+    heuristic plan's launch and their plain versions, and dense against
+    gated."""
+    n_plans = n_launch = 0
+    noise_model = ima_lib.IMANoiseModel()
+    for ci, cell in enumerate(TUNE_CELLS):
+        x, msb, lsb, cb, scale, v = autotune._operands(cell, SEED + ci,
+                                                       device=dev)
+        args = (x, msb, lsb, cb.boundaries, cb.levels, scale, v)
+        heur = autotune.heuristic_blocks(cell)
+        cands = autotune.enumerate_candidates(cell)
+        rows = torch.arange(cell.m, dtype=torch.int32, device=dev)
+        for noisy in (False, True):
+            kw = dict(k=cell.k, drive_gain=autotune.DRIVE_GAIN)
+            if noisy:
+                kw.update(ima_noise=ima_lib.kernel_noise_params(noise_model,
+                                                                cb),
+                          snl_amp=0.05)
+            seed, off = SEED + 17 * ci + 1, 3 * ci
+            rc = torch.stack([torch.full_like(rows, seed),
+                              torch.full_like(rows, off), rows], -1)
+            want = list(ref.fused_macro_seq_ref(*args, None, row_ctl=rc,
+                                                **kw))
+            want[4] = want[4][..., 0]
+            base = None
+            for blocks in [heur] + [b for b in cands if b != heur]:
+                plan = dict(zip(("bm", "bk", "bn"), blocks))
+                for gate in ((True, False) if not noisy else (True,)):
+                    before = fused_macro.fused_macro_seq.launches
+                    got = ops.fused_macro_seq(*args, device=dev, gate=gate,
+                                              seed=seed, step_offset=off,
+                                              **plan, **kw)
+                    torch.cuda.synchronize()
+                    if fused_macro.fused_macro_seq.launches != before + 1:
+                        raise AssertionError("ops.fused_macro_seq did not "
+                                             "launch #1 once")
+                    n_launch += 1
+                    tag = (f"#1 {cache_lib.shape_key(*cell[:5])} d="
+                           f"{cell.density} plan {blocks} "
+                           f"{'noisy' if noisy else 'clean'} "
+                           f"{'gated' if gate else 'dense'}")
+                    _equal_outs(got, want, tag + " against the plain "
+                                "version")
+                    if base is None:
+                        base = got
+                    _equal_outs(got, base, tag + " against the heuristic "
+                                "plan")
+                n_plans += not noisy
+        log(f"plans {cache_lib.shape_key(*cell[:5])} d={cell.density}: "
+            f"{len(cands)} candidate plans (heuristic {heur}), clean gated "
+            f"and dense and noisy, each equal to the heuristic plan's launch "
+            f"and the plain version; {int(want[2].sum())} spikes")
+
+    # #2: NLD at the serving round shape
+    rs = np.random.RandomState(SEED + 41)
+    fw, mcfg = _nld_weights(NLD_CFG.n_in, NLD_CFG.n_hidden, 2, "relu",
+                            SEED + 41, dev)
+    x = _events(rs, ROUND, SLOTS, NLD_CFG.n_in, dev, density=0.1)
+    v0 = torch.from_numpy(rs.uniform(-1, 1, (SLOTS, NLD_CFG.n_hidden))
+                          .astype(np.float32)).to(dev)
+    rows = torch.arange(SLOTS, dtype=torch.int32, device=dev)
+    rc = torch.stack([torch.full_like(rows, 5), torch.full_like(rows, 2),
+                      rows], -1)
+    kw = dict(drive_gain=NLD_CFG.drive_gain, beta=NLD_CFG.beta,
+              v_th1=NLD_CFG.v_th1, v_lim=8.0,
+              ima_noise=macro_lib.fused_kernel_noise(fw, mcfg))
+    nld_args = (x, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v0,
+                None, fw.w_dend)
+    want = list(ref.fused_macro_seq_nld_ref(
+        x, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, fw.w_dend,
+        v0, row_ctl=rc, **kw))
+    want[4] = want[4][..., 0]
+    for plan, gate in (({}, True), (FORCED, True), (FORCED, False)):
+        got = ops.fused_macro_seq(*nld_args, mode="nld", device=dev,
+                                  gate=gate, seed=5, step_offset=2, **plan,
+                                  **kw)
+        n_launch += 1
+        _equal_outs(got, want, f"#2 plan {plan or 'heuristic'} gate={gate}")
+    nld_spikes = int(want[2].sum())
+
+    # #3: the backward on the forced plan's operands
+    torch.manual_seed(SEED + 43)
+    rs = np.random.RandomState(SEED + 43)
+    _, _, res = _train_forward(rs, CFG.n_steps, TRAIN_BATCH, CFG.n_in,
+                               CFG.n_hidden, True, dev)
+    first = None
+    for plan, remat, gate in (({}, False, True), (FORCED, False, True),
+                              (FORCED, True, True), (FORCED, False, False)):
+        operands = ops.seq_grad_operands(*res, remat=remat, gate=gate,
+                                         **plan)
+        dw, dv0 = fused_macro_grad.fused_macro_seq_grad(*operands, **GRAD_KW)
+        dw_w, dv0_w = ref.fused_macro_seq_grad_ref(*operands, **GRAD_KW)
+        n_launch += 1
+        tag = f"#3 plan {plan or 'heuristic'} remat={remat} gate={gate}"
+        if _ulps(dv0, dv0_w) or not _close(dw, dw_w):
+            raise AssertionError(f"{tag}: kernel != plain version")
+        if first is None:
+            first = (dw, dv0)
+        elif not (torch.equal(dw, first[0]) and torch.equal(dv0, first[1])):
+            raise AssertionError(f"{tag}: dW or dv0 bits moved")
+
+    # #4: the DVS stack
+    rs = np.random.RandomState(SEED + 47)
+    stack, mcfg = _stack_weights(rs, STACK_CFG.n_in,
+                                 STACK_CFG.hidden_layers, dev)
+    x = _events(rs, STACK_CFG.n_steps, STACK_BATCH, STACK_CFG.n_in, dev)
+    vs = [torch.from_numpy(rs.uniform(-1, 1, (STACK_BATCH, w))
+                           .astype(np.float32)).to(dev)
+          for w in STACK_CFG.hidden_layers]
+    layers = [(fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale)
+              for fw in stack]
+    base = None
+    for plan, gate in (({}, True),
+                       ({"bm": 32, "tile_shapes": [(128, None),
+                                                   (64, None)]}, True),
+                       ({"bm": 32, "tile_shapes": [(128, None),
+                                                   (64, None)]}, False)):
+        xm, planes, vs_p, _, act, ctl, specs, plan0 = ops.stack_operands(
+            x, layers, vs, None, ks=STACK_CFG.k_layers, seeds=[3, 4],
+            step_offset=1, gate=gate, device=dev, **plan)
+        kw = dict(specs=specs, drive_gain=STACK_CFG.drive_gain,
+                  beta=STACK_CFG.beta, v_th1=STACK_CFG.v_th1,
+                  v_th2=STACK_CFG.v_th2, v_lim=8.0, bm=plan0.bm,
+                  ima_noise=macro_lib.fused_kernel_noise(stack[0], mcfg),
+                  snl_amp=0.05)
+        got = fused_macro.fused_macro_multi_seq(xm, planes, vs_p, None, act,
+                                                ctl, **kw)
+        want = ref.fused_macro_multi_seq_ref(xm, planes, vs_p, None, act,
+                                             ctl, **kw)
+        n_launch += 1
+        tag = f"#4 plan {plan or 'heuristic'} gate={gate}"
+        for i, (a, b) in enumerate(zip(got, want)):
+            same = all(torch.equal(p, q) for p, q in zip(a, b)) \
+                if i == 0 else torch.equal(a, b)
+            if not same:
+                raise AssertionError(f"{tag}: output {i} != plain version")
+        if base is None:
+            base = got
+        # the occupancy (output 5) is the plan's own granularity
+        for i in range(5):
+            same = all(torch.equal(p, q) for p, q in zip(got[i], base[i])) \
+                if i == 0 else torch.equal(got[i], base[i])
+            if not same:
+                raise AssertionError(f"{tag}: output {i} != heuristic plan")
+    log(f"plans: #2 (NLD round, {nld_spikes} spikes), #3 (training batch, "
+        f"residual and remat) and #4 (DVS stack) under bm=32 / bk=128, "
+        f"gated and dense, equal to the heuristic plan's launch and their "
+        f"plain versions")
+    return {"plans": n_plans, "launches": n_launch, "max_abs_err": 0.0,
+            "mismatches": 0}
+
+
+def _plan_device_ms(cell, blocks, operands) -> float:
+    """#1's own device time (its head and LIF under ``torch.profiler``)
+    per launch of the tuner's serving-configuration call on ``blocks``."""
+    x, msb, lsb, cb, scale, v = operands
+    run = functools.partial(autotune._runner(cell, blocks), device=x.device)
+    split: dict = {}
+    _device_ms_per_launch(
+        lambda: run(x, msb, lsb, cb.boundaries, cb.levels, scale, v), 20,
+        split)
+    ms = sum(t for name, t in split.items() if name.startswith("kwn_"))
+    if not ms > 0.0:
+        raise AssertionError(f"no #1 kernel under the profiler: {split}")
+    return ms
+
+
+def tune_phase(dev) -> dict:
+    """``autotune.tune`` over ``TUNE_CELLS`` on the card into a cache
+    under ``chiprun_out/`` (never the repo root), then #1's device time
+    under each candidate plan of every cell (the tuner's stopwatch, CUDA
+    events around the whole call, includes the host's work)."""
+    path = ROOT / "chiprun_out" / "plan_cache_tuned.json"
+    path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    entries, _ = autotune.tune(TUNE_CELLS, iters=TUNE_ITERS, path=str(path),
+                               merge=False, verbose=False, device=dev)
+    tune_s = time.perf_counter() - t0
+    cells = []
+    for cell, e in zip(TUNE_CELLS, entries):
+        blocks = tuple(e["plan"].values())
+        heur = autotune.heuristic_blocks(cell)
+        operands = autotune._operands(cell, device=dev)
+        device_ms = {"x".join(map(str, b)): _plan_device_ms(cell, b,
+                                                            operands)
+                     for b in autotune.enumerate_candidates(cell)}
+        cells.append({"cell": e["shape"], "density": cell.density,
+                      "heuristic": list(heur),
+                      "heuristic_ms": e["heuristic_median_ms"],
+                      "winner": list(blocks), "winner_ms": e["median_ms"],
+                      "speedup_vs_heuristic": e["speedup_vs_heuristic"],
+                      "candidates": e["n_candidates"],
+                      "device_ms": device_ms})
+        log(f"tune {e['shape']} d={cell.density}: heuristic {list(heur)} "
+            f"{e['heuristic_median_ms']:.4f} ms (device "
+            f"{device_ms['x'.join(map(str, heur))]:.4f}), winner "
+            f"{list(blocks)} {e['median_ms']:.4f} ms (device "
+            f"{device_ms['x'.join(map(str, blocks))]:.4f}), speedup "
+            f"{e['speedup_vs_heuristic']:.4f}, {e['n_candidates']} "
+            f"candidates; device ms over the candidates "
+            f"{min(device_ms.values()):.4f}-{max(device_ms.values()):.4f}")
+    return {"path": str(path.relative_to(ROOT)), "cells": cells,
+            "entries": len(entries), "seconds": tune_s}
+
+
+def _forced_cache(path: Path, dev) -> None:
+    kind = cache_lib.device_kind(dev)
+    cache_lib.save_entries(
+        [{"op": "fused_macro_seq", "shape": shape, "mode": mode,
+          "density_bucket": cache_lib.ANY_BUCKET, "device_kind": kind,
+          "plan": dict(FORCED), "objective": "ms",
+          "speedup_vs_heuristic": 1.0} for shape, mode in FORCED_SHAPES],
+        path=str(path), merge=False)
+
+
+def cached_paths_phase(params, nld_params, train_params, tuned: str,
+                       dev) -> dict:
+    """The main paths with no cache, with the tuned cache and with the
+    forced plan, the launch counters zeroed just before each run and read
+    just after: ``TUNE_SERVE`` DVS-Gesture KWN requests through
+    ``SNNEventEngine`` (logits, prediction, ADC steps and SOPs of every
+    request equal to the no-cache run; req/s printed), the NLD and the
+    stack ``forward_silicon`` on a batch of 64 streams and a noisy
+    silicon-training loss and gradients on the training batch."""
+    forced = ROOT / "chiprun_out" / "plan_cache_forced.json"
+    _forced_cache(forced, dev)
+    traffic = _traffic(TUNE_SERVE, SEED + 3)
+    stack_params = snn.init_params(STACK_CFG,
+                                   torch.Generator().manual_seed(SEED),
+                                   device=dev)
+    rs = np.random.RandomState(SEED + 53)
+    u = rs.random_sample((STACK_BATCH, CFG.n_steps, CFG.n_in))
+    ev = (u > 0.975).astype(np.float32) - (u < 0.025)
+    ds = events_lib.EventDataset(events_lib.DATASETS["dvs_gesture"],
+                                 device=dev)
+    tr_ev, tr_lab = ds.sample(torch.Generator(dev).manual_seed(SEED + 59),
+                              TRAIN_BATCH)
+    noise = ima_lib.IMANoiseModel()
+    launches = {name: 0 for name in KERNELS}
+    runs = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, n in read_counts().items():
+            launches[name] += n
+        return out, read_counts()
+
+    for label, path in (("none", None), ("tuned", tuned),
+                        ("forced", str(forced))):
+        if path is None:
+            os.environ.pop(cache_lib.ENV_PATH, None)
+        else:
+            os.environ[cache_lib.ENV_PATH] = path
+        serve_plan = fused_macro.plan_tiles(SLOTS, CFG.n_in, CFG.n_hidden,
+                                            CFG.n_hidden, ROUND, device=dev)
+        (eng, reqs, wall, n, _), _ = counted(
+            lambda: _serve(params, traffic, None, False, dev))
+        served = [(r.logits, r.pred, r.adc_steps, r.sops) for r in reqs]
+        (nld, nld_tele), c_nld = counted(
+            lambda: snn.forward_silicon(nld_params, ev, NLD_CFG, seed=SEED,
+                                        noise=noise, device=dev))
+        (stk, stk_tele), c_stk = counted(
+            lambda: snn.forward_silicon(stack_params, ev, STACK_CFG,
+                                        seed=SEED, noise=noise, device=dev))
+        (loss, grads), c_tr = counted(
+            lambda: _loss_and_grads(train_params, tr_ev, tr_lab, SEED + 61,
+                                    noise))
+        if (c_nld["fused_macro_seq_nld"], c_stk["fused_macro_multi_seq_kwn"],
+                c_tr["fused_macro_seq_kwn"],
+                c_tr["fused_macro_seq_kwn_bwd"]) != (1, 1, 1, 1) \
+                or sum(c_nld.values()) + sum(c_stk.values()) \
+                + sum(c_tr.values()) != 4:
+            raise AssertionError(f"{label}: launches {c_nld} {c_stk} {c_tr}")
+        runs[label] = {
+            "serve_plan": list(serve_plan[:3]), "requests": len(reqs),
+            "rounds": n, "wall_s": wall, "requests_per_s": len(reqs) / wall,
+            "skipped_block_ratio": float(np.mean(
+                [r.skipped_block_ratio for r in reqs])),
+            "out": (served, nld, nld_tele, stk, stk_tele, loss, grads)}
+        log(f"[{label} cache] serving plan {list(serve_plan[:3])}: "
+            f"{len(reqs)} requests in {n} rounds, "
+            f"{len(reqs) / wall:.1f} req/s, skipped block ratio "
+            f"{runs[label]['skipped_block_ratio']:.4f}; NLD, stack and "
+            f"silicon-training step one launch each")
+    os.environ.pop(cache_lib.ENV_PATH, None)
+    if runs["forced"]["serve_plan"][:2] != [FORCED["bm"], FORCED["bk"]]:
+        raise AssertionError("the forced cache did not reach the planner")
+    base = runs["none"].pop("out")
+    for label in ("tuned", "forced"):
+        served, nld, nld_tele, stk, stk_tele, loss, grads = \
+            runs[label].pop("out")
+        for i, (a, b) in enumerate(zip(base[0], served)):
+            if not torch.equal(a[0], b[0]) or a[1:] != b[1:]:
+                raise AssertionError(f"{label} cache: request {i} differs")
+        for name, a, b in (("NLD logits", base[1], nld),
+                           ("stack logits", base[3], stk),
+                           ("loss", base[5], loss)) + tuple(
+                               (f"grad {i}", g, h)
+                               for i, (g, h) in enumerate(zip(base[6],
+                                                              grads))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label} cache: {name} differs")
+        for key in ("adc_steps", "lif_updates", "sops"):
+            if not (torch.equal(base[2][key], nld_tele[key])
+                    and torch.equal(base[4][key], stk_tele[key])):
+                raise AssertionError(f"{label} cache: {key} differs")
+    log(f"cached paths: every served request, the NLD and stack logits "
+        f"and the silicon-training loss and gradients equal to the "
+        f"no-cache run under the tuned and the forced plans")
+    return {"runs": runs, "launches": launches}
+
+
+TOOLS = (("tools/tune_plans_torch.py", "--smoke", "--out",
+          "chiprun_out/plan_cache_smoke.json"),
+         ("tools/chaos_serve_torch.py", "--smoke"),
+         ("tools/obs_report_torch.py", "--smoke", "--trace-out",
+          "chiprun_out/obs_smoke_trace.json", "--metrics-out",
+          "chiprun_out/obs_smoke_metrics.json"))
+
+
+def tools_phase() -> dict:
+    """The port's tools' smokes on the card, one subprocess each (the
+    kernels already built); any nonzero exit fails the run."""
+    env = {k: v for k, v in os.environ.items() if k != cache_lib.ENV_PATH}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = {}
+    for tool, *args in TOOLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, tool, *args], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=300)
+        secs = time.perf_counter() - t0
+        tail = (proc.stdout + proc.stderr).strip().splitlines()[-8:]
+        log(f"{tool} {' '.join(args)}: exit {proc.returncode} in "
+            f"{secs:.1f} s")
+        for line in tail:
+            log(f"  {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{tool} exited {proc.returncode}")
+        out[tool] = {"rc": proc.returncode, "seconds": secs}
+    return out
+
+
+def tuner_phase(params, nld_params, train_params, dev) -> dict:
+    """Phase 9: every candidate plan held, the tuner on the card, the main
+    paths with and without a cache, and the tools' smokes."""
+    t0 = time.perf_counter()
+    plans = plans_phase(dev)
+    tuned = tune_phase(dev)
+    cached = cached_paths_phase(params, nld_params, train_params,
+                                str(ROOT / tuned["path"]), dev)
+    tools = tools_phase()
+    secs = time.perf_counter() - t0
+    log(f"phase 9: {plans['plans']} plans held in {plans['launches']} "
+        f"launches, {len(tuned['cells'])} cells tuned in "
+        f"{tuned['seconds']:.1f} s, {secs:.1f} s in all")
+    return {"plans": plans, "tune": tuned, "cached": cached, "tools": tools,
+            "seconds": secs}
+
+
 def _record(name, replaces, launches, cmp, timing,
             library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -4093,6 +4514,8 @@ def main() -> None:
     log(f"phase 7 done at {time.perf_counter() - t0:.1f} s")
     training = lm_training_phase(dev)
     log(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
+    tuner = tuner_phase(params, nld_params, train_params, dev)
+    log(f"phase 9 done at {time.perf_counter() - t0:.1f} s")
     b = serving["burst"]
     log(f"[{smi}] engine, {b['requests']}-request clean burst: "
         f"{b['requests_per_s']:.1f} req/s, round ms p50 "
@@ -4216,6 +4639,19 @@ def main() -> None:
         f"seq-KWN forward with trace {tt['fwd_ms']['trace']:.4f} ms "
         f"(without {tt['fwd_ms']['no_trace']:.4f} ms); kernels #1 and #3 "
         f"{tt['seq_kwn_device_share']:.3f} of the step's device time")
+    for c in tuner["tune"]["cells"]:
+        dms = c["device_ms"]
+        log(f"[{smi}] tuner {c['cell']} d={c['density']}: heuristic "
+            f"{c['heuristic']} {c['heuristic_ms']:.4f} ms, winner "
+            f"{c['winner']} {c['winner_ms']:.4f} ms, speedup "
+            f"{c['speedup_vs_heuristic']:.4f} over {c['candidates']} "
+            f"candidates; #1 device ms "
+            f"{min(dms.values()):.4f}-{max(dms.values()):.4f} over them")
+    for label, run in tuner["cached"]["runs"].items():
+        log(f"[{smi}] engine, {run['requests']}-request clean burst, "
+            f"{label} cache (plan {run['serve_plan']}): "
+            f"{run['requests_per_s']:.1f} req/s over {run['rounds']} rounds")
+    p9 = tuner["cached"]["launches"]
     path = "src/repro/kernels/fused_macro.py"
     flash_launches = (lm_res["prefill"]["launches"]
                       + sum(c["launches"]
@@ -4230,10 +4666,13 @@ def main() -> None:
     kwn_launches = (main_res["clean"]["launches"]
                     + main_res["noisy"]["launches"]
                     + train_res["forward_launches"]
-                    + sum(train_res["step_path_launches"].values()))
+                    + sum(train_res["step_path_launches"].values())
+                    + p9["fused_macro_seq_kwn"])
     record = {"kernels": [
         dict(_record("fused_macro_seq_kwn", f"{path}:524", kwn_launches,
                      cmp["kwn"], timing["kwn"]),
+             launches_phase9=p9["fused_macro_seq_kwn"],
+             plans_held=tuner["plans"]["plans"],
              device_ms=timing["kwn"]["device_ms"],
              ms_train=tt["fwd_ms"]["trace"],
              device_ms_train=tt["fwd_ms"]["device_trace"],
@@ -4241,18 +4680,24 @@ def main() -> None:
              bound_ms_train=tt["fwd_ms"]["bound_ms"]),
         dict(_record("fused_macro_seq_nld", f"{path}:583",
                      nld_res["clean"]["launches"]
-                     + nld_res["noisy"]["launches"],
+                     + nld_res["noisy"]["launches"]
+                     + p9["fused_macro_seq_nld"],
                      cmp["nld"], timing["nld"]),
+             launches_phase9=p9["fused_macro_seq_nld"],
              device_ms=timing["nld"]["device_ms"]),
         dict(_record("fused_macro_multi_seq_kwn", f"{path}:896",
                      stack_res["clean"]["launches"]
-                     + stack_res["noisy"]["launches"],
+                     + stack_res["noisy"]["launches"]
+                     + p9["fused_macro_multi_seq_kwn"],
                      cmp["stack"], timing["stack"]),
+             launches_phase9=p9["fused_macro_multi_seq_kwn"],
              device_ms=timing["stack"]["device_ms"]),
         dict(_record("fused_macro_seq_kwn_bwd",
                      "src/repro/kernels/fused_macro_grad.py:73",
-                     train_res["backward_launches"], cmp["train"]["bwd"],
+                     train_res["backward_launches"]
+                     + p9["fused_macro_seq_kwn_bwd"], cmp["train"]["bwd"],
                      tt["bwd"]["residual"], library_ms=tt["library_ms"]),
+             launches_phase9=p9["fused_macro_seq_kwn_bwd"],
              device_ms=tt["bwd"]["residual"]["device_ms"],
              ms_remat=tt["bwd"]["remat"]["kernel_ms"],
              device_ms_remat=tt["bwd"]["remat"]["device_ms"],
@@ -4296,8 +4741,11 @@ def main() -> None:
                        "lm": lm_res, "families": families,
                        "moe_frontends": moe_frontends,
                        "lm_training": training},
+         "tuner": tuner,
          "timing": timing, "serving": serving, "nld_serving": nld_serving,
          "seconds": time.perf_counter() - t0}, indent=1))
+    log(f"chip_smoke: phase 9 {tuner['seconds']:.1f} s, all phases "
+        f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -246,14 +246,19 @@ def pack_kwn_stack(w_ints, scales, cfg: CIMMacroConfig
 
 
 def plan_fused_tiles(batch: int, fw: FusedMacroWeights, n_out: int,
-                     n_steps: int = 1):
-    """The ``TilePlan`` of one fused launch over ``batch`` rows; ``n_out``
-    is the per-neuron width (NC / J in NLD mode)."""
+                     n_steps: int = 1, device=None):
+    """The ``TilePlan`` of one fused launch over ``batch`` rows on
+    ``device`` (default: the weights'); ``n_out`` is the per-neuron width
+    (NC / J in NLD mode).  No overrides and no density: a tuned plan in
+    the cache for this shape and device applies, as it does to the launch
+    (``kernels.ops`` plans with the same arguments), so an occupancy map
+    and the kernel it feeds always share a grid."""
     from repro_torch.kernels import fused_macro
     n_in, nc = fw.msb.shape
     n_branches = nc // n_out if fw.mode == "nld" else 1
-    return fused_macro.plan_tiles(batch, n_in, nc, n_out, n_steps,
-                                  mode=fw.mode, n_branches=n_branches)
+    return fused_macro.plan_tiles(
+        batch, n_in, nc, n_out, n_steps, mode=fw.mode, n_branches=n_branches,
+        device=fw.msb.device if device is None else device)
 
 
 def plan_fused_stack(batch: int, stack, n_steps: int = 1) -> list:
@@ -268,12 +273,15 @@ def plan_fused_stack(batch: int, stack, n_steps: int = 1) -> list:
 def plan_activity(spikes: torch.Tensor, fw: FusedMacroWeights,
                   n_out: int) -> torch.Tensor:
     """Occupancy map (T, row-tiles, K-tiles) int32 of a time-major event
-    sequence (T, ..., I), on the plan ``plan_fused_tiles`` picks."""
+    sequence (T, ..., I), on the plan ``plan_fused_tiles`` picks for the
+    events' device: the map ``fused_seq`` builds when given none.  Hand it
+    only to a launch planned without overrides."""
     from repro_torch.kernels import ops
     s = ternary_lib.ternary_input_encode(spikes)
     t = s.shape[0]
     xm = s.reshape(t, -1, s.shape[-1])
-    plan = plan_fused_tiles(xm.shape[1], fw, n_out, n_steps=t)
+    plan = plan_fused_tiles(xm.shape[1], fw, n_out, n_steps=t,
+                            device=spikes.device)
     xm = F.pad(xm, (0, plan.k_pad - xm.shape[-1], 0, plan.m_pad - xm.shape[1]))
     return ops.fused_activity_map(xm, plan)
 
@@ -310,7 +318,7 @@ def fused_seq(spikes: torch.Tensor, fw: FusedMacroWeights, v: torch.Tensor,
               v_th1: float = 1.0, v_th2: float = 0.6,
               v_reset: float = 0.0, v_lim: float = 8.0,
               use_snl: bool = True, ima_noise=None, snl_amp: float = 0.0,
-              activity: torch.Tensor | None = None,
+              gate: bool = True, activity: torch.Tensor | None = None,
               mac_telemetry: bool = True, seed=0, step_offset=0,
               row_ctl: torch.Tensor | None = None):
     """A whole event sequence through the fused kernel, on ``v``'s device.
@@ -318,6 +326,9 @@ def fused_seq(spikes: torch.Tensor, fw: FusedMacroWeights, v: torch.Tensor,
     spikes (T, ..., I), v (..., N), noise (T, ..., N) or None for the
     counter streams (KWN; the NLD head has no SNL noise); ``row_ctl``
     (..., 3) per-row stream control.  ``fw.mode`` picks the head.
+    ``gate`` runs the activity-gated kernel (the ``plan_activity`` map
+    may be passed as ``activity``); ``gate=False`` its dense path, the
+    same bits.
     Returns (v_out (..., N), spikes (T, ..., N), mask (T, ..., N),
     adc_steps (T, ...), mac (T, ..., NC) or None).
     """
@@ -327,10 +338,9 @@ def fused_seq(spikes: torch.Tensor, fw: FusedMacroWeights, v: torch.Tensor,
         s, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v, noise,
         fw.w_dend, mode=fw.mode, k=k, drive_gain=drive_gain, beta=beta,
         v_th1=v_th1, v_th2=v_th2, v_reset=v_reset, v_lim=v_lim,
-        use_snl=use_snl, ima_noise=ima_noise, snl_amp=snl_amp,
-        activity=activity,
-        mac_telemetry=mac_telemetry, seed=seed, step_offset=step_offset,
-        row_ctl=row_ctl, device=v.device)
+        use_snl=use_snl, ima_noise=ima_noise, snl_amp=snl_amp, gate=gate,
+        activity=activity, mac_telemetry=mac_telemetry, seed=seed,
+        step_offset=step_offset, row_ctl=row_ctl, device=v.device)
     return v_out, spk, mask, steps, mac
 
 
@@ -340,19 +350,20 @@ def fused_step(spikes: torch.Tensor, fw: FusedMacroWeights, v: torch.Tensor,
                v_th1: float = 1.0, v_th2: float = 0.6,
                v_reset: float = 0.0, v_lim: float = 8.0,
                use_snl: bool = True, ima_noise=None, snl_amp: float = 0.0,
-               mac_telemetry: bool = True, seed=0, step_offset=0):
+               gate: bool = True, mac_telemetry: bool = True, seed=0,
+               step_offset=0):
     """One time step through the fused kernel (one launch), on ``v``'s
     device: spikes (..., I), v / noise (..., N).  With counter noise the
     step index goes in ``step_offset``, which keys the stream as the
-    sequence path does.  Returns (v_out, spikes, mask, adc_steps (...),
-    mac (..., NC) or None)."""
+    sequence path does; ``gate`` as ``fused_seq``.  Returns (v_out,
+    spikes, mask, adc_steps (...), mac (..., NC) or None)."""
     from repro_torch.kernels import ops
     s = ternary_lib.ternary_input_encode(spikes)
     mac, v_out, spk, mask, steps = ops.fused_macro_step(
         s, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v, noise,
         fw.w_dend, mode=fw.mode, k=k, drive_gain=drive_gain, beta=beta,
         v_th1=v_th1, v_th2=v_th2, v_reset=v_reset, v_lim=v_lim,
-        use_snl=use_snl, ima_noise=ima_noise, snl_amp=snl_amp,
+        use_snl=use_snl, ima_noise=ima_noise, snl_amp=snl_amp, gate=gate,
         mac_telemetry=mac_telemetry, seed=seed, step_offset=step_offset,
         device=v.device)
     return v_out, spk, mask, steps, mac
@@ -365,7 +376,7 @@ def fused_seq_vjp(spikes: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   v_reset: float = 0.0, v_lim: float = 8.0,
                   use_snl: bool = True, noise: torch.Tensor | None = None,
                   snl_amp: float = 0.0, kwn_relax: float = 0.0,
-                  remat: bool = False, seed: int = 0):
+                  remat: bool = False, gate: bool = True, seed: int = 0):
     """Differentiable fused KWN sequence, on ``spikes``' device: the
     silicon-in-the-loop training forward, with the surrogate backward
     kernel behind it.
@@ -378,8 +389,8 @@ def fused_seq_vjp(spikes: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     (a fresh seed per optimization step); ``noise`` (T, ..., N) is the
     clean path's streamed SNL noise, None for the counter SNL stream at
     ``snl_amp`` (or none when ``use_snl`` is off).  The ramp's
-    straight-through window is ``+-(cfg.mac_range + 0.5)``; ``kwn_relax``
-    and ``remat`` as in ``kernels.ops.SeqVJPSpec``.
+    straight-through window is ``+-(cfg.mac_range + 0.5)``; ``kwn_relax``,
+    ``remat`` and ``gate`` as in ``kernels.ops.SeqVJPSpec``.
 
     Returns (spikes_out (T, ..., N), v_out (..., N)), both differentiable.
     """
@@ -393,7 +404,7 @@ def fused_seq_vjp(spikes: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         v_reset=v_reset, v_lim=v_lim, use_snl=use_snl, ima_noise=ima_kn,
         snl_amp=snl_amp, kwn_relax=kwn_relax,
         ste_lo=float(-cfg.mac_range - 0.5), ste_hi=float(cfg.mac_range + 0.5),
-        remat=remat)
+        remat=remat, gate=gate)
     dev = spikes.device
     s = ternary_lib.ternary_input_encode(spikes)
     return ops.fused_macro_seq_vjp(
@@ -406,14 +417,17 @@ def fused_multi_seq(spikes: torch.Tensor, stack, vs, noises=None, *, ks,
                     v_th1: float = 1.0, v_th2: float = 0.6,
                     v_reset: float = 0.0, v_lim: float = 8.0,
                     use_snl: bool = True, ima_noise=None,
-                    snl_amp: float = 0.0, seeds=None, step_offset=0):
+                    snl_amp: float = 0.0, gate: bool = True,
+                    tile_shapes=None, seeds=None, step_offset=0):
     """A whole event sequence through L stacked KWN layers, one launch.
 
     spikes (T, ..., I), stack a ``pack_kwn_stack`` result, vs per-layer
     (..., N_l) membranes, noises per-layer (T, ..., N_l) pre-drawn SNL
     noise or None for the counter streams, ks per-layer winner counts,
-    seeds per-layer counter seeds (keep them distinct).  The inter-layer
-    spikes are not returned.  Returns ``kernels.ops.MultiSeqOut``.
+    seeds per-layer counter seeds (keep them distinct); ``gate`` and the
+    per-layer (bk, bn) ``tile_shapes`` as in
+    ``kernels.ops.fused_macro_multi_seq``.  The inter-layer spikes are not
+    returned.  Returns ``kernels.ops.MultiSeqOut``.
     """
     from repro_torch.kernels import ops
     if any(fw.mode != "kwn" for fw in stack):
@@ -424,5 +438,6 @@ def fused_multi_seq(spikes: torch.Tensor, stack, vs, noises=None, *, ks,
             for fw in stack],
         vs, noises, ks=ks, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
         v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
-        ima_noise=ima_noise, snl_amp=snl_amp, seeds=seeds,
-        step_offset=step_offset, device=spikes.device)
+        ima_noise=ima_noise, snl_amp=snl_amp, gate=gate,
+        tile_shapes=tile_shapes, seeds=seeds, step_offset=step_offset,
+        device=spikes.device)

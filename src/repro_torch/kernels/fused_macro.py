@@ -72,28 +72,65 @@ def _ceil_mult(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
 
 
+def cached_plan_blocks(m: int, k_dim: int, nc: int, n: int, t: int, *,
+                       mode: str, density: float | None = None,
+                       device=None):
+    """Tuned (bm, bk, bn) of a launch on ``device`` from the persistent
+    plan cache (``tune.cache``), or None.  The lookup is the only thing
+    that falls back: it returns None on any cache problem."""
+    from repro_torch.tune import cache as plan_cache
+    return plan_cache.lookup(m, k_dim, nc, n, t, mode=mode, density=density,
+                             device=device)
+
+
 def plan_tiles(m: int, k_dim: int, nc: int, n: int, t: int = 1, *,
-               mode: str = "kwn", n_branches: int = 1) -> TilePlan:
-    """The reference's heuristic tile plan (no plan cache).
+               mode: str = "kwn", n_branches: int = 1,
+               bm: int | None = None, bk: int | None = None,
+               bn: int | None = None, density: float | None = None,
+               use_cache: bool = True, device=None) -> TilePlan:
+    """Pick (bm, bk, bn) and the padded shapes of a fused launch.
+
+    The one planner: ``ops`` (forward and backward), ``core.macro``'s
+    ``plan_fused_tiles`` / ``plan_activity`` / ``plan_fused_stack`` and
+    the tuner all plan here, so an occupancy map built on the host always
+    has the kernel's grid.  ``m``, ``k_dim``, ``nc``, ``n`` are the logical
+    rows, contraction width, weight columns and per-neuron width (``nc ==
+    n_branches * n`` in NLD mode), ``t`` the steps of the launch.
+
+    ``bm`` / ``bk`` / ``bn`` pin a block size; any of them **disables the
+    cache lookup**: an explicit plan is measured as asked.  Otherwise,
+    with ``use_cache``, a tuned entry for this shape on ``device`` (the
+    port's default ``cuda`` when None; ``"cpu"`` keys the plain version)
+    supplies the blocks.  ``density`` refines the key to a density
+    bucket; callers that pair a plan with a separately built occupancy map
+    pass the same value on both sides (the model and serving paths pass
+    None).  A miss, and every cache problem, gives the heuristic:
 
     Row tiles follow the batch (``min(128, ceil_to_8(M))``); K tiles are
     the 256-row macro, or the smallest 128-multiple covering a narrower
-    layer; a layer wider than one 128-column macro is padded to whole
-    column tiles.  In NLD mode (``nc == n_branches * n``, branch-major)
-    the padding must not straddle branches: each branch is padded to the
-    smallest ``n_pad`` with ``n_branches * n_pad % bn == 0``.
+    layer; a layer wider than one column tile (128, the macro's width) is
+    padded to whole tiles, a narrower one is a single unpadded tile.  In
+    NLD mode the padding must not straddle branches: each branch is padded
+    to the smallest ``n_pad`` with ``n_branches * n_pad % bn == 0``.  The
+    normalisation is the reference's, override for override.
     """
-    bm_ = min(DEFAULT_BM, _ceil_mult(m, 8))
-    bk_ = DEFAULT_BK if k_dim >= DEFAULT_BK else _ceil_mult(k_dim, 128)
-    if nc <= DEFAULT_BN:
+    if use_cache and bm is None and bk is None and bn is None:
+        cached = cached_plan_blocks(m, k_dim, nc, n, t, mode=mode,
+                                    density=density, device=device)
+        if cached is not None:
+            bm, bk, bn = cached
+    bm_ = bm or min(DEFAULT_BM, _ceil_mult(m, 8))
+    bk_ = bk or (DEFAULT_BK if k_dim >= DEFAULT_BK else _ceil_mult(k_dim, 128))
+    bn_req = bn or DEFAULT_BN
+    if nc <= bn_req:
         bn_ = nc
         n_pad, nc_pad = n, nc
     elif mode == "nld" and n_branches > 1:
-        bn_ = DEFAULT_BN
+        bn_ = bn_req
         n_pad = _ceil_mult(n, bn_ // math.gcd(bn_, n_branches))
         nc_pad = n_branches * n_pad
     else:
-        bn_ = DEFAULT_BN
+        bn_ = bn_req
         nc_pad = _ceil_mult(nc, bn_)
         n_pad = nc_pad
     m_pad = _ceil_mult(m, bm_)
@@ -101,6 +138,15 @@ def plan_tiles(m: int, k_dim: int, nc: int, n: int, t: int = 1, *,
     return TilePlan(bm=bm_, bk=bk_, bn=bn_, m_pad=m_pad, k_pad=k_pad,
                     n_pad=n_pad, nc_pad=nc_pad, n_valid=nc,
                     grid=(m_pad // bm_, t, nc_pad // bn_, k_pad // bk_))
+
+
+def check_plan(plan: TilePlan) -> None:
+    """Raise ``ValueError`` for a plan the kernels cannot launch: the
+    padded rows and the row tile a multiple of 4, a K tile that is a
+    multiple of 32 (#1, #2; the padded rows and K are whole tiles by
+    construction, so the backward's row tiles divide its rows).  Runs
+    before any launch, on every device."""
+    _check_rows(plan.m_pad, plan.bm, plan.k_pad, plan.bk)
 
 
 class LayerSpec(NamedTuple):
@@ -525,7 +571,8 @@ def _launch_multi(x, planes, v0s, noises, activity, ctl, *, specs, ratio,
                             bk=spec.bk)
     ins = dict(
         x=_operand(x, i8, (t_steps, m, k0), dev),
-        activity=_operand(activity, i32, (t_steps, n_i, specs[0].n_k), dev),
+        activity=None if activity is None else _operand(
+            activity, i32, (t_steps, n_i, specs[0].n_k), dev),
         ctl=_operand(ctl, i32, (n_layers + 1,), dev))
     params = _MultiParams(
         **{name: _ptr(a) for name, a in {**ins, **outs}.items()},
@@ -537,13 +584,16 @@ def _launch_multi(x, planes, v0s, noises, activity, ctl, *, specs, ratio,
         **_noise_kw(ima_noise))
     _run("fused_macro_multi_seq_kwn", "fmmk_launch", params, dev)
     fused_macro_multi_seq.launches += 1
-    # occupied K tiles per (layer, step, row tile): OR the per-row tile
-    # bits over the rows of each tile, then count the bits (at most 32 K
-    # tiles a layer, the higher bits 0)
-    shifts = torch.arange(32, dtype=i32, device=dev)
-    bits = (outs["tile_bits"][..., None] >> shifts) & 1
-    occ = bits.reshape(n_layers, t_steps, n_i, bm, 32).amax(3).sum(
-        -1, dtype=i32)
+    if activity is None:
+        occ = ref.dense_occupancy(specs, t_steps, n_i, dev)
+    else:
+        # occupied K tiles per (layer, step, row tile): OR the per-row
+        # tile bits over the rows of each tile, then count the bits (at
+        # most 32 K tiles a layer, the higher bits 0)
+        shifts = torch.arange(32, dtype=i32, device=dev)
+        bits = (outs["tile_bits"][..., None] >> shifts) & 1
+        occ = bits.reshape(n_layers, t_steps, n_i, bm, 32).amax(3).sum(
+            -1, dtype=i32)
     return (tuple(v_outs), outs["spikes"], mask, outs["steps"],
             outs["counts"], occ)
 
@@ -562,7 +612,8 @@ def fused_macro_multi_seq(x, planes, v0s, noises, activity, ctl, *,
     (k_dim_l, n_l) planes and ramps of one size, v0s per-layer (M, n_l)
     membranes, noises per-layer (T, M, n_l) SNL noise or None for the
     counter streams,
-    activity (T, M/bm, K0/bk0) the layer-0 occupancy map, ctl (L+1,)
+    activity (T, M/bm, K0/bk0) the layer-0 occupancy map or None (layer 0
+    dense; every K tile of every layer reported occupied), ctl (L+1,)
     int32: per-layer counter seeds, then the step offset; the counters of
     row i at step t in layer l are ``(ctl[l], ctl[L] + t, i, column)``.
 

@@ -158,8 +158,10 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
                     ratio: float = 2.0, drive_gain: float = 1.0,
                     beta: float = 0.9, v_th1: float = 1.0, v_th2: float = 0.6,
                     v_reset: float = 0.0, v_lim: float = 8.0,
-                    use_snl: bool = True, ima_noise=None,
-                    snl_amp: float = 0.0, activity=None,
+                    use_snl: bool = True, bm: int | None = None,
+                    bk: int | None = None, bn: int | None = None,
+                    ima_noise=None, snl_amp: float = 0.0,
+                    gate: bool = True, activity=None,
                     mac_telemetry: bool = True, train_trace: bool = False,
                     seed=0, step_offset=0, row_ctl=None, device=None):
     """Batched time-major fused sequence; x (T, ..., K), v (..., N),
@@ -170,14 +172,19 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     ``noise``, ``k``, ``v_th2``, ``use_snl`` and ``snl_amp`` are unused).
 
     Runs on ``device`` (default ``cuda``; ``"cpu"`` runs the plain
-    version).  Pads the batch to the row tile, K to the K tile and a layer
+    version).  Plans through ``fused_macro.plan_tiles`` on that device
+    (``bm`` / ``bk`` / ``bn`` pin the blocks and bypass the plan cache;
+    a plan the kernels cannot take raises ``ValueError`` before any
+    launch).  Pads the batch to the row tile, K to the K tile and a layer
     wider than one macro to whole column tiles (zero padding is
     MAC-neutral; padded KWN columns never win; NLD pads each branch, so
     the branch-major layout survives), builds the occupancy map (or takes
     ``activity``) and pads ``row_ctl`` ((..., 3) int32 per-row ``[seed,
     step_offset, row_id]``), runs one launch and slices the padding back
     off.  The counter noise is keyed on logical columns, so padding never
-    moves a draw.
+    moves a draw, and no plan moves an output bit.  ``gate=False`` hands
+    the kernel no occupancy map: its dense path, the reference's
+    baseline.
 
     ``train_trace`` (KWN only) also returns vtrace (T, ..., N), the
     saturated membrane before the reset: the residual of the surrogate
@@ -209,13 +216,18 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     vm = torch.as_tensor(v).to(dev, torch.float32).reshape(-1, n)
     m0 = xm.shape[1]
     plan = _fused.plan_tiles(m0, kdim, nc, n, t, mode=mode,
-                             n_branches=n_branches)
+                             n_branches=n_branches, bm=bm, bk=bk, bn=bn,
+                             device=dev)
+    _fused.check_plan(plan)
     xm = F.pad(xm.to(torch.int8), (0, plan.k_pad - kdim, 0, plan.m_pad - m0))
     vm = F.pad(vm, (0, plan.n_pad - n, 0, plan.m_pad - m0))
-    if activity is None:
-        activity = fused_activity_map(xm, plan)
+    if not gate:
+        activity = None
+    elif activity is None:
+        activity = fused_activity_map(xm, plan).contiguous()
     else:
-        activity = torch.as_tensor(activity).to(dev, torch.int32)
+        activity = torch.as_tensor(activity).to(dev, torch.int32) \
+            .contiguous()
     pad_k = (0, 0, 0, plan.k_pad - kdim)
     msb_p, lsb_p = (
         _pad_cols(F.pad(torch.as_tensor(a).to(dev, torch.int8), pad_k), n,
@@ -234,8 +246,8 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
                          (0, plan.n_pad - n))
         mac, v_out, spikes, mask, steps = _fused.fused_macro_seq_nld(
             xm.contiguous(), msb_p, lsb_p, bounds, lut, scale_p,
-            w_dend_p.contiguous(), vm.contiguous(), activity.contiguous(),
-            rc, ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
+            w_dend_p.contiguous(), vm.contiguous(), activity, rc,
+            ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
             v_reset=v_reset, v_lim=v_lim, bm=plan.bm, bk=plan.bk,
             logical_n=n, ima_noise=ima_noise, mac_telemetry=mac_telemetry,
             seed=seed, step_offset=step_offset)
@@ -254,7 +266,7 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     outs = _fused.fused_macro_seq(
         xm.contiguous(), msb_p, lsb_p, bounds, lut, scale_p,
         vm.contiguous(), None if nm is None else nm.contiguous(),
-        activity.contiguous(), rc,
+        activity, rc,
         k=k, ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
         v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
         bm=plan.bm, bk=plan.bk, n_valid=plan.n_valid, ima_noise=ima_noise,
@@ -279,10 +291,13 @@ def fused_macro_step(x, msb, lsb, boundaries, levels, scale, v, noise=None,
                      beta: float = 0.9, v_th1: float = 1.0,
                      v_th2: float = 0.6, v_reset: float = 0.0,
                      v_lim: float = 8.0, use_snl: bool = True,
-                     ima_noise=None, snl_amp: float = 0.0,
+                     bm: int | None = None, bk: int | None = None,
+                     bn: int | None = None, ima_noise=None,
+                     snl_amp: float = 0.0, gate: bool = True,
                      mac_telemetry: bool = True, seed=0, step_offset=0,
                      device=None):
-    """One time step: the T=1 case of ``fused_macro_seq`` (one launch).
+    """One time step: the T=1 case of ``fused_macro_seq`` (one launch),
+    with its plan overrides and ``gate``.
 
     x (..., K), v (..., N), noise (..., N) or None.  With counter noise,
     pass the step index as ``step_offset`` so that a per-step loop draws
@@ -293,9 +308,10 @@ def fused_macro_step(x, msb, lsb, boundaries, levels, scale, v, noise=None,
         x[None], msb, lsb, boundaries, levels, scale, v,
         None if noise is None else noise[None], w_dend, mode=mode, k=k,
         ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
-        v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
-        ima_noise=ima_noise, snl_amp=snl_amp, mac_telemetry=mac_telemetry,
-        seed=seed, step_offset=step_offset, device=device)
+        v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl, bm=bm,
+        bk=bk, bn=bn, ima_noise=ima_noise, snl_amp=snl_amp, gate=gate,
+        mac_telemetry=mac_telemetry, seed=seed, step_offset=step_offset,
+        device=device)
     return (None if mac is None else mac[0], v_out, spikes[0], mask[0],
             steps[0])
 
@@ -318,13 +334,20 @@ class MultiSeqOut(NamedTuple):
 
 
 def stack_operands(x, stack, vs, noises=None, *, ks, seeds=None,
-                   step_offset=0, device=None):
+                   step_offset=0, bm: int | None = None, tile_shapes=None,
+                   gate: bool = True, device=None):
     """The padded operands of one stacked launch on ``device``: (x (T,
     m_pad, k_pad) int8, per-layer planes, membranes and noises, the
-    layer-0 occupancy map, ``ctl`` (L+1,) int32, the ``LayerSpec``s, layer
-    0's ``TilePlan``).  Only layer 0 is padded (rows to the row tile, K to
-    its K tile); deeper layers keep their exact widths, with K tiles of
-    ``min(k_dim, 256)``."""
+    layer-0 occupancy map (None without ``gate``), ``ctl`` (L+1,) int32,
+    the ``LayerSpec``s, layer 0's ``TilePlan``).
+
+    Layer 0 plans through ``plan_tiles`` (``bm`` and ``tile_shapes[0]``'s
+    K tile pin it) and is the only one padded (rows to the row tile, K to
+    its K tile).  Deeper layers keep their exact widths; their K tile is
+    ``tile_shapes[l]``'s, else that of a tuned single-layer plan for
+    their shape capped to the layer, else ``min(k_dim, 256)``.
+    ``tile_shapes`` holds the reference's per-layer (bk, bn): the kernel
+    has no column tile, so bn is not read."""
     dev = device_lib.resolve(device)
     t = x.shape[0]
     kdim = x.shape[-1]
@@ -332,18 +355,30 @@ def stack_operands(x, stack, vs, noises=None, *, ks, seeds=None,
     widths = [int(s[0].shape[-1]) for s in stack]
     if len(ks) != n_layers:
         raise ValueError(f"{len(ks)} winner counts for {n_layers} layers")
+    if tile_shapes is None:
+        tile_shapes = [(None, None)] * n_layers
     xm = torch.as_tensor(x).to(dev).reshape(t, -1, kdim)
     m0 = xm.shape[1]
-    plan0 = _fused.plan_tiles(m0, kdim, widths[0], widths[0], t)
+    plan0 = _fused.plan_tiles(m0, kdim, widths[0], widths[0], t, bm=bm,
+                              bk=tile_shapes[0][0], device=dev)
+    _fused.check_plan(plan0)
     xm = F.pad(xm.to(torch.int8),
                (0, plan0.k_pad - kdim, 0, plan0.m_pad - m0)).contiguous()
-    activity = fused_activity_map(xm, plan0).contiguous()
+    activity = fused_activity_map(xm, plan0).contiguous() if gate else None
     specs = []
     for li in range(n_layers):
         k_dim = plan0.k_pad if li == 0 else widths[li - 1]
+        bk_l, bn_l = tile_shapes[li]
+        if li == 0:
+            bk_l = plan0.bk               # the host occupancy map's
+        elif bk_l is None and bn_l is None:
+            cb = _fused.cached_plan_blocks(m0, k_dim, widths[li], widths[li],
+                                           t, mode="kwn", device=dev)
+            if cb is not None:
+                bk_l = min(cb.bk, k_dim)
         specs.append(_fused.LayerSpec(
             k_dim=k_dim, n=widths[li], k=int(ks[li]),
-            bk=plan0.bk if li == 0 else min(k_dim, _fused.DEFAULT_BK)))
+            bk=int(bk_l or min(k_dim, _fused.DEFAULT_BK))))
     pad_m = (0, 0, 0, plan0.m_pad - m0)
     vs_p = [F.pad(torch.as_tensor(v).to(dev, torch.float32).reshape(-1, w),
                   pad_m).contiguous() for v, w in zip(vs, widths)]
@@ -371,8 +406,10 @@ def fused_macro_multi_seq(x, stack, vs, noises=None, *, ks,
                           beta: float = 0.9, v_th1: float = 1.0,
                           v_th2: float = 0.6, v_reset: float = 0.0,
                           v_lim: float = 8.0, use_snl: bool = True,
-                          ima_noise=None, snl_amp: float = 0.0, seeds=None,
-                          step_offset=0, device=None) -> MultiSeqOut:
+                          bm: int | None = None, tile_shapes=None,
+                          ima_noise=None, snl_amp: float = 0.0,
+                          gate: bool = True, seeds=None, step_offset=0,
+                          device=None) -> MultiSeqOut:
     """L stacked KWN layers, batched: x (T, ..., K0), one launch.
 
     stack: per-layer (msb, lsb, boundaries, levels, scale) with
@@ -381,9 +418,12 @@ def fused_macro_multi_seq(x, stack, vs, noises=None, *, ks,
     counter streams; ks per-layer winner counts; seeds per-layer counter
     seeds (zeros when None).
 
-    The operands are padded by ``stack_operands`` and the padding is
-    sliced back off.  Layer 0 gates on the host occupancy map, deeper
-    layers on the previous layer's spikes.
+    The operands are padded by ``stack_operands`` (which reads ``bm``
+    and ``tile_shapes``) and the padding is sliced back off.  Layer 0
+    gates on the host occupancy map, deeper layers on the previous
+    layer's spikes; ``gate=False`` hands the kernel no map (layer 0
+    dense) and reports every K tile of every layer occupied, as the
+    reference's dense kernel does.
     """
     dev = device_lib.resolve(device)
     t = x.shape[0]
@@ -391,7 +431,8 @@ def fused_macro_multi_seq(x, stack, vs, noises=None, *, ks,
     widths = [int(s[0].shape[-1]) for s in stack]
     xm, planes, vs_p, noises_p, activity, ctl, specs, plan0 = \
         stack_operands(x, stack, vs, noises, ks=ks, seeds=seeds,
-                       step_offset=step_offset, device=dev)
+                       step_offset=step_offset, bm=bm,
+                       tile_shapes=tile_shapes, gate=gate, device=dev)
     m0 = int(np.prod(lead, dtype=np.int64))
     v_outs, spikes, mask, steps, counts, occ = _fused.fused_macro_multi_seq(
         xm, planes, vs_p, noises_p, activity, ctl, specs=specs,
@@ -419,8 +460,9 @@ class SeqVJPSpec(NamedTuple):
     (SuperSpike sharpness), ``ste_lo`` / ``ste_hi`` (the ramp's
     straight-through window, in integer MAC units), ``remat`` (recompute
     the MAC in the backward instead of keeping the (T, M, N) residual: the
-    same bits) and ``gate`` (hand the backward the row-tile activity map:
-    the same bits)."""
+    same bits), ``gate`` (hand the forward its occupancy map and the
+    backward the row-tile map: the same bits) and ``bm`` / ``bk`` / ``bn``
+    (pin the tile plan of both; None plans through ``plan_tiles``)."""
 
     k: int = 12
     ratio: float = 2.0
@@ -439,15 +481,25 @@ class SeqVJPSpec(NamedTuple):
     ste_hi: float = 24.5
     remat: bool = False
     gate: bool = True
+    bm: int | None = None
+    bk: int | None = None
+    bn: int | None = None
 
 
 class _SeqVJP(torch.autograd.Function):
     """Forward: the seq-KWN kernel with its training trace.  Backward: the
-    surrogate backward kernel, on the forward's tile plan."""
+    surrogate backward kernel, on the forward's tile plan: the plan is
+    resolved once, and both sides launch with its blocks pinned, so a
+    plan cache cannot give them different plans."""
 
     @staticmethod
     def forward(ctx, spec: SeqVJPSpec, w, x, boundaries, levels, scale, v,
                 noise, seed: int):
+        kdim, n = w.shape
+        plan = _fused.plan_tiles(
+            int(np.prod(x.shape[1:-1], dtype=np.int64)), kdim, n, n,
+            x.shape[0], bm=spec.bm, bk=spec.bk, bn=spec.bn, device=x.device)
+        blocks = dict(bm=plan.bm, bk=plan.bk, bn=plan.bn)
         msb, lsb = ternary_lib.weight_decompose(w.detach())
         mac, v_out, spikes, mask, _, vtrace = fused_macro_seq(
             x, ternary_lib.pack_ternary(msb), ternary_lib.pack_ternary(lsb),
@@ -455,10 +507,11 @@ class _SeqVJP(torch.autograd.Function):
             ratio=spec.ratio, drive_gain=spec.drive_gain, beta=spec.beta,
             v_th1=spec.v_th1, v_th2=spec.v_th2, v_reset=spec.v_reset,
             v_lim=spec.v_lim, use_snl=spec.use_snl,
-            ima_noise=spec.ima_noise, snl_amp=spec.snl_amp,
+            ima_noise=spec.ima_noise, snl_amp=spec.snl_amp, gate=spec.gate,
             mac_telemetry=not spec.remat, train_trace=True, seed=seed,
-            device=x.device)
+            device=x.device, **blocks)
         ctx.spec = spec
+        ctx.blocks = blocks
         ctx.save_for_backward(w.detach(), x, scale, mask, vtrace, mac)
         return spikes, v_out
 
@@ -467,7 +520,8 @@ class _SeqVJP(torch.autograd.Function):
         spec = ctx.spec
         w, x, scale, mask, vtrace, mac = ctx.saved_tensors
         args = seq_grad_operands(x, w, scale, mask, vtrace, mac, g_spk,
-                                 g_vout, remat=spec.remat, gate=spec.gate)
+                                 g_vout, remat=spec.remat, gate=spec.gate,
+                                 **ctx.blocks)
         dw_p, dv0_p = _fused_grad.fused_macro_seq_grad(
             *args, ratio=spec.ratio, drive_gain=spec.drive_gain,
             beta=spec.beta, v_th1=spec.v_th1, v_lim=spec.v_lim,
@@ -480,10 +534,13 @@ class _SeqVJP(torch.autograd.Function):
 
 
 def seq_grad_operands(x, w, scale, mask, vtrace, mac, g_spk, g_vout, *,
-                      remat: bool, gate: bool) -> tuple:
+                      remat: bool, gate: bool, bm: int | None = None,
+                      bk: int | None = None, bn: int | None = None) -> tuple:
     """The operands of the backward kernel, padded to the forward's tile
-    plan: (x, scale, g_spk, g_vfin, vtrace, mask, mac, msb, lsb,
-    activity), positional for ``fused_macro_grad.fused_macro_seq_grad``.
+    plan (``bm`` / ``bk`` / ``bn`` as the forward launched; None plans
+    through ``plan_tiles`` on ``x``'s device): (x, scale, g_spk, g_vfin,
+    vtrace, mask, mac, msb, lsb, activity), positional for
+    ``fused_macro_grad.fused_macro_seq_grad``.
 
     x (T, ..., K) the forward's events, w (K, N) its weight in integer
     MAC units (planes for ``remat``), mask / vtrace / g_spk (T, ..., N),
@@ -495,7 +552,9 @@ def seq_grad_operands(x, w, scale, mask, vtrace, mac, g_spk, g_vout, *,
     kdim, n = w.shape
     xm = x.reshape(t, -1, kdim)
     m0 = xm.shape[1]
-    plan = _fused.plan_tiles(m0, kdim, n, n, t)
+    plan = _fused.plan_tiles(m0, kdim, n, n, t, bm=bm, bk=bk, bn=bn,
+                             device=x.device)
+    _fused.check_plan(plan)
     xm = F.pad(xm.to(torch.int8),
                (0, plan.k_pad - kdim, 0, plan.m_pad - m0)).contiguous()
     pad_n = (0, plan.n_pad - n, 0, plan.m_pad - m0)

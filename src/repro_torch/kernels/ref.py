@@ -265,7 +265,7 @@ def fused_macro_multi_seq_ref(x, planes, v0s, noises, activity, ctl, *,
     (v_outs, spikes, mask, steps (L, T, M), counts (L, T, M),
     occupancy (L, T, M/bm)); layer 0's occupancy counts the occupied
     blocks of ``activity``, deeper layers' the K tiles of the previous
-    layer's spikes.
+    layer's spikes; without ``activity`` every K tile counts.
     """
     t_steps, m = x.shape[0], x.shape[1]
     n_layers = len(specs)
@@ -284,16 +284,26 @@ def fused_macro_multi_seq_ref(x, planes, v0s, noises, activity, ctl, *,
             ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
             v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
             ima_noise=ima_noise, snl_amp=snl_amp, mac_telemetry=False)
-        if li == 0:
-            occ.append((activity > 0).sum(-1).to(torch.int32))
-        else:
-            occ.append(_tile_occupancy(cur, bm, spec.bk))
+        if activity is not None:
+            occ.append((activity > 0).sum(-1).to(torch.int32) if li == 0
+                       else _tile_occupancy(cur, bm, spec.bk))
         v_outs.append(v_fin)
         steps.append(st[..., 0])
         counts.append(spk.sum(-1))
         cur = spk
+    occ = torch.stack(occ) if activity is not None \
+        else dense_occupancy(specs, t_steps, m // bm, x.device)
     return (tuple(v_outs), spk, mask, torch.stack(steps),
-            torch.stack(counts), torch.stack(occ))
+            torch.stack(counts), occ)
+
+
+def dense_occupancy(specs, t_steps: int, n_i: int, dev) -> torch.Tensor:
+    """The stack's occupancy telemetry without a layer-0 map (the dense
+    launch): every K tile of every layer counted, as the reference's
+    ungated kernel reports, (L, T, n_i) int32."""
+    n_k = torch.tensor([spec.n_k for spec in specs], dtype=torch.int32,
+                       device=dev)
+    return n_k[:, None, None].expand(len(specs), t_steps, n_i).contiguous()
 
 
 # --- silicon training: the surrogate backward and its autograd oracle -------

@@ -18,6 +18,7 @@ import dataclasses
 from typing import Any
 
 PEAK_FLOPS = 989e12      # bf16 dense tensor-core FLOP/s
+PEAK_INT8_OPS = 1979e12  # int8 dense tensor-core op/s
 HBM_BW = 3.35e12         # bytes/s
 # NVLink 4: 900 GB/s a GPU over its 18 links, both directions together
 # (H100 SXM data sheet), so 450 GB/s each way

@@ -31,6 +31,7 @@ from repro_torch.models import lm, snn
 from repro_torch.nn import module as nn_module
 from repro_torch.train import optim
 from repro_torch.train import train_loop
+from repro_torch.tune import autotune
 
 pytestmark = pytest.mark.cuda
 
@@ -1059,3 +1060,153 @@ def test_lm_train_steps_on_card_repeat_bit_for_bit(cuda, monkeypatch):
     for a, b in zip(nn_module.leaves({"p": p0, "mu": s0.mu, "nu": s0.nu}),
                     nn_module.leaves({"p": p1, "mu": s1.mu, "nu": s1.nu})):
         assert torch.equal(a, b)
+
+
+# --- tile plans: every candidate of a tuner cell, dense against gated ------
+
+FORCED = dict(bm=32, bk=128, bn=128)     # no heuristic picks it at M = 64
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+@pytest.mark.parametrize("cell", autotune.CANONICAL_CELLS, ids=str)
+def test_every_candidate_plan_equals_heuristic_and_plain(cuda, cell, noisy):
+    """#1 through ``ops.fused_macro_seq`` under each of
+    ``autotune.enumerate_candidates``' plans: MAC, membrane, spikes, mask
+    and ADC steps equal to the heuristic plan's launch and to the plain
+    version on the same card tensors; clean launches also dense."""
+    x, msb, lsb, cb, scale, v = autotune._operands(cell, 3, device=cuda)
+    args = (x, msb, lsb, cb.boundaries, cb.levels, scale, v)
+    kw = dict(k=cell.k, drive_gain=autotune.DRIVE_GAIN, seed=9,
+              step_offset=4)
+    if noisy:
+        kw.update(ima_noise=ima_lib.kernel_noise_params(
+            ima_lib.IMANoiseModel(), cb), snl_amp=0.05)
+    rows = torch.arange(cell.m, dtype=torch.int32, device=cuda)
+    rc = torch.stack([torch.full_like(rows, 9), torch.full_like(rows, 4),
+                      rows], -1)
+    want = list(ref.fused_macro_seq_ref(
+        *args, None, row_ctl=rc,
+        **{k: a for k, a in kw.items() if k not in ("seed",
+                                                     "step_offset")}))
+    want[4] = want[4][..., 0]
+    heur = autotune.heuristic_blocks(cell)
+    cands = autotune.enumerate_candidates(cell)
+    assert heur in cands and len(cands) > 1
+    base = None
+    for blocks in [heur] + [b for b in cands if b != heur]:
+        for gate in (True, False) if not noisy else (True,):
+            before = fused_macro.fused_macro_seq.launches
+            got = ops.fused_macro_seq(*args, device=cuda, gate=gate,
+                                      **dict(zip(("bm", "bk", "bn"),
+                                                 blocks)), **kw)
+            torch.cuda.synchronize()
+            assert fused_macro.fused_macro_seq.launches == before + 1
+            base = got if base is None else base
+            for name, a, b, c in zip(("mac", "v_out", "spikes", "mask",
+                                      "steps"), got, want, base):
+                assert torch.equal(a, b), (blocks, gate, name)
+                assert torch.equal(a, c), (blocks, gate, name)
+    assert want[2].sum() > 0
+
+
+@pytest.mark.parametrize("mode", ["kwn", "nld"])
+def test_dense_and_forced_plan_equal_gated_heuristic(cuda, mode):
+    """#1 and #2 at the serving round: dense (``gate=False``) and under
+    bm = 32 / bk = 128 equal the gated heuristic launch bit for bit."""
+    rs = np.random.RandomState(4)
+    t, m, kdim, n = 8, 64, 512, 128
+    x = torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], p=[0.05, 0.9, 0.05],
+                                   size=(t, m, kdim)).astype(np.float32))
+    x[::2, :, :256] = 0.0
+    v0 = torch.from_numpy(rs.uniform(-1, 1.2, (m, n)).astype(np.float32))
+    if mode == "nld":
+        fw, cfg = _nld_weights(kdim, n, 2, "relu")
+        kw = dict(mode="nld", drive_gain=0.25,
+                  ima_noise=macro_lib.fused_kernel_noise(fw, cfg))
+        counter = fused_macro.fused_macro_seq_nld
+    else:
+        fw, cfg = _weights(rs, kdim, n)
+        kw = dict(k=12, drive_gain=0.25, snl_amp=0.05,
+                  ima_noise=macro_lib.fused_kernel_noise(fw, cfg))
+        counter = fused_macro.fused_macro_seq
+    args = (x, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v0,
+            None, fw.w_dend)
+    outs = []
+    for plan, gate in (({}, True), ({}, False), (FORCED, True),
+                       (FORCED, False)):
+        before = counter.launches
+        outs.append(ops.fused_macro_seq(*args, device=cuda, gate=gate,
+                                        seed=3, step_offset=1, **plan, **kw))
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+    for got in outs[1:]:
+        for a, b in zip(got, outs[0]):
+            assert torch.equal(a, b)
+    assert outs[0][2].sum() > 0
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["residual", "remat"])
+def test_bwd_kernel_bits_fixed_across_plans(cuda, remat):
+    """#3 on operands padded to the heuristic plan and to bm = 32 / bk =
+    128, gated and dense: the same dW and dv0 bits, and the plain
+    version's."""
+    res, _, _ = _train_operands((30, 64, 512, 128), True, cuda)
+    outs = []
+    for plan, gate in (({}, True), (FORCED, True), (FORCED, False)):
+        args = ops.seq_grad_operands(*res, remat=remat, gate=gate, **plan)
+        dw, dv0 = fused_macro_grad.fused_macro_seq_grad(*args, **GRAD_KW)
+        dw_w, dv0_w = ref.fused_macro_seq_grad_ref(*args, **GRAD_KW)
+        assert _ulps(dv0, dv0_w) == 0
+        np.testing.assert_allclose(dw.cpu().numpy(), dw_w.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        outs.append((dw, dv0))
+    for dw, dv0 in outs[1:]:
+        assert torch.equal(dw, outs[0][0]) and torch.equal(dv0, outs[0][1])
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+def test_stack_plans_and_dense_equal_gated_heuristic(cuda, noisy):
+    """#4 through ``ops.fused_macro_multi_seq`` on the heuristic plan,
+    under bm = 32 with K tiles of 128 and 64, and dense: the same
+    membranes, spikes, masks, ADC steps and spike counts; the dense
+    launch reports every K tile occupied."""
+    rs = np.random.RandomState(5)
+    t, m, kdim, widths, ks = 30, 64, 512, (128, 128), (12, 12)
+    stack, cfg = _stack(rs, kdim, widths)
+    x = torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], p=[0.05, 0.9, 0.05],
+                                   size=(t, m, kdim)).astype(np.float32))
+    vs = [torch.from_numpy(rs.uniform(-1, 1.2, (m, w)).astype(np.float32))
+          for w in widths]
+    nz = None if noisy else [prbs_lib.sequence_noise(m, t, w, 0.05, "cpu")
+                             for w in widths]
+    kw = dict(ks=ks, drive_gain=0.25, seeds=[5, 6], step_offset=2)
+    if noisy:
+        kw.update(ima_noise=macro_lib.fused_kernel_noise(stack[0], cfg),
+                  snl_amp=0.05)
+    layers = [(fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale)
+              for fw in stack]
+    tiles = [(128, None), (64, None)]
+    outs = []
+    for plan, gate in (({}, True), (dict(bm=32, tile_shapes=tiles), True),
+                       (dict(bm=32, tile_shapes=tiles), False)):
+        before = fused_macro.fused_macro_multi_seq.launches
+        outs.append(ops.fused_macro_multi_seq(x, layers, vs, nz, gate=gate,
+                                              device=cuda, **plan, **kw))
+        torch.cuda.synchronize()
+        assert fused_macro.fused_macro_multi_seq.launches == before + 1
+    want = ops.fused_macro_multi_seq(x, layers, vs, nz, device="cpu",
+                                     bm=32, tile_shapes=tiles, **kw)
+    for got in outs[1:] + [want]:
+        for a, b in zip(got.v_outs, outs[0].v_outs):
+            assert torch.equal(a.cpu(), b.cpu())
+        for name in ("spikes", "mask"):
+            assert torch.equal(getattr(got, name).cpu(),
+                               getattr(outs[0], name).cpu()), name
+        for name in ("steps", "spike_counts"):
+            for a, b in zip(getattr(got, name), getattr(outs[0], name)):
+                assert torch.equal(a.cpu(), b.cpu()), name
+    for a, b in zip(outs[1].occupancy, want.occupancy):
+        assert torch.equal(a.cpu(), b)
+    assert [int(o.min()) for o in outs[2].occupancy] == [4, 2]
+    assert [int(o.max()) for o in outs[2].occupancy] == [4, 2]
+    assert outs[2].total_blocks == outs[1].total_blocks == t * 2 * 6
