@@ -123,7 +123,7 @@ Phases (any failure raises, so the exit code is non-zero):
    main path's shape (ms per round for KWN and NLD, ms per launch for the
    stack) beside its roofline bound, and #1 and #3 also by their device
    time under ``torch.profiler``; the KWN engine's requests/s and round
-   ms p50/p95 over an 8192-request clean burst, and a breakdown of a
+   ms p50/p95 over a 4096-request clean burst, and a breakdown of a
    1024-request burst under the engine tracer and ``torch.profiler``; the
    NLD engine's requests/s and whole-tick time over a 2048-request clean
    burst; at the training shape, the backward kernel per launch (residual
@@ -211,15 +211,15 @@ Phases (any failure raises, so the exit code is non-zero):
    width (``lm_train_phase``): f32 parameters and moments, bf16
    activations, global batch 8 x 2048 in two microbatches, lr 3e-3,
    warmup 5, through ``python -m repro_torch.launch.train`` in processes
-   of its own: run A 20 steps, run B exiting hard at step 12 after its
-   checkpoint of step 10 and started again; B's losses of steps 10-19
+   of its own: run A 12 steps, run B exiting hard at step 8 after its
+   checkpoint of step 6 and started again; B's losses of steps 6-11
    and its final checkpoint equal A's bit for bit, A's loss falls; in
    this process, from A's final checkpoint, train steps that launch no
    kernel (one timed, one under ``torch.profiler``: device idle share,
    top device ops, peak memory), and ``build_eval_step`` on a held-out
    batch launching #9 once a layer (30), its loss within 2e-3 of
    ``loss_fn``'s through the blockwise attention; the median step ms
-   over steps 2-19, tokens/s and the model-FLOPs share of the bf16 peak
+   over steps 2-11, tokens/s and the model-FLOPs share of the bf16 peak
    (``roofline.model_flops`` over step time x ``PEAK_FLOPS``);
 9. the tile-plan tuner and the plan cache (``tuner_phase``): kernel #1
    under every candidate plan of ``autotune.enumerate_candidates`` for
@@ -241,7 +241,25 @@ Phases (any failure raises, so the exit code is non-zero):
    silicon-training loss and gradients, one launch of each kernel, equal
    to the no-cache run; and ``tools/tune_plans_torch.py --smoke``,
    ``tools/chaos_serve_torch.py --smoke`` and ``tools/obs_report_torch.py
-   --smoke`` as subprocesses on the card (a nonzero exit fails).
+   --smoke`` as subprocesses on the card (a nonzero exit fails);
+10. the paper's experiments (``experiments_phase``): kernel #1 through
+   ``ops.fused_macro_seq`` at every K of the K sweep (1, 3, 6, 12, 24,
+   48) at the N-MNIST and DVS-Gesture evaluation shapes (128 streams of
+   20 and 30 steps, 512 inputs, 128 columns), clean and with the Fig. 7
+   counter noise, against its plain version on the same card tensors
+   (exact, the ADC steps of every item not falling as K grows); #2 at
+   the three datasets' NLD configurations (N-MNIST quadratic, DVS-Gesture
+   relu, Quiroga sigmoid4 over 256 inputs) the same way;
+   ``forward_silicon(use_snl=False)`` on the card at K = 12 and 48 (one
+   launch of #1, counters zeroed around it) against the CPU's composed
+   path bit for bit; the counter-noise codes of the Fig. 7a measurement
+   on the card against the CPU's; then ``python -m experiments_torch.run``
+   in a subprocess on the card at 20 training steps (NLD on DVS-Gesture
+   40), 2 evaluation batches and 10 LM steps (a nonzero exit fails):
+   every experiment's results present, Fig. 3d matching the paper, the
+   energy model's fields equal to this process's, the K sweep's ADC
+   steps not falling and its LIF updates equal to K, and #1's and #2's
+   launches in each experiment equal to its evaluation batches.
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
@@ -320,7 +338,7 @@ NLD_CFG = snn.SNNConfig(n_in=512, n_hidden=128, n_classes=11, n_steps=30,
 STACK_CFG = snn.SNNConfig(n_in=512, n_classes=11, n_steps=30,
                           hidden_layers=(128, 128), k_layers=(12, 12))
 SLOTS, ROUND = 64, 8
-BURST, PROFILED = 8192, 1024    # requests of the timed and profiled bursts
+BURST, PROFILED = 4096, 1024    # requests of the timed and profiled bursts
 NLD_BURST = 2048                # requests of the timed NLD burst
 STACK_BATCH = 64                # event streams in one stacked launch
 SW_STEPS, SI_STEPS, TRAIN_BATCH = 4, 8, 64   # the training path
@@ -3722,9 +3740,9 @@ LM_TRAIN_SEQ = 64       # positions of a reduced training batch
 LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
 # the full-width run: smollm-135m on launch.train's defaults (global
 # batch 8, two microbatches, lr 3e-3, warmup 5) at SmolLM's 2048-token
-# context, 20 steps with a checkpoint every 10; run B exits hard at step
-# 12 and resumes from step 10
-LM_TRAIN_STEPS, LM_TRAIN_CRASH, LM_TRAIN_EVERY = 20, 12, 10
+# context, 12 steps with a checkpoint every 6; run B exits hard at step
+# 8 and resumes from step 6
+LM_TRAIN_STEPS, LM_TRAIN_CRASH, LM_TRAIN_EVERY = 12, 8, 6
 LM_TRAIN_ARGS = ("--arch", LM_ARCH, "--steps", str(LM_TRAIN_STEPS),
                  "--global-batch", str(PREFILL_BATCH), "--seq-len",
                  str(PREFILL_LEN), "--n-micro", "2", "--lr", "3e-3",
@@ -4013,7 +4031,7 @@ def lm_train_phase(dev) -> dict:
         f"microbatches: loss {hist_a[0]['loss']:.4f} -> "
         f"{hist_a[-1]['loss']:.4f} over {LM_TRAIN_STEPS} steps; resumed run "
         f"bit for bit; median step {res['median_step_ms']:.1f} ms (steps "
-        f"2-19), {res['tokens_per_s']:.0f} tokens/s, mfu {res['mfu']:.4f}; "
+        f"2-{LM_TRAIN_STEPS - 1}), {res['tokens_per_s']:.0f} tokens/s, mfu {res['mfu']:.4f}; "
         f"in process {timed_ms:.1f} ms, device busy {busy:.1f} ms (idle "
         f"share {res['device_idle_share']:.3f}), peak "
         f"{res['peak_gb']:.2f} GB; eval {res['eval']}; runs "
@@ -4432,6 +4450,288 @@ def tuner_phase(params, nld_params, train_params, dev) -> dict:
             "seconds": secs}
 
 
+# --- phase 10: the paper's experiments -------------------------------------
+
+EXP_KS = (1, 3, 6, 12, 24, 48)            # experiments_torch.ablation_k_sweep
+EXP_BATCH = 128                           # snn.evaluate's batch
+EXP_KWN_SHAPES = {"nmnist": (20, EXP_BATCH, 512, 128),
+                  "dvs_gesture": (30, EXP_BATCH, 512, 128)}
+# dataset: (T, M, K, J, N, activation) of its NLD configuration
+EXP_NLD_SHAPES = {"nmnist": (20, EXP_BATCH, 512, 2, 128, "quadratic"),
+                  "dvs_gesture": (30, EXP_BATCH, 512, 2, 128, "relu"),
+                  "quiroga": (24, EXP_BATCH, 256, 2, 128, "sigmoid4")}
+EXP_ENV = {"REPRO_SNN_TRAIN_STEPS": "20", "REPRO_SNN_EVAL_BATCHES": "2",
+           "REPRO_LM_ABLATION_STEPS": "10"}
+# evaluate() calls of each experiment: (KWN, NLD); each is
+# REPRO_SNN_EVAL_BATCHES launches of #1 or #2
+EXP_EVALS = {"fig5b_snl": (4, 0), "fig6c_nlq": (4, 0),
+             "fig8_accuracy": (3, 3), "table1_comparison": (3, 3),
+             "latency_kwn": (2, 0), "ablation_k_sweep": (12, 0)}
+
+
+def _k_sweep_compare(dev) -> dict:
+    """#1 through ``ops.fused_macro_seq`` at every K of the sweep against
+    its plain version on the same card tensors, clean and with the Fig. 7
+    counter noise, at the N-MNIST and DVS-Gesture evaluation shapes; the
+    ADC steps of every (step, row) item may not fall as K grows."""
+    rs = np.random.RandomState(SEED + 101)
+    worst, mism_total, n_cases = 0.0, 0, 0
+    for ds, (t, m, kdim, n) in EXP_KWN_SHAPES.items():
+        for noisy in (False, True):
+            args, nz, noise_kw = _operands(rs, t, m, kdim, n, noisy, dev)
+            stream_kw, rc = _streams(rs, m, "scalar", dev)
+            prev = None
+            for k in EXP_KS:
+                kw = dict(k=k, drive_gain=0.25, **noise_kw)
+                got = ops.fused_macro_seq(*args, nz, device=dev,
+                                          **stream_kw, **kw)
+                want = ref.fused_macro_seq_ref(*args, nz, row_ctl=rc, **kw)
+                torch.cuda.synchronize()
+                mac_g, v_g, spk_g, mask_g, st_g = got[:5]
+                mac_w, v_w, spk_w, mask_w, st_w = want[:5]
+                st_w = st_w[..., 0]
+                mism = int((mask_g != mask_w).sum() + (spk_g != spk_w).sum())
+                ulps = _ulps(v_g, v_w)
+                winners = mask_g.sum(-1)
+                tag = (f"{ds} T={t} M={m} K={kdim} N={n} k={k} "
+                       f"{'noisy' if noisy else 'clean'}")
+                if (mism or ulps or not torch.equal(mac_g, mac_w)
+                        or not torch.equal(st_g, st_w)
+                        or int(winners.max()) > k):
+                    raise AssertionError(f"{tag}: kernel != plain version "
+                                         f"({mism} mismatches, {ulps} ulp)")
+                if prev is not None and bool((st_g < prev).any()):
+                    raise AssertionError(f"{tag}: ADC steps fell as K grew")
+                prev = st_g
+                worst = max(worst, (v_g - v_w).abs().max().item())
+                mism_total += mism
+                n_cases += 1
+                log(f"experiments compare {tag}: exact, mean ADC steps "
+                    f"{st_g.float().mean().item():.3f}, winners <= "
+                    f"{int(winners.max())}")
+    return {"max_abs_err": worst, "mismatches": mism_total,
+            "cases": n_cases}
+
+
+def _nld_dataset_compare(dev) -> dict:
+    """#2 at the three datasets' NLD configurations (N-MNIST quadratic,
+    DVS-Gesture relu, Quiroga sigmoid4 over 256 inputs) against its plain
+    version on the same card tensors, clean and noisy."""
+    rs = np.random.RandomState(SEED + 103)
+    worst, n_cases = 0.0, 0
+    for ds, (t, m, kdim, n_br, n, act) in EXP_NLD_SHAPES.items():
+        fw, mcfg = _nld_weights(kdim, n, n_br, act, SEED + n_cases, dev)
+        x = _events(rs, t, m, kdim, dev, density=0.06)
+        v0 = torch.from_numpy(rs.uniform(-1, 1, (m, n))
+                              .astype(np.float32)).to(dev)
+        for noisy in (False, True):
+            stream_kw, rc = _streams(rs, m, "scalar", dev)
+            kw = dict(drive_gain=0.25, beta=0.9, v_th1=1.0, v_lim=8.0,
+                      ima_noise=macro_lib.fused_kernel_noise(fw, mcfg)
+                      if noisy else None)
+            got = ops.fused_macro_seq(x, fw.msb, fw.lsb, fw.boundaries,
+                                      fw.levels, fw.scale, v0, None,
+                                      fw.w_dend, mode="nld", device=dev,
+                                      **stream_kw, **kw)
+            want = ref.fused_macro_seq_nld_ref(
+                x, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale,
+                fw.w_dend, v0, row_ctl=rc, **kw)
+            torch.cuda.synchronize()
+            mac_g, v_g, spk_g, mask_g, st_g = got
+            mac_w, v_w, spk_w, mask_w, st_w = want
+            mism = int((spk_g != spk_w).sum() + (mask_g != mask_w).sum())
+            ulps = _ulps(v_g, v_w)
+            tag = f"{ds} NLD {act} T={t} M={m} K={kdim} J={n_br} N={n} " \
+                f"{'noisy' if noisy else 'clean'}"
+            if mism or ulps or not torch.equal(mac_g, mac_w) \
+                    or not torch.equal(st_g, st_w[..., 0]) \
+                    or not spk_w.sum():
+                raise AssertionError(f"{tag}: kernel != plain version")
+            worst = max(worst, (v_g - v_w).abs().max().item())
+            n_cases += 1
+            log(f"experiments compare {tag}: exact, {int(spk_w.sum())} "
+                f"spikes")
+    return {"max_abs_err": worst, "mismatches": 0, "cases": n_cases}
+
+
+def _snl_off_and_ctr_checks(dev) -> dict:
+    """``forward_silicon(use_snl=False)`` through #1 on the card against
+    the composed path on the CPU (identity readout: the logits are the
+    spike rates), bit for bit at K = 12 and 48, the launch counters zeroed
+    around each card run; and the counter-noise conversion of the Fig. 7a
+    measurement on the card against the CPU's codes."""
+    rs = np.random.RandomState(SEED + 107)
+    u = rs.random_sample((EXP_BATCH, CFG.n_steps, CFG.n_in))
+    ev = (u > 0.985).astype(np.float32) - (u < 0.015)
+    params = snn.init_params(CFG, torch.Generator().manual_seed(SEED + 3),
+                             device="cpu")
+    cfg_eye, p_eye = _identity(CFG, params)
+    launches = 0
+    for k in (12, 48):
+        torch.cuda.synchronize()
+        reset_counts()
+        got = snn.forward_silicon(p_eye, ev, cfg_eye, device=dev, k=k,
+                                  use_snl=False)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts["fused_macro_seq_kwn"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"use_snl=False k={k}: launches {counts}")
+        launches += 1
+        want = snn.forward_silicon(p_eye, ev, cfg_eye, device="cpu",
+                                   fused=False, k=k, use_snl=False)
+        snl = snn.forward_silicon(p_eye, ev, cfg_eye, device="cpu",
+                                  fused=False, k=k)
+        if not torch.equal(got[0].cpu(), want[0]):
+            raise AssertionError(f"use_snl=False k={k}: card != CPU")
+        for key in ("adc_steps", "lif_updates", "sops"):
+            if not torch.equal(got[1][key].cpu(), want[1][key]):
+                raise AssertionError(f"use_snl=False k={k}: {key} differs")
+        if float(got[1]["lif_updates"][0]) != k:
+            raise AssertionError(f"lif_updates != {k}")
+        log(f"use_snl=False, k={k}: card (#1) equals the CPU's composed "
+            f"path bit for bit; {int((got[0].cpu() != snl[0]).sum())} "
+            f"rates move with SNL on")
+    cb = ima_lib.nlq_codebook(5, -64, 64)
+    params_n = ima_lib.kernel_noise_params(ima_lib.IMANoiseModel(), cb)
+    xs = ima_lib._sweep(cb, 4096, "cpu")
+    for step in range(8):
+        c_cpu = ima_lib.ima_convert_noisy_ctr(xs, cb, params_n, 0, step)
+        c_dev = ima_lib.ima_convert_noisy_ctr(xs.to(dev), cb.to(dev),
+                                              params_n, 0, step)
+        if not torch.equal(c_dev.cpu(), c_cpu):
+            raise AssertionError(f"counter codes differ at step {step}")
+    m_dev = ima_lib.measure_transfer_error_ctr(cb.to(dev))
+    m_cpu = ima_lib.measure_transfer_error_ctr(cb)
+    log(f"Fig. 7a counter measurement: codes equal on the card and the "
+        f"CPU over 8 steps x 4096 points; card {m_dev}, CPU {m_cpu}")
+    if abs(m_dev["mean_lsb"] - m_cpu["mean_lsb"]) > 1e-6 \
+            or abs(m_dev["std_lsb"] - m_cpu["std_lsb"]) > 1e-6:
+        raise AssertionError("Fig. 7a moments differ")
+    return {"snl_off_launches": launches, "ctr_card": m_dev,
+            "ctr_cpu": m_cpu}
+
+
+def _experiments_subprocess() -> dict:
+    """``python -m experiments_torch.run`` on the card at the reduced
+    depth of ``EXP_ENV``, a fresh model cache under ``build/``; a nonzero
+    exit fails.  Returns the summary and every experiment's results."""
+    cache = ROOT / "build" / "experiments_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k != cache_lib.ENV_PATH}
+    env.update(EXP_ENV, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TORCH_EXPERIMENTS_CACHE=str(cache))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "experiments_torch.run"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    (ROOT / "chiprun_out" / "experiments_smoke.log").write_text(
+        proc.stdout + proc.stderr)
+    depth = " ".join(f"{k}={v}" for k, v in EXP_ENV.items())
+    log(f"python -m experiments_torch.run ({depth}): exit "
+        f"{proc.returncode} in {secs:.1f} s")
+    for line in proc.stdout.strip().splitlines():
+        log(f"  {line[:240]}")
+    if proc.returncode != 0:
+        log(proc.stderr[-3000:])
+        raise AssertionError(f"experiments_torch.run exited "
+                             f"{proc.returncode}")
+    res = cache / "results"
+    summary = json.loads((res / "_summary.json").read_text())
+    out = {}
+    for name in EXPERIMENTS:
+        path = res / f"{name}.json"
+        if not path.exists():
+            raise AssertionError(f"no results for {name}")
+        out[name] = json.loads(path.read_text())
+    shutil.rmtree(cache, ignore_errors=True)
+    return {"seconds": secs, "summary": summary, "results": out}
+
+
+def _check_experiments(run: dict) -> dict:
+    """The suite's results against what is exact on any device: Fig. 3d
+    matches the paper; the energy model's fields equal this process's;
+    the K sweep's ADC steps do not fall and its LIF updates are K; and
+    #1's and #2's launches are the evaluation batches."""
+    from experiments_torch import fig9_energy as fig9
+
+    from repro_torch.core import energy
+
+    res, summary = run["results"], run["summary"]
+
+    def plain(x):
+        return json.loads(json.dumps(x, default=str))
+
+    if res["fig3d_weight_impl"]["matches_paper"] is not True:
+        raise AssertionError("Fig. 3d does not match the paper")
+    if res["fig9_energy"] != plain(fig9.run()):
+        raise AssertionError("fig9_energy differs from the CPU's")
+    ee = energy.table1_energy_entries()
+    tw = res["table1_comparison"]["this_work"]
+    want = {"ee_kwn_nmnist_pj_sop": round(ee["kwn_nmnist_pj_per_sop"], 3),
+            "ee_kwn_dvs_pj_sop": round(ee["kwn_dvs_pj_per_sop"], 3),
+            "ee_nld_pj_sop": {k: round(v, 3) for k, v in ee.items()
+                              if k.startswith("nld")}}
+    if any(tw[k] != v for k, v in want.items()) \
+            or res["table1_comparison"]["ee_improvement_vs_vlsi25"] \
+            != round(energy.improvement_vs_sota(1.3), 3):
+        raise AssertionError("Table I energy fields differ from the CPU's")
+    sweep = res["ablation_k_sweep"]
+    for ds in ("nmnist", "dvs_gesture"):
+        curve = sweep[ds]
+        rate = energy.SPIKE_RATES[ds]
+        steps = [c["mean_adc_steps"] for c in curve]
+        if [c["k"] for c in curve] != list(EXP_KS) or steps != sorted(steps):
+            raise AssertionError(f"K sweep {ds}: ADC steps {steps} fall")
+        if [c["lif_updates"] for c in curve] != [float(k) for k in EXP_KS]:
+            raise AssertionError(f"K sweep {ds}: LIF updates != K")
+        if [c["pj_per_sop_model"] for c in curve] != [
+                round(energy.kwn_pj_per_sop(k, rate), 3) for k in EXP_KS]:
+            raise AssertionError(f"K sweep {ds}: pJ/SOP differ")
+    eb = summary["eval_batches"]
+    totals = {"fused_macro_seq_kwn": 0, "fused_macro_seq_nld": 0}
+    for name in EXPERIMENTS:
+        n_kwn, n_nld = EXP_EVALS.get(name, (0, 0))
+        got = summary["runs"][name]["launches"]
+        want_l = {"fused_macro_seq_kwn": n_kwn * eb,
+                  "fused_macro_seq_nld": n_nld * eb}
+        if got != want_l:
+            raise AssertionError(f"{name}: launches {got}, want {want_l}")
+        for k2, v in got.items():
+            totals[k2] += v
+    log(f"experiments: every result present; Fig. 3d matches the paper; "
+        f"energy fields equal; K sweep steps rise with K; launches "
+        f"{totals} = the evaluation batches")
+    return totals
+
+
+EXPERIMENTS = ("fig3d_weight_impl", "fig7_ima", "fig9_energy", "latency_kwn",
+               "fig5b_snl", "fig6c_nlq", "fig8_accuracy",
+               "table1_comparison", "ablation_kwn_lm", "ablation_k_sweep")
+
+
+def experiments_phase(dev) -> dict:
+    """Phase 10: #1 at every K of the sweep and #2 at the datasets' NLD
+    configurations against their plain versions, SNL off and the counter
+    measurement against the CPU, then the experiment suite end to end."""
+    t0 = time.perf_counter()
+    kwn = _k_sweep_compare(dev)
+    nld = _nld_dataset_compare(dev)
+    checks = _snl_off_and_ctr_checks(dev)
+    run = _experiments_subprocess()
+    launches = _check_experiments(run)
+    secs = time.perf_counter() - t0
+    per = {k: round(v.get("seconds", 0.0), 2)
+           for k, v in run["summary"]["runs"].items()}
+    log(f"phase 10: {kwn['cases']} K-sweep and {nld['cases']} NLD cases "
+        f"exact; suite {run['seconds']:.1f} s ({per}); {secs:.1f} s in "
+        f"all")
+    return {"kwn": kwn, "nld": nld, "checks": checks,
+            "launches": launches, "snl_off_launches":
+            checks["snl_off_launches"], "suite": run, "seconds": secs}
+
+
 def _record(name, replaces, launches, cmp, timing,
             library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -4516,6 +4816,8 @@ def main() -> None:
     log(f"phase 8 done at {time.perf_counter() - t0:.1f} s")
     tuner = tuner_phase(params, nld_params, train_params, dev)
     log(f"phase 9 done at {time.perf_counter() - t0:.1f} s")
+    experiments = experiments_phase(dev)
+    log(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
     b = serving["burst"]
     log(f"[{smi}] engine, {b['requests']}-request clean burst: "
         f"{b['requests_per_s']:.1f} req/s, round ms p50 "
@@ -4624,7 +4926,8 @@ def main() -> None:
     lt8 = training["full"]
     log(f"[{smi}] {LM_ARCH} training {PREFILL_BATCH} x {PREFILL_LEN} "
         f"(launch.train, 2 microbatches, f32 params, bf16 activations): "
-        f"median step {lt8['median_step_ms']:.1f} ms over steps 2-19, "
+        f"median step {lt8['median_step_ms']:.1f} ms over steps "
+        f"2-{LM_TRAIN_STEPS - 1}, "
         f"{lt8['tokens_per_s']:.0f} tokens/s, mfu {lt8['mfu']:.4f} (model "
         f"FLOPs over {roofline.PEAK_FLOPS:.3g} FLOP/s), device idle share "
         f"{lt8['device_idle_share']:.3f} of one step under the profiler, "
@@ -4651,7 +4954,15 @@ def main() -> None:
         log(f"[{smi}] engine, {run['requests']}-request clean burst, "
             f"{label} cache (plan {run['serve_plan']}): "
             f"{run['requests_per_s']:.1f} req/s over {run['rounds']} rounds")
+    suite = experiments["suite"]["summary"]
+    for name, r in suite["runs"].items():
+        log(f"[{smi}] experiments_torch.{name} (train steps "
+            f"{suite['train_steps']}, eval batches {suite['eval_batches']}"
+            f", LM steps {suite['lm_steps']}): {r['seconds']:.2f} s, "
+            f"launches {r['launches']}")
     p9 = tuner["cached"]["launches"]
+    p10 = dict(experiments["launches"])
+    p10["fused_macro_seq_kwn"] += experiments["snl_off_launches"]
     path = "src/repro/kernels/fused_macro.py"
     flash_launches = (lm_res["prefill"]["launches"]
                       + sum(c["launches"]
@@ -4667,11 +4978,13 @@ def main() -> None:
                     + main_res["noisy"]["launches"]
                     + train_res["forward_launches"]
                     + sum(train_res["step_path_launches"].values())
-                    + p9["fused_macro_seq_kwn"])
+                    + p9["fused_macro_seq_kwn"] + p10["fused_macro_seq_kwn"])
     record = {"kernels": [
         dict(_record("fused_macro_seq_kwn", f"{path}:524", kwn_launches,
                      cmp["kwn"], timing["kwn"]),
              launches_phase9=p9["fused_macro_seq_kwn"],
+             launches_phase10=p10["fused_macro_seq_kwn"],
+             k_sweep_cases=experiments["kwn"]["cases"],
              plans_held=tuner["plans"]["plans"],
              device_ms=timing["kwn"]["device_ms"],
              ms_train=tt["fwd_ms"]["trace"],
@@ -4681,9 +4994,12 @@ def main() -> None:
         dict(_record("fused_macro_seq_nld", f"{path}:583",
                      nld_res["clean"]["launches"]
                      + nld_res["noisy"]["launches"]
-                     + p9["fused_macro_seq_nld"],
+                     + p9["fused_macro_seq_nld"]
+                     + p10["fused_macro_seq_nld"],
                      cmp["nld"], timing["nld"]),
              launches_phase9=p9["fused_macro_seq_nld"],
+             launches_phase10=p10["fused_macro_seq_nld"],
+             dataset_cases=experiments["nld"]["cases"],
              device_ms=timing["nld"]["device_ms"]),
         dict(_record("fused_macro_multi_seq_kwn", f"{path}:896",
                      stack_res["clean"]["launches"]
@@ -4741,10 +5057,11 @@ def main() -> None:
                        "lm": lm_res, "families": families,
                        "moe_frontends": moe_frontends,
                        "lm_training": training},
-         "tuner": tuner,
+         "tuner": tuner, "experiments": experiments,
          "timing": timing, "serving": serving, "nld_serving": nld_serving,
          "seconds": time.perf_counter() - t0}, indent=1))
-    log(f"chip_smoke: phase 9 {tuner['seconds']:.1f} s, all phases "
+    log(f"chip_smoke: phase 9 {tuner['seconds']:.1f} s, phase 10 "
+        f"{experiments['seconds']:.1f} s, all phases "
         f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

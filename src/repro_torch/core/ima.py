@@ -4,7 +4,8 @@ The IMA builds a ramp on the read bit-lines; the step at which it crosses
 the MAC value is the code.  A comparison against monotone boundaries is a
 count of boundaries below the value.  Counterpart of ``repro.core.ima``
 (inference, the straight-through quantizer of NLQ-aware training, and the
-Fig. 7 silicon error model with its measurements).
+Fig. 7 silicon error model with its measurements, drawn from a
+``torch.Generator`` or from the counter stream the fused kernels draw).
 
 The codebooks are built with numpy in f32 so that they equal the
 reference's ``jnp.linspace``-based codebooks bit for bit: XLA computes
@@ -301,6 +302,45 @@ def measure_transfer_error(cb: RampCodebook, generator: torch.Generator,
     xs = _sweep(cb, n_points, generator.device)
     err = (ima_convert_noisy(xs, cb, generator, noise)
            - ima_convert(xs, cb)).float()
+    return {"mean_lsb": float(err.mean()),
+            "std_lsb": float(err.std(correction=0))}
+
+
+def ima_convert_noisy_ctr(x: torch.Tensor, cb: RampCodebook,
+                          params: IMAKernelNoise, seed, step=0
+                          ) -> torch.Tensor:
+    """Counter-based noisy conversion: the in-kernel Fig. 7 error model.
+
+    Every draw is a pure function of ``(seed, step, row, column)``, the
+    stream the fused kernels generate, so the codes equal the reference's
+    bit for bit.  ``x`` is at most 2-D ``(rows, cols)``; a 1-D input is a
+    single row."""
+    # ctrprng imports this module for inject_code_error
+    from repro_torch.core import ctrprng
+
+    x2 = x[None] if x.dim() == 1 else x
+    if x2.dim() != 2:
+        raise ValueError(f"x must be 1-D or 2-D, got shape {tuple(x.shape)}")
+    rows = torch.arange(x2.shape[0], device=x2.device)[:, None]
+    cols = torch.arange(x2.shape[1], device=x2.device)[None, :]
+    code = ctrprng.noisy_ima_codes(ima_convert(x2, cb), x2, rows, cols,
+                                   seed, step, params, cb.n_codes)
+    return code[0] if x.dim() == 1 else code
+
+
+def measure_transfer_error_ctr(cb: RampCodebook,
+                               noise: IMANoiseModel = IMANoiseModel(),
+                               seed: int = 0, n_points: int = 4096,
+                               n_steps: int = 8) -> dict:
+    """The Fig. 7a measurement against the counter noise stream, on the
+    codebook's device: the input range swept at ``n_points`` over
+    ``n_steps`` time steps (each a row 0 at its own step word), the
+    code error's mean and sigma in LSB."""
+    params = kernel_noise_params(noise, cb)
+    xs = _sweep(cb, n_points, cb.levels.device)
+    ideal = ima_convert(xs, cb)
+    err = torch.stack([ima_convert_noisy_ctr(xs, cb, params, seed, step)
+                       - ideal for step in range(n_steps)]).float()
     return {"mean_lsb": float(err.mean()),
             "std_lsb": float(err.std(correction=0))}
 

@@ -3,8 +3,9 @@
 A twin 9T bit-cell stores a ternary value; two cells in banks with a 2:1
 current ratio compose a signed 3-bit weight ``W = 2*W_msb + W_lsb`` in
 [-3, 3].  Counterpart of ``repro.core.ternary`` (inference, the
-current-ratio variation model and the weight fake-quantizer of
-quantization-aware training).
+current-ratio variation model, the weight fake-quantizer of
+quantization-aware training, the ternary quantizer with its clipped
+straight-through gradient, and Fig. 3d's weight-implementation cost).
 """
 
 from __future__ import annotations
@@ -14,6 +15,39 @@ import torch
 from repro_torch.core import f32math
 
 CURRENT_RATIO = 2.0  # I_MSB / I_LSB
+
+
+def ternary_quantize(x: torch.Tensor, scale=1.0,
+                     threshold: float = 0.5) -> torch.Tensor:
+    """Hard ternarization: ``sign(x / scale)`` where ``|x / scale| >
+    threshold``, else 0."""
+    xs = f32math.div(x, scale)
+    return torch.where(torch.abs(xs) > threshold, torch.sign(xs),
+                       torch.zeros_like(xs))
+
+
+class _TernarySTE(torch.autograd.Function):
+    """``ternary_quantize`` forward; clipped straight-through backward:
+    the gradient passes where ``|x / scale| <= 1.5``, and ``scale`` gets
+    a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return ternary_quantize(x, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        inside = torch.abs(f32math.div(x, scale)) <= 1.5
+        return g * inside.to(g.dtype), torch.zeros_like(scale)
+
+
+def ternary_ste(x: torch.Tensor, scale) -> torch.Tensor:
+    """Ternarize ``x / scale`` with the clipped straight-through
+    gradient (QAT of ternary cells)."""
+    return _TernarySTE.apply(x, torch.as_tensor(scale, dtype=x.dtype,
+                                                device=x.device))
 
 
 def ternary_input_encode(spikes: torch.Tensor) -> torch.Tensor:
@@ -79,6 +113,32 @@ def quantize_weights_3bit(w: torch.Tensor, per_channel: bool = True
 def pack_ternary(x: torch.Tensor) -> torch.Tensor:
     """Ternary {-1, 0, 1} values as int8."""
     return torch.round(x).to(torch.int8)
+
+
+def unpack_ternary(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    return x.to(dtype)
+
+
+def weight_implementation_cost(bits: int, scheme: str
+                               ) -> tuple[float, float]:
+    """(latency_cycles, bitcell_count) per weight for Fig. 3d's comparison.
+
+    - "twin" (ours): B = bits-1 ratio-2 ternary banks give a +-(2^B - 1)
+      range (B=2 is the 3-bit silicon): latency B, B twin cells.
+    - "pwm": one differential cell, pulse width 2^(bits-1) steps.
+    - "mcl": 2^bits - 1 unary cells, latency 1.
+
+    At 5 bits: latency 16/4 = 4x against PWM and cells 31/4 = 7.75 ~ 7.8x
+    against MCL, the paper's Fig. 3d claims.
+    """
+    if scheme == "twin":
+        n_banks = max(1, bits - 1)
+        return float(n_banks), float(n_banks)
+    if scheme == "pwm":
+        return float(2 ** (bits - 1)), 1.0
+    if scheme == "mcl":
+        return 1.0, float(2 ** bits - 1)
+    raise ValueError(f"unknown scheme {scheme!r}")
 
 
 class _QuantizeSTE(torch.autograd.Function):

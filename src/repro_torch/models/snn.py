@@ -146,22 +146,26 @@ def params_to(p: dict, device) -> dict:
     return out
 
 
-def _macro_cfg(cfg: SNNConfig, noise) -> macro_lib.CIMMacroConfig:
+def _macro_cfg(cfg: SNNConfig, noise,
+               mode: str | None = None) -> macro_lib.CIMMacroConfig:
     """The macro config; the ramp's full scale is ``dend_range`` in NLD
-    mode (float branch-MAC units) and ``mac_range`` in KWN mode."""
+    mode (float branch-MAC units) and ``mac_range`` in KWN mode (``mode``,
+    default ``cfg.mode``)."""
+    mode = mode or cfg.mode
     return macro_lib.CIMMacroConfig(
         code_bits=cfg.code_bits,
-        mac_range=cfg.mac_range if cfg.mode == "kwn" else cfg.dend_range,
+        mac_range=cfg.mac_range if mode == "kwn" else cfg.dend_range,
         ima_noise=noise)
 
 
-def pack_fused(p: dict, cfg: SNNConfig, noise=None
-               ) -> macro_lib.FusedMacroWeights:
+def pack_fused(p: dict, cfg: SNNConfig, noise=None,
+               mode: str | None = None) -> macro_lib.FusedMacroWeights:
     """The packed operands of a single-layer config: ``w_hid`` quantized
     onto the twin-cell grid (KWN), or the branch weights of ``dend``
-    (NLD)."""
-    mcfg = _macro_cfg(cfg, noise)
-    if cfg.mode == "nld":
+    (NLD); ``mode`` defaults to ``cfg.mode``."""
+    mode = mode or cfg.mode
+    mcfg = _macro_cfg(cfg, noise, mode)
+    if mode == "nld":
         return macro_lib.pack_nld_weights(p["dend"], mcfg,
                                           activation=cfg.activation)
     w_int, scale = ternary_lib.quantize_weights_3bit(p["w_hid"])
@@ -193,11 +197,11 @@ def layer_seeds(seed: int, n_layers: int) -> list[int]:
     return out
 
 
-def _lif(cfg: SNNConfig) -> dict:
+def _lif(cfg: SNNConfig, use_snl: bool | None = None) -> dict:
     return dict(drive_gain=cfg.drive_gain, beta=cfg.beta, v_th1=cfg.v_th1,
                 v_th2=cfg.v_th2, v_reset=lif_lib.LIFParams().v_reset,
                 v_lim=lif_lib.vmem_limit(lif_lib.LIFParams().vmem_bits),
-                use_snl=cfg.use_snl)
+                use_snl=cfg.use_snl if use_snl is None else use_snl)
 
 
 def _skip_ratio(occupied: torch.Tensor, blocks: int) -> torch.Tensor:
@@ -209,7 +213,10 @@ def _skip_ratio(occupied: torch.Tensor, blocks: int) -> torch.Tensor:
 
 def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
                     noise: ima_lib.IMANoiseModel | None = None,
-                    fused: bool | str = "seq", device=None, seeds=None):
+                    fused: bool | str = "seq", device=None, seeds=None, *,
+                    mode: str | None = None, k: int | None = None,
+                    use_snl: bool | None = None,
+                    mac_telemetry: bool = False):
     """Inference through the macro: events (B, T, N_in) -> (logits (B,
     classes), telemetry).
 
@@ -232,32 +239,54 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     ``seed`` when omitted).  The NLD head has no SNL noise.  Telemetry:
     per-request means over the actual sequence length of ADC steps, LIF
     updates and SOPs, plus the activity plan's skipped-block ratio.
+
+    Per-call overrides, with the reference's meaning: ``mode or
+    cfg.mode``, ``k or cfg.k`` (so 0 means ``cfg.k``; a stack without
+    ``cfg.k_layers`` runs ``k`` in every layer) and ``cfg.use_snl`` where
+    ``use_snl`` is None.  With ``use_snl=False`` no SNL stream (PRBS or
+    counter) reaches the LIF.  ``mac_telemetry=True`` has the fused
+    kernel write its MACs (the single-layer forms; a fused stack raises
+    ``ValueError``).
     """
     if fused not in (False, True, "seq", "step"):
         raise ValueError(f"unknown fused={fused!r}; expected False, True, "
                          f"'step' or 'seq'")
+    mode = mode or cfg.mode
+    k = k or cfg.k
+    use_snl = cfg.use_snl if use_snl is None else bool(use_snl)
+    if mode not in ("kwn", "nld"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if _is_stack(cfg) and mode != "kwn":
+        raise ValueError("multi-layer stacks are KWN-only")
     dev = device_lib.resolve(device)
     ev = torch.as_tensor(events).to(dev, torch.float32)
     p = params_to(p, dev)
+    ks = cfg.k_layers or (k,) * len(cfg.layer_widths)
     if fused is False:
         if _is_stack(cfg):
-            return _forward_silicon_composed_stack(p, ev, cfg, seed, noise)
-        return _forward_silicon_composed(p, ev, cfg, seed, noise)
+            return _forward_silicon_composed_stack(p, ev, cfg, seed, noise,
+                                                   ks, use_snl)
+        return _forward_silicon_composed(p, ev, cfg, seed, noise, mode, k,
+                                         use_snl)
     if _is_stack(cfg):
-        return _forward_silicon_stack(p, ev, cfg, seed, noise, seeds)
+        if mac_telemetry:
+            raise ValueError("mac_telemetry is single-layer only: the "
+                             "stacked kernel never writes MACs")
+        return _forward_silicon_stack(p, ev, cfg, seed, noise, seeds, ks,
+                                      use_snl)
     b, t_steps = ev.shape[0], ev.shape[1]
-    fw = pack_fused(p, cfg, noise)
+    fw = pack_fused(p, cfg, noise, mode)
     noisy = noise is not None
-    snl_active = cfg.use_snl and cfg.mode == "kwn"
+    snl_active = use_snl and mode == "kwn"
     noise_amp = cfg.noise_amp if snl_active else 0.0
-    ima_kn = macro_lib.fused_kernel_noise(fw, _macro_cfg(cfg, noise))
+    ima_kn = macro_lib.fused_kernel_noise(fw, _macro_cfg(cfg, noise, mode))
     ev_t = ev.transpose(0, 1)                              # (T, B, N_in)
     activity = macro_lib.plan_activity(ev_t, fw, cfg.n_hidden)
     v0 = lif_lib.lif_init((b, cfg.n_hidden), device=dev).v_mem
     prbs_amp = noise_amp if snl_active and not noisy else None
-    lif = dict(_lif(cfg), use_snl=snl_active, k=cfg.k, ima_noise=ima_kn,
-               snl_amp=noise_amp if noisy else 0.0, mac_telemetry=False,
-               seed=int(seed) if noisy else 0)
+    lif = dict(_lif(cfg), use_snl=snl_active, k=k, ima_noise=ima_kn,
+               snl_amp=noise_amp if noisy else 0.0,
+               mac_telemetry=mac_telemetry, seed=int(seed) if noisy else 0)
     if fused == "step":
         spk_t, steps_t = _forward_steps(ev_t, fw, v0, lif, prbs_amp)
     else:
@@ -270,7 +299,7 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     counts = spk_t.sum(0)
     logits = f32math.div(counts, t_steps) @ p["w_out"]
     sops_t = ev_t.abs().sum(-1) * cfg.n_hidden             # (T, B)
-    n_upd = float(cfg.k if cfg.mode == "kwn" else cfg.n_hidden)
+    n_upd = float(k if mode == "kwn" else cfg.n_hidden)
     tele = {
         "adc_steps": f32math.div(steps_t.float().sum(0), t_steps),
         "lif_updates": torch.full((b,), n_upd, device=dev),
@@ -303,19 +332,21 @@ def _forward_steps(ev_t, fw, v, lif: dict, prbs_amp: float | None):
     return torch.stack(spikes), torch.stack(steps)
 
 
-def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds):
+def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds, ks,
+                           use_snl: bool):
     """A KWN layer stack in one call of the stacked kernel: layer by layer,
     a parallel head and a LIF recurrence across T, the inter-layer spikes
-    in a scratch the kernel's wrapper allocates.  Hidden layers report
-    through telemetry only: SOPs from the per-layer spike counts, the
-    skipped-block ratio from the per-layer occupancy counters."""
+    in a scratch the kernel's wrapper allocates; ``ks`` the per-layer
+    winner counts.  Hidden layers report through telemetry only: SOPs
+    from the per-layer spike counts, the skipped-block ratio from the
+    per-layer occupancy counters."""
     dev = ev.device
     b, t_steps = ev.shape[0], ev.shape[1]
     widths = cfg.layer_widths
     n_layers = len(widths)
     stack = pack_fused_stack(p, cfg, noise)
     noisy = noise is not None
-    noise_amp = cfg.noise_amp if cfg.use_snl else 0.0
+    noise_amp = cfg.noise_amp if use_snl else 0.0
     ima_kn = macro_lib.fused_kernel_noise(stack[0], _macro_cfg(cfg, noise))
     if noisy:
         seeds = layer_seeds(seed, n_layers) if seeds is None \
@@ -324,7 +355,7 @@ def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds):
     else:
         seeds = [0] * n_layers
         noises = [prbs_lib.sequence_noise(b, t_steps, w, noise_amp, dev)
-                  if cfg.use_snl
+                  if use_snl
                   else torch.zeros((t_steps, b, w), device=dev)
                   for w in widths]
     if len(seeds) != n_layers:
@@ -332,7 +363,7 @@ def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds):
     ev_t = ev.transpose(0, 1)                              # (T, B, N_in)
     v0s = [lif_lib.lif_init((b, w), device=dev).v_mem for w in widths]
     out = macro_lib.fused_multi_seq(
-        ev_t, stack, v0s, noises, ks=cfg.layer_k, **_lif(cfg),
+        ev_t, stack, v0s, noises, ks=tuple(ks), **_lif(cfg, use_snl),
         ima_noise=ima_kn, snl_amp=noise_amp if noisy else 0.0, seeds=seeds)
     counts = out.spikes.sum(0)
     logits = f32math.div(counts, t_steps) @ p["w_out"]
@@ -344,8 +375,7 @@ def _forward_silicon_stack(p, ev, cfg: SNNConfig, seed, noise, seeds):
     occupied = sum(o.sum() for o in out.occupancy)
     tele = {
         "adc_steps": f32math.div(adc, t_steps),
-        "lif_updates": torch.full((b,), float(sum(cfg.layer_k)),
-                                  device=dev),
+        "lif_updates": torch.full((b,), float(sum(ks)), device=dev),
         "sops": f32math.div(sops, t_steps),
         "skipped_block_ratio": torch.full(
             (b,), float(_skip_ratio(occupied, out.total_blocks)),
@@ -359,14 +389,13 @@ def nlq_steps_full(cfg: SNNConfig) -> int:
     return 2 ** cfg.code_bits - 1
 
 
-def _composed_setup(ev, cfg: SNNConfig, seed, noise):
+def _composed_setup(ev, cfg: SNNConfig, seed, noise, use_snl: bool):
     """The composed path's LIF parameters and its noise generator: a
     ``torch.Generator`` on the events' device seeded from ``seed``, or None
     on the clean path (the reference splits its key per step)."""
     lif_p = lif_lib.LIFParams(beta=cfg.beta, v_th1=cfg.v_th1,
                               v_th2=cfg.v_th2,
-                              noise_amp=cfg.noise_amp if cfg.use_snl
-                              else 0.0)
+                              noise_amp=cfg.noise_amp if use_snl else 0.0)
     gen = None
     if noise is not None:
         gen = torch.Generator(device=ev.device).manual_seed(int(seed))
@@ -393,7 +422,8 @@ def _composed_tele(adc, upd, sops, t_steps: int) -> dict:
             "sops": f32math.div(sops, t_steps)}
 
 
-def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise):
+def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise,
+                              mode: str, k: int, use_snl: bool):
     """The composed stage chain, a time step at a time (the reference's
     ``forward_silicon(fused=False)``): KWN ``cim_mac`` -> NLQ ramp (+ the
     Fig. 7 error from the generator) -> ``kwn_select`` -> ``lif_step``
@@ -404,9 +434,9 @@ def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise):
     dev = ev.device
     b, t_steps = ev.shape[0], ev.shape[1]
     n = cfg.n_hidden
-    mcfg = _macro_cfg(cfg, noise)
-    lif_p, gen = _composed_setup(ev, cfg, seed, noise)
-    if cfg.mode == "kwn":
+    mcfg = _macro_cfg(cfg, noise, mode)
+    lif_p, gen = _composed_setup(ev, cfg, seed, noise, use_snl)
+    if mode == "kwn":
         w_int, scale = ternary_lib.quantize_weights_3bit(p["w_hid"])
         nlq = _nlq_cb(cfg).to(dev)
     state = lif_lib.lif_init((b, n), device=dev)
@@ -414,17 +444,17 @@ def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise):
     adc, upd, sops = (torch.zeros((b,), device=dev) for _ in range(3))
     for t in range(t_steps):
         ev_t = ev[:, t]
-        if cfg.mode == "nld":
+        if mode == "nld":
             drive = macro_lib.nld_forward(ev_t, p["dend"], mcfg,
                                           activation=cfg.activation)
             mask, n_upd, steps = None, n, nlq_steps_full(cfg)
         else:
-            drive, res = _kwn_composed_layer(ev_t, w_int, scale, cfg.k, nlq,
+            drive, res = _kwn_composed_layer(ev_t, w_int, scale, k, nlq,
                                              mcfg, gen, noise)
-            mask, n_upd, steps = res.mask, cfg.k, res.adc_steps.float()
+            mask, n_upd, steps = res.mask, k, res.adc_steps.float()
         state, s = lif_lib.lif_step(state, drive * cfg.drive_gain, lif_p,
                                     update_mask=mask,
-                                    use_snl=cfg.use_snl and cfg.mode == "kwn")
+                                    use_snl=use_snl and mode == "kwn")
         counts = counts + s
         adc = adc + steps
         upd = upd + float(n_upd)
@@ -433,7 +463,8 @@ def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise):
     return logits, _composed_tele(adc, upd, sops, t_steps)
 
 
-def _forward_silicon_composed_stack(p, ev, cfg: SNNConfig, seed, noise):
+def _forward_silicon_composed_stack(p, ev, cfg: SNNConfig, seed, noise, ks,
+                                    use_snl: bool):
     """The composed chain through a KWN layer stack, layer after layer in
     each time step, every inter-layer spike tensor materialized (the
     reference's ``_forward_silicon_composed_multi``).  Each layer's LIF has
@@ -443,9 +474,8 @@ def _forward_silicon_composed_stack(p, ev, cfg: SNNConfig, seed, noise):
     dev = ev.device
     b, t_steps = ev.shape[0], ev.shape[1]
     widths = cfg.layer_widths
-    ks = cfg.layer_k
     mcfg = _macro_cfg(cfg, noise)
-    lif_p, gen = _composed_setup(ev, cfg, seed, noise)
+    lif_p, gen = _composed_setup(ev, cfg, seed, noise, use_snl)
     layers = [ternary_lib.quantize_weights_3bit(w) for w in p["w_hid"]]
     nlq = _nlq_cb(cfg).to(dev)
     states = [lif_lib.lif_init((b, w), device=dev) for w in widths]
@@ -460,7 +490,7 @@ def _forward_silicon_composed_stack(p, ev, cfg: SNNConfig, seed, noise):
                                              mcfg, gen, noise)
             states[li], s = lif_lib.lif_step(
                 states[li], drive * cfg.drive_gain, lif_p,
-                update_mask=res.mask, use_snl=cfg.use_snl)
+                update_mask=res.mask, use_snl=use_snl)
             adc_t = adc_t + res.adc_steps.float()
             sops_t = sops_t + cur.abs().sum(-1) * widths[li]
             cur = s

@@ -1,10 +1,12 @@
 """The port's core numerics against the JAX package, bit for bit, on the CPU.
 
 Inputs come from ``numpy.random.RandomState`` and go to both sides as
-numpy arrays.  Covered: ternary weights, the NLQ / linear codebooks, the
-f32 elementary functions the noise path needs, Threefry,
-``counter_normal`` / ``counter_sign`` / ``noisy_ima_codes``, and the
-PRBS-15 LFSR in both of its draw orders.
+numpy arrays.  Covered: ternary weights, the ternary quantizer and its
+clipped straight-through gradient, Fig. 3d's implementation cost, the
+NLQ / linear codebooks, the f32 elementary functions the noise path
+needs, Threefry, ``counter_normal`` / ``counter_sign`` /
+``noisy_ima_codes``, the counter-noise conversion and its Fig. 7a
+measurement, and the PRBS-15 LFSR in both of its draw orders.
 """
 
 import math
@@ -36,6 +38,65 @@ def _eq(a, b):
 
 
 # --- ternary ---------------------------------------------------------------
+
+@pytest.mark.parametrize("scale", [1.0, 0.37, "per_column"])
+@pytest.mark.parametrize("threshold", [0.5, 0.25])
+def test_ternary_quantize_matches(scale, threshold):
+    rs = np.random.RandomState(3)
+    x = rs.normal(0.0, 1.0, (33, 17)).astype(np.float32)
+    x[0, :4] = [0.5, -0.5, 0.25, 0.0]
+    if scale == "per_column":
+        scale = rs.uniform(0.2, 2.0, (17,)).astype(np.float32)
+    want = j_ternary.ternary_quantize(jnp.asarray(x), jnp.asarray(scale),
+                                      threshold)
+    got = t_ternary.ternary_quantize(torch.from_numpy(x),
+                                     torch.as_tensor(scale), threshold)
+    _eq(want, got)
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.6])
+def test_ternary_ste_forward_and_gradient_match(scale):
+    rs = np.random.RandomState(4)
+    x = rs.uniform(-2.0, 2.0, (64,)).astype(np.float32)
+    x[:3] = [1.5 * scale, -1.5 * scale, 0.5 * scale]
+    g = rs.normal(0.0, 1.0, (64,)).astype(np.float32)
+    sc = np.float32(scale)
+
+    def loss(xx, ss):
+        return jnp.sum(j_ternary.ternary_ste(xx, ss) * g)
+
+    jgx, jgs = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(sc))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ts = torch.tensor(sc).requires_grad_(True)
+    y = t_ternary.ternary_ste(tx, ts)
+    _eq(j_ternary.ternary_ste(jnp.asarray(x), jnp.asarray(sc)), y.detach())
+    (y * torch.from_numpy(g)).sum().backward()
+    _eq(jgx, tx.grad)
+    _eq(jgs, ts.grad)
+    assert float(ts.grad) == 0.0
+
+
+def test_unpack_ternary_matches():
+    x = np.array([-1, 0, 1, 1, -1], np.int8)
+    for jd, td in ((jnp.float32, torch.float32), (jnp.int32, torch.int32)):
+        want = j_ternary.unpack_ternary(jnp.asarray(x), jd)
+        got = t_ternary.unpack_ternary(torch.from_numpy(x), td)
+        _eq(want, got)
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("scheme", ["twin", "pwm", "mcl"])
+def test_weight_implementation_cost_matches(bits, scheme):
+    assert t_ternary.weight_implementation_cost(bits, scheme) \
+        == j_ternary.weight_implementation_cost(bits, scheme)
+
+
+def test_weight_implementation_cost_refuses_an_unknown_scheme():
+    for mod in (j_ternary, t_ternary):
+        with pytest.raises(ValueError, match="unknown scheme"):
+            mod.weight_implementation_cost(5, "sram")
+
 
 def test_weight_decompose_and_quantize_match():
     rs = np.random.RandomState(0)
@@ -210,3 +271,44 @@ def test_prbs_stream_path_order():
     got = t_prbs.bits_to_noise(bits, 0.05).reshape(len(seeds), r, n)
     _eq(np.stack(want), got)
     assert new.tolist() == ends
+
+
+# --- counter-noise IMA conversion ------------------------------------------
+
+@pytest.mark.parametrize("seed,step", [(0, 0), (7, 3), (123456789, 1000),
+                                       (2 ** 31 - 1, 5)])
+@pytest.mark.parametrize("shape", [(4096,), (37, 200)], ids=str)
+def test_ima_convert_noisy_ctr_bit_for_bit(shape, seed, step):
+    jcb, tcb = j_ima.nlq_codebook(5, -64, 64), t_ima.nlq_codebook(5, -64, 64)
+    noise = j_ima.IMANoiseModel()
+    jp = j_ima.kernel_noise_params(noise, jcb)
+    tp = t_ima.kernel_noise_params(t_ima.IMANoiseModel(), tcb)
+    x = np.random.RandomState(seed % 1000).uniform(
+        -70.0, 70.0, shape).astype(np.float32)
+    want = j_ima.ima_convert_noisy_ctr(jnp.asarray(x), jcb, jp, seed, step)
+    got = t_ima.ima_convert_noisy_ctr(torch.from_numpy(x), tcb, tp, seed,
+                                      step)
+    assert got.shape == shape and got.dtype == torch.int32
+    _eq(want, got)
+
+
+def test_ima_convert_noisy_ctr_refuses_3d():
+    cb = t_ima.nlq_codebook(5, -64, 64)
+    with pytest.raises(ValueError, match="1-D or 2-D"):
+        t_ima.ima_convert_noisy_ctr(torch.zeros(2, 3, 4), cb,
+                                    t_ima.kernel_noise_params(
+                                        t_ima.IMANoiseModel(), cb), 0)
+
+
+@pytest.mark.parametrize("seed,n_steps", [(0, 8), (5, 4), (77, 2)])
+def test_measure_transfer_error_ctr_matches(seed, n_steps):
+    """Within 1e-6 of JAX's f32 moments, and inside the golden bands of
+    the Fig. 7a measurement (0.41 +- 0.08, 1.34 +- 0.12 LSB)."""
+    want = j_ima.measure_transfer_error_ctr(j_ima.nlq_codebook(5, -64, 64),
+                                            seed=seed, n_steps=n_steps)
+    got = t_ima.measure_transfer_error_ctr(t_ima.nlq_codebook(5, -64, 64),
+                                           seed=seed, n_steps=n_steps)
+    for key in ("mean_lsb", "std_lsb"):
+        assert abs(got[key] - want[key]) <= 1e-6, (key, got, want)
+    assert got["mean_lsb"] == pytest.approx(0.41, abs=0.08)
+    assert got["std_lsb"] == pytest.approx(1.34, abs=0.12)

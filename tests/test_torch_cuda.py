@@ -1210,3 +1210,91 @@ def test_stack_plans_and_dense_equal_gated_heuristic(cuda, noisy):
     assert [int(o.min()) for o in outs[2].occupancy] == [4, 2]
     assert [int(o.max()) for o in outs[2].occupancy] == [4, 2]
     assert outs[2].total_blocks == outs[1].total_blocks == t * 2 * 6
+
+
+# --- the paper's experiments (experiments_torch) ---------------------------
+
+EXP_KS = (1, 3, 6, 12, 24, 48)
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+@pytest.mark.parametrize("shape", [(20, 128, 512, 128), (30, 128, 512, 128)],
+                         ids=["nmnist", "dvs_gesture"])
+def test_kwn_kernel_at_every_k_of_the_sweep(cuda, shape, noisy):
+    """#1 at K = 1 ... 48 on the datasets' evaluation shapes equals its
+    plain version, and no item's ADC steps fall as K grows."""
+    t, m, kdim, n = shape
+    rs = np.random.RandomState(21)
+    fw, cfg = _weights(rs, kdim, n)
+    x = torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], p=[0.015, 0.97, 0.015],
+                                   size=(t, m, kdim)).astype(np.float32))
+    v0 = torch.from_numpy(rs.uniform(-1, 1, (m, n)).astype(np.float32))
+    nz = None if noisy else torch.from_numpy(
+        rs.choice([-0.05, 0.05], size=(t, m, n)).astype(np.float32))
+    prev = None
+    for k in EXP_KS:
+        kw = dict(k=k, drive_gain=0.25, seed=11)
+        if noisy:
+            kw.update(ima_noise=macro_lib.fused_kernel_noise(fw, cfg),
+                      snl_amp=0.05)
+        got = ops.fused_macro_seq(x, *fw[:2], fw.boundaries, fw.levels,
+                                  fw.scale, v0, nz, device=cuda, **kw)
+        want = ops.fused_macro_seq(x, *fw[:2], fw.boundaries, fw.levels,
+                                   fw.scale, v0, nz, device="cpu", **kw)
+        for name, a, b in zip(("mac", "v_out", "spikes", "mask", "steps"),
+                              got, want):
+            assert torch.equal(a.cpu(), b), (k, name)
+        assert int(want[3].sum(-1).max()) <= k
+        if prev is not None:
+            assert bool((want[4] >= prev).all()), k
+        prev = want[4]
+
+
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+@pytest.mark.parametrize("shape", [(20, 128, 512, 128, 2, "quadratic"),
+                                   (30, 128, 512, 128, 2, "relu"),
+                                   (24, 128, 256, 128, 2, "sigmoid4")],
+                         ids=["nmnist", "dvs_gesture", "quiroga"])
+def test_nld_kernel_at_the_datasets_configurations(cuda, shape, noisy):
+    test_nld_kernel_matches_plain_version(cuda, shape, noisy)
+
+
+@pytest.mark.parametrize("k", [1, 12, 48])
+def test_use_snl_off_on_card_equals_cpu_composed(cuda, k):
+    """``forward_silicon(use_snl=False, k=...)`` through #1 equals the
+    CPU's composed path bit for bit (identity readout: the logits are the
+    spike rates)."""
+    cfg = snn.SNNConfig(n_in=512, n_hidden=128, n_classes=128, n_steps=20,
+                        k=3)
+    p = snn.init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    p["w_out"] = torch.eye(128)
+    rs = np.random.RandomState(8)
+    ev = rs.choice([-1.0, 0.0, 1.0], p=[0.015, 0.97, 0.015],
+                   size=(16, 20, 512)).astype(np.float32)
+    before = fused_macro.fused_macro_seq.launches
+    got = snn.forward_silicon(p, ev, cfg, device=cuda, k=k, use_snl=False)
+    torch.cuda.synchronize()
+    assert fused_macro.fused_macro_seq.launches == before + 1
+    want = snn.forward_silicon(p, ev, cfg, device="cpu", fused=False, k=k,
+                               use_snl=False)
+    assert torch.equal(got[0].cpu(), want[0])
+    for key in ("adc_steps", "lif_updates", "sops"):
+        assert torch.equal(got[1][key].cpu(), want[1][key]), key
+    assert float(got[1]["lif_updates"][0]) == k
+
+
+def test_counter_transfer_error_on_card_equals_cpu(cuda):
+    cb = ima_lib.nlq_codebook(5, -64, 64)
+    params = ima_lib.kernel_noise_params(ima_lib.IMANoiseModel(), cb)
+    rs = np.random.RandomState(3)
+    for shape in ((4096,), (37, 200)):
+        x = torch.from_numpy(rs.uniform(-70, 70, shape).astype(np.float32))
+        for seed, step in ((0, 0), (7, 3), (2 ** 31 - 1, 1000)):
+            got = ima_lib.ima_convert_noisy_ctr(x.to(cuda), cb.to(cuda),
+                                                params, seed, step)
+            want = ima_lib.ima_convert_noisy_ctr(x, cb, params, seed, step)
+            assert torch.equal(got.cpu(), want), (shape, seed, step)
+    got = ima_lib.measure_transfer_error_ctr(cb.to(cuda), seed=5)
+    want = ima_lib.measure_transfer_error_ctr(cb, seed=5)
+    for key in ("mean_lsb", "std_lsb"):
+        assert abs(got[key] - want[key]) <= 1e-6, key

@@ -179,3 +179,144 @@ def test_init_params_is_seeded():
     assert a["w_out"].shape == (tcfg.n_hidden, tcfg.n_classes)
     assert all(torch.equal(a[k], b[k]) for k in a)
 
+
+
+KS = (1, 3, 6, 12, 24, 48)
+SWEEP_KW = dict(n_in=96, n_hidden=64, n_classes=64, n_steps=10, k=6)
+
+
+@pytest.fixture(scope="module")
+def sweep_setup():
+    """An identity readout: the logits are the spike rates, exact."""
+    jcfg = j_snn.SNNConfig(**SWEEP_KW)
+    tcfg = t_snn.SNNConfig(**SWEEP_KW)
+    p = {k: np.asarray(v) for k, v in
+         j_snn.init_params(jcfg, jax.random.PRNGKey(4)).items()}
+    p["w_out"] = np.eye(SWEEP_KW["n_hidden"], dtype=np.float32)
+    return jcfg, tcfg, p, _events(3, 10, jcfg.n_in, seed=11, rate=0.2)
+
+
+@pytest.mark.parametrize("use_snl", [True, False], ids=["snl", "no_snl"])
+@pytest.mark.parametrize("k", KS)
+def test_k_and_use_snl_overrides_match_reference(sweep_setup, k, use_snl):
+    """Clean KWN at every K of the sweep, SNL on and off: the port's
+    composed and ``"seq"`` forms against JAX ``forward_silicon(fused=False,
+    k=..., use_snl=...)``, logits and telemetry bit for bit."""
+    jcfg, tcfg, p, ev = sweep_setup
+    jl, jt = j_snn.forward_silicon(
+        {n: jnp.asarray(v) for n, v in p.items()}, jnp.asarray(ev), jcfg,
+        jax.random.PRNGKey(1), k=k, use_snl=use_snl, fused=False)
+    tp = convert.snn_params_from_jax(p, "cpu")
+    for fused in (False, "seq"):
+        tl, tt = t_snn.forward_silicon(tp, ev, tcfg, device="cpu",
+                                       fused=fused, k=k, use_snl=use_snl)
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl),
+                                      err_msg=str(fused))
+        for key in ("adc_steps", "lif_updates", "sops"):
+            np.testing.assert_array_equal(tt[key].numpy(),
+                                          np.asarray(jt[key]),
+                                          err_msg=f"{fused} {key}")
+        assert float(tt["lif_updates"][0]) == k
+
+
+def test_adc_steps_do_not_fall_as_k_grows(sweep_setup):
+    _, tcfg, p, ev = sweep_setup
+    tp = convert.snn_params_from_jax(p, "cpu")
+    steps = [float(t_snn.forward_silicon(tp, ev, tcfg, device="cpu", k=k,
+                                         use_snl=False)[1]["adc_steps"]
+                   .mean()) for k in KS]
+    assert steps == sorted(steps), steps
+
+
+def test_k_zero_and_none_mean_the_config_k(sweep_setup):
+    _, tcfg, p, ev = sweep_setup
+    tp = convert.snn_params_from_jax(p, "cpu")
+    want = t_snn.forward_silicon(tp, ev, tcfg, device="cpu")
+    for kw in (dict(k=0), dict(k=None), dict(k=tcfg.k, mode="kwn",
+                                             use_snl=tcfg.use_snl)):
+        got = t_snn.forward_silicon(tp, ev, tcfg, device="cpu", **kw)
+        assert torch.equal(got[0], want[0]), kw
+        assert all(torch.equal(got[1][n], want[1][n]) for n in want[1])
+
+
+@pytest.mark.parametrize("fused", [False, "seq", "step"])
+def test_use_snl_false_draws_no_snl_stream(monkeypatch, sweep_setup, fused):
+    """With SNL off no PRBS noise is drawn, and the noisy forward equals
+    a run whose SNL amplitude is zero."""
+    _, tcfg, p, ev = sweep_setup
+    tp = convert.snn_params_from_jax(p, "cpu")
+
+    def refuse(*a, **kw):
+        raise AssertionError("PRBS stream drawn with SNL off")
+
+    with monkeypatch.context() as m:
+        m.setattr(t_snn.prbs_lib, "sequence_noise", refuse)
+        m.setattr(t_snn.prbs_lib, "draw", refuse)
+        m.setattr(t_snn.lif_lib.prbs, "prbs_noise", refuse)
+        t_snn.forward_silicon(tp, ev, tcfg, device="cpu", fused=fused,
+                              use_snl=False)
+    if fused is False:
+        return
+    quiet = t_snn.SNNConfig(**dict(SWEEP_KW, noise_amp=0.0))
+    noise = t_ima.IMANoiseModel()
+    got = t_snn.forward_silicon(tp, ev, tcfg, seed=5, noise=noise,
+                                device="cpu", fused=fused, use_snl=False)
+    want = t_snn.forward_silicon(tp, ev, quiet, seed=5, noise=noise,
+                                 device="cpu", fused=fused, use_snl=False)
+    snl = t_snn.forward_silicon(tp, ev, tcfg, seed=5, noise=noise,
+                                device="cpu", fused=fused)
+    assert torch.equal(got[0], want[0])
+    assert not torch.equal(got[0], snl[0])
+
+
+def test_noisy_k_override_matches_oracle_harness(sweep_setup):
+    jcfg, tcfg, p, ev = sweep_setup
+    jp = {n: jnp.asarray(v) for n, v in p.items()}
+    jk = j_snn.SNNConfig(**dict(SWEEP_KW, k=24))
+    jl, jadc, _ = _jax_noisy_harness(jp, ev, jk, 99, j_ima.IMANoiseModel())
+    tl, tt = t_snn.forward_silicon(convert.snn_params_from_jax(p, "cpu"), ev,
+                                   tcfg, seed=99, k=24,
+                                   noise=t_ima.IMANoiseModel(), device="cpu")
+    np.testing.assert_array_equal(tt["adc_steps"].numpy(), jadc)
+    np.testing.assert_allclose(tl.numpy(), jl, rtol=1e-5, atol=1e-6)
+    assert float(tt["lif_updates"][0]) == 24
+
+
+@pytest.mark.parametrize("fused", [False, "seq"])
+def test_stack_takes_k_and_use_snl(fused):
+    """A stack with ``k=`` and ``use_snl=False`` against the JAX composed
+    stack with the same overrides (no ``k_layers``: every layer runs k)."""
+    kw = dict(n_in=48, n_classes=4, n_steps=6, hidden_layers=(40, 32), k=4)
+    jcfg, tcfg = j_snn.SNNConfig(**kw), t_snn.SNNConfig(**kw)
+    jp = j_snn.init_params(jcfg, jax.random.PRNGKey(3))
+    ev = _events(2, 6, 48, seed=5, rate=0.3)
+    jl, jt = j_snn.forward_silicon(jp, jnp.asarray(ev), jcfg,
+                                   jax.random.PRNGKey(0), k=9,
+                                   use_snl=False, fused=False)
+    tp = convert.snn_params_from_jax(
+        {"w_hid": [np.asarray(w) for w in jp["w_hid"]],
+         "w_out": np.asarray(jp["w_out"])}, "cpu")
+    tl, tt = t_snn.forward_silicon(tp, ev, tcfg, device="cpu", fused=fused,
+                                   k=9, use_snl=False)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                               atol=1e-6)
+    for key in ("adc_steps", "lif_updates", "sops"):
+        np.testing.assert_array_equal(tt[key].numpy(), np.asarray(jt[key]),
+                                      err_msg=key)
+    assert float(tt["lif_updates"][0]) == 18
+
+
+def test_mac_telemetry_on_a_stack_raises():
+    cfg = t_snn.SNNConfig(n_in=16, hidden_layers=(8, 8))
+    p = t_snn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for fused in ("seq", "step"):
+        with pytest.raises(ValueError, match="mac_telemetry"):
+            t_snn.forward_silicon(p, _events(1, 4, 16), cfg, device="cpu",
+                                  fused=fused, mac_telemetry=True)
+    _, tcfg, p1 = _setup()
+    tp = convert.snn_params_from_jax(p1, "cpu")
+    ev = _events(2, 5, tcfg.n_in)
+    got = t_snn.forward_silicon(tp, ev, tcfg, device="cpu",
+                                mac_telemetry=True)
+    want = t_snn.forward_silicon(tp, ev, tcfg, device="cpu")
+    assert torch.equal(got[0], want[0])
