@@ -256,7 +256,8 @@ Phases (any failure raises, so the exit code is non-zero):
    on the card against the CPU's; then ``python -m experiments_torch.run``
    in a subprocess on the card at 20 training steps (NLD on DVS-Gesture
    40), 2 evaluation batches and 10 LM steps (a nonzero exit fails):
-   every experiment's results present, Fig. 3d matching the paper, the
+   every experiment's results present, Fig. 3d matching the paper,
+   Fig. 7a's moments equal to the CPU's counter measurement, the
    energy model's fields equal to this process's, the K sweep's ADC
    steps not falling and its LIF updates equal to K, and #1's and #2's
    launches in each experiment equal to its evaluation batches.
@@ -4651,7 +4652,9 @@ def _experiments_subprocess() -> dict:
 
 def _check_experiments(run: dict) -> dict:
     """The suite's results against what is exact on any device: Fig. 3d
-    matches the paper; the energy model's fields equal this process's;
+    matches the paper; Fig. 7a's moments are the CPU's counter-stream
+    measurement, to the script's rounding; the energy model's fields
+    equal this process's;
     the K sweep's ADC steps do not fall and its LIF updates are K; and
     #1's and #2's launches are the evaluation batches."""
     from experiments_torch import fig9_energy as fig9
@@ -4665,6 +4668,12 @@ def _check_experiments(run: dict) -> dict:
 
     if res["fig3d_weight_impl"]["matches_paper"] is not True:
         raise AssertionError("Fig. 3d does not match the paper")
+    # Fig. 7a runs the counter stream: its codes are the CPU's
+    ctr = ima_lib.measure_transfer_error_ctr(ima_lib.nlq_codebook(5, -64, 64))
+    f7 = res["fig7_ima"]
+    if abs(f7["nlq_mean_lsb"] - ctr["mean_lsb"]) > 5e-4 + 1e-6 \
+            or abs(f7["nlq_sigma_lsb"] - ctr["std_lsb"]) > 5e-4 + 1e-6:
+        raise AssertionError(f"Fig. 7a {f7} differs from the CPU's {ctr}")
     if res["fig9_energy"] != plain(fig9.run()):
         raise AssertionError("fig9_energy differs from the CPU's")
     ee = energy.table1_energy_entries()
@@ -4701,7 +4710,7 @@ def _check_experiments(run: dict) -> dict:
         for k2, v in got.items():
             totals[k2] += v
     log(f"experiments: every result present; Fig. 3d matches the paper; "
-        f"energy fields equal; K sweep steps rise with K; launches "
+        f"Fig. 7a equals the CPU's counter measurement; energy fields equal; K sweep steps rise with K; launches "
         f"{totals} = the evaluation batches")
     return totals
 

@@ -2,8 +2,11 @@
 (a) NLQ transfer error: paper mu=0.41 LSB, sigma=1.34 LSB.
 (b) NL-activation (y=0.5x^2) INL: paper 0.91 LSB.
 
-The Monte-Carlo noise comes from a ``torch.Generator`` seeded 0 on the
-device (the JAX script's from a key): the same law, other draws."""
+Fig. 7a is measured on the counter noise stream that the fused kernels
+draw in-kernel (seed 0), so its codes are a pure function of (seed, step,
+row, column) and equal on the card and the CPU.  Fig. 7b's Monte-Carlo
+noise comes from a ``torch.Generator`` seeded 0 on the device.  The JAX
+script draws both from a key: the same law, other draws."""
 
 import torch
 
@@ -15,7 +18,7 @@ def run() -> dict:
     dev = C.device()
     gen = torch.Generator(device=dev).manual_seed(0)
     nlq = ima.nlq_codebook(5, -64, 64).to(dev)
-    transfer = ima.measure_transfer_error(nlq, gen)
+    transfer = ima.measure_transfer_error_ctr(nlq, seed=0)
     act = ima.activation_codebook(5, ima.quadratic, -8, 8).to(dev)
     inl_model = ima.measure_inl(act, ima.quadratic, generator=gen,
                                 noise=ima.IMANoiseModel())

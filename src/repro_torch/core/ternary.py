@@ -4,8 +4,7 @@ A twin 9T bit-cell stores a ternary value; two cells in banks with a 2:1
 current ratio compose a signed 3-bit weight ``W = 2*W_msb + W_lsb`` in
 [-3, 3].  Counterpart of ``repro.core.ternary`` (inference, the
 current-ratio variation model, the weight fake-quantizer of
-quantization-aware training, the ternary quantizer with its clipped
-straight-through gradient, and Fig. 3d's weight-implementation cost).
+quantization-aware training, and Fig. 3d's weight-implementation cost).
 """
 
 from __future__ import annotations
@@ -15,39 +14,6 @@ import torch
 from repro_torch.core import f32math
 
 CURRENT_RATIO = 2.0  # I_MSB / I_LSB
-
-
-def ternary_quantize(x: torch.Tensor, scale=1.0,
-                     threshold: float = 0.5) -> torch.Tensor:
-    """Hard ternarization: ``sign(x / scale)`` where ``|x / scale| >
-    threshold``, else 0."""
-    xs = f32math.div(x, scale)
-    return torch.where(torch.abs(xs) > threshold, torch.sign(xs),
-                       torch.zeros_like(xs))
-
-
-class _TernarySTE(torch.autograd.Function):
-    """``ternary_quantize`` forward; clipped straight-through backward:
-    the gradient passes where ``|x / scale| <= 1.5``, and ``scale`` gets
-    a zero gradient."""
-
-    @staticmethod
-    def forward(ctx, x, scale):
-        ctx.save_for_backward(x, scale)
-        return ternary_quantize(x, scale)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, scale = ctx.saved_tensors
-        inside = torch.abs(f32math.div(x, scale)) <= 1.5
-        return g * inside.to(g.dtype), torch.zeros_like(scale)
-
-
-def ternary_ste(x: torch.Tensor, scale) -> torch.Tensor:
-    """Ternarize ``x / scale`` with the clipped straight-through
-    gradient (QAT of ternary cells)."""
-    return _TernarySTE.apply(x, torch.as_tensor(scale, dtype=x.dtype,
-                                                device=x.device))
 
 
 def ternary_input_encode(spikes: torch.Tensor) -> torch.Tensor:
@@ -113,10 +79,6 @@ def quantize_weights_3bit(w: torch.Tensor, per_channel: bool = True
 def pack_ternary(x: torch.Tensor) -> torch.Tensor:
     """Ternary {-1, 0, 1} values as int8."""
     return torch.round(x).to(torch.int8)
-
-
-def unpack_ternary(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    return x.to(dtype)
 
 
 def weight_implementation_cost(bits: int, scheme: str

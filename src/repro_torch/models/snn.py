@@ -146,26 +146,22 @@ def params_to(p: dict, device) -> dict:
     return out
 
 
-def _macro_cfg(cfg: SNNConfig, noise,
-               mode: str | None = None) -> macro_lib.CIMMacroConfig:
+def _macro_cfg(cfg: SNNConfig, noise) -> macro_lib.CIMMacroConfig:
     """The macro config; the ramp's full scale is ``dend_range`` in NLD
-    mode (float branch-MAC units) and ``mac_range`` in KWN mode (``mode``,
-    default ``cfg.mode``)."""
-    mode = mode or cfg.mode
+    mode (float branch-MAC units) and ``mac_range`` in KWN mode."""
     return macro_lib.CIMMacroConfig(
         code_bits=cfg.code_bits,
-        mac_range=cfg.mac_range if mode == "kwn" else cfg.dend_range,
+        mac_range=cfg.mac_range if cfg.mode == "kwn" else cfg.dend_range,
         ima_noise=noise)
 
 
-def pack_fused(p: dict, cfg: SNNConfig, noise=None,
-               mode: str | None = None) -> macro_lib.FusedMacroWeights:
+def pack_fused(p: dict, cfg: SNNConfig, noise=None
+               ) -> macro_lib.FusedMacroWeights:
     """The packed operands of a single-layer config: ``w_hid`` quantized
     onto the twin-cell grid (KWN), or the branch weights of ``dend``
-    (NLD); ``mode`` defaults to ``cfg.mode``."""
-    mode = mode or cfg.mode
-    mcfg = _macro_cfg(cfg, noise, mode)
-    if mode == "nld":
+    (NLD)."""
+    mcfg = _macro_cfg(cfg, noise)
+    if cfg.mode == "nld":
         return macro_lib.pack_nld_weights(p["dend"], mcfg,
                                           activation=cfg.activation)
     w_int, scale = ternary_lib.quantize_weights_3bit(p["w_hid"])
@@ -214,9 +210,7 @@ def _skip_ratio(occupied: torch.Tensor, blocks: int) -> torch.Tensor:
 def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
                     noise: ima_lib.IMANoiseModel | None = None,
                     fused: bool | str = "seq", device=None, seeds=None, *,
-                    mode: str | None = None, k: int | None = None,
-                    use_snl: bool | None = None,
-                    mac_telemetry: bool = False):
+                    k: int | None = None, use_snl: bool | None = None):
     """Inference through the macro: events (B, T, N_in) -> (logits (B,
     classes), telemetry).
 
@@ -240,24 +234,16 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     per-request means over the actual sequence length of ADC steps, LIF
     updates and SOPs, plus the activity plan's skipped-block ratio.
 
-    Per-call overrides, with the reference's meaning: ``mode or
-    cfg.mode``, ``k or cfg.k`` (so 0 means ``cfg.k``; a stack without
-    ``cfg.k_layers`` runs ``k`` in every layer) and ``cfg.use_snl`` where
-    ``use_snl`` is None.  With ``use_snl=False`` no SNL stream (PRBS or
-    counter) reaches the LIF.  ``mac_telemetry=True`` has the fused
-    kernel write its MACs (the single-layer forms; a fused stack raises
-    ``ValueError``).
+    Per-call overrides, with the reference's meaning: ``k or cfg.k`` (so
+    0 means ``cfg.k``; a stack without ``cfg.k_layers`` runs ``k`` in
+    every layer) and ``cfg.use_snl`` where ``use_snl`` is None.  With
+    ``use_snl=False`` no SNL stream (PRBS or counter) reaches the LIF.
     """
     if fused not in (False, True, "seq", "step"):
         raise ValueError(f"unknown fused={fused!r}; expected False, True, "
                          f"'step' or 'seq'")
-    mode = mode or cfg.mode
     k = k or cfg.k
     use_snl = cfg.use_snl if use_snl is None else bool(use_snl)
-    if mode not in ("kwn", "nld"):
-        raise ValueError(f"unknown mode {mode!r}")
-    if _is_stack(cfg) and mode != "kwn":
-        raise ValueError("multi-layer stacks are KWN-only")
     dev = device_lib.resolve(device)
     ev = torch.as_tensor(events).to(dev, torch.float32)
     p = params_to(p, dev)
@@ -266,27 +252,24 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
         if _is_stack(cfg):
             return _forward_silicon_composed_stack(p, ev, cfg, seed, noise,
                                                    ks, use_snl)
-        return _forward_silicon_composed(p, ev, cfg, seed, noise, mode, k,
+        return _forward_silicon_composed(p, ev, cfg, seed, noise, k,
                                          use_snl)
     if _is_stack(cfg):
-        if mac_telemetry:
-            raise ValueError("mac_telemetry is single-layer only: the "
-                             "stacked kernel never writes MACs")
         return _forward_silicon_stack(p, ev, cfg, seed, noise, seeds, ks,
                                       use_snl)
     b, t_steps = ev.shape[0], ev.shape[1]
-    fw = pack_fused(p, cfg, noise, mode)
+    fw = pack_fused(p, cfg, noise)
     noisy = noise is not None
-    snl_active = use_snl and mode == "kwn"
+    snl_active = use_snl and cfg.mode == "kwn"
     noise_amp = cfg.noise_amp if snl_active else 0.0
-    ima_kn = macro_lib.fused_kernel_noise(fw, _macro_cfg(cfg, noise, mode))
+    ima_kn = macro_lib.fused_kernel_noise(fw, _macro_cfg(cfg, noise))
     ev_t = ev.transpose(0, 1)                              # (T, B, N_in)
     activity = macro_lib.plan_activity(ev_t, fw, cfg.n_hidden)
     v0 = lif_lib.lif_init((b, cfg.n_hidden), device=dev).v_mem
     prbs_amp = noise_amp if snl_active and not noisy else None
     lif = dict(_lif(cfg), use_snl=snl_active, k=k, ima_noise=ima_kn,
-               snl_amp=noise_amp if noisy else 0.0,
-               mac_telemetry=mac_telemetry, seed=int(seed) if noisy else 0)
+               snl_amp=noise_amp if noisy else 0.0, mac_telemetry=False,
+               seed=int(seed) if noisy else 0)
     if fused == "step":
         spk_t, steps_t = _forward_steps(ev_t, fw, v0, lif, prbs_amp)
     else:
@@ -299,7 +282,7 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     counts = spk_t.sum(0)
     logits = f32math.div(counts, t_steps) @ p["w_out"]
     sops_t = ev_t.abs().sum(-1) * cfg.n_hidden             # (T, B)
-    n_upd = float(k if mode == "kwn" else cfg.n_hidden)
+    n_upd = float(k if cfg.mode == "kwn" else cfg.n_hidden)
     tele = {
         "adc_steps": f32math.div(steps_t.float().sum(0), t_steps),
         "lif_updates": torch.full((b,), n_upd, device=dev),
@@ -422,8 +405,8 @@ def _composed_tele(adc, upd, sops, t_steps: int) -> dict:
             "sops": f32math.div(sops, t_steps)}
 
 
-def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise,
-                              mode: str, k: int, use_snl: bool):
+def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise, k: int,
+                              use_snl: bool):
     """The composed stage chain, a time step at a time (the reference's
     ``forward_silicon(fused=False)``): KWN ``cim_mac`` -> NLQ ramp (+ the
     Fig. 7 error from the generator) -> ``kwn_select`` -> ``lif_step``
@@ -434,9 +417,9 @@ def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise,
     dev = ev.device
     b, t_steps = ev.shape[0], ev.shape[1]
     n = cfg.n_hidden
-    mcfg = _macro_cfg(cfg, noise, mode)
+    mcfg = _macro_cfg(cfg, noise)
     lif_p, gen = _composed_setup(ev, cfg, seed, noise, use_snl)
-    if mode == "kwn":
+    if cfg.mode == "kwn":
         w_int, scale = ternary_lib.quantize_weights_3bit(p["w_hid"])
         nlq = _nlq_cb(cfg).to(dev)
     state = lif_lib.lif_init((b, n), device=dev)
@@ -444,7 +427,7 @@ def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise,
     adc, upd, sops = (torch.zeros((b,), device=dev) for _ in range(3))
     for t in range(t_steps):
         ev_t = ev[:, t]
-        if mode == "nld":
+        if cfg.mode == "nld":
             drive = macro_lib.nld_forward(ev_t, p["dend"], mcfg,
                                           activation=cfg.activation)
             mask, n_upd, steps = None, n, nlq_steps_full(cfg)
@@ -454,7 +437,7 @@ def _forward_silicon_composed(p, ev, cfg: SNNConfig, seed, noise,
             mask, n_upd, steps = res.mask, k, res.adc_steps.float()
         state, s = lif_lib.lif_step(state, drive * cfg.drive_gain, lif_p,
                                     update_mask=mask,
-                                    use_snl=use_snl and mode == "kwn")
+                                    use_snl=use_snl and cfg.mode == "kwn")
         counts = counts + s
         adc = adc + steps
         upd = upd + float(n_upd)

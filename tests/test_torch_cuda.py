@@ -51,10 +51,19 @@ def _weights(rs, kdim, n):
     return macro_lib.pack_kwn_weights(w_int, scale, cfg), cfg
 
 
-@pytest.mark.parametrize("shape", [(8, 64, 512, 128), (6, 37, 300, 200)],
+# the winner counts of the paper's K sweep (experiments_torch)
+EXP_KS = (1, 3, 6, 12, 24, 48)
+
+
+@pytest.mark.parametrize("k", EXP_KS)
+@pytest.mark.parametrize("shape", [(8, 64, 512, 128), (6, 37, 300, 200),
+                                   # N-MNIST and DVS-Gesture evaluation
+                                   (20, 128, 512, 128), (30, 128, 512, 128)],
                          ids=str)
 @pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
-def test_kernel_matches_plain_version(cuda, shape, noisy):
+def test_kernel_matches_plain_version(cuda, shape, noisy, k):
+    """#1 equals its plain version at every K of the sweep, and no item's
+    ADC steps fall from the sweep's previous K to this one."""
     t, m, kdim, n = shape
     rs = np.random.RandomState(0)
     fw, cfg = _weights(rs, kdim, n)
@@ -63,20 +72,25 @@ def test_kernel_matches_plain_version(cuda, shape, noisy):
     v0 = torch.from_numpy(rs.uniform(-1, 1.2, (m, n)).astype(np.float32))
     nz = None if noisy else torch.from_numpy(
         rs.choice([-0.05, 0.05], size=(t, m, n)).astype(np.float32))
-    kw = dict(k=12, drive_gain=0.25, seed=7, step_offset=2)
+    kw = dict(k=k, drive_gain=0.25, seed=7, step_offset=2)
     if noisy:
         kw.update(ima_noise=macro_lib.fused_kernel_noise(fw, cfg),
                   snl_amp=0.05)
+    args = (x, *fw[:2], fw.boundaries, fw.levels, fw.scale, v0, nz)
     before = fused_macro.fused_macro_seq.launches
-    got = ops.fused_macro_seq(x, *fw[:2], fw.boundaries, fw.levels,
-                              fw.scale, v0, nz, device=cuda, **kw)
+    got = ops.fused_macro_seq(*args, device=cuda, **kw)
     torch.cuda.synchronize()
     assert fused_macro.fused_macro_seq.launches == before + 1
-    want = ops.fused_macro_seq(x, *fw[:2], fw.boundaries, fw.levels,
-                               fw.scale, v0, nz, device="cpu", **kw)
+    want = ops.fused_macro_seq(*args, device="cpu", **kw)
     for name, a, b in zip(("mac", "v_out", "spikes", "mask", "steps"),
                           got, want):
         assert torch.equal(a.cpu(), b), name
+    assert int(want[3].sum(-1).max()) <= k
+    if k > EXP_KS[0]:
+        prev = ops.fused_macro_seq(
+            *args, device="cpu",
+            **dict(kw, k=EXP_KS[EXP_KS.index(k) - 1]))
+        assert bool((want[4] >= prev[4]).all())
 
 
 SEQ_KWN_SHAPES = [(t, m, n) for t in (1, 8, 30) for m in (4, 64, 132)
@@ -181,7 +195,12 @@ def _nld_weights(kdim, n, n_branches, activation, seed=0):
                                    (30, 64, 512, 512, 2, "relu"),
                                    # more branches than the LIF holds in
                                    # registers
-                                   (4, 13, 96, 24, 6, "sigmoid4")],
+                                   (4, 13, 96, 24, 6, "sigmoid4"),
+                                   # the N-MNIST, DVS-Gesture and Quiroga
+                                   # evaluation configurations
+                                   (20, 128, 512, 128, 2, "quadratic"),
+                                   (30, 128, 512, 128, 2, "relu"),
+                                   (24, 128, 256, 128, 2, "sigmoid4")],
                          ids=str)
 @pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
 def test_nld_kernel_matches_plain_version(cuda, shape, noisy):
@@ -1213,51 +1232,6 @@ def test_stack_plans_and_dense_equal_gated_heuristic(cuda, noisy):
 
 
 # --- the paper's experiments (experiments_torch) ---------------------------
-
-EXP_KS = (1, 3, 6, 12, 24, 48)
-
-
-@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
-@pytest.mark.parametrize("shape", [(20, 128, 512, 128), (30, 128, 512, 128)],
-                         ids=["nmnist", "dvs_gesture"])
-def test_kwn_kernel_at_every_k_of_the_sweep(cuda, shape, noisy):
-    """#1 at K = 1 ... 48 on the datasets' evaluation shapes equals its
-    plain version, and no item's ADC steps fall as K grows."""
-    t, m, kdim, n = shape
-    rs = np.random.RandomState(21)
-    fw, cfg = _weights(rs, kdim, n)
-    x = torch.from_numpy(rs.choice([-1.0, 0.0, 1.0], p=[0.015, 0.97, 0.015],
-                                   size=(t, m, kdim)).astype(np.float32))
-    v0 = torch.from_numpy(rs.uniform(-1, 1, (m, n)).astype(np.float32))
-    nz = None if noisy else torch.from_numpy(
-        rs.choice([-0.05, 0.05], size=(t, m, n)).astype(np.float32))
-    prev = None
-    for k in EXP_KS:
-        kw = dict(k=k, drive_gain=0.25, seed=11)
-        if noisy:
-            kw.update(ima_noise=macro_lib.fused_kernel_noise(fw, cfg),
-                      snl_amp=0.05)
-        got = ops.fused_macro_seq(x, *fw[:2], fw.boundaries, fw.levels,
-                                  fw.scale, v0, nz, device=cuda, **kw)
-        want = ops.fused_macro_seq(x, *fw[:2], fw.boundaries, fw.levels,
-                                   fw.scale, v0, nz, device="cpu", **kw)
-        for name, a, b in zip(("mac", "v_out", "spikes", "mask", "steps"),
-                              got, want):
-            assert torch.equal(a.cpu(), b), (k, name)
-        assert int(want[3].sum(-1).max()) <= k
-        if prev is not None:
-            assert bool((want[4] >= prev).all()), k
-        prev = want[4]
-
-
-@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
-@pytest.mark.parametrize("shape", [(20, 128, 512, 128, 2, "quadratic"),
-                                   (30, 128, 512, 128, 2, "relu"),
-                                   (24, 128, 256, 128, 2, "sigmoid4")],
-                         ids=["nmnist", "dvs_gesture", "quiroga"])
-def test_nld_kernel_at_the_datasets_configurations(cuda, shape, noisy):
-    test_nld_kernel_matches_plain_version(cuda, shape, noisy)
-
 
 @pytest.mark.parametrize("k", [1, 12, 48])
 def test_use_snl_off_on_card_equals_cpu_composed(cuda, k):

@@ -3,7 +3,8 @@ package's (``benchmarks/``) on the CPU.
 
 The closed-form scripts (Fig. 3d, Fig. 9, the model half of the KWN
 latency claims, Table I's energy fields, the K sweep's pJ/SOP) return the
-reference's dicts exactly.  The trained ones are compared by structure:
+reference's dicts exactly; Fig. 7a's moments are the JAX counter-stream
+measurement's.  The trained ones are compared by structure:
 with the models' training and evaluation stubbed out on both sides, the
 port's scripts return the reference's dicts; and the whole suite runs
 end to end through ``experiments_torch.run --device cpu`` at two training
@@ -119,6 +120,24 @@ def test_table1_energy_fields_equal_reference(stubbed):
         assert got["this_work"][key] == want["this_work"][key]
     assert got["ee_improvement_vs_vlsi25"] == 1.625
     assert ref_fig8.run() == t_fig8.run()
+
+
+def test_fig7_transfer_error_is_the_counter_stream_measurement(monkeypatch):
+    """Fig. 7a's moments are the counter stream's (codes equal to the JAX
+    package's bit for bit, f32 moments within 1e-6), and inside the golden
+    bands of the Fig. 7a measurement (0.41 +- 0.08, 1.34 +- 0.12 LSB)."""
+    from repro.core import ima as j_ima
+
+    monkeypatch.setattr(t_cache, "DEVICE", "cpu")
+    got = _port("fig7_ima").run()
+    want = j_ima.measure_transfer_error_ctr(j_ima.nlq_codebook(5, -64, 64),
+                                            seed=0)
+    for name, key in (("nlq_mean_lsb", "mean_lsb"),
+                      ("nlq_sigma_lsb", "std_lsb")):
+        assert abs(got[name] - want[key]) <= 5e-4 + 1e-6, (name, got, want)
+    assert got["nlq_mean_lsb"] == pytest.approx(0.41, abs=0.08)
+    assert got["nlq_sigma_lsb"] == pytest.approx(1.34, abs=0.12)
+    assert _shape(got) == _shape(_load_reference("fig7_ima").run())
 
 
 def test_lm_ablation_matches_reference_keys(monkeypatch):

@@ -232,7 +232,7 @@ def test_k_zero_and_none_mean_the_config_k(sweep_setup):
     _, tcfg, p, ev = sweep_setup
     tp = convert.snn_params_from_jax(p, "cpu")
     want = t_snn.forward_silicon(tp, ev, tcfg, device="cpu")
-    for kw in (dict(k=0), dict(k=None), dict(k=tcfg.k, mode="kwn",
+    for kw in (dict(k=0), dict(k=None), dict(k=tcfg.k,
                                              use_snl=tcfg.use_snl)):
         got = t_snn.forward_silicon(tp, ev, tcfg, device="cpu", **kw)
         assert torch.equal(got[0], want[0]), kw
@@ -305,18 +305,3 @@ def test_stack_takes_k_and_use_snl(fused):
                                       err_msg=key)
     assert float(tt["lif_updates"][0]) == 18
 
-
-def test_mac_telemetry_on_a_stack_raises():
-    cfg = t_snn.SNNConfig(n_in=16, hidden_layers=(8, 8))
-    p = t_snn.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    for fused in ("seq", "step"):
-        with pytest.raises(ValueError, match="mac_telemetry"):
-            t_snn.forward_silicon(p, _events(1, 4, 16), cfg, device="cpu",
-                                  fused=fused, mac_telemetry=True)
-    _, tcfg, p1 = _setup()
-    tp = convert.snn_params_from_jax(p1, "cpu")
-    ev = _events(2, 5, tcfg.n_in)
-    got = t_snn.forward_silicon(tp, ev, tcfg, device="cpu",
-                                mac_telemetry=True)
-    want = t_snn.forward_silicon(tp, ev, tcfg, device="cpu")
-    assert torch.equal(got[0], want[0])
