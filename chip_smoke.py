@@ -260,7 +260,29 @@ Phases (any failure raises, so the exit code is non-zero):
    Fig. 7a's moments equal to the CPU's counter measurement, the
    energy model's fields equal to this process's, the K sweep's ADC
    steps not falling and its LIF updates equal to K, and #1's and #2's
-   launches in each experiment equal to its evaluation batches.
+   launches in each experiment equal to its evaluation batches (its
+   ``eval_model`` runs the composed chain, the reference's path, and the
+   kernel path beside it on the same batches);
+11. the mesh path (``mesh_phase``): a one-rank process group
+   (``cpu:gloo,cuda:nccl`` on a free TCP port of 127.0.0.1, destroyed at
+   the end) and ``make_host_mesh()``; reduced kimi-k2 and arctic (f32)
+   through ``mesh=``: ``lm.forward`` (logits, aux, every router's
+   experts), ``loss_fn`` with its gradients, a prefill and three decode
+   steps on the card against the same calls on the CPU (within 1e-5,
+   the gradient leaves within ``LEAF_TOL`` of their largest magnitude);
+   then at full width in bf16 (kimi-k2 cut to 1 layer, arctic to 2, as
+   in phase 7): a prefill of 1 x 1024 through ``moe_2d`` (flash launched
+   once a layer, the counters zeroed around it) and 4 decode steps at
+   batch 1 through ``moe_dense_ep_2d``; on layer 0's MoE at 1 x 256 with
+   a capacity factor at which nothing drops, ``moe_2d``,
+   ``moe_dense_ep_2d`` (and for kimi-k2 ``moe_a2a`` and ``moe_dense_ep``)
+   each within ``NODROP_REL`` of ``moe_ref``'s largest output magnitude
+   (and ``BF16_TOL``), the MoE parameters held as the rank's blocks
+   (``param_layout``, ``local_params``); at the config's own 1.25 and
+   1024 tokens the dropped assignments equal to their recount in plain
+   torch from the routing; and each path's layer time against
+   ``moe_ref``'s (CUDA events and profiled device time) with the peak
+   memory, beside the card's name and power limit.
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
@@ -3028,7 +3050,11 @@ def family_phase(arch, cases, dev) -> dict:
     res["prefill"] = {}
     for b, s, flash_want, n_steps in cases:
         toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (b, s))).to(dev)
-        flash, ms, _, _, _ = _prefill_decode(params, cfg, toks, n_steps, dev)
+        flash, ms, _, _, cache = _prefill_decode(params, cfg, toks, n_steps,
+                                                 dev)
+        # the last case's tokens and cache time a decode step below
+        last_toks, last_cache = toks, cache
+        del cache
         if flash != flash_want:
             raise AssertionError(f"{arch} prefill {b} x {s}: {flash} flash "
                                  f"launches, want {flash_want}")
@@ -3129,14 +3155,13 @@ def family_phase(arch, cases, dev) -> dict:
         + (f", then a near tie at request {near[0]} token {near[1]}"
            if near else ""))
 
-    # timings: a decode step after the last case's prefill
-    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (b, s))).to(dev)
-    _, _, cache = lm.forward(params, {"tokens": toks}, cfg, prefill=True)
-    cache = lm.pad_cache(cache, cfg, s + 16)
-    tok, pos = toks[:, :1], torch.full((b,), s, device=dev)
+    # timings: a decode step at position s of the last case's cache (its
+    # prefill and greedy decode above)
+    cache = last_cache
+    tok, pos = last_toks[:, :1], torch.full((b,), s, device=dev)
     res["decode_step_ms"] = min(_time_ms(lambda: lm.decode_step(
         params, cache, tok, pos, cfg), 10) for _ in range(2))
-    del cache
+    del cache, last_cache
     res["components_ms"] = _component_times(arch, cfg, params,
                                             cases[0][:2], rs, dev)
 
@@ -3147,7 +3172,7 @@ def family_phase(arch, cases, dev) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0, sum(len(g) for g in out.values())
 
-    serve()
+    # the launch.serve run above warmed the engine on this config
     wall, n_tok = serve()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3329,7 +3354,7 @@ def lm_timing_phase(params, dev) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0, sum(len(r.generated) for r in done)
 
-    serve()
+    # phase 4's engine runs warmed it on this config
     walls = [serve() for _ in range(2)]
     wall, n_tok = min(walls)
     with profile(activities=[ProfilerActivity.CPU,
@@ -3692,7 +3717,7 @@ def moe_frontend_phase(arch, n_layers, shape, flash_want, n_steps,
             torch.cuda.synchronize()
             return time.perf_counter() - t0, sum(len(g) for g in got.values())
 
-        serve()
+        # the launch.serve run above warmed the engine on this config
         wall, n_tok = serve()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -4741,6 +4766,311 @@ def experiments_phase(dev) -> dict:
             checks["snl_off_launches"], "suite": run, "seconds": secs}
 
 
+# --- phase 11: the mesh path ------------------------------------------------
+
+# (arch, layers at full width): phase 7's cut; the prefill and decode
+# shapes of phase 7, the no-drop comparison at 256 tokens
+MESH_ARCHS = (("kimi-k2-1t-a32b", 1), ("arctic-480b", 2))
+MESH_PREFILL, MESH_DECODE, MESH_NODROP = (1, 1024), 4, 256
+MESH_REDUCED_SEQ, MESH_REDUCED_DECODE = 16, 3
+# the no-drop comparison: each path within this share of moe_ref's
+# largest output magnitude (one expert's gated share of a token's output
+# is about a tenth of it at full width), and within BF16_TOL
+NODROP_REL = 1e-3
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_reduced(arch: str, mesh, dev) -> dict:
+    """Reduced (f32) through ``mesh=``: forward, ``loss_fn`` with its
+    gradients, a prefill and three decode steps, on the card against the
+    same calls on the CPU (the collectives of the CPU's tensors on
+    gloo, of the card's on NCCL)."""
+    cfg = config_base.reduced(configs.get_config(arch))
+    p_cpu = nn_module.materialize(lm.param_specs(cfg),
+                                  torch.Generator().manual_seed(SEED + 70),
+                                  device="cpu")
+    rs = np.random.RandomState(SEED + 71)
+    toks = rs.randint(0, cfg.vocab_size, (2, MESH_REDUCED_SEQ))
+    dec = rs.randint(0, cfg.vocab_size, (2, MESH_REDUCED_DECODE))
+
+    def run(d):
+        params = nn_module.tree_map(lambda t: t.to(d), p_cpu)
+        batch = {"tokens": torch.from_numpy(toks).to(d)}
+        routes: list = []
+        with _Routing(routes):
+            logits, aux = lm.forward(params, batch, cfg, mesh=mesh)
+        live = nn_module.tree_map(lambda t: t.detach().requires_grad_(),
+                                  params)
+        loss, _ = lm.loss_fn(live, batch, cfg, mesh=mesh)
+        flat = nn_module.leaves(live)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(q) if g is None else g
+                 for q, g in zip(flat, grads)]
+        last, _, cache = lm.forward(params, batch, cfg, prefill=True,
+                                    mesh=mesh)
+        cache = lm.pad_cache(cache, cfg,
+                             MESH_REDUCED_SEQ + MESH_REDUCED_DECODE)
+        steps = []
+        for i in range(MESH_REDUCED_DECODE):
+            lg, cache = lm.decode_step(
+                params, cache, torch.from_numpy(dec[:, i:i + 1]).to(d),
+                torch.full((2,), MESH_REDUCED_SEQ + i, device=d), cfg,
+                mesh=mesh)
+            steps.append(lg)
+        return {"logits": logits, "aux": aux, "loss": loss.detach(),
+                "grads": grads, "last": last, "steps": steps,
+                "routes": routes}
+
+    reset_counts()
+    card = run(dev)
+    torch.cuda.synchronize()
+    flash, others = _lm_counts()
+    cpu = run("cpu")
+    res = {"flash_launches": flash,
+           "logits": _tensor_err(card["logits"], cpu["logits"]),
+           "aux": abs(float(card["aux"]) - float(cpu["aux"])),
+           "loss": abs(float(card["loss"]) - float(cpu["loss"]))
+           / abs(float(cpu["loss"])),
+           "grads": _leaf_err(card["grads"], cpu["grads"]),
+           "prefill": _tensor_err(card["last"], cpu["last"]),
+           "decode": max(_tensor_err(g, w) for g, w in zip(card["steps"],
+                                                           cpu["steps"])),
+           "routes_equal": len(card["routes"]) == len(cpu["routes"]) and all(
+               torch.equal(g, w) for g, w in zip(card["routes"],
+                                                 cpu["routes"]))}
+    # one flash launch a layer in the forward and one in the prefill;
+    # none under autograd (the plain attention) or in decode
+    if not (max(res[k] for k in ("logits", "prefill", "decode")) <= 1e-5
+            and res["aux"] <= 1e-6 and res["loss"] <= LOSS_RTOL
+            and res["grads"] <= LEAF_TOL and res["routes_equal"]
+            and not any(others.values()) and flash == 2 * cfg.n_layers):
+        raise AssertionError(f"reduced {arch} through the mesh on the card "
+                             f"against the CPU: {res}, others {others}")
+    log(f"reduced {arch} through make_host_mesh() on the card against the "
+        f"CPU: logits {res['logits']:.3g}, aux {res['aux']:.3g}, loss "
+        f"{res['loss']:.3g}, grads {res['grads']:.3g} (tol {LEAF_TOL}), "
+        f"prefill {res['prefill']:.3g}, 3 decode steps {res['decode']:.3g}, "
+        f"{len(cpu['routes'])} routings equal; {flash} flash launches")
+    return res
+
+
+def _recount_dropped(idx: torch.Tensor, n_experts: int,
+                     capacity: int) -> int:
+    """Assignments past their expert's capacity, in plain torch from the
+    routing: an expert with n assignments drops n - capacity of them."""
+    per_expert = torch.bincount(idx.reshape(-1).long(), minlength=n_experts)
+    return int((per_expert - capacity).clamp(min=0).sum())
+
+
+def _mesh_paths(cfg) -> dict:
+    """The expert-parallel paths of a config's MoE layer: its prefill and
+    decode paths, and for kimi-k2 also the a2a pair."""
+    rows = tuple((cfg.sharding_overrides or {}).get("experts", ("data",)))
+    out = {"moe_2d": (moe_lib.moe_2d, dict(expert_axes=rows,
+                                           wire_dtype=cfg.moe_wire_dtype)),
+           "moe_dense_ep_2d": (moe_lib.moe_dense_ep_2d,
+                               dict(expert_axes=rows))}
+    if cfg.name.startswith("kimi"):
+        out["moe_a2a"] = (moe_lib.moe_a2a, dict(seq_sharded=True))
+        out["moe_dense_ep"] = (moe_lib.moe_dense_ep, {})
+    return out
+
+
+def _device_ms_by_label(fns: dict) -> dict:
+    """Device ms of one call of each function of ``fns`` (each called
+    before), all in one profiler session: in a full run of this script,
+    phase 11's later sessions saw almost no device event, its first ones
+    every event.  Each call runs, synchronised, inside a
+    ``record_function`` range of its label; the range's span on the
+    device (the profiler's GPU annotation, on the device's clock) takes
+    the device events that start in it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in fns.items():
+            with record_function(f"mesh_phase::{name}"):
+                fn()
+                torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == cuda]
+    spans = {e.name().split("::", 1)[1]: (e.start_ns(),
+                                          e.start_ns() + e.duration_ns())
+             for e in events if e.name().startswith("mesh_phase::")}
+    out = {name: 0.0 for name in fns}
+    for e in events:
+        if e.name().startswith("mesh_phase::"):
+            continue
+        for name, (lo, hi) in spans.items():
+            if lo <= e.start_ns() <= hi:
+                out[name] += e.duration_ns() / 1e6
+    return out
+
+
+def _mesh_full(arch: str, n_layers: int, mesh, dev, smi: str) -> dict:
+    """Full width in bf16 through ``mesh=``: the prefill (1 x 1024), its
+    time and each path's layer time against ``moe_ref``'s at the
+    prefill's tokens (a decode path's at one token), in one profiler
+    session right after the first prefill; 4 decode steps; layer 0's MoE
+    by path: the no-drop comparison with ``moe_ref`` at 256 tokens and
+    the dropped count at 1.25 against its recount."""
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # this rank's blocks of the parameters (at world size 1, the whole
+    # leaves as views)
+    params = nn_module.local_params(_family_params(cfg, dev, SEED + 72),
+                                    lm.param_specs(cfg), mesh,
+                                    cfg.sharding_overrides)
+    rs = np.random.RandomState(SEED + 73)
+    b, s = MESH_PREFILL
+    batch = _model_batch(cfg, rs, b, s, dev)
+    reset_counts()
+    out = lm.forward(params, batch, cfg, prefill=True, mesh=mesh)
+    torch.cuda.synchronize()
+    flash, others = _lm_counts()
+    if flash != n_layers or any(others.values()) or \
+            not torch.isfinite(out[0]).all() or not float(out[1]) > 0:
+        raise AssertionError(f"{arch} mesh prefill: flash {flash}, others "
+                             f"{others}, aux {float(out[1])}")
+
+    p = lm._group(params["layers"]["b0"], 0)["moe"]
+    e, d = p["router"].shape[::-1]
+    k, act = cfg.moe_top_k, cfg.activation
+    layout = nn_module.param_layout(
+        moe_lib.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts), mesh,
+        cfg.sharding_overrides)
+    x1k = torch.from_numpy(rs.randn(b, s, d).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    paths = _mesh_paths(cfg)
+    timed = {"prefill": lambda: lm.forward(params, batch, cfg, prefill=True,
+                                           mesh=mesh)}
+    for name, (fn, kw) in paths.items():
+        x_t = x1k[:, :1] if "dense" in name else x1k
+        cap = {} if "dense" in name else {
+            "capacity_factor": cfg.moe_capacity_factor}
+        timed[name] = functools.partial(fn, p, x_t, k=k, mesh=mesh,
+                                        activation=act, specs=layout, **cap,
+                                        **kw)
+        timed[f"{name}/moe_ref"] = functools.partial(
+            moe_lib.moe_ref, p, x_t, k=k, activation=act)
+    ms = {name: min(_time_ms(fn, 1) for _ in range(2))
+          for name, fn in timed.items()}
+    device = _device_ms_by_label(timed)
+    res = {"arch": arch, "layers": n_layers, "flash_launches": flash,
+           "prefill_ms": ms["prefill"],
+           "prefill_device_ms": device["prefill"], "paths": {}}
+
+    nxt = torch.argmax(out[0][:, :cfg.vocab_size], dim=-1)
+    cache = lm.pad_cache(out[2], cfg, s + MESH_DECODE)
+    del out
+    reset_counts()
+    for i in range(MESH_DECODE):
+        logits, cache = lm.decode_step(params, cache, nxt[:, None],
+                                       torch.full((b,), s + i, device=dev),
+                                       cfg, mesh=mesh)
+        nxt = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+    torch.cuda.synchronize()
+    if sum(read_counts().values()) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch} mesh decode: {read_counts()}")
+    del cache
+
+    x256 = torch.from_numpy(rs.randn(1, MESH_NODROP, d).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    want = moe_lib.moe_ref(p, x256, k=k, activation=act)
+    no_drop = e / k        # capacity = tokens: nothing can drop
+    for name, (fn, kw) in paths.items():
+        dense = "dense" in name
+        stats: dict = {}
+        got = fn(p, x256, k=k, mesh=mesh, activation=act, specs=layout, **kw,
+                 **({} if dense else {"capacity_factor": no_drop,
+                                      "stats": stats}))
+        err = _tensor_err(got[0], want[0])
+        rel = err / float(want[0].float().abs().max())
+        if not dense and stats["dropped"]:
+            raise AssertionError(f"{arch} {name}: {stats['dropped']} "
+                                 f"dropped at capacity factor {no_drop}")
+        if rel > NODROP_REL or err > BF16_TOL \
+                or not torch.isfinite(got[0]).all():
+            raise AssertionError(f"{arch} {name} at {MESH_NODROP} tokens: "
+                                 f"{err} from moe_ref ({rel} of its "
+                                 f"largest, bound {NODROP_REL})")
+        rec = {"no_drop_err": err, "no_drop_rel": rel,
+               "aux_err": abs(float(got[1]) - float(want[1])),
+               "tokens": 1 if dense else s, "ms": ms[name],
+               "device_ms": device[name], "ref_ms": ms[f"{name}/moe_ref"],
+               "ref_device_ms": device[f"{name}/moe_ref"]}
+        del got
+        if not dense:
+            stats = {}
+            fn(p, x1k, k=k, mesh=mesh, activation=act, specs=layout,
+               capacity_factor=cfg.moe_capacity_factor, stats=stats, **kw)
+            recount = _recount_dropped(stats["idx"], e, stats["capacity"])
+            if recount != stats["dropped"]:
+                raise AssertionError(f"{arch} {name}: {stats['dropped']} "
+                                     f"dropped, recount {recount}")
+            rec.update(dropped=stats["dropped"], capacity=stats["capacity"],
+                       assignments=int(stats["idx"].numel()))
+        res["paths"][name] = rec
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[{smi}] {arch} ({n_layers} layers) through make_host_mesh(): "
+        f"prefill {b} x {s} {res['prefill_ms']:.2f} ms (device "
+        f"{res['prefill_device_ms']:.2f}), {flash} flash launches; "
+        f"{MESH_DECODE} decode steps at batch {b}, no kernel launch; peak "
+        f"{res['peak_gb']:.1f} GB")
+    for name, rec in res["paths"].items():
+        drops = (f"; at {cfg.moe_capacity_factor}: {rec['dropped']} of "
+                 f"{rec['assignments']} assignments dropped (capacity "
+                 f"{rec['capacity']}), equal to the plain recount"
+                 if "dropped" in rec else "")
+        log(f"[{smi}] {arch} {name}: no drops at {MESH_NODROP} tokens "
+            f"{rec['no_drop_err']:.4g} from moe_ref ({rec['no_drop_rel']:.3g}"
+            f" of its largest, bound {NODROP_REL}; aux "
+            f"{rec['aux_err']:.3g}){drops}; "
+            f"{rec['tokens']} tokens {rec['ms']:.3f} ms (device "
+            f"{rec['device_ms']:.3f}) against moe_ref {rec['ref_ms']:.3f} ms "
+            f"(device {rec['ref_device_ms']:.3f}); peak {res['peak_gb']:.1f}"
+            f" GB; #9 launches in the prefill {flash}")
+    del params, p
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_phase(dev, smi: str) -> dict:
+    """Phase 11: the multi-rank LM path at world size 1 (one card)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh()
+        res = {"mesh": dict(mesh.shape),
+               "reduced": {arch: _mesh_reduced(arch, mesh, dev)
+                           for arch, _ in MESH_ARCHS},
+               "full": {arch: _mesh_full(arch, n, mesh, dev, smi)
+                        for arch, n in MESH_ARCHS}}
+    finally:
+        dist.destroy_process_group()
+    res["flash_launches"] = sum(
+        r["flash_launches"] for part in ("reduced", "full")
+        for r in res[part].values())
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: {res['seconds']:.1f} s, {res['flash_launches']} flash "
+        f"launches")
+    return res
+
+
 def _record(name, replaces, launches, cmp, timing,
             library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -4827,6 +5157,8 @@ def main() -> None:
     log(f"phase 9 done at {time.perf_counter() - t0:.1f} s")
     experiments = experiments_phase(dev)
     log(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
+    mesh_res = mesh_phase(dev, smi)
+    log(f"phase 11 done at {time.perf_counter() - t0:.1f} s")
     b = serving["burst"]
     log(f"[{smi}] engine, {b['requests']}-request clean burst: "
         f"{b['requests_per_s']:.1f} req/s, round ms p50 "
@@ -4982,7 +5314,8 @@ def main() -> None:
                       + sum(fr["prefill"]["launches"]
                             + fr["reduced"]["flash_launches"]
                             for fr in moe_frontends.values())
-                      + lt8["eval"]["flash_launches"])
+                      + lt8["eval"]["flash_launches"]
+                      + mesh_res["flash_launches"])
     kwn_launches = (main_res["clean"]["launches"]
                     + main_res["noisy"]["launches"]
                     + train_res["forward_launches"]
@@ -5066,7 +5399,7 @@ def main() -> None:
                        "lm": lm_res, "families": families,
                        "moe_frontends": moe_frontends,
                        "lm_training": training},
-         "tuner": tuner, "experiments": experiments,
+         "tuner": tuner, "experiments": experiments, "mesh": mesh_res,
          "timing": timing, "serving": serving, "nld_serving": nld_serving,
          "seconds": time.perf_counter() - t0}, indent=1))
     log(f"chip_smoke: phase 9 {tuner['seconds']:.1f} s, phase 10 "

@@ -7,15 +7,18 @@ The cache lives in ``experiments_torch/.cache/`` (``$REPRO_TORCH_
 EXPERIMENTS_CACHE`` elsewhere), each file tagged with the device type:
 models trained on the card and on the CPU are never mixed.
 
-``eval_model`` runs ``snn.evaluate`` and so ``forward_silicon``'s
-default here, ``fused="seq"``: the fused kernels on the card (#1 for
-KWN, #2 for NLD), their plain versions on the CPU.  The JAX scripts run
-the composed chain.  Clean KWN results equal the composed chain's bit for
-bit; NLD results differ by the twin-cell quantisation of the branch
-weights, which the fused path applies; noisy results differ by the noise
-stream (the counter stream against ``jax.random``) and are statistically
-equivalent.  Batches come from a ``torch.Generator``, so accuracies agree
-with the JAX package's statistically, not bit for bit.
+``eval_model`` evaluates what the reference's ``eval_model`` evaluates:
+``snn.evaluate`` through the composed chain (``fused=False``, the
+reference's ``forward_silicon`` default), where NLD's branch weights stay
+float.  Clean KWN results equal the JAX scripts' bit for bit on the same
+batches; noisy results differ by the noise stream (the port's generator
+against ``jax.random``) and agree statistically.  It also runs the kernel
+path (``fused="seq"``, the port's default: #1 for KWN, #2 for NLD, their
+plain versions on the CPU) on the same batches and counter seeds, and
+returns its accuracy and telemetry as extra keys, ``kernel_acc`` and
+``kernel_<key>``.  Batches come from a
+``torch.Generator``, so accuracies agree with the JAX package's
+statistically, not bit for bit.
 """
 
 from __future__ import annotations
@@ -101,6 +104,14 @@ def trained_model(dataset: str, mode: str, train_nlq: bool = True,
 
 
 def eval_model(p, cfg, ds, seed: int = 1, **kw):
-    gen = torch.Generator(device=ds.device).manual_seed(seed)
-    return snn.evaluate(p, cfg, ds, gen, n_batches=EVAL_BATCHES,
-                        device=ds.device, **kw)
+    """(accuracy, telemetry) of the composed chain over ``EVAL_BATCHES``
+    batches, the kernel path's accuracy and telemetry beside them."""
+    def evaluate(fused):
+        gen = torch.Generator(device=ds.device).manual_seed(seed)
+        return snn.evaluate(p, cfg, ds, gen, n_batches=EVAL_BATCHES,
+                            device=ds.device, fused=fused, **kw)
+
+    acc, tele = evaluate(False)
+    k_acc, k_tele = evaluate("seq")
+    return acc, {**tele, "kernel_acc": k_acc,
+                 **{f"kernel_{k}": v for k, v in k_tele.items()}}

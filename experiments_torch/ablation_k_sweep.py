@@ -1,7 +1,8 @@
 """Beyond-paper K-sweep: the KWN winner count K trades accuracy against
 ADC/LIF latency and energy (the paper reports K=3 and K=12 points; this
 sweeps the whole curve on the synthetic stand-ins with the cached trained
-models, through the fused KWN kernel #1 at each K).
+models, through the composed chain at each K, with the fused KWN kernel
+#1 beside it in ``_snn_cache.eval_model``).
 
 For each K: silicon accuracy, measured early-stop ADC steps, LIF updates,
 and the calibrated pJ/SOP: the full efficiency/accuracy frontier of Eq. (1).

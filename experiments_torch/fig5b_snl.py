@@ -1,9 +1,9 @@
 """Fig. 5b: SNL + PRBS noise accuracy improvement in KWN mode.
 Paper: +0.5-0.6 % on both datasets.
 
-Runs the fused KWN kernel (#1) with SNL on and off (``use_snl``); the
-JAX script runs the composed chain, whose clean results these equal bit
-for bit on the same batches (``_snn_cache``)."""
+Runs the composed chain, as the JAX script does, with SNL on and off
+(``use_snl``), and the fused KWN kernel (#1) beside it; clean results
+equal the JAX script's bit for bit on the same batches (``_snn_cache``)."""
 
 from experiments_torch import _snn_cache as C
 

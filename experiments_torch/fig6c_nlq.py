@@ -2,7 +2,8 @@
 Paper: +0.5-0.7 % on two datasets when the nonlinear quantization is used
 during training (vs training oblivious to the 5-bit ramp).
 
-Evaluated through the fused KWN kernel (#1), clean (``_snn_cache``)."""
+Evaluated clean through the composed chain, with the fused KWN kernel
+(#1) beside it (``_snn_cache``)."""
 
 from experiments_torch import _snn_cache as C
 

@@ -5,9 +5,11 @@ Paper (real datasets): N-MNIST NLD 97.2 / KWN 96.2; DVS Gesture NLD 95.5 /
 KWN 93.8; Quiroga NLD 96.1.  Synthetic stand-ins: the *ordering* (NLD >
 KWN) and mechanism deltas are the reproducible claims.
 
-Both modes run through the fused kernels (#1 KWN, #2 NLD) with the
-Fig. 7 counter noise drawn inside them; NLD also quantises its branch
-weights onto the twin-cell grid there (``_snn_cache``)."""
+Both modes run through the composed chain, as the JAX script does (NLD's
+branch weights in float), with the Fig. 7 noise; the fused kernels (#1
+KWN, #2 NLD, the noise drawn inside them, NLD's branch weights on the
+twin-cell grid) run beside it, their accuracies in the run summary's
+``evals`` (``run.py``)."""
 
 from experiments_torch import _snn_cache as C
 from repro_torch.core import ima

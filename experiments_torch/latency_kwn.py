@@ -2,7 +2,8 @@
 serial-LIF update reduction (10x @ K=12 of 128).
 
 Reports both the calibrated model and the ramp-scan measurement on the
-synthetic event streams (the early-stop steps kernel #1 reports)."""
+synthetic event streams (the early-stop steps of the composed chain,
+which kernel #1 reports equal)."""
 
 from experiments_torch import _snn_cache as C
 from repro_torch.core import energy

@@ -6,7 +6,8 @@ Prints ``name,us_per_call,derived`` CSV (derived = compact JSON of the
 reproduced numbers) and a human-readable block per experiment, and writes
 ``experiments_torch/.cache/results/<name>.json`` and ``_summary.json``
 (each experiment's wall seconds, the launches of each fused kernel it
-made, and the device).  Without ``--device cpu`` it runs on the card and
+made, its evaluations with the composed chain's and the kernel path's
+accuracies, and the device).  Without ``--device cpu`` it runs on the card and
 raises where there is none.  ``$REPRO_SNN_TRAIN_STEPS``,
 ``$REPRO_SNN_EVAL_BATCHES`` and ``$REPRO_LM_ABLATION_STEPS`` cut the
 depth (the reference's 350, 6 and 40 by default).
@@ -44,6 +45,22 @@ COUNTED = {"fused_macro_seq_kwn": fused_macro.fused_macro_seq,
            "fused_macro_seq_nld": fused_macro.fused_macro_seq_nld}
 
 
+def recorded(eval_model, evals: list):
+    """``eval_model`` that also appends each call's accuracies, the
+    composed chain's and the kernel path's (its ``kernel_acc``), to
+    ``evals``."""
+    def record(p, cfg, ds, seed=1, **kw):
+        acc, tele = eval_model(p, cfg, ds, seed, **kw)
+        evals.append({"dataset": ds.cfg.name, "mode": cfg.mode,
+                      "k": kw.get("k") or cfg.k,
+                      "noise": kw.get("noise") is not None,
+                      "use_snl": kw.get("use_snl", cfg.use_snl),
+                      "train_nlq": cfg.train_nlq, "acc": acc,
+                      "kernel_acc": tele.get("kernel_acc")})
+        return acc, tele
+    return record
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default=None, choices=sorted(BENCHES))
@@ -67,6 +84,9 @@ def main(argv=None) -> dict:
         mod = BENCHES[name]
         for fn in COUNTED.values():
             fn.launches = 0
+        evals: list[dict] = []
+        inner = _snn_cache.eval_model
+        _snn_cache.eval_model = recorded(inner, evals)
         t0 = time.time()
         try:
             derived = mod.run()
@@ -75,7 +95,8 @@ def main(argv=None) -> dict:
                 json.dump(derived, f, indent=1, default=str)
             summary["runs"][name] = {
                 "seconds": secs,
-                "launches": {k: fn.launches for k, fn in COUNTED.items()}}
+                "launches": {k: fn.launches for k, fn in COUNTED.items()},
+                "evals": evals}
             compact = json.dumps(derived, separators=(",", ":"),
                                  default=str)
             print(f"{name},{secs * 1e6:.0f},{compact}")
@@ -86,6 +107,8 @@ def main(argv=None) -> dict:
             failures += 1
             summary["runs"][name] = {"error": repr(e)}
             print(f"{name},FAILED,{e!r}")
+        finally:
+            _snn_cache.eval_model = inner
         sys.stdout.flush()
     summary["seconds"] = sum(r.get("seconds", 0.0)
                              for r in summary["runs"].values())

@@ -1,6 +1,6 @@
 """Table I: this work's column vs the published SOTA rows: energy
 efficiency (calibrated model), accuracy (synthetic stand-ins, through the
-fused kernels as ``fig8_accuracy``), macro parameters, plus the 1.6x EE
+composed chain as ``fig8_accuracy``), macro parameters, plus the 1.6x EE
 improvement claim."""
 
 from experiments_torch import fig8_accuracy

@@ -18,10 +18,16 @@ Full-sequence attention goes through ``nn.attention.mha``: the flash
 kernel where the reference's function is the Pallas kernel's, the plain
 blockwise attention elsewhere.  The recurrent cells are ``nn.recurrent``;
 an MoE block's FFN is ``nn.moe.moe_ref``, the function the reference
-computes on one device.  The modality frontends are the reference's
-stubs: precomputed audio frames or ViT patch embeddings through a learned
-projector.  An encoder-only model has no decode step, here as in the
-reference.
+computes on one device, or with a ``mesh`` (``launch.mesh``) one of the
+reference's expert-parallel paths (``_moe_apply``).  Under a mesh a
+rank holds its blocks of the parameters (``nn.module.param_layout``
+under the config's ``sharding_overrides``); the entry points gather the
+leaves outside the experts whole for the call (``_mesh_params``) and run
+the dense layers on them, with the full activations, on every rank; the
+MoE blocks take their expert blocks as held and split their work.  The
+modality frontends are the reference's stubs: precomputed audio frames
+or ViT patch embeddings through a learned projector.  An encoder-only
+model has no decode step, here as in the reference.
 
 Training (``features``, ``loss_fn``) runs under autograd: attention
 takes the plain ``blockwise_attention`` there (the flash kernel has no
@@ -45,6 +51,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import device as device_lib
 from repro_torch.nn import attention, kvq, layers, moe, recurrent
+from repro_torch.nn import module
 from repro_torch.nn.module import ParamSpec, count_params, tree_map
 
 
@@ -229,14 +236,43 @@ def _ffn_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return lin(p["w_out"], h)
 
 
-def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
-               with_aux: bool = True):
-    """The MoE FFN on one device (the reference's path with no mesh):
-    the dense-combine experts, then arctic's dense residual FFN, then
-    kimi's shared experts, added in that order.  Returns (y, aux or
-    None)."""
-    y, aux = moe.moe_ref(p["moe"], x, k=cfg.moe_top_k,
-                         activation=cfg.activation, with_aux=with_aux)
+def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig, mesh=None,
+               decode: bool = False):
+    """The MoE FFN: the experts, then arctic's dense residual FFN, then
+    kimi's shared experts, added in that order.  Returns (y, aux, or None
+    in a decode step, whose aux the reference discards).
+
+    The experts' path is the reference's choice: ``moe_ref`` with no
+    mesh; with one, ``moe_2d`` (``moe_dense_ep_2d`` to decode) where the
+    config's ``sharding_overrides`` lay the experts over the DP rows, else
+    ``moe_a2a`` (sequence-sharded where the overrides shard ``seq`` over
+    "model") or ``moe_dense_ep`` to decode."""
+    overrides = cfg.sharding_overrides or {}
+    experts_rule = overrides.get("experts", "model")
+    is_2d = experts_rule not in (None, "model")   # experts over DP rows
+    kw = dict(k=cfg.moe_top_k, activation=cfg.activation)
+    if mesh is not None:
+        kw["specs"] = module.param_layout(
+            moe.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts), mesh,
+            overrides)
+    if mesh is None:
+        y, aux = moe.moe_ref(p["moe"], x, with_aux=not decode, **kw)
+    elif is_2d and not decode:
+        y, aux = moe.moe_2d(p["moe"], x, mesh=mesh,
+                            expert_axes=tuple(experts_rule),
+                            capacity_factor=cfg.moe_capacity_factor,
+                            wire_dtype=cfg.moe_wire_dtype, **kw)
+    elif is_2d:
+        y, aux = moe.moe_dense_ep_2d(p["moe"], x, mesh=mesh,
+                                     expert_axes=tuple(experts_rule), **kw)
+    elif decode:
+        y, aux = moe.moe_dense_ep(p["moe"], x, mesh=mesh, **kw)
+    else:
+        y, aux = moe.moe_a2a(p["moe"], x, mesh=mesh,
+                             seq_sharded=overrides.get("seq") == "model",
+                             **kw)
+    if decode:
+        aux = None
     if cfg.moe_dense_residual:
         y = y + _ffn_apply(p["ffn"], x, cfg)
     if cfg.n_shared_experts:
@@ -244,16 +280,16 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
     return y, aux
 
 
-def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig,
-                  with_aux: bool = True):
+def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig, mesh=None,
+                  decode: bool = False):
     """The block's FFN half: (x + FFN(norm2(x)), aux loss f32, or None
-    without MoE or ``with_aux``)."""
+    without MoE or in a decode step)."""
     aux = None
     if "norm2" not in p:
         return x, aux
     h = layers.rmsnorm(p["norm2"], x)
     if cfg.moe:
-        h, aux = _moe_apply(p, h, cfg, with_aux)
+        h, aux = _moe_apply(p, h, cfg, mesh, decode)
     else:
         h = _ffn_apply(p["ffn"], h, cfg)
     if cfg.post_norms:
@@ -263,7 +299,7 @@ def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig,
 
 def _block_apply(kind: str, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cfg: LMConfig,
-                 prefill: bool = False):
+                 prefill: bool = False, mesh=None):
     """One block.  Returns (x, aux loss or None, cache entry or None): K/V
     (ring-ordered with ``slot_pos`` for a local layer over a prompt longer
     than its window, quantized for a global one under ``kv_quant``) or the
@@ -301,7 +337,7 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
         cache = st._asdict()
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
-    x, aux = _ffn_residual(p, x + h, cfg)
+    x, aux = _ffn_residual(p, x + h, cfg, mesh)
     return x, aux, cache
 
 
@@ -359,8 +395,39 @@ def _add_aux(acc, aux):
     return aux if acc is None else acc + aux
 
 
+def _mesh_params(params: dict, cfg: LMConfig, mesh) -> dict:
+    """The parameters a call under ``mesh`` computes with: from this
+    rank's blocks (``nn.module.param_layout`` of ``param_specs`` under
+    the config's overrides), every leaf outside an MoE block's experts
+    gathered whole (``nn.module.gather_param``), the ``moe`` leaves left
+    as blocks for the expert-parallel paths.  ``mesh=None``: ``params``
+    as they are."""
+    if mesh is None:
+        return params
+    layout = module.param_layout(param_specs(cfg), mesh,
+                                 cfg.sharding_overrides)
+
+    def walk(p, spec, key):
+        if isinstance(p, dict):
+            return p if key == "moe" else {k: walk(p[k], spec[k], k)
+                                           for k in p}
+        return module.gather_param(p, spec, mesh)
+
+    return walk(params, layout, None)
+
+
+def _constrain_acts(x: torch.Tensor, cfg: LMConfig, mesh) -> torch.Tensor:
+    """The identity.  The reference's ``_constrain_acts`` is a sharding
+    constraint (Megatron sequence parallelism of the residual stream over
+    "model"), a layout that changes no number; here every rank holds the
+    full activations (the MoE paths take and return them whole), so
+    there is nothing to lay out."""
+    return x
+
+
 @torch.no_grad()
-def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
+def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False,
+            *, mesh=None):
     """Returns (logits, aux_loss[, cache]).
 
     ``prefill=True`` is the serving prefill: logits of the LAST position
@@ -374,9 +441,14 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
     frontend_dim) for the audio model.  Logits are f32; the aux loss (f32)
     is the MoE blocks' load-balancing loss, summed over each group's
     blocks, then over the groups, then over the tail, as the reference
-    sums it (0 without MoE).
+    sums it (0 without MoE).  With a ``mesh`` (``launch.mesh``)
+    ``params`` are this rank's blocks (``_mesh_params``), the MoE blocks
+    take the reference's expert-parallel paths (``_moe_apply``), and
+    every rank returns the same full results; every rank of the mesh
+    must make the call.
     """
-    x = _embed_inputs(params, batch, cfg)
+    params = _mesh_params(params, cfg, mesh)
+    x = _constrain_acts(_embed_inputs(params, batch, cfg), cfg, mesh)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches: dict[str, list] = {f"b{j}": [] for j in range(len(cfg.pattern))}
@@ -386,7 +458,8 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
         aux_g = None
         for j, kind in enumerate(cfg.pattern):
             x, aux_b, c = _block_apply(kind, gp[f"b{j}"], x, positions, cfg,
-                                       prefill)
+                                       prefill, mesh)
+            x = _constrain_acts(x, cfg, mesh)
             aux_g = _add_aux(aux_g, aux_b)
             if prefill:
                 caches[f"b{j}"].append(c)
@@ -398,7 +471,7 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False):
                  for name, entries in caches.items()}
     for j, kind in enumerate(cfg.tail_pattern):
         x, aux_t, c = _block_apply(kind, params[f"tail{j}"], x, positions,
-                                   cfg, prefill)
+                                   cfg, prefill, mesh)
         aux = _add_aux(aux, aux_t)
         if prefill:
             cache[f"tail{j}"] = c
@@ -421,19 +494,28 @@ def _groups(tree: dict, n: int) -> list[dict]:
     return [tree_map(lambda ts: ts[g], parts) for g in range(n)]
 
 
-def features(params: dict, batch: dict, cfg: LMConfig):
+def features(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
     """The forward up to, not including, the unembedding: (x after
     ``final_norm`` (B, S, D), the aux loss f32, summed as ``forward``
     sums it).  Each layer group is recomputed in the backward under
-    ``remat`` with ``remat_mode`` "group"."""
-    x = _embed_inputs(params, batch, cfg)
+    ``remat`` with ``remat_mode`` "group".  ``mesh`` as in ``forward``;
+    the gradient of each block this rank holds is that block of the
+    global function's gradient."""
+    return _features(_mesh_params(params, cfg, mesh), batch, cfg, mesh)
+
+
+def _features(params: dict, batch: dict, cfg: LMConfig, mesh):
+    """``features`` on the parameters ``_mesh_params`` gives."""
+    x = _constrain_acts(_embed_inputs(params, batch, cfg), cfg, mesh)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
 
     def group_fn(x, gp):
         aux_g = None
         for j, kind in enumerate(cfg.pattern):
-            x, aux_b, _ = _block_apply(kind, gp[f"b{j}"], x, positions, cfg)
+            x, aux_b, _ = _block_apply(kind, gp[f"b{j}"], x, positions, cfg,
+                                       mesh=mesh)
+            x = _constrain_acts(x, cfg, mesh)
             aux_g = _add_aux(aux_g, aux_b)
         return x, aux_g
 
@@ -445,7 +527,7 @@ def features(params: dict, batch: dict, cfg: LMConfig):
         aux = _add_aux(aux, aux_g)
     for j, kind in enumerate(cfg.tail_pattern):
         x, aux_t, _ = _block_apply(kind, params[f"tail{j}"], x, positions,
-                                   cfg)
+                                   cfg, mesh=mesh)
         aux = _add_aux(aux, aux_t)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -489,11 +571,13 @@ def _head_and_ce(params: dict, x: torch.Tensor, batch: dict,
     return torch.mean(ce)
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig):
+def loss_fn(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
     """(ce + 0.01 * aux, {"ce", "aux"}), differentiable in ``params``.
     The head and cross-entropy are recomputed in the backward as one
-    unit, so the (B, S, V) logits and their softmax are never kept."""
-    x, aux = features(params, batch, cfg)
+    unit, so the (B, S, V) logits and their softmax are never kept.
+    ``mesh`` as in ``features``."""
+    params = _mesh_params(params, cfg, mesh)
+    x, aux = _features(params, batch, cfg, mesh)
     head = {k: params[k] for k in ("head", "embed") if k in params}
     ce = _remat(_head_and_ce)(head, x, batch, cfg)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
@@ -619,7 +703,8 @@ _STATES = {"mlstm": (recurrent.MLSTMState, recurrent.mlstm_decode_step),
 
 
 def _block_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
-                  pos: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+                  pos: torch.Tensor, cfg: LMConfig,
+                  mesh=None) -> torch.Tensor:
     """One block's decode step; its cache entry is updated in place."""
     h = layers.rmsnorm(p["norm1"], x)
     if kind == "attn" and cfg.kv_quant:
@@ -645,27 +730,31 @@ def _block_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
             cache[key].copy_(t)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
-    return _ffn_residual(p, x + h, cfg, with_aux=False)[0]
+    return _ffn_residual(p, x + h, cfg, mesh, decode=True)[0]
 
 
 @torch.no_grad()
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                pos: torch.Tensor, cfg: LMConfig):
+                pos: torch.Tensor, cfg: LMConfig, *, mesh=None):
     """One token: tokens (B, 1), pos (B,).  Returns (logits (B, V) f32,
     cache).  The cache is updated in place (the values of the reference's
     functional update); the same dict is returned.  An encoder-only model
-    has no decode step: ``ValueError`` (the reference asserts)."""
+    has no decode step: ``ValueError`` (the reference asserts).  With a
+    ``mesh``, ``params`` are this rank's blocks as in ``forward``, the
+    MoE blocks take the decode paths (``moe_dense_ep_2d`` /
+    ``moe_dense_ep``) and every rank holds the same full cache."""
     if cfg.encoder_only:
         raise ValueError(f"decode_step: {cfg.name} is encoder-only and has "
                          "no decode step")
+    params = _mesh_params(params, cfg, mesh)
     x = layers.embed(params["embed"], tokens,
                      scale_by_dim=cfg.scale_embed).to(cfg.compute_dtype)
     for g in range(cfg.n_groups):
         gp = _group(params["layers"], g)
         for j, kind in enumerate(cfg.pattern):
             x = _block_decode(kind, gp[f"b{j}"], x,
-                              _group(cache[f"b{j}"], g), pos, cfg)
+                              _group(cache[f"b{j}"], g), pos, cfg, mesh)
     for j, kind in enumerate(cfg.tail_pattern):
         x = _block_decode(kind, params[f"tail{j}"], x, cache[f"tail{j}"],
-                          pos, cfg)
+                          pos, cfg, mesh)
     return _logits(params, x, cfg)[:, 0], cache

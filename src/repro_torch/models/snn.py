@@ -238,6 +238,14 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     0 means ``cfg.k``; a stack without ``cfg.k_layers`` runs ``k`` in
     every layer) and ``cfg.use_snl`` where ``use_snl`` is None.  With
     ``use_snl=False`` no SNL stream (PRBS or counter) reaches the LIF.
+
+    The default differs from the reference's: ``fused="seq"`` here (the
+    port's main path, the kernels), ``fused=False`` there (the composed
+    chain).  Clean KWN gives the same bits either way; NLD does not (the
+    kernel puts the branch weights on the twin-cell grid and draws the
+    Fig. 7 noise inside it), nor do noisy results (another stream).  To
+    compute what a reference caller that leaves ``fused`` out computes,
+    pass ``fused=False``.
     """
     if fused not in (False, True, "seq", "step"):
         raise ValueError(f"unknown fused={fused!r}; expected False, True, "
@@ -865,7 +873,11 @@ def evaluate(p: dict, cfg: SNNConfig, dataset, generator: torch.Generator,
              n_batches: int = 10, batch: int = 128, **silicon_kwargs):
     """Accuracy and mean telemetry of ``forward_silicon`` over
     ``n_batches`` batches drawn from ``generator`` (on the dataset's
-    device), which also draws each batch's counter seed."""
+    device), which also draws each batch's counter seed.  Without a
+    ``fused`` among ``silicon_kwargs`` this is the port's default path,
+    ``fused="seq"``, where the reference's ``evaluate`` runs the
+    composed chain (``fused=False``): pass ``fused=False`` for the
+    reference's NLD and noisy results."""
     accs, teles = [], []
     for _ in range(n_batches):
         ev, lab = dataset.sample(generator, batch)

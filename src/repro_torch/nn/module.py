@@ -9,8 +9,20 @@ distributions and scales (``_init_leaf``), drawn from an explicit
 from ``jax.random``'s; tests that compare with the reference materialise
 on the JAX side and carry the arrays across (``convert.lm_params_from_jax``).
 
-The sharding half of the reference (``partition_spec``, ``shardings``,
-``DEFAULT_RULES``) comes with the distributed slice.
+The sharding half maps each leaf's logical axes onto a mesh's axes
+(``DEFAULT_RULES``, ``partition_spec``, ``shardings``) as the reference
+does; a spec is a tuple with one entry a dim, ``None``, an axis name or
+a tuple of names, its trailing ``None``s dropped (the reference's
+``PartitionSpec``).  ``shard`` and ``unshard`` are the edges of
+``shard_map`` under autograd.
+
+Under a mesh a rank holds its block of every parameter leaf, the block
+of the leaf's ``partition_spec`` (``local_params`` cuts full parameters
+so, and ``train.checkpoint.restore(shardings=)`` restores them so): the
+counterpart of a global ``jax.Array`` laid out by its sharding.
+``gather_param`` makes the whole leaf for compute that every rank runs on
+the same inputs, and ``relayout`` hands a leaf to a ``shard_map``-style
+function that wants another block of it.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from typing import Any
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.dist import collectives
 
 Tree = Any
 
@@ -127,3 +140,267 @@ def materialize(specs: Tree, generator: torch.Generator, dtype=None,
 
 def count_params(specs: Tree) -> int:
     return sum(math.prod(s.shape) for s in leaves(specs))
+
+
+# ---------------------------------------------------------------------------
+# Logical axis -> mesh sharding
+# ---------------------------------------------------------------------------
+
+DEFAULT_RULES: dict[str, tuple[str, ...] | str | None] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "vocab": "model",
+    "heads": "model",        # fused n_heads*head_dim projection dim
+    "kv_heads": "model",
+    "ffn": "model",
+    "experts": "model",
+    "expert_in": None,
+    "expert_ffn": None,
+    "cache_seq": "model",    # decode KV cache sequence dim (split-KV)
+    "cache_heads": None,
+    "conv": None,
+    "state": None,
+    "classes": "model",
+}
+
+
+def _mesh_axes_for(logical: str | None, rules: dict,
+                   mesh) -> tuple[str, ...]:
+    if logical is None:
+        return ()
+    r = rules.get(logical, None)
+    if r is None:
+        return ()
+    axes = (r,) if isinstance(r, str) else tuple(r)
+    return tuple(a for a in axes if a in mesh.shape)
+
+
+def partition_spec(shape: tuple[int, ...], axes: tuple[str | None, ...],
+                   mesh, rules: dict | None = None) -> tuple:
+    """The spec of a leaf: a mesh axis that does not divide the dim is
+    dropped (the blocks must be even) and no mesh axis is used twice.
+    Reads only ``mesh.shape`` (axis name -> size)."""
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    used: set[str] = set()
+    parts = []
+    for dim, logical in zip(shape, axes):
+        chosen: list[str] = []
+        prod = 1
+        for a in _mesh_axes_for(logical, rules, mesh):
+            if a in used:
+                continue
+            if dim % (prod * mesh.shape[a]) == 0:
+                chosen.append(a)
+                prod *= mesh.shape[a]
+        used.update(chosen)
+        if not chosen:
+            parts.append(None)
+        elif len(chosen) == 1:
+            parts.append(chosen[0])
+        else:
+            parts.append(tuple(chosen))
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's layout: its spec over ``mesh``."""
+    mesh: Any
+    spec: tuple
+
+
+def shardings(specs: Tree, mesh, rules: dict | None = None) -> Tree:
+    """A :class:`NamedSharding` for every ``ParamSpec`` of a spec tree."""
+    return tree_map(lambda s: NamedSharding(
+        mesh, partition_spec(s.shape, s.axes, mesh, rules)), specs)
+
+
+def shardings_like(tree: Tree, axes_tree: Tree, mesh,
+                   rules: dict | None = None) -> Tree:
+    """Shardings for a tree of tensors given a parallel tree of logical
+    axis tuples (caches, batches)."""
+    return tree_map(lambda x, ax: NamedSharding(
+        mesh, partition_spec(tuple(x.shape), ax, mesh, rules)),
+        tree, axes_tree)
+
+
+def _spec_parts(spec: tuple, ndim: int) -> list[tuple[int, tuple]]:
+    """(dim, axes) of every sharded dim of ``spec``."""
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than {ndim} dims")
+    return [(d, (part,) if isinstance(part, str) else tuple(part))
+            for d, part in enumerate(spec) if part is not None]
+
+
+def _unmentioned(spec: tuple, mesh) -> tuple[str, ...]:
+    named = {a for _, axes in _spec_parts(spec, len(spec)) for a in axes}
+    return tuple(a for a in mesh.axis_names if a not in named)
+
+
+def _trimmed(spec: tuple) -> tuple:
+    """``spec`` without its trailing ``None``s (``P``'s equality)."""
+    spec = tuple(spec)
+    while spec and spec[-1] is None:
+        spec = spec[:-1]
+    return spec
+
+
+def _split(spec: tuple, mesh) -> bool:
+    """Whether ``spec`` cuts anything on ``mesh`` (an axis of size 1
+    leaves the block whole)."""
+    return any(mesh.axis_size(axes) > 1
+               for _, axes in _spec_parts(spec, len(spec)))
+
+
+def block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of a full tensor laid out by ``spec`` (a view,
+    no copy): each sharded dim is cut into ``axis_size`` even blocks and
+    the rank keeps the one at its joint index over the dim's axes."""
+    for d, axes in _spec_parts(spec, x.ndim):
+        n = mesh.axis_size(axes)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                             f"into {n} blocks over {axes}")
+        size = x.shape[d] // n
+        x = x.narrow(d, mesh.axis_index(axes) * size, size)
+    return x
+
+
+def _gather_blocks(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    for d, axes in _spec_parts(spec, local.ndim):
+        if mesh.axis_size(axes) > 1:
+            local = collectives._gather(local, mesh, mesh.axes(axes), d)
+    return local
+
+
+# The two edges of ``shard_map`` (the reference's ``in_specs`` and
+# ``out_specs``), with the transposes it takes when it does not track
+# replication: the cotangent of a full output is divided by the number of
+# ranks that hold the same block (the axes the spec leaves out), and the
+# cotangent of an input is summed over those ranks.  Every rank then ends
+# with the gradient of the global function, whatever collectives ran in
+# between (``psum``'s transpose is ``psum``).
+#
+# Trap: ``torch.distributed.nn.functional.all_gather`` would do the
+# forward of ``unshard``, but its backward is a reduce-scatter *sum*.  At
+# the output edge, ahead of compute that every rank runs on the same full
+# tensor, every rank holds the whole cotangent already; summing it over
+# the ranks multiplies the gradient by the world size.
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return block(x, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh = ctx.spec, ctx.mesh
+        rest = _unmentioned(spec, mesh)
+        if rest:
+            g = collectives._psum(g, mesh, rest)
+        return _gather_blocks(g, spec, mesh), None, None
+
+
+class _Unshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return _gather_blocks(local, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, mesh = ctx.spec, ctx.mesh
+        n = math.prod(mesh.shape[a] for a in _unmentioned(spec, mesh))
+        g = block(g, spec, mesh)
+        return (g / n if n != 1 else g.clone()), None, None
+
+
+def shard(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """``shard_map``'s input edge: this rank's block of the full ``x``.
+    The backward gathers the full cotangent on every rank."""
+    return _Shard.apply(x, tuple(spec), mesh)
+
+
+def unshard(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """``shard_map``'s output edge: the full tensor from every rank's
+    block (all-gathered over the spec's axes).  The backward takes this
+    rank's block of the cotangent; it does not reduce-scatter."""
+    return _Unshard.apply(local, tuple(spec), mesh)
+
+
+# A parameter held as blocks meets the compute in one of two ways.  The
+# dense layers run whole on every rank, on the same inputs: every rank
+# then holds the same whole gradient, and its block is this rank's
+# gradient with nothing summed (``gather_param``, FSDP's gather).  A
+# ``shard_map``-style function (the expert-parallel paths) runs on its
+# own tokens: the ranks that hold the same block each hold a part of its
+# gradient, summed over them (``relayout``, the input edge of
+# ``shard_map`` for an operand that is blocks already).
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return _gather_blocks(local, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return block(g, ctx.spec, ctx.mesh).contiguous(), None, None
+
+
+class _Partial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, rest, mesh):
+        ctx.rest, ctx.mesh = rest, mesh
+        return local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives._psum(g, ctx.mesh, ctx.rest), None, None
+
+
+def gather_param(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's block of a parameter laid out by
+    ``spec``, for compute that every rank runs on the same inputs.  The
+    backward keeps this rank's block of the (whole, equal on every rank)
+    cotangent and sums nothing."""
+    spec = tuple(spec)
+    if not _split(spec, mesh):
+        return local
+    return _GatherParam.apply(local, spec, mesh)
+
+
+def relayout(local: torch.Tensor, have: tuple, want: tuple,
+             mesh) -> torch.Tensor:
+    """This rank's block under ``want`` of a parameter held as its block
+    under ``have`` (``()`` for the whole leaf), as ``shard_map``'s input
+    edge: the backward leaves this rank the block under ``have`` of the
+    gradient summed over the ranks.  Where the two layouts agree the
+    block is used as it is held, and only the ranks that hold the same
+    block sum their parts."""
+    have, want = _trimmed(have), _trimmed(want)
+    if have == want:
+        rest = tuple(a for a in _unmentioned(want, mesh)
+                     if mesh.shape[a] > 1)
+        return _Partial.apply(local, rest, mesh) if rest else local
+    return shard(gather_param(local, have, mesh), want, mesh)
+
+
+def param_layout(specs: Tree, mesh, rules: dict | None = None) -> Tree:
+    """The ``partition_spec`` of every ``ParamSpec`` of a spec tree: the
+    layout in which a rank of ``mesh`` holds the parameters."""
+    return tree_map(lambda s: partition_spec(s.shape, s.axes, mesh, rules),
+                    specs)
+
+
+def local_params(params: Tree, specs: Tree, mesh,
+                 rules: dict | None = None) -> Tree:
+    """Each leaf of full parameters cut to this rank's block by its
+    ``ParamSpec``'s logical axes under ``rules`` (a view, no copy)."""
+    return tree_map(lambda p, s: block(
+        p, partition_spec(tuple(p.shape), s.axes, mesh, rules), mesh),
+        params, specs)

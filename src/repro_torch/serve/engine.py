@@ -55,16 +55,19 @@ def _derived_seed(engine_seed: int, tag: int, index: int) -> int:
     return int(word) & 0x7FFFFFFF
 
 
-def build_serve_step(cfg: lm.LMConfig, *, temperature: float = 0.0):
+def build_serve_step(cfg: lm.LMConfig, mesh=None, *,
+                     temperature: float = 0.0):
     """Returns step(params, cache, tokens, pos, generator) ->
-    (next tokens (B, 1) int32, logits (B, V), cache).
+    (next tokens (B, 1) int32, logits (B, V), cache); with a ``mesh``
+    every rank of it steps the same full cache (``lm.decode_step``).
 
     Greedy at ``temperature == 0``; above it the next token is drawn from
     ``softmax(logits / temperature)`` with ``generator`` (its draws are
     not ``jax.random``'s)."""
 
     def serve_step(params, cache, tokens, pos, generator):
-        logits, cache = lm.decode_step(params, cache, tokens, pos, cfg)
+        logits, cache = lm.decode_step(params, cache, tokens, pos, cfg,
+                                       mesh=mesh)
         logits = logits[:, :cfg.vocab_size]
         if temperature > 0.0:
             probs = torch.softmax(logits / temperature, dim=-1)
@@ -945,18 +948,21 @@ class BatchedEngine:
     on a recurrent configuration a request's tokens depend on what else
     is in the batch, in the reference as here.  Every cache kind of
     ``models.lm.init_cache`` is carried.  Decoding is greedy.  Runs on
-    ``cuda`` unless the caller passes ``device="cpu"``.
+    ``cuda`` unless the caller passes ``device="cpu"``.  With a ``mesh``
+    every rank of it runs the same engine on the same requests with its
+    blocks of the parameters (``lm.decode_step``), and the MoE blocks
+    split their work over the ranks.
     """
 
     def __init__(self, cfg: lm.LMConfig, params, batch_slots: int = 4,
-                 s_max: int = 256, device=None):
+                 s_max: int = 256, mesh=None, device=None):
         dev = device_lib.resolve(device)
         self.cfg = cfg
         self.params = params
         self.b = batch_slots
         self.s_max = s_max
         self.device = dev
-        self.step_fn = build_serve_step(cfg)
+        self.step_fn = build_serve_step(cfg, mesh)
         self.cache = lm.init_cache(cfg, batch_slots, s_max, device=dev)
         self.pos = torch.zeros((batch_slots,), dtype=torch.int64, device=dev)
         self.slots: list[Request | None] = [None] * batch_slots

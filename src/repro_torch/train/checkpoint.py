@@ -20,7 +20,11 @@ here restores there.  A bf16 leaf is stored as the 2-byte void records
 them (the reference's own restore cannot cast those records, so its
 bf16 checkpoints restore only here).  ``restore`` places each leaf on
 its template's device in its template's dtype, and raises ``KeyError``
-for a missing leaf and ``ValueError`` for a shape mismatch.
+for a missing leaf and ``ValueError`` for a shape mismatch.  With
+``shardings`` (``nn.module.shardings`` of the current mesh) it keeps each
+leaf's block of this rank, the blocks ``lm.forward(mesh=)`` and the
+train step take: a checkpoint saved under one mesh restores under
+another (the reference's elastic path).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.nn import module
 
 Tree = Any
 
@@ -99,6 +105,18 @@ def _unflatten_into(template: Tree, flat: dict[str, np.ndarray],
     return _to_tensor(arr, template)
 
 
+def _blocks(tree: Tree, sh: Tree) -> Tree:
+    """Each leaf of ``tree`` cut to this rank's block of its sharding in
+    the parallel tree ``sh`` (a copy, so the full leaf is freed)."""
+    if isinstance(tree, dict):
+        return {k: _blocks(v, sh[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        parts = [_blocks(v, s) for v, s in zip(tree, sh)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else type(tree)(parts)
+    return module.block(tree, sh.spec, sh.mesh).clone()
+
+
 def _fsync_dir(path: str) -> None:
     fd = os.open(path, os.O_RDONLY)
     try:
@@ -159,25 +177,32 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int,
-            templates: dict[str, Tree]) -> tuple[dict[str, Tree], dict]:
+def restore(ckpt_dir: str, step: int, templates: dict[str, Tree],
+            shardings: dict[str, Tree] | None = None
+            ) -> tuple[dict[str, Tree], dict]:
     """The named trees of ``step_N``, in the templates' structure, each
     leaf on its template's device in its template's dtype; and the
-    meta."""
+    meta.  The templates hold full leaves; where ``shardings`` (same
+    names) gives a tree of ``nn.module.NamedSharding`` for a name, each
+    of its leaves is cut to this rank's block of the sharding's mesh."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     out = {}
     for name, tmpl in templates.items():
         with np.load(os.path.join(path, f"{name}.npz")) as z:
             flat = {k: z[k] for k in z.files}
-        out[name] = _unflatten_into(tmpl, flat)
+        tree = _unflatten_into(tmpl, flat)
+        if shardings and shardings.get(name) is not None:
+            tree = _blocks(tree, shardings[name])
+        out[name] = tree
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return out, meta
 
 
-def restore_latest(ckpt_dir: str, templates: dict[str, Tree]):
+def restore_latest(ckpt_dir: str, templates: dict[str, Tree],
+                   shardings: dict[str, Tree] | None = None):
     """``restore`` of the newest complete checkpoint, or None."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None
-    return restore(ckpt_dir, step, templates)
+    return restore(ckpt_dir, step, templates, shardings)

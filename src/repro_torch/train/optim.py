@@ -90,10 +90,13 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float):
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        gnorm: torch.Tensor | None = None):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
-    before clipping)."""
-    gnorm = global_norm(grads)
+    before clipping).  ``gnorm`` is the norm where the caller reckons it
+    (a rank's blocks of the gradient under a mesh)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(f32math.div(_f32(max_norm, gnorm), gnorm + 1e-9),
                         max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
@@ -123,9 +126,10 @@ def adamw_apply(grads: Tree, mu: Tree, nu: Tree, params: Tree,
 
 
 def adamw_update(grads: Tree, state: AdamWState, params: Tree,
-                 cfg: AdamWConfig):
-    """Clip, schedule, update: (params, state, {"grad_norm", "lr"})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+                 cfg: AdamWConfig, gnorm: torch.Tensor | None = None):
+    """Clip, schedule, update: (params, state, {"grad_norm", "lr"});
+    ``gnorm`` as in ``clip_by_global_norm``."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
     step = state.step + 1
     lr = schedule(state.step, cfg)
     p_new, mu, nu = adamw_apply(grads, state.mu, state.nu, params, step, lr,

@@ -9,8 +9,12 @@ with the models' training and evaluation stubbed out on both sides, the
 port's scripts return the reference's dicts; and the whole suite runs
 end to end through ``experiments_torch.run --device cpu`` at two training
 steps and one evaluation batch, every script returning the reference's
-keys.  Accuracies are not compared: the two packages draw other batches
-and noise (``experiments_torch/_snn_cache.py``).
+keys.  Accuracies are not compared there: the two packages draw other
+batches and noise (``experiments_torch/_snn_cache.py``).  On the same
+(carried) batches the unstubbed ``eval_model`` evaluates the reference's
+path: a model trained a few steps gives clean KWN results equal to the
+JAX script's ``eval_model`` bit for bit and NLD within the composed
+path's sum-order margin, with the kernel path's results beside them.
 """
 
 import importlib
@@ -20,6 +24,7 @@ import re
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -211,3 +216,89 @@ def test_experiments_import_no_jax_repro_or_benchmarks():
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+class _Batches:
+    """A dataset that serves the same carried batches to both packages,
+    in order, ignoring the key or generator (each evaluation pass of
+    ``eval_model`` starts again at the first)."""
+
+    def __init__(self, batches, to, cfg=None, device=None):
+        self.batches = [tuple(to(a) for a in b) for b in batches]
+        self.cfg, self.device, self.i = cfg, device, 0
+
+    def sample(self, key, batch):
+        b = self.batches[self.i % len(self.batches)]
+        self.i += 1
+        return b
+
+
+@pytest.mark.parametrize("mode", ["kwn", "nld"])
+def test_eval_model_evaluates_the_reference_path(monkeypatch, mode):
+    """``eval_model`` on a model trained 3 steps, against the JAX
+    script's on the same two batches of 128: the composed chain (clean
+    KWN: accuracy bit for bit and the telemetry; NLD: logits within the
+    composed path's sum-order tolerance and the same accuracy), and the
+    kernel path's accuracy and telemetry as ``kernel_*`` keys (clean KWN:
+    equal to the composed chain's)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import dendrite as j_dend
+    from repro.models import snn as j_snn
+    from repro_torch.core import dendrite as t_dend
+    from repro_torch.data import events as t_events
+    from repro_torch.models import snn as t_snn
+    ref_cache = importlib.import_module("benchmarks._snn_cache")
+    n_batches = 2
+    monkeypatch.setattr(ref_cache, "EVAL_BATCHES", n_batches)
+    monkeypatch.setattr(t_cache, "EVAL_BATCHES", n_batches)
+    tcfg = t_cache.snn_config("nmnist", mode)
+    jcfg = ref_cache.snn_config("nmnist", mode)
+    ds = t_events.EventDataset(t_events.DATASETS["nmnist"], device="cpu")
+    p, _ = t_snn.train(tcfg, ds, n_steps=3, batch=16, seed=0, lr=0.1,
+                       device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    batches = [tuple(a.numpy() for a in ds.sample(gen, 128))
+               for _ in range(n_batches)]
+    jp = {k: (j_dend.DendriteParams(*(jnp.asarray(a.numpy()) for a in v))
+              if isinstance(v, t_dend.DendriteParams)
+              else jnp.asarray(v.numpy())) for k, v in p.items()}
+
+    want_acc, want_tele = ref_cache.eval_model(
+        jp, jcfg, _Batches(batches, jnp.asarray))
+    evals = []
+    got_acc, got_tele = t_run.recorded(t_cache.eval_model, evals)(
+        p, tcfg, _Batches(batches, torch.from_numpy, ds.cfg, ds.device))
+
+    for key in ("adc_steps", "lif_updates", "sops"):
+        assert got_tele[key] == pytest.approx(want_tele[key], rel=1e-6,
+                                              abs=0), key
+    assert {"kernel_acc", "kernel_adc_steps", "kernel_lif_updates",
+            "kernel_sops", "kernel_skipped_block_ratio"} <= set(got_tele)
+    assert evals == [{"dataset": "nmnist", "mode": mode,
+                      "k": tcfg.k, "noise": False,
+                      "use_snl": tcfg.use_snl, "train_nlq": True,
+                      "acc": got_acc, "kernel_acc": got_tele["kernel_acc"]}]
+    if mode == "kwn":
+        assert got_acc == want_acc
+        assert got_tele["kernel_acc"] == got_acc
+        assert got_tele["kernel_adc_steps"] == got_tele["adc_steps"]
+        return
+    # NLD: the branch MACs sum in each library's order, so the logits
+    # agree within the composed path's tolerance and the accuracy is the
+    # same wherever no row's top two logits lie within it
+    gaps = []
+    for ev, lab in batches:
+        jl, _ = j_snn.forward_silicon(jp, jnp.asarray(ev), jcfg,
+                                      jax.random.PRNGKey(0), fused=False)
+        tl, _ = t_snn.forward_silicon(p, ev, tcfg, device="cpu",
+                                      fused=False)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
+                                   atol=1e-6)
+        top2 = np.sort(np.asarray(jl), -1)[:, -2:]
+        gaps.append(top2[:, 1] - top2[:, 0])
+    near = int((np.concatenate(gaps) <= 2e-5).sum())
+    assert abs(got_acc - want_acc) * 128 * n_batches <= near + 1e-9, (
+        got_acc, want_acc, near)
+
