@@ -282,7 +282,26 @@ Phases (any failure raises, so the exit code is non-zero):
    1024 tokens the dropped assignments equal to their recount in plain
    torch from the routing; and each path's layer time against
    ``moe_ref``'s (CUDA events and profiled device time) with the peak
-   memory, beside the card's name and power limit.
+   memory, beside the card's name and power limit;
+12. the roofline model and the dry run (``roofline_phase``): at world 1
+   and full smollm-135m width (bf16 parameters and compute), a train
+   step of 8 x 2048 (one microbatch, AdamW) counted on the card
+   (``launch.dryrun.count``: ``FlopCounterMode``, the live storages, the
+   wire tally) equal in FLOPs to the same step counted on fake CUDA
+   tensors and on ``meta`` ones, the model's FLOPs (forward units x
+   tokens x the remat factor, ``roofline.flops_model``) within 0.65-1.5
+   of the count, the dry run's argument bytes within 1 % of what the
+   card allocates for the state, its ``bytes_per_device`` beside the
+   card's peak, and the step's time beside the counted FLOPs' bound at
+   the bf16 peak; a prefill of 1 x 4096 launching #9 once a layer (the
+   counters zeroed around it), its counted FLOPs and #9's share (the
+   custom op's FLOP formula) equal on the card, fake CUDA and ``meta``;
+   and the part that needs no card, run in a subprocess started after
+   the build (``roofline_host``): the dry run of smollm-135m x train_4k
+   and kimi-k2-1t-a32b x decode_32k on rank 0 of the 16 x 16 fake mesh,
+   each cell's counted FLOPs, wire and bytes beside the model's, the
+   three ladders analytically and ``run_cell("qwen")`` with each
+   variant's dry run (``chiprun_out/perf_results_torch/``).
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
@@ -5071,6 +5090,257 @@ def mesh_phase(dev, smi: str) -> dict:
     return res
 
 
+# --- phase 12: the roofline model, the dry run and the ladders ---------------
+
+# the dry run's cells on the single-pod fake mesh, on the host; the card's
+# train step (phase 8's 8 x 2048) and prefill at world 1
+ROOF_CELLS = (("smollm-135m", "train_4k"), ("kimi-k2-1t-a32b", "decode_32k"))
+ROOF_TRAIN, ROOF_PREFILL = (8, 2048), (1, 4096)
+ROOF_HOST_TIMEOUT_S = 900
+ROOF_BAND = (0.65, 1.5)         # the model against counted FLOPs
+ROOF_ARG_REL = 0.01             # argument bytes against the card's
+
+
+def roofline_host(out: str) -> None:
+    """Phase 12's part that needs no card, in a process of its own (it
+    sets up a fake process group of 256 ranks, which no other group may
+    share): the dry run of ``ROOF_CELLS`` on rank 0 of the 16 x 16 fake
+    mesh, the three ladders analytically, and ``run_cell("qwen")`` with
+    ``compile_variants`` (each variant's dry run); the results as JSON
+    to ``out``, the ladders' files under ``chiprun_out/``."""
+    from repro_torch.launch import dryrun, hillclimb
+    torch.set_num_threads(1)
+    res: dict = {"cells": {}, "ladders": {}}
+    for arch, shape in ROOF_CELLS:
+        t0 = time.perf_counter()
+        r = dryrun.lower_cell(arch, shape, False)
+        r["seconds"] = time.perf_counter() - t0
+        res["cells"][f"{arch}__{shape}"] = r
+        print(f"dry run {arch} x {shape}: {r['seconds']:.1f} s", flush=True)
+    hillclimb.OUT_DIR = str(ROOT / "chiprun_out" / "perf_results_torch")
+    for cell in sorted(hillclimb.LADDERS):
+        t0 = time.perf_counter()
+        entries = hillclimb.run_cell(cell, compile_variants=False)
+        res["ladders"][cell] = {"entries": entries,
+                                "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    entries = hillclimb.run_cell("qwen", compile_variants=True)
+    res["ladders"]["qwen_counted"] = {"entries": entries,
+                                      "seconds": time.perf_counter() - t0}
+    Path(out).write_text(json.dumps(res, default=str))
+
+
+def start_roofline_host() -> tuple[subprocess.Popen, Path, Path]:
+    """``roofline_host`` in a subprocess, started early so that it runs
+    beside the card's phases (one host core, at a lower priority than
+    this process's)."""
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    out, log_path = out_dir / "roofline_host.json", \
+        out_dir / "roofline_host.log"
+    out.unlink(missing_ok=True)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; chip_smoke.roofline_host(sys.argv[2])")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT),
+                                 str(out)], stdout=f,
+                                stderr=subprocess.STDOUT,
+                                preexec_fn=lambda: os.nice(10))
+    return proc, out, log_path
+
+
+def _roof_count(cfg, shape, dev, batch, seq, **kw):
+    from repro_torch.launch import dryrun
+    step, args, _, _ = dryrun.build(cfg, shape, None, dev, n_micro=1,
+                                    batch=batch, seq=seq, **kw)
+    return step, args
+
+
+def _fake_counts(cfg, shape, batch, seq) -> dict:
+    """Counts of a world-1 step on fake CUDA tensors and on ``meta``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun
+    out = {}
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        step, args = _roof_count(cfg, shape, "cuda", batch, seq)
+        out["fake_cuda"], _ = dryrun.count(step, *args)
+    step, args = _roof_count(cfg, shape, "meta", batch, seq)
+    out["meta"], _ = dryrun.count(step, *args)
+    for c in out.values():
+        c.pop("tally")
+    return out
+
+
+def roofline_phase(dev, smi: str, host) -> dict:
+    """Phase 12 (module doc): at world 1 and full smollm-135m width on
+    the card, the train step's and the prefill's counts against the same
+    steps on fake CUDA tensors and on ``meta``; then the host part's
+    results (``roofline_host``)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import flops_model
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(LM_ARCH)
+    b, s = ROOF_TRAIN
+    res: dict = {"arch": LM_ARCH, "train_shape": [b, s]}
+    fakes = _fake_counts(cfg, "train_4k", b, s)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = nn_module.materialize(lm.param_specs(cfg),
+                                   torch.Generator(dev).manual_seed(SEED),
+                                   dtype=cfg.compute_dtype, device=dev)
+    rs = np.random.RandomState(SEED + 90)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (1, b, s))).to(dev)
+    step, args = _roof_count(cfg, "train_4k", dev, b, s, params=params)
+    args = (params, args[1], {"tokens": toks})
+    torch.cuda.synchronize(dev)
+    placed = torch.cuda.memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    real, out = dryrun.count(step, *args)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    loss = float(out[2]["loss"])
+    del out
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+    real.pop("tally")
+    fwd_i, _ = flops_model.fwd_flops_per_token(cfg, "train", s, True)
+    rf = 4.0 if cfg.remat else 3.0       # the model's: group, "nothing"
+    model_flops = fwd_i * b * s * rf
+    step_ms = min(times[1:])
+    res["train"] = {
+        "flops": real["flops"],
+        "flops_fake_cuda": fakes["fake_cuda"]["flops"],
+        "flops_meta": fakes["meta"]["flops"],
+        "model_flops": model_flops,
+        "model_over_counted": model_flops / real["flops"],
+        "argument_bytes_fake": fakes["fake_cuda"]["argument_size_in_bytes"],
+        "argument_bytes_card": placed,
+        "bytes_per_device_fake": fakes["fake_cuda"]["bytes_per_device"],
+        "bytes_per_device_meta": fakes["meta"]["bytes_per_device"],
+        "bytes_per_device_counted_on_card": real["bytes_per_device"],
+        "peak_bytes_card": peak, "loss": loss, "step_ms": step_ms,
+        "step_ms_all": times, "count_s": real["count_s"],
+        "bound_ms": real["flops"] / BF16_FLOPS * 1e3,
+        "model_bound_ms": model_flops / BF16_FLOPS * 1e3,
+        "peak_share": real["flops"] / (step_ms / 1e3 * BF16_FLOPS)}
+    tr = res["train"]
+    if not (real["flops"] == tr["flops_fake_cuda"] == tr["flops_meta"]):
+        raise AssertionError(f"phase 12: counted FLOPs of the train step: "
+                             f"card {real['flops']}, fake CUDA "
+                             f"{tr['flops_fake_cuda']}, meta "
+                             f"{tr['flops_meta']}")
+    if not ROOF_BAND[0] <= tr["model_over_counted"] <= ROOF_BAND[1]:
+        raise AssertionError(f"phase 12: the model's FLOPs are "
+                             f"{tr['model_over_counted']:.3f} of the count")
+    if abs(tr["argument_bytes_fake"] - placed) > ROOF_ARG_REL * placed:
+        raise AssertionError(f"phase 12: argument bytes {placed} on the "
+                             f"card, {tr['argument_bytes_fake']} counted")
+    if not np.isfinite(loss):
+        raise AssertionError(f"phase 12: loss {loss}")
+    log(f"[{smi}] phase 12, {LM_ARCH} train step {b} x {s} at world 1: "
+        f"counted {real['flops']:.6g} FLOPs on the card = fake CUDA = "
+        f"meta; model (fwd units x {rf:g}) {model_flops:.6g}, "
+        f"{tr['model_over_counted']:.4f} of it; argument bytes "
+        f"{tr['argument_bytes_fake']} counted, {placed} placed on the card;"
+        f" bytes_per_device {tr['bytes_per_device_fake']} counted, card "
+        f"peak {peak}; step {step_ms:.1f} ms against the counted FLOPs' "
+        f"bound {tr['bound_ms']:.2f} ms (model's {tr['model_bound_ms']:.2f}"
+        f" ms) at {BF16_FLOPS:.3g} FLOP/s: {tr['peak_share']:.4f} of the "
+        f"bf16 peak")
+    del args, step
+    # the prefill: #9 once a layer, its formula's FLOPs on the card equal
+    # to the fake count
+    pb, ps = ROOF_PREFILL
+    pf = _fake_counts(cfg, "prefill_32k", pb, ps)
+    ptoks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (pb, ps))).to(dev)
+    step, _ = _roof_count(cfg, "prefill_32k", dev, pb, ps, params=params)
+    reset_counts()
+    real, out = dryrun.count(step, params, {"tokens": ptoks})
+    torch.cuda.synchronize(dev)
+    launches = read_counts()
+    logits = out[0]
+    flash_key = "repro_torch.flash_attention"
+    want_flash = cfg.n_layers * flash_lib.kernel_flops(
+        pb * cfg.n_heads, ps, cfg.hd, True, cfg.compute_dtype)
+    res["prefill"] = {
+        "shape": [pb, ps], "launches": launches["flash_attention"],
+        "flops": real["flops"], "flops_fake_cuda": pf["fake_cuda"]["flops"],
+        "flops_meta": pf["meta"]["flops"],
+        "flash_flops": real["flops_by_op"].get(flash_key),
+        "flash_flops_fake": pf["fake_cuda"]["flops_by_op"].get(flash_key),
+        "flash_flops_formula": want_flash}
+    pr = res["prefill"]
+    other = {k: v for k, v in launches.items()
+             if k != "flash_attention" and v}
+    if pr["launches"] != cfg.n_layers or other:
+        raise AssertionError(f"phase 12: prefill launches {launches}")
+    if not (pr["flops"] == pr["flops_fake_cuda"] == pr["flops_meta"]) or \
+            not (pr["flash_flops"] == pr["flash_flops_fake"] == want_flash):
+        raise AssertionError(f"phase 12: prefill counts {pr}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("phase 12: prefill logits not finite")
+    log(f"[{smi}] phase 12, {LM_ARCH} prefill {pb} x {ps}: {pr['launches']}"
+        f" flash launches; counted {pr['flops']:.6g} FLOPs on the card = "
+        f"fake CUDA = meta, of which #9 {pr['flash_flops']:.6g} (its "
+        f"formula, {want_flash:.6g})")
+    del params, out, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the host part
+    proc, out_path, log_path = host
+    try:
+        rc = proc.wait(timeout=max(1.0, ROOF_HOST_TIMEOUT_S
+                                   - (time.perf_counter() - t_phase)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"phase 12: the host part exited {rc}:\n"
+                             f"{log_path.read_text()[-4000:]}")
+    hostres = json.loads(out_path.read_text())
+    res["host"] = hostres
+    for tag, c in hostres["cells"].items():
+        m, cr = c["roofline"], c["roofline_counted"]
+        if not (c["flops"] > 0 and c["argument_size_in_bytes"] > 0
+                and c["n_devices"] == 256 and "collectives_counted" in c):
+            raise AssertionError(f"phase 12: dry run {tag}: {c}")
+        log(f"phase 12, dry run {tag} on rank 0 of {c['mesh']} ("
+            f"{c['device']}), {c['seconds']:.1f} s: counted FLOPs "
+            f"{c['flops']:.6g} (model {m['flops_per_device']:.6g}), wire "
+            f"{cr['wire_bytes_per_device']:.6g} B (model "
+            f"{m['wire_bytes_per_device']:.6g}), bytes a device "
+            f"{c['bytes_per_device']:.6g} (argument "
+            f"{c['argument_size_in_bytes']:.6g}; model's HBM traffic "
+            f"{m['bytes_per_device']:.6g}); model terms compute "
+            f"{m['compute_s']:.4g} s, memory {m['memory_s']:.4g} s, "
+            f"collective {m['collective_s']:.4g} s ({m['dominant']}; model "
+            f"output at the H100's rates)")
+    for cell, lad in hostres["ladders"].items():
+        acc = next(e for e in lad["entries"] if e.get("accepted_final"))
+        a = acc["analytical"]
+        log(f"phase 12, ladder {cell} ({lad['seconds']:.1f} s): accepted "
+            f"{acc['name']}, bound {a['bound_s']:.4g} s, roofline frac "
+            f"{a['roofline_frac']:.4f} (model output); verdicts "
+            + ", ".join(f"{e['name']}: {e['verdict']}"
+                        + (f" ({e['compiled']['mem_gib']:.1f} GiB counted)"
+                           if "compiled" in e else "")
+                        for e in lad["entries"]))
+    res["flash_launches"] = pr["launches"]
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12: {res['seconds']:.1f} s")
+    return res
+
+
 def _record(name, replaces, launches, cmp, timing,
             library_ms=None) -> dict:
     return {"name": name, "route": "cuda",
@@ -5119,6 +5389,18 @@ def main() -> None:
     kind, smi = device_phase()
     dev = torch.device("cuda")
     build_s, flash_build, split_build, stage_build = build_phase()
+    host = start_roofline_host()
+    try:
+        _main(t0, kind, smi, dev, build_s, flash_build, split_build,
+              stage_build, host)
+    finally:
+        if host[0].poll() is None:
+            host[0].kill()
+            host[0].wait()
+
+
+def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
+          stage_build, host) -> None:
     cmp = {"kwn": compare_phase(dev), "nld": compare_nld_phase(dev),
            "stack": compare_stack_phase(dev),
            "train": compare_train_phase(dev),
@@ -5159,6 +5441,8 @@ def main() -> None:
     log(f"phase 10 done at {time.perf_counter() - t0:.1f} s")
     mesh_res = mesh_phase(dev, smi)
     log(f"phase 11 done at {time.perf_counter() - t0:.1f} s")
+    roof = roofline_phase(dev, smi, host)
+    log(f"phase 12 done at {time.perf_counter() - t0:.1f} s")
     b = serving["burst"]
     log(f"[{smi}] engine, {b['requests']}-request clean burst: "
         f"{b['requests_per_s']:.1f} req/s, round ms p50 "
@@ -5315,7 +5599,8 @@ def main() -> None:
                             + fr["reduced"]["flash_launches"]
                             for fr in moe_frontends.values())
                       + lt8["eval"]["flash_launches"]
-                      + mesh_res["flash_launches"])
+                      + mesh_res["flash_launches"]
+                      + roof["flash_launches"])
     kwn_launches = (main_res["clean"]["launches"]
                     + main_res["noisy"]["launches"]
                     + train_res["forward_launches"]
@@ -5400,6 +5685,7 @@ def main() -> None:
                        "moe_frontends": moe_frontends,
                        "lm_training": training},
          "tuner": tuner, "experiments": experiments, "mesh": mesh_res,
+         "roofline": roof,
          "timing": timing, "serving": serving, "nld_serving": nld_serving,
          "seconds": time.perf_counter() - t0}, indent=1))
     log(f"chip_smoke: phase 9 {tuner['seconds']:.1f} s, phase 10 "

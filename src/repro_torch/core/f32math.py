@@ -35,6 +35,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 _F64_INF = float("inf")
 _h = float.fromhex
@@ -152,7 +153,7 @@ def _poly(x: torch.Tensor, x2: torch.Tensor, cos_row: torch.Tensor,
     x7 = x3 * x2
     sin = (x + x3 * s1_) + x7 * s1
     table = torch.tensor(_COS_C, dtype=torch.float64, device=cos_row.device)
-    c = [table[:, i][cos_row] for i in range(5)]
+    c = [torch.take(table[:, i], cos_row) for i in range(5)]
     x4 = x2 * x2
     c2 = c[3] + x2 * c[4]
     c1 = c[0] + x2 * c[1]
@@ -178,6 +179,10 @@ def _reduce_large(bits: int) -> tuple[float, int]:
     return float(signed) * _PI63, n
 
 
+def _has_data(t: torch.Tensor) -> bool:
+    return not (t.is_meta or isinstance(t, FakeTensor))
+
+
 def _sincos(y: torch.Tensor, want_cos: bool) -> torch.Tensor:
     y = y.float()
     bits = y.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
@@ -194,8 +199,10 @@ def _sincos(y: torch.Tensor, want_cos: bool) -> torch.Tensor:
     n = torch.where(mid, n_mid, n)
     quad = n.clone()
     # |y| >= 120: exact reduction on the host, element by element (rare).
+    # A tensor without data (``meta``, or the dry run's fake tensors) has
+    # no values to reduce: it skips the branch, which depends on them.
     large = top >= _TOP_120
-    if bool(large.any()):
+    if _has_data(y) and bool(large.any()):
         idx = torch.nonzero(large, as_tuple=True)
         xs, ns = zip(*(_reduce_large(int(b)) for b in bits[idx].tolist()))
         xr = xr.index_put(idx, torch.tensor(xs, dtype=torch.float64,
@@ -204,8 +211,8 @@ def _sincos(y: torch.Tensor, want_cos: bool) -> torch.Tensor:
         n = n.index_put(idx, n_l)
         quad = quad.index_put(idx, n_l + (bits[idx] >> 31))
     reduced = top >= _TOP_PIO4
-    sign = torch.tensor(_SIGN, dtype=torch.float64,
-                        device=quad.device)[quad & 3]
+    sign = torch.take(torch.tensor(_SIGN, dtype=torch.float64,
+                                   device=quad.device), quad & 3)
     sign = torch.where(reduced, sign, torch.ones_like(sign))
     cos_row = torch.where(reduced, (quad >> 1) & 1, torch.zeros_like(quad))
     odd = ((n ^ 1) & 1).bool() if want_cos else (n & 1).bool()

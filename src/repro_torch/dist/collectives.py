@@ -11,12 +11,54 @@ concatenates what it receives along ``concat_dim``.  Their backwards are
 the transposes ``shard_map`` uses: ``psum`` -> ``psum``, ``all_gather``
 <-> ``psum_scatter``, and ``all_to_all`` with the two dims swapped.
 Integer tensors cross without a graph (the int8 wire).
+
+``wire_tally()`` counts what crosses: while it is open, every collective
+this process issues (forward, recompute and backward alike, each loop
+iteration as it runs) adds the bytes of its result to its kind, as the
+reference's HLO parse (``roofline.analysis.collective_bytes``) reads
+them: an all-reduce its input's size, an all-gather the gathered size,
+a reduce-scatter the scattered size, an all-to-all its input's size,
+and ``dist.pipeline``'s ring shift a collective-permute of what it
+receives.  ``replicate``'s broadcast, which the reference's kinds lack,
+is a kind of its own.  Closed, the tally costs one test of a module global per
+collective.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+         "collective-permute", "broadcast")
+
+
+class WireTally:
+    """Bytes of the results and counts of the collectives, by kind."""
+
+    def __init__(self):
+        self.bytes = dict.fromkeys(KINDS, 0)
+        self.count = dict.fromkeys(KINDS, 0)
+
+    def add(self, kind: str, t: torch.Tensor) -> None:
+        self.bytes[kind] += t.numel() * t.element_size()
+        self.count[kind] += 1
+
+
+_tally: WireTally | None = None
+
+
+@contextlib.contextmanager
+def wire_tally():
+    """A fresh :class:`WireTally` of the collectives issued inside."""
+    global _tally
+    outer, _tally = _tally, WireTally()
+    try:
+        yield _tally
+    finally:
+        _tally = outer
 
 
 def _ordered(mesh, axes) -> tuple[str, ...]:
@@ -28,6 +70,8 @@ def _ordered(mesh, axes) -> tuple[str, ...]:
 def _psum(x, mesh, axes):
     y = x.contiguous().clone()
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.group(axes))
+    if _tally is not None:
+        _tally.add("all-reduce", y)
     return y
 
 
@@ -36,6 +80,8 @@ def _gather(x, mesh, axes, dim):
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
     dist.all_gather_into_tensor(out, xt, group=mesh.group(axes))
+    if _tally is not None:
+        _tally.add("all-gather", out)
     return out.movedim(0, dim)
 
 
@@ -48,6 +94,8 @@ def _scatter(x, mesh, axes, dim):
     out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
     dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM,
                                group=mesh.group(axes))
+    if _tally is not None:
+        _tally.add("reduce-scatter", out)
     return out.movedim(0, dim)
 
 
@@ -59,6 +107,8 @@ def _exchange(x, mesh, axes, split_dim, concat_dim):
     xt = x.movedim(split_dim, 0).contiguous()
     out = torch.empty_like(xt)
     dist.all_to_all_single(out, xt, group=mesh.group(axes))
+    if _tally is not None:
+        _tally.add("all-to-all", out)
     c = xt.shape[0] // n
     chunks = out.view((n, c) + tuple(xt.shape[1:])).movedim(1, split_dim + 1)
     return torch.cat(chunks.unbind(0), dim=concat_dim)
@@ -70,6 +120,8 @@ class _Replicate(torch.autograd.Function):
         y = x.contiguous().clone()
         group = mesh.group(axes)
         dist.broadcast(y, src=dist.get_global_rank(group, 0), group=group)
+        if _tally is not None:
+            _tally.add("broadcast", y)
         return y
 
     @staticmethod

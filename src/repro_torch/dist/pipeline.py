@@ -41,6 +41,8 @@ def _ring(y: torch.Tensor, mesh, stage_axis: str) -> torch.Tensor:
                                    dist.P2POp(dist.irecv, recv, prv, group)])
     for r in reqs:
         r.wait()
+    if collectives._tally is not None:
+        collectives._tally.add("collective-permute", recv)
     return recv
 
 

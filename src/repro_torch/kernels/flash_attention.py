@@ -13,8 +13,14 @@ wrapper pads nothing), f32 or bf16, causal or full, and any head_dim from
 
 There is no backward, as the Pallas kernel has none: the wrapper raises
 when grad mode is on and an input requires grad.  A CUDA tensor launches
-the kernel, counted in ``flash_attention_fwd.launches``; a CPU tensor runs
-the plain version ``kernels.ref.flash_attention_ref``.
+the kernel through the custom op ``torch.ops.repro_torch.flash_attention``,
+counted in ``flash_attention_fwd.launches``; a CPU tensor runs the plain
+version ``kernels.ref.flash_attention_ref``.  The op has a fake
+implementation (``register_fake``: the output's shape and dtype, nothing
+computed) and a FLOP formula (``register_flop_formula``:
+``kernel_flops``), so a fake CUDA tensor (``FakeTensorMode``) or a
+``meta`` one, as the dry run (``launch.dryrun``) gives it, is counted
+and launches nothing and runs no plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_macro import _operand, _ptr, _run
@@ -55,9 +62,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            "kernel has none); call it under torch.no_grad()")
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         raise ValueError(f"unsupported device {q.device}")
-    dev = q.device
+    _check(q)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+
+
+flash_attention_fwd.launches = 0
+
+
+def _check(q: torch.Tensor) -> None:
     bh, s, d = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash attention takes f32 or bf16, got {q.dtype}")
@@ -68,6 +82,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash attention takes at most {MAX_CTAS} "
                          f"(batch x heads) x 64-row query tiles, got "
                          f"{bh} x {-(-s // 64)}")
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (q, k, v (BH, S, D))."""
+    dev = q.device
+    bh, s, d = q.shape
     ops = {name: _operand(t, q.dtype, (bh, s, d), dev)
            for name, t in (("q", q), ("k", k), ("v", v))}
     out = torch.empty_like(q)
@@ -79,7 +102,45 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_attention_fwd.launches = 0
+@_flash_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+def _tiles(d: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(query rows a CTA, kv rows a tile) of the kernel: bf16 two 64-row
+    warpgroups over kv tiles of 64 (32 above D = 128), f32 64 rows over
+    tiles of 64 (``csrc/flash_attention.cu``)."""
+    if dtype == torch.bfloat16:
+        return 128, (32 if d > 128 else 64)
+    return 64, 64
+
+
+def kernel_flops(bh: int, s: int, d: int, causal: bool,
+                 dtype: torch.dtype = torch.bfloat16) -> int:
+    """The FLOPs of one launch as the kernel does them: 2 D for q.k and
+    2 D for p.v on every (query row, kv column) of the kv tiles each CTA
+    visits.  Causal, a CTA stops at the last kv tile its rows can see:
+    the tiles above the diagonal are skipped and not counted, the masked
+    part of the diagonal tiles is computed and counted.  Left out: the
+    softmax, the zero padding of D to the instantiated width, and the
+    second p.v product of the bf16 path's split of P (its
+    ``1.5x the bound's operations``)."""
+    rows, kv = _tiles(d, dtype)
+    if not causal:
+        pairs = s * s
+    else:
+        pairs = 0
+        for q0 in range(0, s, rows):
+            end = min(q0 + rows, s)             # the CTA's rows [q0, end)
+            pairs += (end - q0) * min(s, ((end - 1) // kv + 1) * kv)
+    return 4 * d * bh * pairs
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention, get_raw=True)
+def _flash_flops(q, k, v, causal, *args, out_val=None, **kwargs) -> int:
+    bh, s, d = q.shape
+    return kernel_flops(bh, s, d, causal, q.dtype)
 
 
 def causal_flops_saving(s: int, bq: int, bk: int) -> float:

@@ -1,12 +1,37 @@
-"""The perf-ladder search of ``repro.launch.hillclimb``: only its generic
-core, ``prior_guided_search``, which the tile-plan tuner drives.
+"""The perf ladders: hypothesis -> change -> re-count -> confirmed /
+refuted, per cell.
 
-The reference's ladders, ``run_cell`` and ``_analyze`` lower models onto
-a TPU mesh through ``roofline.flops_model``; they have no counterpart
-here yet (they wait for the multi-card slice).
+Counterpart of ``repro.launch.hillclimb``.  Three cells:
+  kimi-k2-1t-a32b x train_4k   the paper-representative one (its router is
+                               the KWN circuit) and the most
+                               collective-bound;
+  nemotron-4-340b x train_4k   a compute-bound dense giant;
+  qwen2.5-32b x decode_32k     memory-bound serving.
+
+Each iteration applies a config transform and records the analytical
+roofline terms (``roofline.flops_model`` under the H100 constants); with
+``compile_variants`` it also runs the dry run (``launch.dryrun``) of the
+variant on the fake production mesh and records its counted memory and
+wire.  Results go to ``perf_results_torch/<cell>.json``.
+
+    PYTHONPATH=src python -m repro_torch.launch.hillclimb --cell kimi [--no-compile]
+
+``prior_guided_search`` is the ladders' generic core, which the
+tile-plan tuner drives.
 """
 
 from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+from repro_torch.configs import get_config
+from repro_torch.roofline import flops_model
+
+OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                       "perf_results_torch")
 
 
 def prior_guided_search(candidates, evaluate, *, prior=None, better=None,
@@ -38,3 +63,166 @@ def prior_guided_search(candidates, evaluate, *, prior=None, better=None,
             if patience is not None and stall >= patience:
                 break
     return best, best_score, results
+
+
+def _analyze(cfg, shape, multi_pod=False, n_micro=8):
+    return flops_model.analyze(
+        cfg, shape, flops_model.mesh_for(multi_pod),
+        n_micro=n_micro if shape == "train_4k" else 1,
+        grad_bytes=2 if cfg.param_count() > 400e9 else 4,
+        moment_bytes=2 if cfg.param_count() > 100e9 else 4)
+
+
+# Each ladder entry: (iteration name, hypothesis, config transform).  The
+# hypotheses are the reference's with the figures it worked out for its
+# TPU left out; the analytical terms of each entry are the port's model.
+LADDERS = {
+    "kimi": ("kimi-k2-1t-a32b", "train_4k", [
+        ("baseline", "paper-faithful 2D-EP MoE, full remat, bf16 wire", {}),
+        ("int8_a2a",
+         "dispatch activations are NLQ-compressible (paper C2 on the wire): "
+         "int8 a2a + int8 TP-gather shrink the MoE forward wire -> the "
+         "collective term drops",
+         {"moe_wire_dtype": "int8"}),
+        ("cap_1.0",
+         "capacity 1.25->1.0 drops a fifth of the a2a payload and of the "
+         "expert flops; token drops are absorbed by the residual stream "
+         "(known MoE result) -> wire and compute drop",
+         {"moe_wire_dtype": "int8", "moe_capacity_factor": 1.0}),
+        ("attn_only_remat",
+         "remat only attention: MoE GEMMs + collectives run 2 passes, not "
+         "3 -> wire drops on the MoE share, compute drops; memory grows "
+         "by the saved MoE activations",
+         {"moe_wire_dtype": "int8", "moe_capacity_factor": 1.0,
+          "remat_mode": "attn_only"}),
+        ("save_moe_recv",
+         "pin ONLY the post-a2a gathered tokens (save_moe_recv) -> the "
+         "x-side a2a + gather leave the recompute; memory grows by the "
+         "pinned tokens",
+         {"moe_wire_dtype": "int8", "moe_capacity_factor": 1.0,
+          "remat_policy": "save_moe_recv"}),
+        ("dots_remat",
+         "save matmul outputs instead: SP collectives AND both a2a "
+         "directions leave the recompute (wire passes 3->2), compute "
+         "4x->3.05x fwd-units; memory risk: expert GEMM outputs are saved "
+         "per layer (measure before judging)",
+         {"moe_wire_dtype": "int8", "moe_capacity_factor": 1.0,
+          "remat_policy": "dots"}),
+    ]),
+    "nemotron": ("nemotron-4-340b", "train_4k", [
+        ("baseline", "paper-faithful FSDP+TP+SP dense, full remat", {}),
+        ("dots_remat",
+         "save matmul outputs (dots policy): recompute only elementwise ops "
+         "-> compute 4x->3.05x fwd-units, SP/FSDP collectives not "
+         "recomputed (wire passes 3->2); memory grows by saved dot outputs",
+         {"remat_policy": "dots"}),
+        ("dots_remat_mb16",
+         "halve the microbatch (n_micro 8->16) to pay for the dots-policy "
+         "memory; wire per-microbatch volume halves but count doubles, "
+         "FSDP gathers x2 -> expect a small wire regression, confirm "
+         "memory recovery",
+         {"remat_policy": "dots", "_n_micro": 16}),
+    ]),
+    "qwen": ("qwen2.5-32b", "decode_32k", [
+        ("baseline", "paper-faithful bf16 KV cache, seq-sharded split-KV", {}),
+        ("kv_int8",
+         "decode is cache-read bound; NLQ-style int8 KV (payload + per-pos "
+         "scale LUT, paper C2/C6 applied to serving) halves cache bytes -> "
+         "memory term toward half, above the param-read floor",
+         {"kv_quant": "int8"}),
+        ("kv_int4",
+         "4-bit KV (two nibbles/byte) quarters cache bytes; accuracy risk "
+         "noted (needs eval on real workloads) -> memory term toward the "
+         "param-read floor",
+         {"kv_quant": "int4"}),
+    ]),
+}
+
+
+def run_cell(cell: str, compile_variants: bool = True):
+    """One ladder: every entry's analytical terms (and, with
+    ``compile_variants``, its dry run), then the verdicts against the
+    last accepted entry; written to ``OUT_DIR/<cell>.json`` and
+    returned."""
+    arch, shape, ladder = LADDERS[cell]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    results = []
+    base_cfg = get_config(arch)
+    for name, hypothesis, overrides in ladder:
+        overrides = dict(overrides)
+        n_micro = overrides.pop("_n_micro", 8)
+        cfg = dataclasses.replace(base_cfg, **overrides) if overrides \
+            else base_cfg
+        entry = {"cell": cell, "arch": arch, "shape": shape, "name": name,
+                 "hypothesis": hypothesis, "overrides": overrides,
+                 "n_micro": n_micro}
+        entry["analytical"] = _analyze(cfg, shape, n_micro=n_micro)
+        if compile_variants:
+            # the dry run builds the whole step; it is imported only
+            # here, so the ladders and the search stay light to import
+            from repro_torch import configs as configs_mod
+            from repro_torch.launch import dryrun
+            old = configs_mod.ARCHS[arch]
+            configs_mod.ARCHS[arch] = cfg
+            try:
+                res = dryrun.lower_cell(arch, shape, multi_pod=False,
+                                        n_micro=n_micro)
+                entry["compiled"] = {
+                    "count_s": res.get("count_s"),
+                    "bytes_per_device": res.get("bytes_per_device"),
+                    "mem_gib": res.get("bytes_per_device", 0) / 2 ** 30,
+                    "collectives_counted": res.get("collectives_counted"),
+                }
+            finally:
+                configs_mod.ARCHS[arch] = old
+        results.append(entry)
+        a = entry["analytical"]
+        print(f"[{cell}:{name}] compute={a['compute_s']:.3f}s "
+              f"memory={a['memory_s']:.3f}s coll={a['collective_s']:.3f}s "
+              f"dominant={a['dominant']} frac={a['roofline_frac']:.3f}"
+              + (f" mem/dev={entry['compiled']['mem_gib']:.1f}GiB"
+                 if compile_variants else ""), flush=True)
+
+    path = os.path.join(OUT_DIR, f"{cell}.json")
+    # verdicts: confirmed if the dominant term moved down against the last
+    # ACCEPTED iteration AND memory stayed feasible (under 1.5x the
+    # baseline's, as counted); refuted otherwise and rolled back
+    base_mem = results[0].get("compiled", {}).get("mem_gib")
+    accepted = results[0]
+    results[0]["verdict"] = "baseline"
+    for e in results[1:]:
+        a = e["analytical"]
+        dom = accepted["analytical"]["dominant"]
+        before = accepted["analytical"][f"{dom}_s"]
+        after = a[f"{dom}_s"]
+        mem = e.get("compiled", {}).get("mem_gib")
+        mem_ok = (mem is None or base_mem is None or mem < base_mem * 1.5)
+        if after < before * 0.98 and mem_ok:
+            e["verdict"] = "confirmed"
+            accepted = e
+        elif not mem_ok:
+            e["verdict"] = "refuted (memory blow-up; rolled back)"
+        else:
+            e["verdict"] = "refuted (no dominant-term win; rolled back)"
+        print(f"  {e['name']}: {dom} {before:.3f}s -> {after:.3f}s, "
+              f"mem {mem} GiB [{e['verdict']}]")
+    accepted["accepted_final"] = True
+    print(f"  ACCEPTED: {accepted['name']} "
+          f"(frac {accepted['analytical']['roofline_frac']:.3f})")
+    with open(path, "w") as f:
+        json.dump(results, f, indent=1, default=str)
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cell", choices=list(LADDERS) + ["all"], default="all")
+    ap.add_argument("--no-compile", action="store_true")
+    args = ap.parse_args(argv)
+    cells = list(LADDERS) if args.cell == "all" else [args.cell]
+    for c in cells:
+        run_cell(c, compile_variants=not args.no_compile)
+
+
+if __name__ == "__main__":
+    main()

@@ -34,10 +34,17 @@ takes the plain ``blockwise_attention`` there (the flash kernel has no
 backward), and ``remat`` recomputes each layer group (``remat_mode``
 "group") or each attention call ("attn_only"), and always the head with
 its cross-entropy, in the backward (``torch.utils.checkpoint``, where
-the reference has ``jax.checkpoint``).  Every ``remat_policy`` saves
-nothing inside the recomputed unit here: the policy chooses what the
-reference keeps, which moves memory, not a value.  ``forward`` and
-``decode_step`` are serving's and run under ``torch.no_grad()``.
+the reference has ``jax.checkpoint``).  A layer group's ``remat_policy``
+chooses what its recompute keeps (``_remat``): "nothing" keeps nothing,
+"dots" the outputs of the products with no batch dimension, and
+"save_moe_recv" the post-exchange tokens of ``nn.moe.moe_2d``.  A policy
+moves memory, FLOPs and wire bytes, never a value or a gradient.
+``forward`` and ``decode_step`` are serving's and run under
+``torch.no_grad()``.
+
+``SHAPES``, ``batch_specs`` and ``batch_axes`` are the reference's input
+cells for the dry run (``launch.dryrun``) and the roofline model
+(``roofline.flops_model``).
 """
 
 from __future__ import annotations
@@ -90,7 +97,7 @@ class LMConfig:
     dtype: str = "bfloat16"
     remat: bool = True
     remat_mode: str = "group"        # group | attn_only
-    remat_policy: str = "nothing"    # nothing | dots
+    remat_policy: str = "nothing"    # nothing | dots | save_moe_recv
     attn_chunk: int = 1024
     kv_quant: str | None = None      # None | int8 | int4
     moe_wire_dtype: str = "bfloat16"  # bfloat16 | int8
@@ -341,15 +348,61 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
     return x, aux, cache
 
 
-def _remat(fn):
+# The products with no batch dimension: ``x @ w`` of a (..., D) activation
+# and a (D, F) weight reaches the dispatcher as ``mm`` on the flattened
+# rows (the projections, the router, the head); the einsums of attention
+# and of the experts reach it as ``bmm``.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep every ``mm``'s output,
+    recompute the rest."""
+    if op in _DOTS:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_dots():
+    return torch_checkpoint.create_selective_checkpoint_contexts(
+        _dots_policy)
+
+
+_POLICY_CONTEXTS = {"dots": _save_dots,
+                    "save_moe_recv": moe.pinned_recv_contexts}
+
+
+def _remat(fn, policy: str = "nothing"):
     """``fn`` recomputed in the backward instead of keeping what it
-    saves (the reference's ``jax.checkpoint`` with nothing saveable);
-    called as it is where autograd records nothing."""
+    saves (the reference's ``jax.checkpoint``), under ``policy``:
+
+    * "nothing" keeps nothing (``nothing_saveable``);
+    * "dots" keeps the outputs of the products with no batch dimension
+      (``dots_with_no_batch_dims_saveable``), through
+      ``torch.utils.checkpoint.create_selective_checkpoint_contexts``:
+      the recompute replays them and recomputes the rest, the
+      collectives included;
+    * "save_moe_recv" keeps only ``nn.moe.moe_2d``'s post-exchange
+      tokens (``save_only_these_names("moe_xfull")``): the recompute
+      takes them as kept and issues neither the x-side ``all_to_all``
+      nor the all-gather (``nn.moe.pinned_recv_contexts``; a selective
+      policy could replay the tokens but would still run the exchange
+      that makes them).
+
+    Kept values are the bits the recompute would make, so no value or
+    gradient depends on the policy.  Called as it is where autograd
+    records nothing."""
+    contexts = _POLICY_CONTEXTS.get(policy)
+    if policy != "nothing" and contexts is None:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+
     @functools.wraps(fn)
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        kw = {} if contexts is None else {"context_fn": contexts}
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                           **kw)
     return run
 
 
@@ -520,7 +573,7 @@ def _features(params: dict, batch: dict, cfg: LMConfig, mesh):
         return x, aux_g
 
     if cfg.remat and cfg.remat_mode == "group":
-        group_fn = _remat(group_fn)
+        group_fn = _remat(group_fn, cfg.remat_policy)
     aux = None
     for gp in _groups(params["layers"], cfg.n_groups):
         x, aux_g = group_fn(x, gp)
@@ -635,7 +688,14 @@ def init_cache(cfg: LMConfig, batch: int, s_max: int, device=None) -> dict:
     f32 scales under ``kv_quant``; local attention: a ring of min(window,
     s_max) slots with ``slot_pos`` -1; recurrent blocks: their initial
     states."""
-    dev = device_lib.resolve(device)
+    return cache_on(cfg, batch, s_max, device_lib.resolve(device))
+
+
+def cache_on(cfg: LMConfig, batch: int, s_max: int, device) -> dict:
+    """``init_cache`` on ``device`` as given: also a fake CUDA device or
+    ``meta``, where the dry run (``launch.dryrun``) lays out a cache that
+    holds no data."""
+    dev = torch.device(device)
     cache = {}
     for j, kind in enumerate(cfg.pattern):
         one = _cache_spec_for(kind, cfg, batch, s_max, dev)
@@ -758,3 +818,59 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         x = _block_decode(kind, params[f"tail{j}"], x, cache[f"tail{j}"],
                           pos, cfg, mesh)
     return _logits(params, x, cfg)[:, 0], cache
+
+
+# ===========================================================================
+# Input cells (the dry run's stand-ins)
+# ===========================================================================
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+
+def batch_specs(cfg: LMConfig, shape_name: str,
+                batch_override: int | None = None,
+                seq_override: int | None = None, *,
+                device="meta") -> dict:
+    """Empty tensors standing for the data batch of a shape cell (the
+    reference's ``ShapeDtypeStruct``s: the same keys and shapes), on
+    ``device`` (``meta`` by default: shapes and dtypes, no storage).
+    Tokens, targets and positions are int64, the port's token dtype;
+    frames and patches f32, the loss mask int32."""
+    sh = SHAPES[shape_name]
+    b = batch_override or sh["batch"]
+    s = seq_override or sh["seq"]
+    f32, i32, tok = torch.float32, torch.int32, torch.int64
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    if sh["kind"] in ("train", "prefill"):
+        if cfg.frontend == "audio_frames":
+            return {"frames": empty((b, s, cfg.frontend_dim), f32),
+                    "targets": empty((b, s), tok),
+                    "loss_mask": empty((b, s), i32)}
+        if cfg.frontend == "vision_patches":
+            return {"tokens": empty((b, s - cfg.n_patches), tok),
+                    "patches": empty((b, cfg.n_patches, cfg.frontend_dim),
+                                     f32)}
+        return {"tokens": empty((b, s), tok)}
+    return {"tokens": empty((b, 1), tok), "pos": empty((b,), tok)}
+
+
+def batch_axes(cfg: LMConfig, shape_name: str) -> dict:
+    """The logical axes of each ``batch_specs`` leaf."""
+    sh = SHAPES[shape_name]
+    if sh["kind"] in ("train", "prefill"):
+        if cfg.frontend == "audio_frames":
+            return {"frames": ("batch", "seq", None),
+                    "targets": ("batch", "seq"), "loss_mask": ("batch", "seq")}
+        if cfg.frontend == "vision_patches":
+            return {"tokens": ("batch", "seq"),
+                    "patches": ("batch", None, None)}
+        return {"tokens": ("batch", "seq")}
+    return {"tokens": ("batch", None), "pos": ("batch",)}

@@ -64,7 +64,7 @@ def cim_linear(p: dict, x: torch.Tensor, code_bits: int = 5,
     if "b" in p:
         y = y + p["b"].float()
     scale = torch.clamp(torch.amax(torch.abs(y.detach())), min=1e-3)
-    cb = _nlq_codebook_on(code_bits, nlq_gamma, y.device)
+    cb = _on(_nlq_codebook_on, code_bits, nlq_gamma, y.device)
     y = ima_lib.ima_quantize_ste(f32math.div(y, scale), cb) * scale
     return y.to(x.dtype)
 
@@ -79,6 +79,16 @@ def _nlq_codebook_on(code_bits: int, gamma: float,
     cb = ima_lib.nlq_codebook(code_bits, -1.0, 1.0, gamma)
     return cb._replace(levels=cb.levels.to(device),
                        boundaries=cb.boundaries.to(device))
+
+
+def _on(cached, *args):
+    """``cached(*args)`` from its per-device cache, except under a fake
+    tensor mode (the dry run, ``launch.dryrun``), whose tensors hold no
+    data and must not reach a later real call: there it is built anew."""
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return cached.__wrapped__(*args)
+    return cached(*args)
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,7 +143,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 10000.0) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq)."""
     half = x.shape[-1] // 2
-    freqs = _rope_freqs_on(half, float(theta), x.device)
+    freqs = _on(_rope_freqs_on, half, float(theta), x.device)
     angles = positions[..., :, None, None].float() * freqs   # (..., S, 1, half)
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., :half], x[..., half:]

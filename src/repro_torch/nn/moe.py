@@ -15,7 +15,8 @@ a :class:`~repro_torch.launch.mesh.Mesh`:
   ``all_to_all``s over the expert axis, batched per-expert GEMMs;
 * ``moe_2d``: experts over the DP rows and their FFN width over the TP
   axis (the 1T-scale path), optionally with an int8 wire
-  (``_wire_quantize``);
+  (``_wire_quantize``); its post-exchange tokens are what the LM's
+  "save_moe_recv" remat policy keeps (``pinned_recv_contexts``);
 * ``moe_dense_ep`` / ``moe_dense_ep_2d``: the decode shapes, every local
   expert on every local token, combined with a ``psum``.
 
@@ -41,6 +42,7 @@ Gumbel sample from a key, the port takes the sample as a tensor.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -319,6 +321,74 @@ def _wire_dequantize(q, scale, dtype):
     return (q.float() * scale).to(dtype)
 
 
+# The post-exchange tokens of ``moe_2d`` under ``remat_policy``
+# "save_moe_recv" (the reference's ``checkpoint_name(x_full,
+# "moe_xfull")`` under ``save_only_these_names``): while a checkpointed
+# forward runs, ``_pins`` is ("keep", kept) and each exchange appends its
+# result to ``kept``; while its recompute runs, ("replay", kept) and each
+# exchange takes the next kept result instead of issuing its collectives.
+_pins: tuple[str, list] | None = None
+
+
+@contextlib.contextmanager
+def _pinning(mode: str, kept: list):
+    global _pins
+    outer, _pins = _pins, (mode, kept)
+    try:
+        yield
+    finally:
+        _pins = outer
+
+
+def pinned_recv_contexts():
+    """The two contexts of ``torch.utils.checkpoint``'s ``context_fn``
+    for "save_moe_recv": the forward keeps ``moe_2d``'s post-exchange
+    tokens, and the recompute takes them in the same order.  The kept
+    tokens are the recompute's own bits, so nothing computed changes;
+    the x-side ``all_to_all`` and all-gather leave the recompute (their
+    transposes still run in the backward)."""
+    kept: list = []
+    return _pinning("keep", kept), _pinning("replay", kept)
+
+
+class _Kept(torch.autograd.Function):
+    """A kept post-exchange tensor in the recompute, with the backward
+    of the exchange that made it: the all-gather's transpose
+    (``psum_scatter`` over ``tp_axes``), then the ``all_to_all``'s
+    (dims swapped)."""
+
+    @staticmethod
+    def forward(ctx, x_send, kept, mesh, eaxes, tp_axes):
+        ctx.args = (mesh, eaxes, tp_axes)
+        return kept.view_as(kept)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, eaxes, tp_axes = ctx.args
+        if tp_axes:
+            g = col._scatter(g, mesh, tp_axes, 1)
+        if eaxes:
+            g = col._exchange(g, mesh, eaxes, 1, 0)
+        return g, None, None, None, None
+
+
+def _exchanged(x_send: torch.Tensor, mesh, eaxes, tp_axis) -> torch.Tensor:
+    """``moe_2d``'s x-side exchange: (E, C, D) sent over ``eaxes`` with
+    ``all_to_all``, then gathered over ``tp_axis`` -> (E_loc, R*C*tp,
+    D), kept or replayed under "save_moe_recv" (``_pins``)."""
+    if _pins is not None and _pins[0] == "replay":
+        kept = _pins[1].pop(0)
+        if not x_send.is_floating_point():
+            return kept
+        return _Kept.apply(x_send, kept, mesh, mesh.axes(eaxes),
+                           mesh.axes(tp_axis))
+    x_full = col.all_gather(col.all_to_all(x_send, mesh, eaxes, 0, 1),
+                            mesh, tp_axis, 1)
+    if _pins is not None:
+        _pins[1].append(x_full.detach())
+    return x_full
+
+
 def moe_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
            activation: str = "silu", capacity_factor: float = 1.25,
            expert_axes=("pod", "data"), tp_axis: str = "model",
@@ -360,14 +430,11 @@ def moe_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
     if wire_dtype == "int8":
         # quantised once: int8 through the exchange and the TP gather
         xq, xscale = _wire_quantize(x_send)
-        xq = col.all_gather(col.all_to_all(xq, mesh, eaxes, 0, 1),
-                            mesh, tp_axis, 1)
-        xscale = col.all_gather(col.all_to_all(xscale, mesh, eaxes, 0, 1),
-                                mesh, tp_axis, 1)
-        x_full = _wire_dequantize(xq, xscale, x_send.dtype)
+        x_full = _wire_dequantize(_exchanged(xq, mesh, eaxes, tp_axis),
+                                  _exchanged(xscale, mesh, eaxes, tp_axis),
+                                  x_send.dtype)
     else:
-        x_recv = col.all_to_all(x_send, mesh, eaxes, 0, 1)   # (E_loc, R*C, D)
-        x_full = col.all_gather(x_recv, mesh, tp_axis, 1)
+        x_full = _exchanged(x_send, mesh, eaxes, tp_axis)  # (E_loc, R*C*tp, D)
     act = layers.ACTIVATIONS[activation]
     h = act(torch.matmul(x_full, w_in.to(x_full.dtype)))
     g = torch.matmul(x_full, w_gate.to(x_full.dtype))

@@ -36,3 +36,11 @@ _RULES_2D = {"experts": ("pod", "data"), "expert_ffn": "model",
 HELD = {"a2a": ("a2a_cf125", None), "2d": ("2d_cf125", _RULES_2D),
         "dense_ep": ("dense_ep", None), "dense_ep_2d": ("dense_ep_2d",
                                                         _RULES_2D)}
+
+# The dry run against real ranks: reduced kimi-k2 (2D EP) and a reduced
+# dense config, remat on, one train step of a (DRY_B, DRY_S) batch and
+# one decode step against DRY_S_MAX slots, on the (2, 4) mesh; the remat
+# policies on the same loss
+DRY_ARCHS = ("kimi-k2-1t-a32b", "qwen2.5-32b")
+DRY_B, DRY_S, DRY_S_MAX = 4, 8, 16
+POLICIES = ("nothing", "dots", "save_moe_recv")

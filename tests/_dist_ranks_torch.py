@@ -3,12 +3,16 @@
 
     python tests/_dist_ranks_torch.py moe IN.npz OUT.npz   # 8 ranks
     python tests/_dist_ranks_torch.py gpipe IN.npz OUT.npz # 2 ranks
+    python tests/_dist_ranks_torch.py dryrun - OUT.npz     # 8 ranks
 
 Spawns the ranks on a TCP store at a free port of 127.0.0.1 (each with
 one thread: the suite runs under ``pytest -n``), reads the operands the
 JAX script wrote, runs the port's counterpart of every case through a
 :class:`repro_torch.launch.mesh.Mesh`, and writes rank 0's results (and
-every rank's routing) under the reference's keys.
+every rank's routing) under the reference's keys.  ``dryrun`` needs no
+input: it counts rank 0's train and decode steps of ``R.DRY_ARCHS``
+(``launch.dryrun.count``) and runs ``loss_fn`` under each remat policy,
+for ``test_torch_dryrun.py``.
 """
 
 import os
@@ -24,11 +28,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
 
+import dataclasses  # noqa: E402
+
 import _dist_cases as R  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
-from repro_torch.dist import pipeline  # noqa: E402
+from repro_torch.dist import collectives, pipeline  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import (Mesh, make_host_mesh,  # noqa: E402
                                      make_production_mesh)
 from repro_torch.models import lm  # noqa: E402
@@ -284,6 +291,75 @@ def _lm_cases(z, mesh, arch, ckpt_dir) -> dict:
             for k, v in out.items()}
 
 
+def dry_config(arch: str, policy: str = "nothing"):
+    return dataclasses.replace(base.reduced(configs.ARCHS[arch]), remat=True,
+                               remat_policy=policy)
+
+
+def _tally_keys(prefix: str, tally) -> dict:
+    return {**{f"{prefix}/{k}_bytes": np.int64(v)
+               for k, v in tally.bytes.items()},
+            **{f"{prefix}/{k}_count": np.int64(v)
+               for k, v in tally.count.items()}}
+
+
+def _dry_cases(mesh) -> dict:
+    """Rank 0's counts of a train step and a decode step of each reduced
+    config on its blocks of seeded parameters; ``loss_fn``'s loss and
+    gradient blocks under each remat policy, and the collectives of its
+    forward and backward."""
+    out = {}
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, 100, (R.DRY_B, R.DRY_S), generator=g)
+    dec = torch.randint(0, 100, (R.DRY_B, 1), generator=g)
+    pos = torch.full((R.DRY_B,), R.DRY_S, dtype=torch.int64)
+    for arch in R.DRY_ARCHS:
+        cfg = dry_config(arch)
+        specs = lm.param_specs(cfg)
+        full = module.materialize(specs, torch.Generator().manual_seed(1),
+                                  device="cpu")
+        params = module.local_params(full, specs, mesh,
+                                     cfg.sharding_overrides)
+        step, args, _, _ = dryrun.build(cfg, "train_4k", mesh, "cpu",
+                                        n_micro=1, batch=R.DRY_B,
+                                        seq=R.DRY_S, params=params)
+        counts, _ = dryrun.count(step, params, args[1],
+                                 {"tokens": tokens[None]})
+        out[f"train/{arch}/flops"] = np.int64(counts["flops"])
+        out.update(_tally_keys(f"train/{arch}", counts["tally"]))
+        step, args, _, _ = dryrun.build(cfg, "decode_32k", mesh, "cpu",
+                                        batch=R.DRY_B, seq=R.DRY_S_MAX,
+                                        params=params)
+        counts, _ = dryrun.count(step, params, args[1], dec, pos)
+        out[f"decode/{arch}/flops"] = np.int64(counts["flops"])
+        out.update(_tally_keys(f"decode/{arch}", counts["tally"]))
+        first = None
+        for policy in R.POLICIES:
+            pcfg = dry_config(arch, policy)
+            live = module.tree_map(lambda t: t.clone().requires_grad_(),
+                                   params)
+            flat = module.leaves(live)
+            with collectives.wire_tally() as tally:
+                loss, _ = lm.loss_fn(live, {"tokens": tokens}, pcfg,
+                                     mesh=mesh)
+                grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            got = [loss.detach()] + [torch.zeros(()) if t is None else t
+                                     for t in grads]
+            if first is None:
+                first = got
+            out[f"remat/{arch}/{policy}/equal"] = np.array(all(
+                torch.equal(a, b) for a, b in zip(got, first)))
+            out[f"remat/{arch}/{policy}/loss"] = loss.detach().numpy()
+            out.update(_tally_keys(f"remat/{arch}/{policy}", tally))
+    # the pipeline's ring shift over "pod": a collective-permute of what
+    # each rank receives
+    ring = Mesh((2, R.TP), ("pod", "model"))
+    with collectives.wire_tally() as tally:
+        pipeline._ring(torch.ones(3, 4), ring, "pod")
+    out.update(_tally_keys("ring", tally))
+    return out
+
+
 def _gpipe_case(z, mesh) -> dict:
     params = _tree(z, "in/params")
     x_mb = torch.from_numpy(z["in/x_mb"])
@@ -300,6 +376,12 @@ def _worker(rank: int, world: int, port: int, what: str, src: str,
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:
+        if what == "dryrun":
+            res = _dry_cases(Mesh((2, R.TP), ("data", "model")))
+            if rank == 0:
+                np.savez(dst, **res)
+            dist.barrier()
+            return
         z = np.load(src)
         if what == "moe":
             mesh = Mesh((2, R.TP), ("data", "model"))
@@ -328,7 +410,7 @@ def _worker(rank: int, world: int, port: int, what: str, src: str,
 
 
 def main(what: str, src: str, dst: str) -> None:
-    world = 8 if what == "moe" else 2
+    world = 8 if what in ("moe", "dryrun") else 2
     mp.start_processes(_worker, args=(world, _free_port(), what, src, dst),
                        nprocs=world, join=True, start_method="spawn")
 

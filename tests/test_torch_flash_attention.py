@@ -159,10 +159,32 @@ def test_wrapper_raises_when_an_input_requires_grad():
     assert out.shape == (1, 8, 16)
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor that reports a device the port does not run on."""
+
+    @staticmethod
+    def __new__(cls, shape, device):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=torch.float32, device=device)
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} ran on a tensor of no device")
+
+
 def test_wrapper_takes_only_cpu_or_cuda_tensors():
-    q = torch.zeros((1, 8, 16), device="meta")
+    """CPU tensors run the plain version, CUDA tensors the kernel; a
+    ``meta`` tensor (the dry run's, ``launch.dryrun``) goes where a CUDA
+    one goes, to the kernel's custom op, whose fake implementation
+    launches nothing; any other device raises."""
+    q = _OtherDevice((1, 8, 16), torch.device("xpu"))
     with pytest.raises(ValueError, match="unsupported device"):
         t_flash.flash_attention_fwd(q, q, q)
+    before = t_flash.flash_attention_fwd.launches
+    m = torch.zeros((1, 8, 16), device="meta")
+    out = t_flash.flash_attention_fwd(m, m, m)
+    assert out.is_meta and out.shape == (1, 8, 16)
+    assert t_flash.flash_attention_fwd.launches == before
 
 
 def test_plain_version_is_the_wrapper_on_cpu():

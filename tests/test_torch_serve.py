@@ -250,7 +250,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
 
 
-def test_entry_points_do_not_fall_back_to_cpu():
+def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     _, tcfg, _, tp = _setup()
@@ -294,8 +294,18 @@ def test_entry_points_do_not_fall_back_to_cpu():
             t_serve.main(["--smoke", "--arch", arch])
     # lm.forward and lm.decode_step run where their tensors are (params
     # from materialize, caches from init_cache); off the CPU the forward's
-    # attention launches the kernel or raises, never the plain version
+    # attention launches the kernel, or on ``meta`` (the dry run's tensors
+    # without data) runs the kernel's custom op's fake implementation:
+    # never the plain version, and no launch
+    from repro_torch.kernels import flash_attention, ref
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(ref, "flash_attention_ref", plain)
+    before = flash_attention.flash_attention_fwd.launches
     meta = t_module.tree_map(lambda t: t.to("meta"), lp)
-    with pytest.raises(ValueError, match="unsupported device meta"):
-        t_lm.forward(meta, {"tokens": torch.zeros((1, 4), dtype=torch.long,
-                                                  device="meta")}, lcfg)
+    logits, _ = t_lm.forward(meta, {"tokens": torch.zeros(
+        (1, 4), dtype=torch.long, device="meta")}, lcfg)
+    assert logits.is_meta
+    assert flash_attention.flash_attention_fwd.launches == before
