@@ -265,11 +265,14 @@ Phases (any failure raises, so the exit code is non-zero):
    kernel path beside it on the same batches);
 11. the mesh path (``mesh_phase``): a one-rank process group
    (``cpu:gloo,cuda:nccl`` on a free TCP port of 127.0.0.1, destroyed at
-   the end) and ``make_host_mesh()``; reduced kimi-k2 and arctic (f32)
-   through ``mesh=``: ``lm.forward`` (logits, aux, every router's
-   experts), ``loss_fn`` with its gradients, a prefill and three decode
-   steps on the card against the same calls on the CPU (within 1e-5,
-   the gradient leaves within ``LEAF_TOL`` of their largest magnitude);
+   the end) and ``make_host_mesh()``; reduced kimi-k2, arctic and
+   qwen2.5 (f32) through the partitioned entry points (the rank's rows
+   of the batch by ``blocks_like``, ``pad_cache(mesh=)``, decode under
+   the rank's ``nn.module.plan``): ``lm.forward`` (logits, aux, every
+   router's experts), ``loss_fn`` with its gradients, a prefill, three
+   decode steps and a two-slot ``BatchedEngine(mesh=)`` on the card
+   against the same calls on the CPU (within 1e-5, the gradient leaves
+   within ``LEAF_TOL`` of their largest magnitude, the tokens equal);
    then at full width in bf16 (kimi-k2 cut to 1 layer, arctic to 2, as
    in phase 7): a prefill of 1 x 1024 through ``moe_2d`` (flash launched
    once a layer, the counters zeroed around it) and 4 decode steps at
@@ -297,9 +300,15 @@ Phases (any failure raises, so the exit code is non-zero):
    counters zeroed around it), its counted FLOPs and #9's share (the
    custom op's FLOP formula) equal on the card, fake CUDA and ``meta``;
    and the part that needs no card, run in a subprocess started after
-   the build (``roofline_host``): the dry run of smollm-135m x train_4k
-   and kimi-k2-1t-a32b x decode_32k on rank 0 of the 16 x 16 fake mesh,
-   each cell's counted FLOPs, wire and bytes beside the model's, the
+   the build (``roofline_host``): the dry run of the partitioned step
+   (each rank its rows of the batch, its heads, FFN units, vocabulary
+   and cache slots) of kimi-k2-1t-a32b x decode_32k, smollm-135m x
+   train_4k, and qwen2.5-32b and nemotron-4-340b x train_4k (in one
+   microbatch) on rank 0 of the 16 x 16 fake mesh, each cell's counted
+   FLOPs, wire and bytes beside the model's; smollm's and kimi's share
+   within ``ROOF_LIMITS`` (printed beside ``ROOF_WHOLE``, their counts
+   when every rank held the whole batch and cache), qwen2.5's and
+   nemotron's FLOPs within ``ROOF_MODEL_BAND`` of the model's; the
    three ladders analytically and ``run_cell("qwen")`` with each
    variant's dry run (``chiprun_out/perf_results_torch/``).
 
@@ -4792,6 +4801,9 @@ def experiments_phase(dev) -> dict:
 MESH_ARCHS = (("kimi-k2-1t-a32b", 1), ("arctic-480b", 2))
 MESH_PREFILL, MESH_DECODE, MESH_NODROP = (1, 1024), 4, 256
 MESH_REDUCED_SEQ, MESH_REDUCED_DECODE = 16, 3
+# the reduced configs through the partitioned entry points: the MoE paths
+# and a dense one (qwen2.5: GQA, FSDP leaves, QKV bias)
+MESH_REDUCED_ARCHS = ("kimi-k2-1t-a32b", "arctic-480b", "qwen2.5-32b")
 # the no-drop comparison: each path within this share of moe_ref's
 # largest output magnitude (one expert's gated share of a token's output
 # is about a tenth of it at full width), and within BF16_TOL
@@ -4806,10 +4818,14 @@ def _free_port() -> int:
 
 
 def _mesh_reduced(arch: str, mesh, dev) -> dict:
-    """Reduced (f32) through ``mesh=``: forward, ``loss_fn`` with its
-    gradients, a prefill and three decode steps, on the card against the
-    same calls on the CPU (the collectives of the CPU's tensors on
-    gloo, of the card's on NCCL)."""
+    """Reduced (f32) through the partitioned entry points: the rank's
+    rows of the batch (``blocks_like`` of ``batch_axes``), forward,
+    ``loss_fn`` with its gradients, a prefill, its cache laid out for
+    decode (``pad_cache(mesh=)``) and three decode steps under the
+    rank's plan (``nn.module.plan`` with the cache's slots), and a
+    ``BatchedEngine(mesh=)``, on the card against the same calls on the
+    CPU (the collectives of the CPU's tensors on gloo, of the card's on
+    NCCL)."""
     cfg = config_base.reduced(configs.get_config(arch))
     p_cpu = nn_module.materialize(lm.param_specs(cfg),
                                   torch.Generator().manual_seed(SEED + 70),
@@ -4817,10 +4833,16 @@ def _mesh_reduced(arch: str, mesh, dev) -> dict:
     rs = np.random.RandomState(SEED + 71)
     toks = rs.randint(0, cfg.vocab_size, (2, MESH_REDUCED_SEQ))
     dec = rs.randint(0, cfg.vocab_size, (2, MESH_REDUCED_DECODE))
+    prompts = [rs.randint(0, cfg.vocab_size, n).tolist() for n in (3, 5)]
+    s_max = MESH_REDUCED_SEQ + MESH_REDUCED_DECODE
+    plan = nn_module.plan(mesh, cfg.sharding_overrides, batch=2,
+                          cache_len=s_max)
 
     def run(d):
         params = nn_module.tree_map(lambda t: t.to(d), p_cpu)
-        batch = {"tokens": torch.from_numpy(toks).to(d)}
+        batch = nn_module.blocks_like(
+            {"tokens": torch.from_numpy(toks).to(d)},
+            lm.batch_axes(cfg, "train_4k"), mesh, lm.input_rules(cfg))
         routes: list = []
         with _Routing(routes):
             logits, aux = lm.forward(params, batch, cfg, mesh=mesh)
@@ -4833,18 +4855,23 @@ def _mesh_reduced(arch: str, mesh, dev) -> dict:
                  for q, g in zip(flat, grads)]
         last, _, cache = lm.forward(params, batch, cfg, prefill=True,
                                     mesh=mesh)
-        cache = lm.pad_cache(cache, cfg,
-                             MESH_REDUCED_SEQ + MESH_REDUCED_DECODE)
+        cache = lm.pad_cache(cache, cfg, s_max, mesh=mesh,
+                             seq=MESH_REDUCED_SEQ)
         steps = []
         for i in range(MESH_REDUCED_DECODE):
             lg, cache = lm.decode_step(
                 params, cache, torch.from_numpy(dec[:, i:i + 1]).to(d),
                 torch.full((2,), MESH_REDUCED_SEQ + i, device=d), cfg,
-                mesh=mesh)
+                mesh=plan)
             steps.append(lg)
+        eng = engine_lib.BatchedEngine(cfg, params, batch_slots=2,
+                                       s_max=s_max, mesh=mesh, device=d)
+        for uid, pr in enumerate(prompts):
+            eng.submit(engine_lib.Request(uid, pr, 4))
+        tokens = {r.uid: r.generated for r in eng.run()}
         return {"logits": logits, "aux": aux, "loss": loss.detach(),
                 "grads": grads, "last": last, "steps": steps,
-                "routes": routes}
+                "routes": routes, "engine": tokens}
 
     reset_counts()
     card = run(dev)
@@ -4862,12 +4889,14 @@ def _mesh_reduced(arch: str, mesh, dev) -> dict:
                                                            cpu["steps"])),
            "routes_equal": len(card["routes"]) == len(cpu["routes"]) and all(
                torch.equal(g, w) for g, w in zip(card["routes"],
-                                                 cpu["routes"]))}
+                                                 cpu["routes"])),
+           "engine_equal": card["engine"] == cpu["engine"]}
     # one flash launch a layer in the forward and one in the prefill;
     # none under autograd (the plain attention) or in decode
     if not (max(res[k] for k in ("logits", "prefill", "decode")) <= 1e-5
             and res["aux"] <= 1e-6 and res["loss"] <= LOSS_RTOL
             and res["grads"] <= LEAF_TOL and res["routes_equal"]
+            and res["engine_equal"]
             and not any(others.values()) and flash == 2 * cfg.n_layers):
         raise AssertionError(f"reduced {arch} through the mesh on the card "
                              f"against the CPU: {res}, others {others}")
@@ -4875,7 +4904,8 @@ def _mesh_reduced(arch: str, mesh, dev) -> dict:
         f"CPU: logits {res['logits']:.3g}, aux {res['aux']:.3g}, loss "
         f"{res['loss']:.3g}, grads {res['grads']:.3g} (tol {LEAF_TOL}), "
         f"prefill {res['prefill']:.3g}, 3 decode steps {res['decode']:.3g}, "
-        f"{len(cpu['routes'])} routings equal; {flash} flash launches")
+        f"{len(cpu['routes'])} routings equal, the engine's tokens equal; "
+        f"{flash} flash launches")
     return res
 
 
@@ -5076,7 +5106,7 @@ def mesh_phase(dev, smi: str) -> dict:
         mesh = mesh_lib.make_host_mesh()
         res = {"mesh": dict(mesh.shape),
                "reduced": {arch: _mesh_reduced(arch, mesh, dev)
-                           for arch, _ in MESH_ARCHS},
+                           for arch in MESH_REDUCED_ARCHS},
                "full": {arch: _mesh_full(arch, n, mesh, dev, smi)
                         for arch, n in MESH_ARCHS}}
     finally:
@@ -5092,9 +5122,25 @@ def mesh_phase(dev, smi: str) -> dict:
 
 # --- phase 12: the roofline model, the dry run and the ladders ---------------
 
-# the dry run's cells on the single-pod fake mesh, on the host; the card's
-# train step (phase 8's 8 x 2048) and prefill at world 1
-ROOF_CELLS = (("smollm-135m", "train_4k"), ("kimi-k2-1t-a32b", "decode_32k"))
+# the dry run's cells on the single-pod fake mesh, on the host, with the
+# microbatches of a train cell (None: the cell's own); the card's train
+# step (phase 8's 8 x 2048) and prefill at world 1.  A FLOP count does
+# not depend on the microbatches, so qwen2.5 and nemotron are counted in
+# one.
+ROOF_CELLS = (("kimi-k2-1t-a32b", "decode_32k", None),
+              ("smollm-135m", "train_4k", None),
+              ("qwen2.5-32b", "train_4k", 1),
+              ("nemotron-4-340b", "train_4k", 1))
+# what one rank of the partitioned step may count (FLOPs, bytes a device),
+# and what it counted when every rank held the whole batch and the whole
+# cache (the same dry run of the step before it was partitioned)
+ROOF_LIMITS = {"smollm-135m__train_4k": (1.134e14, 6.5e9),
+               "kimi-k2-1t-a32b__decode_32k": (1.4e12, 80e9)}
+ROOF_WHOLE = {"smollm-135m__train_4k": (1.81461e15, 52.2e9),
+              "kimi-k2-1t-a32b__decode_32k": (1.12067e13, 1.01e12)}
+# the counted FLOPs of these cells against the model's per device
+ROOF_MODEL_BAND = {"qwen2.5-32b__train_4k": (0.5, 2.5),
+                   "nemotron-4-340b__train_4k": (0.5, 2.5)}
 ROOF_TRAIN, ROOF_PREFILL = (8, 2048), (1, 4096)
 ROOF_HOST_TIMEOUT_S = 900
 ROOF_BAND = (0.65, 1.5)         # the model against counted FLOPs
@@ -5111,9 +5157,9 @@ def roofline_host(out: str) -> None:
     from repro_torch.launch import dryrun, hillclimb
     torch.set_num_threads(1)
     res: dict = {"cells": {}, "ladders": {}}
-    for arch, shape in ROOF_CELLS:
+    for arch, shape, n_micro in ROOF_CELLS:
         t0 = time.perf_counter()
-        r = dryrun.lower_cell(arch, shape, False)
+        r = dryrun.lower_cell(arch, shape, False, n_micro=n_micro)
         r["seconds"] = time.perf_counter() - t0
         res["cells"][f"{arch}__{shape}"] = r
         print(f"dry run {arch} x {shape}: {r['seconds']:.1f} s", flush=True)
@@ -5314,6 +5360,32 @@ def roofline_phase(dev, smi: str, host) -> dict:
         if not (c["flops"] > 0 and c["argument_size_in_bytes"] > 0
                 and c["n_devices"] == 256 and "collectives_counted" in c):
             raise AssertionError(f"phase 12: dry run {tag}: {c}")
+        ratio = c["flops"] / m["flops_per_device"]
+        if tag in ROOF_LIMITS:
+            flops, nbytes = ROOF_LIMITS[tag]
+            whole_f, whole_b = ROOF_WHOLE[tag]
+            ok = c["flops"] <= flops and c["bytes_per_device"] <= nbytes
+            log(f"phase 12, dry run {tag}, a rank's share: "
+                f"{c['flops']:.6g} FLOPs (limit {flops:.4g}; every rank "
+                f"the whole batch and cache: {whole_f:.6g}), "
+                f"{c['bytes_per_device'] / 1e9:.4g} GB a device (limit "
+                f"{nbytes / 1e9:.4g}; whole: {whole_b / 1e9:.4g}), "
+                f"{ratio:.4g} x the model's FLOPs; rows "
+                f"{c.get('batch_block')}, cache slots "
+                f"{c.get('cache_slots', '-')}")
+            if not ok:
+                raise AssertionError(f"phase 12: dry run {tag} over its "
+                                     f"limits: {c['flops']} FLOPs, "
+                                     f"{c['bytes_per_device']} B")
+        if tag in ROOF_MODEL_BAND:
+            lo, hi = ROOF_MODEL_BAND[tag]
+            log(f"phase 12, dry run {tag}: counted {c['flops']:.6g} FLOPs "
+                f"a rank, {ratio:.4f} x the model's "
+                f"{m['flops_per_device']:.6g} (band {lo}-{hi}); heads "
+                f"whole on every rank of \"model\": {c.get('heads_whole')}")
+            if not lo <= ratio <= hi:
+                raise AssertionError(f"phase 12: dry run {tag}: {ratio} x "
+                                     f"the model's FLOPs")
         log(f"phase 12, dry run {tag} on rank 0 of {c['mesh']} ("
             f"{c['device']}), {c['seconds']:.1f} s: counted FLOPs "
             f"{c['flops']:.6g} (model {m['flops_per_device']:.6g}), wire "

@@ -182,6 +182,122 @@ def psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _PSum.apply(x, mesh, axes)
 
 
+# Megatron's conjugate pairs, for a value that every rank of ``axes``
+# holds alike (the activations of a data-parallel row) and whose
+# cotangent each of them holds whole: ``copy_to`` enters a region whose
+# ranks each compute a part (the identity, its backward a ``psum`` of the
+# parts' cotangents), ``reduce_from`` leaves one (a ``psum``, its
+# backward the identity); ``gather_from`` joins the ranks' blocks into
+# the value every rank then uses alike (its backward keeps this rank's
+# block of the whole cotangent) and ``split_to`` cuts it (its backward
+# gathers the blocks' cotangents).
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _block_of(x, mesh, axes, dim):
+    n = x.shape[dim] // mesh.axis_size(axes)
+    return x.narrow(dim, mesh.axis_index(axes) * n, n)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block_of(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(), \
+            None, None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _block_of(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def _live(mesh, axes) -> tuple[str, ...]:
+    """``axes`` in mesh order without those of size 1 (a collective over
+    them changes nothing)."""
+    return tuple(a for a in _ordered(mesh, axes) if mesh.shape[a] > 1)
+
+
+def copy_to(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    axes = _live(mesh, axes)
+    if not axes or not torch.is_grad_enabled():
+        return x
+    return _CopyTo.apply(x, mesh, axes)
+
+
+def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    axes = _live(mesh, axes)
+    if not axes:
+        return x
+    if not x.requires_grad:
+        return _psum(x, mesh, axes)
+    return _ReduceFrom.apply(x, mesh, axes)
+
+
+def gather_from(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    axes = _live(mesh, axes)
+    if not axes:
+        return x
+    if not x.requires_grad:
+        return _gather(x, mesh, axes, dim % x.ndim)
+    return _GatherFrom.apply(x, mesh, axes, dim % x.ndim)
+
+
+def split_to(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    axes = _live(mesh, axes)
+    if not axes:
+        return x
+    if x.shape[dim] % mesh.axis_size(axes):
+        raise ValueError(f"split_to: dim {dim} of {tuple(x.shape)} does "
+                         f"not split over {axes}")
+    if not x.requires_grad:
+        return _block_of(x, mesh, axes, dim % x.ndim)
+    return _SplitTo.apply(x, mesh, axes, dim % x.ndim)
+
+
+def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max over the ranks of ``axes``, outside autograd
+    (a softmax's shift, whose gradient cancels)."""
+    axes = _live(mesh, axes)
+    x = x.detach()
+    if not axes:
+        return x
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+    if _tally is not None:
+        _tally.add("all-reduce", y)
+    return y
+
+
 def replicate(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Every rank of ``axes`` takes the bits of the one at index 0, for
     a value they all computed as the same function of the same inputs

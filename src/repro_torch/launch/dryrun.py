@@ -15,13 +15,23 @@ over it, and runs the step the card would run:
 * ``decode_32k`` / ``long_500k``: ``serve.engine.build_serve_step``, one
   token against a cache of ``s_max`` slots.
 
-The state is this rank's: its block of every parameter leaf under the
-config's sharding rules (``nn.module.param_layout``) in the
-compute dtype, the AdamW moments of those blocks (``opt_profile``), and
-the batch.  The port's mesh entry points take the whole batch on every
-rank and cut each rank's tokens inside (``shard_map``'s edges),
-so each rank holds the whole batch of ``models.lm.batch_specs``; the
-reference gives each device its share per ``batch_axes``.  The tensors
+The state is this rank's, as the reference's ``in_shardings`` give each
+device its share: its block of every parameter leaf under the config's
+sharding rules (``nn.module.param_layout``) in the compute dtype, the
+AdamW moments of those blocks (``opt_profile``), its rows of the batch
+(``models.lm.batch_axes``: the rows over the mesh's "batch" axes where
+the global batch divides over them, the sequence whole, as
+``lm.input_rules`` has it) and its block of the decode cache
+(``models.lm.cache_axes``: the rows likewise, the slots over "model").
+The step is the port's partitioned step on them (``models.lm``'s
+``mesh=``: each rank computes its share of the batch, heads, FFN,
+vocabulary and cache).  The record says how the cell was cut:
+``batch_block`` (the rows a rank holds and the axes they split over;
+none where the batch does not divide, and every rank then holds it
+whole), ``cache_slots`` (a rank's slots of the cache) and
+``heads_whole`` (true where every rank of "model" computes every head:
+the q projection's block over "model" cuts a head, or the rules leave
+the heads whole; none without attention).  The tensors
 are fake CUDA tensors (``FakeTensorMode``) where torch is built with
 CUDA: they hold no data, allocate nothing, and every kernel wrapper on
 the path takes them as the card's (#9's custom op runs its fake
@@ -51,10 +61,10 @@ What is counted (``count``), per device per step:
 
 The primary ``roofline`` is ``roofline.flops_model.analyze``, as in the
 reference.  Rank 0 is counted.  It stands for every rank: the blocks of
-the layout are even, the dense layers run whole on every rank, and each
-expert-parallel path pads its dispatch to its capacity, so every rank
-runs the same ops on tensors of the same shapes and issues the same
-collectives.
+the layout and of the batch are even, every rank of "model" runs its
+share of the same products, and each expert-parallel path pads its
+dispatch to its capacity, so every rank runs the same ops on tensors of
+the same shapes and issues the same collectives.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
@@ -179,43 +189,69 @@ def abstract_params(cfg: lm.LMConfig, mesh, device) -> dict:
         device=device), specs, layout)
 
 
+def _cut(cfg: lm.LMConfig, plan, b: int, s: int) -> dict:
+    """How a cell is cut on ``plan``'s mesh (module doc)."""
+    if plan is None:
+        return {}
+    tp = plan.tp_size
+    cols = cfg.n_heads * cfg.hd
+    q_spec = module.partition_spec((cfg.d_model, cols), ("embed", "heads"),
+                                   plan.mesh, cfg.sharding_overrides)
+    q_cut = len(q_spec) > 1 and q_spec[1] is not None and tp > 1
+    attends = any(k in ("attn", "attn_local") for k in cfg.pattern)
+    n_dp = plan.mesh.axis_size(plan.dp) if plan.dp else 1
+    slots = module.partition_spec((b, s), ("batch", "cache_seq"),
+                                  plan.mesh, cfg.sharding_overrides)
+    return {"batch_block": {"rows": b // n_dp, "axes": list(plan.dp)},
+            "cache_slots": s // tp if len(slots) > 1 and slots[1] else s,
+            "heads_whole": (not (q_cut and cfg.n_heads % tp == 0)
+                            if attends else None)}
+
+
 def build(cfg: lm.LMConfig, shape: str, mesh, device, *,
           n_micro: int | None = None, batch: int | None = None,
           seq: int | None = None, params=None):
     """The step of a cell on empty tensors of ``device``: (step, its
-    arguments, the result's extra keys, tokens a step).  ``batch`` /
-    ``seq`` override the cell's; ``params`` are the rank's blocks where
-    the caller has them (else ``abstract_params``)."""
+    arguments, the result's extra keys, tokens a step).
+    ``batch`` / ``seq`` override the cell's (the global batch);
+    ``params`` are the rank's blocks where the caller has them (else
+    ``abstract_params``).  Under a ``mesh`` the batch and the cache are
+    this rank's share (module doc)."""
     sh = lm.SHAPES[shape]
     b, s = batch or sh["batch"], seq or sh["seq"]
     if params is None:
         params = abstract_params(cfg, mesh, device)
-    data = lm.batch_specs(cfg, shape, b, s, device=device)
+    plan = module.plan(mesh, cfg.sharding_overrides, batch=b,
+                       cache_len=s if sh["kind"] == "decode" else None)
+    b_loc = b // (mesh.axis_size(plan.dp) if plan and plan.dp else 1)
+    data = lm.batch_specs(cfg, shape, b_loc, s, device=device)
+    extra = _cut(cfg, plan, b, s)
     if sh["kind"] == "train":
         ocfg, grad_dtype = opt_profile(cfg)
         nm = n_micro or n_micro_for(cfg, shape, mesh)
         data = train_loop.microbatch(data, nm)
-        step = train_loop.build_train_step(cfg, mesh, n_micro=nm,
+        step = train_loop.build_train_step(cfg, plan, n_micro=nm,
                                            opt_cfg=ocfg,
                                            grad_dtype=grad_dtype)
-        extra = {"n_micro": nm, "moment_dtype": ocfg.moment_dtype,
-                 "grad_dtype": str(grad_dtype).removeprefix("torch.")}
+        extra.update({"n_micro": nm, "moment_dtype": ocfg.moment_dtype,
+                      "grad_dtype": str(grad_dtype).removeprefix("torch.")})
+        extra.pop("cache_slots", None)
         return step, (params, optim.adamw_init(params, ocfg), data), \
             extra, b * s
     if sh["kind"] == "prefill":
         def prefill_step(params, batch):
             logits, _, cache = lm.forward(params, batch, cfg, prefill=True,
-                                          mesh=mesh)
+                                          mesh=plan)
             return logits, cache
-        return prefill_step, (params, data), {}, b * s
-    cache = lm.cache_on(cfg, b, s, device)
-    serve = engine.build_serve_step(cfg, mesh)
+        return prefill_step, (params, data), extra, b * s
+    cache = lm.cache_on(cfg, b, s, device, mesh=plan)
+    serve = engine.build_serve_step(cfg, plan)
 
     def serve_step(params, cache, tokens, pos):
         return serve(params, cache, tokens, pos, None)
 
     return serve_step, (params, cache, data["tokens"], data["pos"]), \
-        {"cache_seq_len": s}, b
+        {**extra, "cache_seq_len": s}, b
 
 
 def _storages(tree) -> dict:

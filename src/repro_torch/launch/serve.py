@@ -19,7 +19,11 @@ about a second on the card.  ``--layers N`` cuts the depth to N layers
 (the widths stay), for the configurations that do not fit one card whole
 (kimi-k2-1t-a32b and arctic-480b).  Prompts (4-7 tokens) come from
 ``numpy.random.RandomState(seed)``.  It runs on ``cuda`` unless
-``--device cpu`` is given.
+``--device cpu`` is given.  ``main(argv, mesh=...)``, called by every
+rank of a mesh (``launch.mesh``) with the same flags, serves through the
+partitioned step: each rank keeps its blocks of the same drawn weights
+(``nn.module.local_params``), its slots' block of the cache, and steps
+them (``BatchedEngine(mesh=)``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from repro_torch.nn import module
 from repro_torch.serve.engine import BatchedEngine, Request
 
 
-def main(argv=None):
+def main(argv=None, *, mesh=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true")
@@ -71,8 +75,11 @@ def main(argv=None):
     params = module.materialize(lm.param_specs(cfg),
                                 torch.Generator(dev).manual_seed(args.seed),
                                 dtype=dtype, device=dev)
+    if mesh is not None:
+        params = module.tree_map(torch.clone, module.local_params(
+            params, lm.param_specs(cfg), mesh, cfg.sharding_overrides))
     engine = BatchedEngine(cfg, params, batch_slots=args.slots, s_max=128,
-                           device=dev)
+                           mesh=mesh, device=dev)
 
     rs = np.random.RandomState(args.seed)
     t0 = time.perf_counter()

@@ -34,6 +34,15 @@ default are the backward of the embedding lookup (``index_put_`` with
 accumulation), of the cross-entropy's ``gather`` (``scatter_add_``) and
 of the GQA heads' ``repeat_interleave`` (``index_add_``): each takes its
 deterministic path; cuBLAS takes the fixed workspace.
+
+``main(argv, mesh=...)`` runs the partitioned step: every rank of the
+mesh (``launch.mesh``, over a process group the caller set up, e.g.
+under ``torchrun``) makes the call with the same flags; each draws the
+same weights, keeps its blocks of them (``nn.module.local_params``) and
+their AdamW moments, and steps on its rows of each microbatch (the
+microbatch's rows over the mesh's "batch" axes).  A checkpoint holds the
+whole leaves, gathered from the blocks and written by rank 0; a resume
+reads them whole and cuts each rank's blocks.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import tempfile
 import time
 
 import torch
+import torch.distributed
 
 from repro_torch import device as device_lib
 from repro_torch.configs import get_config
@@ -57,7 +67,7 @@ from repro_torch.train import checkpoint, optim, train_loop
 CUBLAS_WORKSPACE = ":4096:8"
 
 
-def main(argv=None):
+def main(argv=None, *, mesh=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true",
@@ -87,12 +97,51 @@ def main(argv=None):
     was_deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        return _train(args, dev)
+        return _train(args, dev, mesh)
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
 
 
-def _train(args, dev: torch.device) -> list[dict]:
+class _Shares:
+    """The rank's share of the training state under a mesh: its blocks
+    of the parameter leaves (and so of their moments), its rows of each
+    microbatch, and the whole leaves for a checkpoint."""
+
+    def __init__(self, cfg, mesh, n_micro: int, global_batch: int):
+        rules = cfg.sharding_overrides
+        self.specs = lm.param_specs(cfg)
+        self.mesh, self.rules = mesh, rules
+        self.layout = module.param_layout(self.specs, mesh, rules)
+        self.plan = module.plan(mesh, rules,
+                                batch=global_batch // n_micro)
+
+    def blocks(self, tree):
+        return module.tree_map(torch.clone, module.local_params(
+            tree, self.specs, self.mesh, self.rules))
+
+    def rows(self, batch: dict) -> dict:
+        spec = (None, self.plan.dp) if self.plan.dp else ()
+        return {k: module.block(v, spec, self.mesh) for k, v in
+                batch.items()}
+
+    def whole(self, tree):
+        with torch.no_grad():
+            return module.tree_map(lambda t, spec: module.gather_param(
+                t, spec, self.mesh), tree, self.layout)
+
+    def state(self, params, opt_state):
+        return {"params": self.whole(params),
+                "opt": optim.AdamWState(opt_state.step,
+                                        self.whole(opt_state.mu),
+                                        self.whole(opt_state.nu))}
+
+    def cut(self, state):
+        opt = state["opt"]
+        return self.blocks(state["params"]), optim.AdamWState(
+            opt.step, self.blocks(opt.mu), self.blocks(opt.nu))
+
+
+def _train(args, dev: torch.device, mesh=None) -> list[dict]:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
@@ -104,6 +153,7 @@ def _train(args, dev: torch.device) -> list[dict]:
                                 torch.Generator(dev).manual_seed(args.seed),
                                 dtype=dtype, device=dev)
     opt_state = optim.adamw_init(params, ocfg)
+    shares = mesh and _Shares(cfg, mesh, args.n_micro, args.global_batch)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq_len,
                                   global_batch=args.global_batch,
@@ -117,9 +167,11 @@ def _train(args, dev: torch.device) -> list[dict]:
         params, opt_state = state["params"], state["opt"]
         start_step = meta["step"]
         print(f"[resume] restored step {start_step} from {args.ckpt_dir}")
+    if shares:
+        params, opt_state = shares.cut({"params": params, "opt": opt_state})
 
-    step_fn = train_loop.build_train_step(cfg, n_micro=args.n_micro,
-                                          opt_cfg=ocfg)
+    step_fn = train_loop.build_train_step(
+        cfg, shares and shares.plan, n_micro=args.n_micro, opt_cfg=ocfg)
 
     history = []
     for step in range(start_step, args.steps):
@@ -129,6 +181,8 @@ def _train(args, dev: torch.device) -> list[dict]:
         t0 = time.perf_counter()
         batch = {k: v.to(dev) for k, v in
                  data.batch_at(step, n_micro=args.n_micro).items()}
+        if shares:
+            batch = shares.rows(batch)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.perf_counter() - t0
@@ -140,11 +194,15 @@ def _train(args, dev: torch.device) -> list[dict]:
               f"gnorm {float(metrics['grad_norm']):.3f} {dt:.2f}s",
               flush=True)
         if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
-            path = checkpoint.save(args.ckpt_dir, step + 1,
-                                   {"params": params, "opt": opt_state},
-                                   meta={"arch": cfg.name,
-                                         "data_step": step + 1})
-            print(f"[ckpt] saved {path}", flush=True)
+            state = shares.state(params, opt_state) if shares else \
+                {"params": params, "opt": opt_state}
+            if not shares or shares.mesh.rank == 0:
+                path = checkpoint.save(args.ckpt_dir, step + 1, state,
+                                       meta={"arch": cfg.name,
+                                             "data_step": step + 1})
+                print(f"[ckpt] saved {path}", flush=True)
+            if shares:
+                torch.distributed.barrier()
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f)

@@ -19,12 +19,24 @@ kernel where the reference's function is the Pallas kernel's, the plain
 blockwise attention elsewhere.  The recurrent cells are ``nn.recurrent``;
 an MoE block's FFN is ``nn.moe.moe_ref``, the function the reference
 computes on one device, or with a ``mesh`` (``launch.mesh``) one of the
-reference's expert-parallel paths (``_moe_apply``).  Under a mesh a
-rank holds its blocks of the parameters (``nn.module.param_layout``
-under the config's ``sharding_overrides``); the entry points gather the
-leaves outside the experts whole for the call (``_mesh_params``) and run
-the dense layers on them, with the full activations, on every rank; the
-MoE blocks take their expert blocks as held and split their work.  The
+reference's expert-parallel paths (``_moe_apply``).
+
+Under a mesh each rank computes its share of the partitioned step, as
+the reference's sharding rules lay it out (``nn.module.DEFAULT_RULES``
+under the config's ``sharding_overrides``): it holds its blocks of the
+parameters (``nn.module.param_layout``), takes its rows of the batch
+(the "batch" axes, ``batch_axes`` under ``input_rules``) and its block
+of the decode cache (``cache_axes``: rows likewise, slots over "model"),
+and splits the heads, FFN units and vocabulary over "model" (Megatron's
+column- and row-parallel products with a sum over "model" after each
+row-parallel one; ``nn.attention`` gathers a projection whose block
+cuts a head, and ``nn.layers``' vocabulary-parallel embedding and the
+cross entropy's max, sum and target combine over "model").  Each block
+gathers its FSDP leaves over the other axes inside the block
+(``_take``), and the gradient goes back reduce-scattered onto the
+blocks, summed over the ranks of the batch.  The recurrent cells run
+whole on each rank of "model" on its rows.  The MoE blocks take their
+expert blocks as held and the rank's tokens as they arrive.  The
 modality frontends are the reference's stubs: precomputed audio frames
 or ViT patch embeddings through a learned projector.  An encoder-only
 model has no decode step, here as in the reference.
@@ -57,6 +69,7 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch import device as device_lib
+from repro_torch.dist import collectives
 from repro_torch.nn import attention, kvq, layers, moe, recurrent
 from repro_torch.nn import module
 from repro_torch.nn.module import ParamSpec, count_params, tree_map
@@ -228,22 +241,41 @@ def param_specs(cfg: LMConfig) -> dict:
 # Forward (full sequence / prefill)
 # ===========================================================================
 
-def _ffn_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    lin = layers.cim_linear if cfg.cim_linear else layers.linear
+def _ffn_apply(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
+               width: int | None = None) -> torch.Tensor:
+    """The (gated) FFN of ``width`` units (``cfg.d_ff``).  With a
+    ``plan`` whose tensor-parallel axis cuts the units, ``p`` holds this
+    rank's block of them: w_in / w_gate column-parallel, w_out
+    row-parallel with its sum over the axis; KWN-FFN's threshold is
+    taken over the units gathered from every rank.  CIM mode takes its
+    leaves whole (``_take``) and sizes its NLQ codebook over every row of
+    the batch."""
+    if cfg.cim_linear:
+        lin = layers.cim_linear if plan is None else functools.partial(
+            layers.cim_linear, mesh=plan.mesh, axes=plan.dp_live)
+    else:
+        lin = layers.linear
     act = layers.ACTIVATIONS[cfg.activation]
-    h = act(lin(p["w_in"], x))
+    cut = plan is not None and plan.tp is not None and \
+        p["w_in"]["w"].shape[1] != (width or cfg.d_ff)
+    xin = collectives.copy_to(x, plan.mesh, plan.tp) if cut else x
+    h = act(lin(p["w_in"], xin))
     if cfg.gated_ffn:
-        h = h * lin(p["w_gate"], x)
+        h = h * lin(p["w_gate"], xin)
     if cfg.kwn_ffn_k > 0:
         # Eq. (1) on FFN units: keep the top-k magnitudes per token (ties
         # at the k-th kept too), zero the rest.
-        thresh = torch.topk(torch.abs(h), cfg.kwn_ffn_k, dim=-1
-                            ).values[..., -1:]
-        h = torch.where(torch.abs(h) >= thresh, h, torch.zeros_like(h))
+        mag = torch.abs(h)
+        every = collectives.gather_from(mag.detach(), plan.mesh, plan.tp,
+                                        -1) if cut else mag
+        thresh = torch.topk(every, cfg.kwn_ffn_k, dim=-1).values[..., -1:]
+        h = torch.where(mag >= thresh, h, torch.zeros_like(h))
+    if cut:
+        return layers.row_linear(p["w_out"], h, plan.mesh, plan.tp)
     return lin(p["w_out"], h)
 
 
-def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig, mesh=None,
+def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
                decode: bool = False):
     """The MoE FFN: the experts, then arctic's dense residual FFN, then
     kimi's shared experts, added in that order.  Returns (y, aux, or None
@@ -253,41 +285,43 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig, mesh=None,
     mesh; with one, ``moe_2d`` (``moe_dense_ep_2d`` to decode) where the
     config's ``sharding_overrides`` lay the experts over the DP rows, else
     ``moe_a2a`` (sequence-sharded where the overrides shard ``seq`` over
-    "model") or ``moe_dense_ep`` to decode."""
+    "model") or ``moe_dense_ep`` to decode.  Under a ``plan`` ``x`` is
+    this rank's rows, split over the batch's axes, which must be the
+    path's token axes (the "batch" rule's, ``nn.module.shard`` raises
+    where they differ: a batch that does not divide over them)."""
     overrides = cfg.sharding_overrides or {}
     experts_rule = overrides.get("experts", "model")
     is_2d = experts_rule not in (None, "model")   # experts over DP rows
     kw = dict(k=cfg.moe_top_k, activation=cfg.activation)
-    if mesh is not None:
+    if plan is None:
+        y, aux = moe.moe_ref(p["moe"], x, with_aux=not decode, **kw)
+    else:
+        mesh = plan.mesh
         kw["specs"] = module.param_layout(
             moe.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts), mesh,
             overrides)
-    if mesh is None:
-        y, aux = moe.moe_ref(p["moe"], x, with_aux=not decode, **kw)
-    elif is_2d and not decode:
-        y, aux = moe.moe_2d(p["moe"], x, mesh=mesh,
-                            expert_axes=tuple(experts_rule),
-                            capacity_factor=cfg.moe_capacity_factor,
-                            wire_dtype=cfg.moe_wire_dtype, **kw)
-    elif is_2d:
-        y, aux = moe.moe_dense_ep_2d(p["moe"], x, mesh=mesh,
-                                     expert_axes=tuple(experts_rule), **kw)
-    elif decode:
-        y, aux = moe.moe_dense_ep(p["moe"], x, mesh=mesh, **kw)
-    else:
-        y, aux = moe.moe_a2a(p["moe"], x, mesh=mesh,
-                             seq_sharded=overrides.get("seq") == "model",
-                             **kw)
+        if is_2d:
+            rows = tuple(experts_rule)
+            fn = functools.partial(
+                moe.moe_dense_ep_2d, expert_axes=rows) if decode else \
+                functools.partial(moe.moe_2d, expert_axes=rows,
+                                  capacity_factor=cfg.moe_capacity_factor,
+                                  wire_dtype=cfg.moe_wire_dtype)
+        else:
+            fn = moe.moe_dense_ep if decode else functools.partial(
+                moe.moe_a2a, seq_sharded=overrides.get("seq") == "model")
+        y, aux = fn(p["moe"], x, mesh=mesh, split=plan.dp, **kw)
     if decode:
         aux = None
     if cfg.moe_dense_residual:
-        y = y + _ffn_apply(p["ffn"], x, cfg)
+        y = y + _ffn_apply(p["ffn"], x, cfg, plan)
     if cfg.n_shared_experts:
-        y = y + _ffn_apply(p["shared"], x, cfg)
+        y = y + _ffn_apply(p["shared"], x, cfg, plan,
+                           cfg.d_ff * cfg.n_shared_experts)
     return y, aux
 
 
-def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig, mesh=None,
+def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
                   decode: bool = False):
     """The block's FFN half: (x + FFN(norm2(x)), aux loss f32, or None
     without MoE or in a decode step)."""
@@ -296,22 +330,40 @@ def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig, mesh=None,
         return x, aux
     h = layers.rmsnorm(p["norm2"], x)
     if cfg.moe:
-        h, aux = _moe_apply(p, h, cfg, mesh, decode)
+        h, aux = _moe_apply(p, h, cfg, plan, decode)
     else:
-        h = _ffn_apply(p["ffn"], h, cfg)
+        h = _ffn_apply(p["ffn"], h, cfg, plan)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm2_post"], h)
     return x + h, aux
 
 
+def _take(p: dict, lay, cfg: LMConfig, plan) -> dict:
+    """A block's dense leaves for this rank's compute from the blocks it
+    holds (``nn.module.take_params``: gathered over the FSDP axes, inside
+    the block, so a remat recompute gathers them again): the recurrent
+    cells and CIM-mode FFNs whole over "model" too (they run whole on
+    each of its ranks), the ``moe`` subtree as held.  No ``plan``: ``p``
+    as it is."""
+    if plan is None:
+        return p
+    return {k: v if k == "moe" else module.take_params(
+        v, lay[k], plan,
+        whole=k == "cell" or (cfg.cim_linear and k in ("ffn", "shared")))
+        for k, v in p.items()}
+
+
 def _block_apply(kind: str, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cfg: LMConfig,
-                 prefill: bool = False, mesh=None):
+                 prefill: bool = False, plan=None, lay=None):
     """One block.  Returns (x, aux loss or None, cache entry or None): K/V
     (ring-ordered with ``slot_pos`` for a local layer over a prompt longer
     than its window, quantized for a global one under ``kv_quant``) or the
     recurrent state.  Attention is causal unless the model is
-    encoder-only."""
+    encoder-only.  Under a ``plan`` ``p`` is this rank's blocks laid out
+    by ``lay`` (``_take``), ``x`` its rows, and the cache entry its block
+    under ``cache_axes``."""
+    p = _take(p, lay, cfg, plan)
     h = layers.rmsnorm(p["norm1"], x)
     cache = None
     if kind in ("attn", "attn_local"):
@@ -320,7 +372,7 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
             attention.mha, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.hd, causal=not cfg.encoder_only, window=window,
             attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
-            chunk=cfg.attn_chunk, return_kv=prefill)
+            chunk=cfg.attn_chunk, return_kv=prefill, plan=plan)
         if cfg.remat and cfg.remat_mode == "attn_only":
             attn = _remat(attn)
         h = attn(p["attn"], h, positions)
@@ -342,9 +394,11 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
     if prefill and cache is None:
         h, st = h
         cache = st._asdict()
+    if prefill and plan is not None:
+        cache = _cache_block(cache, _entry_axes(kind, cfg), plan)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
-    x, aux = _ffn_residual(p, x + h, cfg, mesh)
+    x, aux = _ffn_residual(p, x + h, cfg, plan)
     return x, aux, cache
 
 
@@ -406,21 +460,39 @@ def _remat(fn, policy: str = "nothing"):
     return run
 
 
-def _embed_inputs(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
+def _embed_inputs(params: dict, batch: dict, cfg: LMConfig, plan=None,
+                  lay=None) -> torch.Tensor:
     """The model's input sequence (B, S, D): audio frames (B, S,
     frontend_dim) through ``frontend_proj``; else the token embeddings,
     after the ViT patches (B, n_patches, frontend_dim) through
-    ``patch_proj`` for the VLM."""
+    ``patch_proj`` for the VLM.  Under a ``plan`` the rank's rows, the
+    table vocabulary-parallel where "model" cuts it."""
+    p = _take({k: params[k] for k in ("frontend_proj", "patch_proj",
+                                      "embed") if k in params},
+              lay, cfg, plan)
     if cfg.frontend == "audio_frames":
-        return layers.linear(params["frontend_proj"],
+        return layers.linear(p["frontend_proj"],
                              batch["frames"].to(cfg.compute_dtype))
-    x = layers.embed(params["embed"], batch["tokens"],
-                     scale_by_dim=cfg.scale_embed).to(cfg.compute_dtype)
+    x = _embed(p["embed"], batch["tokens"], cfg, plan)
     if cfg.frontend == "vision_patches":
-        patches = layers.linear(params["patch_proj"],
+        patches = layers.linear(p["patch_proj"],
                                 batch["patches"].to(cfg.compute_dtype))
         x = torch.cat([patches, x], dim=1)
     return x
+
+
+def _vocab_cut(table: torch.Tensor, cfg: LMConfig, plan) -> bool:
+    return plan is not None and plan.tp is not None and \
+        table.shape[0] != cfg.padded_vocab
+
+
+def _embed(p: dict, tokens: torch.Tensor, cfg: LMConfig, plan):
+    if _vocab_cut(p["table"], cfg, plan):
+        x = layers.embed_vocab(p, tokens, plan.mesh, plan.tp,
+                               scale_by_dim=cfg.scale_embed)
+    else:
+        x = layers.embed(p, tokens, scale_by_dim=cfg.scale_embed)
+    return x.to(cfg.compute_dtype)
 
 
 def _group(tree: dict, g: int) -> dict:
@@ -428,15 +500,42 @@ def _group(tree: dict, g: int) -> dict:
     return tree_map(lambda t: t[g], tree)
 
 
-def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """f32 logits: the vocabulary padded to ``padded_vocab``, or an
-    encoder-only model's ``vocab_size`` classes."""
-    x = layers.rmsnorm(params["final_norm"], x)
+def _head_logits(params: dict, x: torch.Tensor, cfg: LMConfig, plan=None):
+    """(f32 logits after the final softcap: the padded vocabulary, or an
+    encoder-only model's ``vocab_size`` classes; the first column of this
+    rank's block of them, or None where they are whole).  ``x`` has
+    passed ``final_norm``; ``params`` hold the rank's blocks of the head
+    or the tied table, gathered here (``_take``), the vocabulary
+    column-parallel where "model" cuts it."""
+    mesh = plan.mesh if plan is not None else None
     if cfg.tie_embeddings and not cfg.encoder_only:
-        logits = layers.unembed(params["embed"], x)
+        w = params["embed"]["table"]
+        cut = _vocab_cut(w, cfg, plan)
+        xin = collectives.copy_to(x, mesh, plan.tp) if cut else x
+        logits = layers.unembed(params["embed"], xin)
     else:
-        logits = layers.linear(params["head"], x)
-    return layers.softcap(logits.float(), cfg.final_softcap)
+        full = cfg.vocab_size if cfg.encoder_only else cfg.padded_vocab
+        cut = plan is not None and plan.tp is not None and \
+            params["head"]["w"].shape[1] != full
+        xin = collectives.copy_to(x, mesh, plan.tp) if cut else x
+        logits = layers.linear(params["head"], xin)
+    first = layers.vocab_block(logits.shape[-1], mesh, plan.tp) if cut \
+        else None
+    return layers.softcap(logits.float(), cfg.final_softcap), first
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
+            lay=None) -> torch.Tensor:
+    """f32 logits: the vocabulary padded to ``padded_vocab``, or an
+    encoder-only model's ``vocab_size`` classes; under a ``plan`` the
+    rank's rows, gathered whole over the vocabulary."""
+    head = _take({k: params[k] for k in ("final_norm", "head", "embed")
+                  if k in params}, lay, cfg, plan)
+    x = layers.rmsnorm(head["final_norm"], x)
+    logits, first = _head_logits(head, x, cfg, plan)
+    if first is not None:
+        logits = collectives.gather_from(logits, plan.mesh, plan.tp, -1)
+    return logits
 
 
 def _add_aux(acc, aux):
@@ -448,33 +547,32 @@ def _add_aux(acc, aux):
     return aux if acc is None else acc + aux
 
 
-def _mesh_params(params: dict, cfg: LMConfig, mesh) -> dict:
-    """The parameters a call under ``mesh`` computes with: from this
-    rank's blocks (``nn.module.param_layout`` of ``param_specs`` under
-    the config's overrides), every leaf outside an MoE block's experts
-    gathered whole (``nn.module.gather_param``), the ``moe`` leaves left
-    as blocks for the expert-parallel paths.  ``mesh=None``: ``params``
-    as they are."""
-    if mesh is None:
-        return params
-    layout = module.param_layout(param_specs(cfg), mesh,
-                                 cfg.sharding_overrides)
-
-    def walk(p, spec, key):
-        if isinstance(p, dict):
-            return p if key == "moe" else {k: walk(p[k], spec[k], k)
-                                           for k in p}
-        return module.gather_param(p, spec, mesh)
-
-    return walk(params, layout, None)
+def _layout(cfg: LMConfig, plan):
+    """The layout in which a rank holds the parameters under ``plan``
+    (``nn.module.param_layout`` of ``param_specs`` under the config's
+    overrides), or None without one."""
+    if plan is None:
+        return None
+    return module.param_layout(param_specs(cfg), plan.mesh,
+                               cfg.sharding_overrides)
 
 
-def _constrain_acts(x: torch.Tensor, cfg: LMConfig, mesh) -> torch.Tensor:
+def _grouped(lay):
+    """A stacked subtree's layout without its group dim."""
+    return tree_map(lambda spec: tuple(spec[1:]), lay)
+
+
+def _plan(cfg: LMConfig, mesh):
+    return module.plan(mesh, cfg.sharding_overrides)
+
+
+def _constrain_acts(x: torch.Tensor, cfg: LMConfig, plan) -> torch.Tensor:
     """The identity.  The reference's ``_constrain_acts`` is a sharding
     constraint (Megatron sequence parallelism of the residual stream over
-    "model"), a layout that changes no number; here every rank holds the
-    full activations (the MoE paths take and return them whole), so
-    there is nothing to lay out."""
+    "model" where a config's overrides put ``seq`` there), a layout that
+    changes no number; here each rank holds its rows' activations whole
+    over the sequence and the same on every rank of "model" (sequence
+    parallelism is not ported)."""
     return x
 
 
@@ -494,14 +592,25 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False,
     frontend_dim) for the audio model.  Logits are f32; the aux loss (f32)
     is the MoE blocks' load-balancing loss, summed over each group's
     blocks, then over the groups, then over the tail, as the reference
-    sums it (0 without MoE).  With a ``mesh`` (``launch.mesh``)
-    ``params`` are this rank's blocks (``_mesh_params``), the MoE blocks
-    take the reference's expert-parallel paths (``_moe_apply``), and
-    every rank returns the same full results; every rank of the mesh
-    must make the call.
+    sums it (0 without MoE).
+
+    With a ``mesh`` (``launch.mesh``, or an ``nn.module.Plan``) the call
+    is this rank's share of the partitioned step, as the reference's
+    sharding rules lay it out; every rank of the mesh must make it.
+    ``params`` are this rank's blocks (``param_layout``), ``batch`` its
+    rows (``blocks_like`` under ``input_rules``: the rows over the mesh's
+    "batch" axes, the sequence whole), and the results its own: the
+    logits of its rows, whole over the vocabulary; the aux loss, global
+    and the same on every rank; the cache its block under
+    ``cache_axes``.  The heads, FFN units and vocabulary split over
+    "model" (Megatron's column- and row-parallel products), FSDP's leaves
+    are gathered block by block, and the MoE blocks take the reference's
+    expert-parallel paths (``_moe_apply``).
     """
-    params = _mesh_params(params, cfg, mesh)
-    x = _constrain_acts(_embed_inputs(params, batch, cfg), cfg, mesh)
+    plan = _plan(cfg, mesh)
+    lay = _layout(cfg, plan)
+    x = _constrain_acts(_embed_inputs(params, batch, cfg, plan, lay), cfg,
+                        plan)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches: dict[str, list] = {f"b{j}": [] for j in range(len(cfg.pattern))}
@@ -510,9 +619,10 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False,
         gp = _group(params["layers"], g)
         aux_g = None
         for j, kind in enumerate(cfg.pattern):
-            x, aux_b, c = _block_apply(kind, gp[f"b{j}"], x, positions, cfg,
-                                       prefill, mesh)
-            x = _constrain_acts(x, cfg, mesh)
+            x, aux_b, c = _block_apply(
+                kind, gp[f"b{j}"], x, positions, cfg, prefill, plan,
+                lay and _grouped(lay["layers"][f"b{j}"]))
+            x = _constrain_acts(x, cfg, plan)
             aux_g = _add_aux(aux_g, aux_b)
             if prefill:
                 caches[f"b{j}"].append(c)
@@ -524,15 +634,16 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False,
                  for name, entries in caches.items()}
     for j, kind in enumerate(cfg.tail_pattern):
         x, aux_t, c = _block_apply(kind, params[f"tail{j}"], x, positions,
-                                   cfg, prefill, mesh)
+                                   cfg, prefill, plan,
+                                   lay and lay[f"tail{j}"])
         aux = _add_aux(aux, aux_t)
         if prefill:
             cache[f"tail{j}"] = c
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if prefill:
-        return _logits(params, x[:, -1:], cfg)[:, 0], aux, cache
-    return _logits(params, x, cfg), aux
+        return _logits(params, x[:, -1:], cfg, plan, lay)[:, 0], aux, cache
+    return _logits(params, x, cfg, plan, lay), aux
 
 
 # ===========================================================================
@@ -551,24 +662,29 @@ def features(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
     """The forward up to, not including, the unembedding: (x after
     ``final_norm`` (B, S, D), the aux loss f32, summed as ``forward``
     sums it).  Each layer group is recomputed in the backward under
-    ``remat`` with ``remat_mode`` "group".  ``mesh`` as in ``forward``;
-    the gradient of each block this rank holds is that block of the
-    global function's gradient."""
-    return _features(_mesh_params(params, cfg, mesh), batch, cfg, mesh)
+    ``remat`` with ``remat_mode`` "group".  ``mesh`` as in ``forward``:
+    x is this rank's rows (the same on every rank of "model"); the
+    gradient of each block this rank holds is that block of the global
+    function's gradient."""
+    plan = _plan(cfg, mesh)
+    return _features(params, batch, cfg, plan, _layout(cfg, plan))
 
 
-def _features(params: dict, batch: dict, cfg: LMConfig, mesh):
-    """``features`` on the parameters ``_mesh_params`` gives."""
-    x = _constrain_acts(_embed_inputs(params, batch, cfg), cfg, mesh)
+def _features(params: dict, batch: dict, cfg: LMConfig, plan, lay):
+    """``features`` under a plan and its layout."""
+    x = _constrain_acts(_embed_inputs(params, batch, cfg, plan, lay), cfg,
+                        plan)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    group_lay = {f"b{j}": lay and _grouped(lay["layers"][f"b{j}"])
+                 for j in range(len(cfg.pattern))}
 
     def group_fn(x, gp):
         aux_g = None
         for j, kind in enumerate(cfg.pattern):
             x, aux_b, _ = _block_apply(kind, gp[f"b{j}"], x, positions, cfg,
-                                       mesh=mesh)
-            x = _constrain_acts(x, cfg, mesh)
+                                       plan=plan, lay=group_lay[f"b{j}"])
+            x = _constrain_acts(x, cfg, plan)
             aux_g = _add_aux(aux_g, aux_b)
         return x, aux_g
 
@@ -580,65 +696,102 @@ def _features(params: dict, batch: dict, cfg: LMConfig, mesh):
         aux = _add_aux(aux, aux_g)
     for j, kind in enumerate(cfg.tail_pattern):
         x, aux_t, _ = _block_apply(kind, params[f"tail{j}"], x, positions,
-                                   cfg, mesh=mesh)
+                                   cfg, plan=plan, lay=lay and lay[f"tail{j}"])
         aux = _add_aux(aux, aux_t)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return layers.rmsnorm(params["final_norm"], x), aux
+    norm = _take({"final_norm": params["final_norm"]}, lay, cfg, plan)
+    return layers.rmsnorm(norm["final_norm"], x), aux
 
 
-def _cross_entropy(logits: torch.Tensor,
-                   targets: torch.Tensor) -> torch.Tensor:
-    """Per-position -log softmax(logits)[target], f32."""
-    lse = torch.log_softmax(logits, dim=-1)
-    return -torch.gather(lse, -1, targets.long()[..., None])[..., 0]
+def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                   plan=None, first=None) -> torch.Tensor:
+    """Per-position -log softmax(logits)[target], f32.  With ``first``
+    the logits are this rank's block of the columns from ``first`` on
+    (the vocabulary over ``plan.tp``): the max, the sum of the
+    exponentials and the target's logit are combined over the axis."""
+    if first is None:
+        lse = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(lse, -1, targets.long()[..., None])[..., 0]
+    mesh, ax = plan.mesh, plan.tp
+    m = collectives.pmax(torch.amax(logits, dim=-1, keepdim=True), mesh, ax)
+    se = collectives.reduce_from(
+        torch.sum(torch.exp(logits - m), dim=-1), mesh, ax)
+    at = targets.long() - first
+    mine = (at >= 0) & (at < logits.shape[-1])
+    z = torch.gather(logits, -1, torch.where(mine, at, 0)[..., None])[..., 0]
+    z = collectives.reduce_from(z * mine, mesh, ax)
+    return torch.log(se) + m[..., 0] - z
 
 
-def _masked_mean(ce: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(ce: torch.Tensor, mask: torch.Tensor | None,
+                 plan=None) -> torch.Tensor:
+    """The mean of ``ce`` over its positions, or over those ``mask``
+    keeps.  Under a ``plan`` with a split batch the global mean: the
+    sums and the counts summed over the batch's axes (each rank's
+    gradient is that of its rows' part)."""
+    dp = plan.dp_live if plan is not None else ()
+    if mask is None:
+        if not dp:
+            return torch.mean(ce)
+        n = torch.tensor(float(ce.numel()), device=ce.device)
+        return collectives.reduce_from(torch.sum(ce), plan.mesh, dp) / \
+            collectives.psum(n, plan.mesh, dp)
     m = mask.float()
-    return torch.sum(ce * m) / torch.clamp(torch.sum(m), min=1.0)
+    num, den = torch.sum(ce * m), torch.sum(m)
+    if dp:
+        num = collectives.reduce_from(num, plan.mesh, dp)
+        den = collectives.psum(den.detach(), plan.mesh, dp)
+    return num / torch.clamp(den, min=1.0)
 
 
 def _head_and_ce(params: dict, x: torch.Tensor, batch: dict,
-                 cfg: LMConfig) -> torch.Tensor:
+                 cfg: LMConfig, plan=None, lay=None) -> torch.Tensor:
     """Unembedding and cross-entropy, f32.  A decoder predicts each next
     token over the padded vocabulary (the logits of the VLM's patch
     prefix dropped), averaged over the positions, or over those
     ``loss_mask`` keeps; an encoder-only model its ``targets`` over its
-    classes where ``loss_mask`` is set."""
+    classes where ``loss_mask`` is set.  Under a ``plan`` vocabulary-
+    parallel where "model" cuts it, the mean global (``_masked_mean``)."""
+    params = _take(params, lay, cfg, plan)
+    logits, first = _head_logits(params, x, cfg, plan)
     if cfg.encoder_only:
-        logits = layers.linear(params["head"], x).float()
-        return _masked_mean(_cross_entropy(logits, batch["targets"]),
-                            batch["loss_mask"])
-    if cfg.tie_embeddings:
-        logits = layers.unembed(params["embed"], x)
-    else:
-        logits = layers.linear(params["head"], x)
-    logits = layers.softcap(logits.float(), cfg.final_softcap)
+        return _masked_mean(_cross_entropy(logits, batch["targets"], plan,
+                                           first), batch["loss_mask"], plan)
     n_prefix = cfg.n_patches if cfg.frontend == "vision_patches" else 0
     tokens = batch["tokens"]
-    ce = _cross_entropy(logits[:, n_prefix:][:, :-1], tokens[:, 1:])
+    ce = _cross_entropy(logits[:, n_prefix:][:, :-1], tokens[:, 1:], plan,
+                        first)
     mask = batch.get("loss_mask")
-    if mask is not None:
-        return _masked_mean(ce, mask[:, 1:])
-    return torch.mean(ce)
+    return _masked_mean(ce, None if mask is None else mask[:, 1:], plan)
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
     """(ce + 0.01 * aux, {"ce", "aux"}), differentiable in ``params``.
     The head and cross-entropy are recomputed in the backward as one
     unit, so the (B, S, V) logits and their softmax are never kept.
-    ``mesh`` as in ``features``."""
-    params = _mesh_params(params, cfg, mesh)
-    x, aux = _features(params, batch, cfg, mesh)
-    head = {k: params[k] for k in ("head", "embed") if k in params}
-    ce = _remat(_head_and_ce)(head, x, batch, cfg)
+    ``mesh`` as in ``forward``: the loss is the global scalar on every
+    rank, and each rank's gradient of it is its blocks of the global
+    gradient."""
+    plan = _plan(cfg, mesh)
+    lay = _layout(cfg, plan)
+    x, aux = _features(params, batch, cfg, plan, lay)
+    keys = [k for k in ("head", "embed") if k in params]
+    head = {k: params[k] for k in keys}
+    ce = _remat(_head_and_ce)(head, x, batch, cfg, plan,
+                              lay and {k: lay[k] for k in keys})
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ===========================================================================
 # Decode (serve_step)
 # ===========================================================================
+
+def _zeros(shape, dtype, device, fill=0) -> torch.Tensor:
+    """A constant (B, ...) cache leaf as a broadcast view of one element:
+    ``cache_on`` copies what it keeps (a rank's block of it)."""
+    return torch.full((), fill, dtype=dtype, device=device).expand(shape)
+
 
 def _cache_spec_for(kind: str, cfg: LMConfig, batch: int, s_max: int,
                     device) -> dict:
@@ -649,24 +802,19 @@ def _cache_spec_for(kind: str, cfg: LMConfig, batch: int, s_max: int,
                      kvq.storage_shape(hd, cfg.kv_quant))
             sd = kvq.storage_dtype(cfg.kv_quant)
             scale = (batch, s_max, cfg.n_kv, 1)
-            return {"k": torch.zeros(shape, dtype=sd, device=device),
-                    "v": torch.zeros(shape, dtype=sd, device=device),
-                    "k_scale": torch.zeros(scale, device=device),
-                    "v_scale": torch.zeros(scale, device=device)}
+            return {"k": _zeros(shape, sd, device),
+                    "v": _zeros(shape, sd, device),
+                    "k_scale": _zeros(scale, torch.float32, device),
+                    "v_scale": _zeros(scale, torch.float32, device)}
         shape = (batch, s_max, cfg.n_kv, hd)
-        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
-                                 device=device),
-                "v": torch.zeros(shape, dtype=cfg.compute_dtype,
-                                 device=device)}
+        return {"k": _zeros(shape, cfg.compute_dtype, device),
+                "v": _zeros(shape, cfg.compute_dtype, device)}
     if kind == "attn_local":
         w = min(cfg.window or s_max, s_max)
         shape = (batch, w, cfg.n_kv, hd)
-        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
-                                 device=device),
-                "v": torch.zeros(shape, dtype=cfg.compute_dtype,
-                                 device=device),
-                "slot_pos": torch.full((batch, w), -1, dtype=torch.int32,
-                                       device=device)}
+        return {"k": _zeros(shape, cfg.compute_dtype, device),
+                "v": _zeros(shape, cfg.compute_dtype, device),
+                "slot_pos": _zeros((batch, w), torch.int32, device, -1)}
     hd_cell = cfg.d_model // cfg.n_heads
     if kind == "mlstm":
         st = recurrent.mlstm_init_state(batch, cfg.n_heads, hd_cell, device)
@@ -677,41 +825,113 @@ def _cache_spec_for(kind: str, cfg: LMConfig, batch: int, s_max: int,
                                         device=device)
     else:
         raise ValueError(kind)
-    return {key: t.clone() for key, t in st._asdict().items()}
+    return st._asdict()
 
 
-def init_cache(cfg: LMConfig, batch: int, s_max: int, device=None) -> dict:
+def init_cache(cfg: LMConfig, batch: int, s_max: int, device=None, *,
+               mesh=None) -> dict:
     """A fresh decode cache on ``device`` (``cuda`` unless the caller
     passes ``device="cpu"``): for each pattern block its entry stacked
     over groups (G, B, ...), for each tail block (B, ...).  Global
     attention: K/V (B, s_max, n_kv, hd), or the int8 / int4 payload and
     f32 scales under ``kv_quant``; local attention: a ring of min(window,
     s_max) slots with ``slot_pos`` -1; recurrent blocks: their initial
-    states."""
-    return cache_on(cfg, batch, s_max, device_lib.resolve(device))
+    states.  With a ``mesh`` (``batch`` the global batch) this rank's
+    block of it under ``cache_axes``."""
+    return cache_on(cfg, batch, s_max, device_lib.resolve(device), mesh=mesh)
 
 
-def cache_on(cfg: LMConfig, batch: int, s_max: int, device) -> dict:
+def cache_on(cfg: LMConfig, batch: int, s_max: int, device, *,
+             mesh=None) -> dict:
     """``init_cache`` on ``device`` as given: also a fake CUDA device or
     ``meta``, where the dry run (``launch.dryrun``) lays out a cache that
-    holds no data."""
+    holds no data.  Under a ``mesh`` only this rank's block is made."""
     dev = torch.device(device)
+    rules = None
+    if mesh is not None:
+        mesh = module.plan(mesh, cfg.sharding_overrides).mesh
+        rules = cfg.sharding_overrides
+    axes = cache_axes(cfg)
+
+    def keep(t, ax):
+        if mesh is not None:
+            t = module.block_like(t, ax, mesh, rules)
+        return t.clone(memory_format=torch.contiguous_format)
+
     cache = {}
     for j, kind in enumerate(cfg.pattern):
         one = _cache_spec_for(kind, cfg, batch, s_max, dev)
-        cache[f"b{j}"] = {key: t.expand(cfg.n_groups, *t.shape).clone()
+        cache[f"b{j}"] = {key: keep(t.expand(cfg.n_groups, *t.shape),
+                                    axes[f"b{j}"][key])
                           for key, t in one.items()}
     for j, kind in enumerate(cfg.tail_pattern):
-        cache[f"tail{j}"] = _cache_spec_for(kind, cfg, batch, s_max, dev)
+        one = _cache_spec_for(kind, cfg, batch, s_max, dev)
+        cache[f"tail{j}"] = {key: keep(t, axes[f"tail{j}"][key])
+                             for key, t in one.items()}
     return cache
 
 
-def pad_cache(cache: dict, cfg: LMConfig, s_max: int) -> dict:
+def _entry_axes(kind: str, cfg: LMConfig) -> dict:
+    """The logical axes of one group's cache entry (``cache_axes``
+    without the group dim)."""
+    return {k: a[1:] for k, a in _kind_axes(kind, cfg).items()}
+
+
+def _kind_axes(kind: str, cfg: LMConfig) -> dict:
+    if kind in ("attn", "attn_local"):
+        kv = ("k", "v") + (("k_scale", "v_scale")
+                           if kind == "attn" and cfg.kv_quant else ())
+        out = {k: (None, "batch", "cache_seq", "cache_heads", None)
+               for k in kv}
+        if kind == "attn_local":
+            out["slot_pos"] = (None, "batch", None)
+        return out
+    if kind == "mlstm":
+        return {"c": (None, "batch", None, None, None),
+                "n": (None, "batch", None, None),
+                "m": (None, "batch", None)}
+    if kind == "slstm":
+        return {k: (None, "batch", None, None) for k in "cnhm"}
+    if kind == "rglru":
+        return {"h": (None, "batch", "ffn"),
+                "conv": (None, "batch", None, "ffn")}
+    raise ValueError(kind)
+
+
+def cache_axes(cfg: LMConfig) -> dict:
+    """The logical axes of every cache leaf (for its layout), the
+    reference's: the batch, the slots (``cache_seq``, split-KV over
+    "model"), the heads whole; RG-LRU's state over ``ffn``.  A pattern
+    block's entry leads with its group dim, a tail block's has none."""
+    ax = {f"b{j}": _kind_axes(kind, cfg) for j, kind in enumerate(cfg.pattern)}
+    for j, kind in enumerate(cfg.tail_pattern):
+        ax[f"tail{j}"] = _entry_axes(kind, cfg)
+    return ax
+
+
+# The layout of a rank's rows: the batch is cut already.
+_ROWS = {"batch": None}
+
+
+def _cache_block(entry: dict, axes: dict, plan) -> dict:
+    """One group's cache entry of this rank's rows cut to its block
+    under ``axes`` (the slots over "model" where they divide)."""
+    return {k: module.block_like(t, axes[k], plan.mesh, _ROWS).contiguous()
+            for k, t in entry.items()}
+
+
+def pad_cache(cache: dict, cfg: LMConfig, s_max: int, *, mesh=None,
+              seq: int | None = None) -> dict:
     """Grow a prefill-produced cache (seq = prompt length) to ``s_max``
     slots so decode can append: global-attention K/V (and scales) are
     zero-padded on the sequence dim (the third from the end); ring
     buffers and recurrent states are already final and stay as they
-    are."""
+    are.  With a ``mesh`` the cache is this rank's block (``forward``'s
+    prefill under it) of ``seq`` slots, and so is the result, of
+    ``s_max``: the slots gathered over "model" where they were cut,
+    padded, and cut again under ``cache_axes``."""
+    plan = _plan(cfg, mesh)
+
     def pad(t: torch.Tensor) -> torch.Tensor:
         cur = t.shape[-3]
         if cur >= s_max:
@@ -720,20 +940,36 @@ def pad_cache(cache: dict, cfg: LMConfig, s_max: int) -> dict:
         shape[-3] = s_max - cur
         return torch.cat([t, t.new_zeros(shape)], dim=-3)
 
-    def pad_entry(entry: dict) -> dict:
+    def relaid(t: torch.Tensor, ax: tuple) -> torch.Tensor:
+        if plan is None or plan.tp is None:
+            return pad(t)
+        if seq is None:
+            raise ValueError("pad_cache under a mesh needs the prompt "
+                             "length (seq=)")
+        d = t.ndim - 3
+        if t.shape[d] != seq:
+            t = collectives.gather_from(t, plan.mesh, plan.tp, d)
+        return module.block_like(pad(t), ax, plan.mesh, _ROWS).contiguous()
+
+    axes = cache_axes(cfg)
+
+    def pad_entry(name: str, entry: dict) -> dict:
         if "slot_pos" in entry or "k" not in entry:
             return entry
-        return {key: pad(t) for key, t in entry.items()}
+        return {key: relaid(t, axes[name][key]) for key, t in entry.items()}
 
-    return {name: pad_entry(entry) for name, entry in cache.items()}
+    return {name: pad_entry(name, entry) for name, entry in cache.items()}
 
 
 def _ring_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                 cfg: LMConfig) -> torch.Tensor:
+                 cfg: LMConfig, plan=None) -> torch.Tensor:
     """Sliding-window ring-buffer decode of a local attention layer: the
     new K/V go to slot pos % w, written into ``cache`` in place with their
     position in ``slot_pos``; a slot is seen while its position is within
-    the window."""
+    the window.  Under a ``plan`` the ring's K/V may be this rank's block
+    of its slots (``slot_pos``, whole on every rank, gives their count):
+    the rank writes the slots of its block, and the attention is split
+    over the blocks (``attention._attend``)."""
     if "slot_pos" not in cache:
         raise ValueError(
             "a local-attention cache without slot_pos: prefill over a "
@@ -742,19 +978,22 @@ def _ring_decode(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
             "here); prefill a prompt longer than the window, or decode "
             "token by token from init_cache")
     b = x.shape[0]
-    w = cache["k"].shape[1]
+    w = cache["slot_pos"].shape[1]
+    w_loc = cache["k"].shape[1]
+    first, split = attention.slot_block(w_loc, w, plan)
     q, k_new, v_new = attention._qkv_decode(p, x, pos, cfg.n_heads, cfg.n_kv,
-                                            cfg.hd, cfg.rope_theta, True)
+                                            cfg.hd, cfg.rope_theta, True,
+                                            plan)
     slot = pos % w
-    attention.write_rows(cache["k"], slot, k_new[:, 0])
-    attention.write_rows(cache["v"], slot, v_new[:, 0])
+    attention._write_at_pos([cache["k"], cache["v"]], [k_new, v_new], slot,
+                            w, first)
     attention.write_rows(cache["slot_pos"], slot, pos)
-    slot_pos = cache["slot_pos"]
+    slot_pos = cache["slot_pos"][:, first:first + w_loc]
     valid = (slot_pos >= 0) & (slot_pos <= pos[:, None]) & \
         (slot_pos > pos[:, None] - (cfg.window or w))
     o = attention._attend(q, cache["k"], cache["v"], valid, cfg.hd,
-                          cfg.attn_softcap, cfg.n_heads // cfg.n_kv)
-    return layers.linear(p["wo"], o.reshape(b, 1, cfg.n_heads * cfg.hd))
+                          cfg.attn_softcap, cfg.n_heads // cfg.n_kv, split)
+    return attention._wo(p["wo"], o, cfg.n_heads, cfg.hd, plan)
 
 
 _STATES = {"mlstm": (recurrent.MLSTMState, recurrent.mlstm_decode_step),
@@ -763,34 +1002,63 @@ _STATES = {"mlstm": (recurrent.MLSTMState, recurrent.mlstm_decode_step),
 
 
 def _block_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
-                  pos: torch.Tensor, cfg: LMConfig,
-                  mesh=None) -> torch.Tensor:
-    """One block's decode step; its cache entry is updated in place."""
+                  pos: torch.Tensor, cfg: LMConfig, plan=None,
+                  lay=None) -> torch.Tensor:
+    """One block's decode step; its cache entry is updated in place.
+    Under a ``plan`` ``p`` is this rank's blocks laid out by ``lay``,
+    ``x`` its rows and ``cache`` its block of the entry; a recurrent
+    state cut over "model" is gathered for the step (the cell runs
+    whole on each rank) and the rank keeps its block of the new one."""
+    p = _take(p, lay, cfg, plan)
     h = layers.rmsnorm(p["norm1"], x)
     if kind == "attn" and cfg.kv_quant:
         h, _ = attention.mha_decode_quant(
             p["attn"], h, cache, pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.hd, kv_quant=cfg.kv_quant,
-            attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
+            attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+            plan=plan)
     elif kind == "attn":
         h, _ = attention.mha_decode(
             p["attn"], h, attention.KVCache(cache["k"], cache["v"]), pos,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-            attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
+            attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+            plan=plan)
     elif kind == "attn_local":
-        h = _ring_decode(p["attn"], h, cache, pos, cfg)
+        h = _ring_decode(p["attn"], h, cache, pos, cfg, plan)
     else:
         state_cls, step = _STATES[kind]
-        st = state_cls(**{key: cache[key] for key in state_cls._fields})
+        axes = _entry_axes(kind, cfg)
+        st = state_cls(**_state_whole(kind, cache, axes, cfg, plan))
         if kind == "rglru":
             h, st = step(p["cell"], h, st)
         else:
             h, st = step(p["cell"], h, st, cfg.n_heads)
         for key, t in st._asdict().items():
+            if plan is not None:
+                t = module.block_like(t, axes[key], plan.mesh, _ROWS)
             cache[key].copy_(t)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
-    return _ffn_residual(p, x + h, cfg, mesh, decode=True)[0]
+    return _ffn_residual(p, x + h, cfg, plan, decode=True)[0]
+
+
+def _state_whole(kind: str, cache: dict, axes: dict, cfg: LMConfig,
+                 plan) -> dict:
+    """A recurrent block's state of this rank's rows, each leaf gathered
+    whole over "model" where its layout cuts it (RG-LRU's width over
+    ``ffn``)."""
+    if plan is None or plan.tp is None:
+        return dict(cache)
+    whole = _cache_spec_for(kind, cfg, 1, 1, "meta")
+    out = {}
+    for key, t in cache.items():
+        spec = module.partition_spec(tuple(whole[key].shape), axes[key],
+                                     plan.mesh, _ROWS)
+        for d, part in enumerate(spec):
+            if part is not None:
+                t = collectives.gather_from(t, plan.mesh, part, d)
+        out[key] = t
+    return out
 
 
 @torch.no_grad()
@@ -800,24 +1068,30 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     cache).  The cache is updated in place (the values of the reference's
     functional update); the same dict is returned.  An encoder-only model
     has no decode step: ``ValueError`` (the reference asserts).  With a
-    ``mesh``, ``params`` are this rank's blocks as in ``forward``, the
-    MoE blocks take the decode paths (``moe_dense_ep_2d`` /
-    ``moe_dense_ep``) and every rank holds the same full cache."""
+    ``mesh`` (an ``nn.module.Plan`` whose ``cache_len`` is the cache's
+    global slot count, where "model" has several ranks) the call is this
+    rank's share, as in ``forward``: ``params`` its blocks, ``tokens`` /
+    ``pos`` its rows, ``cache`` its block under ``cache_axes`` (split-KV
+    over "model"); the logits are its rows', whole over the vocabulary;
+    the MoE blocks take the decode paths (``moe_dense_ep_2d`` /
+    ``moe_dense_ep``)."""
     if cfg.encoder_only:
         raise ValueError(f"decode_step: {cfg.name} is encoder-only and has "
                          "no decode step")
-    params = _mesh_params(params, cfg, mesh)
-    x = layers.embed(params["embed"], tokens,
-                     scale_by_dim=cfg.scale_embed).to(cfg.compute_dtype)
+    plan = _plan(cfg, mesh)
+    lay = _layout(cfg, plan)
+    emb = _take({"embed": params["embed"]}, lay, cfg, plan)["embed"]
+    x = _embed(emb, tokens, cfg, plan)
     for g in range(cfg.n_groups):
         gp = _group(params["layers"], g)
         for j, kind in enumerate(cfg.pattern):
             x = _block_decode(kind, gp[f"b{j}"], x,
-                              _group(cache[f"b{j}"], g), pos, cfg, mesh)
+                              _group(cache[f"b{j}"], g), pos, cfg, plan,
+                              lay and _grouped(lay["layers"][f"b{j}"]))
     for j, kind in enumerate(cfg.tail_pattern):
         x = _block_decode(kind, params[f"tail{j}"], x, cache[f"tail{j}"],
-                          pos, cfg, mesh)
-    return _logits(params, x, cfg)[:, 0], cache
+                          pos, cfg, plan, lay and lay[f"tail{j}"])
+    return _logits(params, x, cfg, plan, lay)[:, 0], cache
 
 
 # ===========================================================================
@@ -860,6 +1134,14 @@ def batch_specs(cfg: LMConfig, shape_name: str,
                                      f32)}
         return {"tokens": empty((b, s), tok)}
     return {"tokens": empty((b, 1), tok), "pos": empty((b,), tok)}
+
+
+def input_rules(cfg: LMConfig) -> dict:
+    """The rules under which a rank takes its share of the inputs of the
+    mesh entry points (``nn.module.blocks_like`` of ``batch_axes``): the
+    config's overrides with the sequence whole, where five configs put it
+    over "model" (sequence parallelism is not ported)."""
+    return {**(cfg.sharding_overrides or {}), "seq": None}
 
 
 def batch_axes(cfg: LMConfig, shape_name: str) -> dict:

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.core import f32math
 from repro_torch.core import ima as ima_lib
 from repro_torch.core import ternary as ternary_lib
+from repro_torch.dist import collectives
 from repro_torch.nn.module import ParamSpec
 
 
@@ -49,21 +50,68 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+# --- tensor parallelism over one mesh axis (Megatron's layers) -------------
+#
+# ``x`` is the same on every rank of ``axis`` (a data-parallel row's
+# activations) and so is its cotangent; a column-parallel product (``x``
+# through ``collectives.copy_to``, then ``linear`` on this rank's block of
+# the columns) makes this rank's block of the output columns, a
+# row-parallel one its part of the output, summed over the axis.
+
+def row_linear(p: dict, x: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """x (..., F_local), this rank's block of the input features, times
+    its block of ``p``'s rows, summed over ``axis``; the bias (whole)
+    added once, after the sum."""
+    y = collectives.reduce_from(x @ p["w"].to(x.dtype), mesh, axis)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def vocab_block(n_local: int, mesh, axis) -> int:
+    """The first row of this rank's block of a table of ``n_local`` rows
+    a rank over ``axis``."""
+    return mesh.axis_index(axis) * n_local
+
+
+def embed_vocab(p: dict, ids: torch.Tensor, mesh, axis,
+                scale_by_dim: bool = False) -> torch.Tensor:
+    """``embed`` from this rank's block of the table's rows (the
+    vocabulary over ``axis``): each rank looks up the ids in its block,
+    zero elsewhere, and the rows are summed over the axis."""
+    table = p["table"]
+    v0 = vocab_block(table.shape[0], mesh, axis)
+    local = ids - v0
+    mine = (local >= 0) & (local < table.shape[0])
+    y = table[torch.where(mine, local, torch.zeros_like(local))]
+    y = y * mine[..., None].to(y.dtype)
+    y = collectives.reduce_from(y, mesh, axis)
+    if scale_by_dim:
+        y = y * torch.sqrt(torch.tensor(float(table.shape[-1]),
+                                        dtype=y.dtype, device=y.device))
+    return y
+
+
 def cim_linear(p: dict, x: torch.Tensor, code_bits: int = 5,
-               nlq_gamma: float = 2.0) -> torch.Tensor:
+               nlq_gamma: float = 2.0, *, mesh=None,
+               axes=()) -> torch.Tensor:
     """CIM-mode linear: ternary twin-cell weights (QAT STE) and NLQ
     activations.
 
     Weights fake-quantise onto the [-3, 3] twin-cell grid (per-column
     scale); the f32 product goes through the NLQ ramp, its codebook sized
     to the largest magnitude of the whole product (one scale for every row
-    of the batch, as the reference has it).
+    of the batch, as the reference has it: with a ``mesh``, the largest
+    over the ranks of ``axes``, which hold the batch's other rows).
     """
     w_q = ternary_lib.quantize_weights_ste(p["w"].float())
     y = x.float() @ w_q
     if "b" in p:
         y = y + p["b"].float()
-    scale = torch.clamp(torch.amax(torch.abs(y.detach())), min=1e-3)
+    scale = torch.amax(torch.abs(y.detach()))
+    if mesh is not None:
+        scale = collectives.pmax(scale, mesh, axes)
+    scale = torch.clamp(scale, min=1e-3)
     cb = _on(_nlq_codebook_on, code_bits, nlq_gamma, y.device)
     y = ima_lib.ima_quantize_ste(f32math.div(y, scale), cb) * scale
     return y.to(x.dtype)

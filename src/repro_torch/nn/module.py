@@ -23,6 +23,14 @@ counterpart of a global ``jax.Array`` laid out by its sharding.
 ``gather_param`` makes the whole leaf for compute that every rank runs on
 the same inputs, and ``relayout`` hands a leaf to a ``shard_map``-style
 function that wants another block of it.
+
+The partitioned step gives each rank its share of the inputs too:
+``blocks_like`` cuts a batch or a cache by its logical axes (the layout
+of ``shardings_like``), a :class:`Plan` says how a call splits its work
+(the batch's axes, the tensor-parallel axis, the cache's slots), and
+``take_param`` gathers a dense leaf over its FSDP axes for one block's
+compute, its backward reduce-scattering the gradient onto the block,
+summed over the ranks of the batch.
 """
 
 from __future__ import annotations
@@ -292,54 +300,79 @@ def _gather_blocks(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 class _Shard(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, spec, mesh):
-        ctx.spec, ctx.mesh = spec, mesh
+    def forward(ctx, x, spec, mesh, rest):
+        ctx.spec, ctx.mesh, ctx.rest = spec, mesh, rest
         return block(x, spec, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        spec, mesh = ctx.spec, ctx.mesh
-        rest = _unmentioned(spec, mesh)
+        spec, mesh, rest = ctx.spec, ctx.mesh, ctx.rest
         if rest:
             g = collectives._psum(g, mesh, rest)
-        return _gather_blocks(g, spec, mesh), None, None
+        return _gather_blocks(g, spec, mesh), None, None, None
 
 
 class _Unshard(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, local, spec, mesh):
-        ctx.spec, ctx.mesh = spec, mesh
+    def forward(ctx, local, spec, mesh, rest):
+        ctx.spec, ctx.mesh, ctx.rest = spec, mesh, rest
         return _gather_blocks(local, spec, mesh)
 
     @staticmethod
     def backward(ctx, g):
         spec, mesh = ctx.spec, ctx.mesh
-        n = math.prod(mesh.shape[a] for a in _unmentioned(spec, mesh))
+        n = math.prod(mesh.shape[a] for a in ctx.rest)
         g = block(g, spec, mesh)
-        return (g / n if n != 1 else g.clone()), None, None
+        return (g / n if n != 1 else g.clone()), None, None, None
 
 
-def shard(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+def _edge(spec: tuple, mesh, split: tuple) -> tuple[tuple, tuple]:
+    """(the spec left to cut, the axes whose ranks hold the same block)
+    of an edge whose input rows are already this rank's block over
+    ``split``: dim 0's axes must be ``split``'s."""
+    spec, split = tuple(spec), tuple(split)
+    if split:
+        head = spec[0] if spec else None
+        head = () if head is None else (
+            (head,) if isinstance(head, str) else tuple(head))
+        if head != split:
+            raise ValueError(f"rows split over {split}, the edge wants "
+                             f"{head}")
+        spec = (None,) + spec[1:]
+    rest = tuple(a for a in _unmentioned(spec, mesh) if a not in split)
+    return spec, rest
+
+
+def shard(x: torch.Tensor, spec: tuple, mesh,
+          split: tuple = ()) -> torch.Tensor:
     """``shard_map``'s input edge: this rank's block of the full ``x``.
-    The backward gathers the full cotangent on every rank."""
-    return _Shard.apply(x, tuple(spec), mesh)
+    The backward gathers the full cotangent on every rank.  ``split``:
+    the axes over which ``x``'s rows are this rank's block already (a
+    data-parallel row's tokens); they are neither cut nor summed."""
+    spec, rest = _edge(spec, mesh, split)
+    return _Shard.apply(x, spec, mesh, rest)
 
 
-def unshard(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+def unshard(local: torch.Tensor, spec: tuple, mesh,
+            split: tuple = ()) -> torch.Tensor:
     """``shard_map``'s output edge: the full tensor from every rank's
     block (all-gathered over the spec's axes).  The backward takes this
-    rank's block of the cotangent; it does not reduce-scatter."""
-    return _Unshard.apply(local, tuple(spec), mesh)
+    rank's block of the cotangent; it does not reduce-scatter.
+    ``split`` as in ``shard``."""
+    spec, rest = _edge(spec, mesh, split)
+    return _Unshard.apply(local, spec, mesh, rest)
 
 
-# A parameter held as blocks meets the compute in one of two ways.  The
-# dense layers run whole on every rank, on the same inputs: every rank
-# then holds the same whole gradient, and its block is this rank's
-# gradient with nothing summed (``gather_param``, FSDP's gather).  A
-# ``shard_map``-style function (the expert-parallel paths) runs on its
-# own tokens: the ranks that hold the same block each hold a part of its
-# gradient, summed over them (``relayout``, the input edge of
-# ``shard_map`` for an operand that is blocks already).
+# A parameter held as blocks meets the compute in one of three ways.
+# Compute that every rank runs whole on the same inputs leaves every rank
+# the same whole gradient, and its block is this rank's gradient with
+# nothing summed (``gather_param``).  A ``shard_map``-style function (the
+# expert-parallel paths) runs on its own tokens: the ranks that hold the
+# same block each hold a part of its gradient, summed over them
+# (``relayout``, the input edge of ``shard_map`` for an operand that is
+# blocks already).  The partitioned step's dense layers run on each
+# rank's rows of the batch: ``take_param`` (below) sums the parts over
+# the batch's ranks.
 
 class _GatherParam(torch.autograd.Function):
     @staticmethod
@@ -404,3 +437,140 @@ def local_params(params: Tree, specs: Tree, mesh,
     return tree_map(lambda p, s: block(
         p, partition_spec(tuple(p.shape), s.axes, mesh, rules), mesh),
         params, specs)
+
+
+# ---------------------------------------------------------------------------
+# The partitioned step: each rank's share of the batch, heads, FFN,
+# vocabulary and decode cache
+# ---------------------------------------------------------------------------
+
+def block_like(x: torch.Tensor, axes: tuple, mesh,
+               rules: dict | None = None) -> torch.Tensor:
+    """This rank's block of ``x`` laid out by its logical ``axes`` under
+    ``rules`` (``partition_spec``'s: an axis that does not divide is
+    dropped, none used twice)."""
+    return block(x, partition_spec(tuple(x.shape), axes, mesh, rules), mesh)
+
+
+def blocks_like(tree: Tree, axes_tree: Tree, mesh,
+                rules: dict | None = None) -> Tree:
+    """Each leaf of ``tree`` cut to this rank's block by the parallel
+    tree of logical axes (a batch's ``batch_axes``, a cache's
+    ``cache_axes``): the counterpart of ``shardings_like``'s layout."""
+    return tree_map(lambda x, ax: block_like(x, ax, mesh, rules), tree,
+                    axes_tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How a call under a mesh splits its work.  The batch's rows are
+    this rank's block over ``dp`` (the mesh axes of the "batch" rule that
+    the global batch divides over); the tensor-parallel layers (heads,
+    FFN, vocabulary, the decode cache's slots) split over ``tp``
+    ("model", None where the mesh has no such axis or it has one rank);
+    ``cache_len`` is the global slot count of a decode cache (the
+    rank's block does not say whether it was cut)."""
+    mesh: Any
+    dp: tuple[str, ...]
+    tp: str | None
+    cache_len: int | None = None
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.shape[self.tp] if self.tp else 1
+
+    @property
+    def tp_index(self) -> int:
+        return self.mesh.axis_index(self.tp) if self.tp else 0
+
+    @property
+    def dp_live(self) -> tuple[str, ...]:
+        """``dp`` without its axes of one rank."""
+        return tuple(a for a in self.dp if self.mesh.shape[a] > 1)
+
+
+def plan(mesh, rules: dict | None = None, *, batch: int | None = None,
+         cache_len: int | None = None) -> Plan | None:
+    """The :class:`Plan` of a call under ``mesh`` (a ``Mesh``, or a
+    ``Plan`` returned as it is, ``None`` for no mesh).  ``batch``: the
+    global batch, whose rows split over the "batch" rule's axes that
+    divide it; without it, over all of them (a rank's share of a batch
+    that divides)."""
+    if mesh is None or isinstance(mesh, Plan):
+        if isinstance(mesh, Plan) and cache_len is not None:
+            return dataclasses.replace(mesh, cache_len=cache_len)
+        return mesh
+    rules = {**DEFAULT_RULES, **(rules or {})}
+    if batch is None:
+        dp = _mesh_axes_for("batch", rules, mesh)
+    else:
+        spec = partition_spec((batch,), ("batch",), mesh, rules)
+        dp = () if not spec else (
+            (spec[0],) if isinstance(spec[0], str) else tuple(spec[0]))
+    tp = "model" if mesh.shape.get("model", 1) > 1 else None
+    return Plan(mesh, tuple(dp), tp, cache_len)
+
+
+class _Take(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, gathered, scatter, summed, mesh):
+        ctx.args = (gathered, scatter, summed, mesh)
+        if not gathered:
+            return local.view_as(local)
+        for d, axes in gathered:
+            local = collectives._gather(local, mesh, axes, d)
+        return local
+
+    @staticmethod
+    def backward(ctx, g):
+        gathered, scatter, summed, mesh = ctx.args
+        if summed:
+            g = collectives._psum(g, mesh, summed)
+        for d, axes in gathered:
+            if axes in scatter:
+                g = collectives._scatter(g, mesh, axes, d)
+            else:
+                g = block(g, (None,) * d + (axes,), mesh)
+        return g.contiguous(), None, None, None, None
+
+
+def take_param(local: torch.Tensor, spec: tuple, plan_: Plan,
+               whole: bool = False) -> torch.Tensor:
+    """A dense parameter leaf for this rank's compute, from the block it
+    holds laid out by ``spec``: gathered over every axis but the
+    tensor-parallel one (FSDP's per-layer gather), or with ``whole``
+    over every axis (a layer that runs whole on each rank of "model").
+    The backward leaves the block the gradient summed over the ranks of
+    ``plan_.dp``, each of which computed its rows' part:
+    reduce-scattered over the axes it was gathered over, summed over the
+    others."""
+    mesh = plan_.mesh
+    gathered = []
+    for d, axes in _spec_parts(tuple(spec), local.ndim):
+        live = tuple(a for a in axes if mesh.shape[a] > 1)
+        if not live:
+            continue
+        if plan_.tp in live and not whole:
+            if live != (plan_.tp,):
+                raise ValueError(f"dim {d} of a leaf laid out by {spec} "
+                                 f"mixes {plan_.tp!r} with other axes")
+            continue
+        gathered.append((d, live))
+    dp = set(plan_.dp_live)
+    scatter = tuple(axes for _, axes in gathered if set(axes) <= dp)
+    summed = tuple(a for a in plan_.dp_live
+                   if not any(a in axes for axes in scatter))
+    if not gathered and not summed:
+        return local
+    if not torch.is_grad_enabled() or not local.requires_grad:
+        for d, axes in gathered:
+            local = collectives._gather(local, mesh, axes, d)
+        return local
+    return _Take.apply(local, tuple(gathered), scatter, summed, mesh)
+
+
+def take_params(tree: Tree, layout: Tree, plan_: Plan,
+                whole: bool = False) -> Tree:
+    """``take_param`` over a tree and its layout."""
+    return tree_map(lambda t, spec: take_param(t, spec, plan_, whole),
+                    tree, layout)

@@ -23,7 +23,11 @@ a :class:`~repro_torch.launch.mesh.Mesh`:
 Each has ``shard_map``'s semantics: the full ``x`` in, the full ``y``
 and a scalar ``aux`` out, on every rank (``nn.module.shard`` /
 ``unshard`` at the edges), and inside a function of the rank's block
-with the collectives of ``dist.collectives``, under autograd.  The
+with the collectives of ``dist.collectives``, under autograd.  In the
+LM's partitioned step ``x`` arrives as this rank's rows, already split
+over the token axes (``split=``, the batch's axes): the edges then cut
+and gather only over the other axes, and the output is this rank's
+rows.  The
 parameters come as the rank holds them: ``specs`` names each leaf's
 layout (``nn.module.param_layout``, the blocks ``local_params`` and
 ``checkpoint.restore(shardings=)`` give), or ``None`` for whole leaves
@@ -251,7 +255,7 @@ def moe_a2a(p: dict, x: torch.Tensor, *, k: int, mesh,
             token_axes=("pod", "data"), expert_axis: str = "model",
             seq_sharded: bool = False, snl_rescue: float = 0.0,
             gumbel: torch.Tensor | None = None, stats: dict | None = None,
-            specs: dict | None = None):
+            specs: dict | None = None, split: tuple = ()):
     """Expert-parallel MoE through ``all_to_all``: x (B, S, D) -> (y (B,
     S, D), aux).  ``p`` is held in the layout ``specs`` (module doc).
 
@@ -274,7 +278,7 @@ def moe_a2a(p: dict, x: torch.Tensor, *, k: int, mesh,
     router = _held(p, specs, "router", (), mesh)
     w_in, w_gate, w_out = (_held(p, specs, n, w_spec, mesh)
                            for n in ("w_in", "w_gate", "w_out"))
-    xl = shard(x, x_spec, mesh)
+    xl = shard(x, x_spec, mesh, split)
 
     bl, sl, dl = xl.shape
     t_loc = bl * sl
@@ -303,7 +307,7 @@ def moe_a2a(p: dict, x: torch.Tensor, *, k: int, mesh,
     aux = col.pmean(aux, mesh, expert_axis)
     for ax in taxes:
         aux = col.pmean(aux, mesh, ax)
-    return (unshard(ys.reshape(bl, sl, dl), x_spec, mesh),
+    return (unshard(ys.reshape(bl, sl, dl), x_spec, mesh, split),
             unshard(aux, (), mesh))
 
 
@@ -394,7 +398,7 @@ def moe_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
            expert_axes=("pod", "data"), tp_axis: str = "model",
            wire_dtype: str = "bfloat16", snl_rescue: float = 0.0,
            gumbel: torch.Tensor | None = None, stats: dict | None = None,
-           specs: dict | None = None):
+           specs: dict | None = None, split: tuple = ()):
     """2D expert + tensor parallelism: experts over ``expert_axes`` (the
     DP rows), each expert's FFN width over ``tp_axis``; ``p`` held in
     the layout ``specs``.
@@ -417,7 +421,7 @@ def moe_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
     w_in = _held(p, specs, "w_in", (row_spec, None, tp_axis), mesh)
     w_gate = _held(p, specs, "w_gate", (row_spec, None, tp_axis), mesh)
     w_out = _held(p, specs, "w_out", (row_spec, tp_axis, None), mesh)
-    xl = shard(x, x_spec, mesh)
+    xl = shard(x, x_spec, mesh, split)
 
     bl, sl, dl = xl.shape
     xs = xl.reshape(bl * sl, dl)
@@ -454,7 +458,7 @@ def moe_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
         ys = col.replicate(ys, mesh, tp_axis)
     aux = aux_load_balance_loss(probs, idx, n_experts, k)
     aux = col.pmean(aux, mesh, eaxes + (tp_axis,))
-    return (unshard(ys.reshape(bl, sl, dl), x_spec, mesh),
+    return (unshard(ys.reshape(bl, sl, dl), x_spec, mesh, split),
             unshard(aux, (), mesh))
 
 
@@ -477,7 +481,7 @@ def moe_dense_ep_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
                     activation: str = "silu", expert_axes=("pod", "data"),
                     tp_axis: str = "model", snl_rescue: float = 0.0,
                     gumbel: torch.Tensor | None = None,
-                    specs: dict | None = None):
+                    specs: dict | None = None, split: tuple = ()):
     """The decode shape of 2D-sharded experts: the (small) token batch
     gathered over the expert rows, every local expert's F-slice on every
     token, ``psum`` over the TP axis and the rows, then each row's tokens
@@ -495,7 +499,7 @@ def moe_dense_ep_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
                              mesh),
              "w_out": _held(p, specs, "w_out", (row_spec, tp_axis, None),
                             mesh)}
-    xl = shard(x, x_spec, mesh)
+    xl = shard(x, x_spec, mesh, split)
 
     bl, sl, dl = xl.shape
     xt = xl.reshape(-1, dl)
@@ -511,7 +515,7 @@ def moe_dense_ep_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
     y_mine = y_tok[row * t_loc:][:t_loc]
     aux = aux_load_balance_loss(probs, idx, n_experts, k)
     aux = col.pmean(aux, mesh, eaxes + (tp_axis,))
-    return (unshard(y_mine.reshape(bl, sl, dl), x_spec, mesh),
+    return (unshard(y_mine.reshape(bl, sl, dl), x_spec, mesh, split),
             unshard(aux, (), mesh))
 
 
@@ -519,7 +523,7 @@ def moe_dense_ep(p: dict, x: torch.Tensor, *, k: int, mesh,
                  activation: str = "silu", token_axes=("pod", "data"),
                  expert_axis: str = "model", snl_rescue: float = 0.0,
                  gumbel: torch.Tensor | None = None,
-                 specs: dict | None = None):
+                 specs: dict | None = None, split: tuple = ()):
     """The decode shape of expert parallelism: every local expert on every
     local token, combined with the routing and summed (``psum``) over
     the expert axis.  ``p`` is held in the layout ``specs``."""
@@ -530,7 +534,7 @@ def moe_dense_ep(p: dict, x: torch.Tensor, *, k: int, mesh,
     router = _held(p, specs, "router", (), mesh)
     p_loc = {n: _held(p, specs, n, (expert_axis,), mesh)
              for n in ("w_in", "w_gate", "w_out")}
-    xl = shard(x, x_spec, mesh)
+    xl = shard(x, x_spec, mesh, split)
 
     bl, sl, dl = xl.shape
     xt = xl.reshape(-1, dl)                                   # (T_loc, D)
@@ -543,5 +547,5 @@ def moe_dense_ep(p: dict, x: torch.Tensor, *, k: int, mesh,
     aux = aux_load_balance_loss(probs, idx, n_experts, k)
     for ax in taxes:
         aux = col.pmean(aux, mesh, ax)
-    return (unshard(y.reshape(bl, sl, dl), x_spec, mesh),
+    return (unshard(y.reshape(bl, sl, dl), x_spec, mesh, split),
             unshard(aux, (), mesh))

@@ -24,8 +24,10 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import ctrprng, f32math
 from repro_torch.core import energy as energy_lib
+from repro_torch.dist import collectives
 from repro_torch.models import lm
 from repro_torch.models import snn as snn_lib
+from repro_torch.nn import module as nn_module
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import lifecycle
@@ -58,8 +60,10 @@ def _derived_seed(engine_seed: int, tag: int, index: int) -> int:
 def build_serve_step(cfg: lm.LMConfig, mesh=None, *,
                      temperature: float = 0.0):
     """Returns step(params, cache, tokens, pos, generator) ->
-    (next tokens (B, 1) int32, logits (B, V), cache); with a ``mesh``
-    every rank of it steps the same full cache (``lm.decode_step``).
+    (next tokens (B, 1) int32, logits (B, V), cache); with a ``mesh`` (an
+    ``nn.module.Plan`` with the cache's ``cache_len``) each rank steps
+    its share (``lm.decode_step``): its rows of ``tokens`` / ``pos``, its
+    block of the cache, and the next tokens and logits of its rows.
 
     Greedy at ``temperature == 0``; above it the next token is drawn from
     ``softmax(logits / temperature)`` with ``generator`` (its draws are
@@ -950,8 +954,11 @@ class BatchedEngine:
     ``models.lm.init_cache`` is carried.  Decoding is greedy.  Runs on
     ``cuda`` unless the caller passes ``device="cpu"``.  With a ``mesh``
     every rank of it runs the same engine on the same requests with its
-    blocks of the parameters (``lm.decode_step``), and the MoE blocks
-    split their work over the ranks.
+    blocks of the parameters: the slots are split over the mesh's
+    "batch" axes (where they divide), each rank holds its slots' block
+    of the cache (``lm.cache_axes``) and steps them, and the next tokens
+    of every slot are gathered over those axes, so that every rank keeps
+    the same books; a prompt token still steps every slot of every rank.
     """
 
     def __init__(self, cfg: lm.LMConfig, params, batch_slots: int = 4,
@@ -962,8 +969,11 @@ class BatchedEngine:
         self.b = batch_slots
         self.s_max = s_max
         self.device = dev
-        self.step_fn = build_serve_step(cfg, mesh)
-        self.cache = lm.init_cache(cfg, batch_slots, s_max, device=dev)
+        self.plan = nn_module.plan(mesh, cfg.sharding_overrides,
+                                   batch=batch_slots, cache_len=s_max)
+        self.step_fn = build_serve_step(cfg, self.plan)
+        self.cache = lm.init_cache(cfg, batch_slots, s_max, device=dev,
+                                   mesh=self.plan)
         self.pos = torch.zeros((batch_slots,), dtype=torch.int64, device=dev)
         self.slots: list[Request | None] = [None] * batch_slots
         self.pending: list[Request] = []
@@ -975,6 +985,21 @@ class BatchedEngine:
     def submit(self, req: Request):
         self.pending.append(req)
 
+    def _step(self, toks: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """One decode step of every slot: the next tokens (B, 1).  Under a
+        mesh this rank steps its slots, and every slot's next token is
+        gathered over the slots' axes."""
+        plan = self.plan
+        if plan is None:
+            nxt, _, self.cache = self.step_fn(self.params, self.cache, toks,
+                                              pos, self._gen)
+            return nxt
+        mesh, spec = plan.mesh, (plan.dp,) if plan.dp else ()
+        nxt, _, self.cache = self.step_fn(
+            self.params, self.cache, nn_module.block(toks, spec, mesh),
+            nn_module.block(pos, spec, mesh), self._gen)
+        return collectives.all_gather(nxt, mesh, plan.dp, 0)
+
     def _admit(self):
         for i in range(self.b):
             if self.slots[i] is None and self.pending:
@@ -985,8 +1010,7 @@ class BatchedEngine:
                     toks[i, 0] = tok
                     pos = self.pos.clone()
                     pos[i] = t
-                    nxt, _, self.cache = self.step_fn(
-                        self.params, self.cache, toks, pos, self._gen)
+                    nxt = self._step(toks, pos)
                     self._next_token[i] = nxt[i]
                 self.pos[i] = len(req.prompt)
 
@@ -1001,9 +1025,7 @@ class BatchedEngine:
             if rounds >= max_rounds:
                 break
             rounds += 1
-            nxt, _, self.cache = self.step_fn(self.params, self.cache,
-                                              self._next_token, self.pos,
-                                              self._gen)
+            nxt = self._step(self._next_token, self.pos)
             self._next_token = nxt
             self.pos += torch.tensor(
                 [1 if s is not None else 0 for s in self.slots],

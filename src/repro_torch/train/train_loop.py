@@ -15,11 +15,15 @@ divided by ``n_micro``; the loss likewise.  ``metrics`` holds ``loss``,
 ``grad_norm`` (before clipping) and ``lr``, device scalars.
 ``build_eval_step`` runs ``lm.loss_fn`` under ``torch.no_grad()``, so
 on the card its attention is the flash kernel.  With a ``mesh``
-(``launch.mesh``) every rank of it calls the step on its blocks of the
-parameters and optimizer state (``nn.module.param_layout``) and the same
-batch: ``lm.loss_fn(mesh=)`` gives each rank its blocks of the global
-gradient, the clipping norm is the whole gradient's (``block_norm``),
-and each rank updates its blocks.
+(``launch.mesh``, or an ``nn.module.Plan``) every rank of it calls the
+step on its blocks of the parameters and optimizer state
+(``nn.module.param_layout``) and its share of the batch: each
+microbatch's rows of this rank, (n_micro, mb / dp, ...), the global
+microbatch cut over the mesh's "batch" axes.  ``lm.loss_fn(mesh=)``
+gives each rank its blocks of the global gradient (summed over the ranks
+of the batch's axes: reduce-scattered onto FSDP's blocks, summed where
+a leaf is whole over them), the clipping norm is the whole gradient's
+(``block_norm``), and each rank updates its blocks with AdamW.
 """
 
 from __future__ import annotations
@@ -52,8 +56,10 @@ def microbatch(batch: dict, n_micro: int) -> dict:
 def block_norm(grads: Tree, cfg: lm.LMConfig, mesh) -> torch.Tensor:
     """The global norm of the whole gradient from this rank's blocks:
     each leaf's sum of squares summed over the axes its layout cuts (the
-    ranks that hold its other blocks), then over the leaves in
+    ranks that hold its other blocks; the ranks that hold the same block
+    hold the same gradient, and it counts once), then over the leaves in
     ``optim.global_norm``'s order, which it equals on one rank."""
+    mesh = module.plan(mesh).mesh
     layout = leaves(module.param_layout(lm.param_specs(cfg), mesh,
                                         cfg.sharding_overrides))
     total = None

@@ -1,7 +1,12 @@
 """The shapes and cases shared by ``_dist_reference_jax.py`` (the JAX
 package on 8 simulated devices) and ``_dist_ranks_torch.py`` (the port
 on 8 gloo ranks): ``tests/test_dist.py``'s MoE shapes on its (2, 4)
-("data", "model") mesh, and the reduced MoE LMs."""
+("data", "model") mesh, the reduced MoE LMs, and the partitioned step's
+configs and operands."""
+
+import dataclasses
+
+import numpy as np
 
 E, D, F, K = 8, 16, 32, 2
 B, S = 4, 8
@@ -44,3 +49,58 @@ HELD = {"a2a": ("a2a_cf125", None), "2d": ("2d_cf125", _RULES_2D),
 DRY_ARCHS = ("kimi-k2-1t-a32b", "qwen2.5-32b")
 DRY_B, DRY_S, DRY_S_MAX = 4, 8, 16
 POLICIES = ("nothing", "dots", "save_moe_recv")
+
+# The partitioned step (test_torch_partition.py): reduced configs on the
+# (2, 4) mesh, the rows of a PART_B batch over "data", the heads, FFN,
+# vocabulary and cache slots over "model": qwen2.5 (GQA, FSDP, a kv head
+# cut over "model"), smollm (heads whole, tied embeddings), gemma2
+# (local layers, softcaps, the ring decode), kimi-k2 (2D EP) and
+# recurrentgemma (RG-LRU, MQA).  A config with a window takes PART_S_LONG
+# positions (a prompt longer than its window, as the ring decode needs);
+# the prefill's cache is padded by PART_PAD slots (so that the slots
+# split over "model") for PART_DECODE decode steps; the engine has
+# PART_SLOTS slots over "data" and the prompts PART_PROMPTS.
+PART_ARCHS = ("qwen2.5-32b", "smollm-135m", "gemma2-2b", "kimi-k2-1t-a32b",
+              "recurrentgemma-9b", "qwen2.5-32b+6heads", "qwen2.5-32b+int8")
+# a variant of a config: its tag -> (the registry's name, the fields it
+# changes on the reduced config): qwen2.5 with 6 heads of 16 and 2 kv
+# heads, whose q and kv blocks over the 4 ranks of "model" cut a head,
+# as the full qwen2.5's 40 heads over 16 do; and its int8 KV cache, the
+# payload and scales split over the slots
+PART_VARIANTS = {"qwen2.5-32b+6heads": ("qwen2.5-32b", {
+    "n_heads": 6, "n_kv": 2, "head_dim": 16}),
+    "qwen2.5-32b+int8": ("qwen2.5-32b", {"kv_quant": "int8"})}
+PART_B, PART_S, PART_S_LONG, PART_PAD, PART_DECODE = 4, 8, 64, 8, 3
+PART_SLOTS, PART_PROMPTS, PART_NEW, PART_S_MAX = 4, (3, 5, 4), 3, 16
+PART_SEED = 11
+
+
+def part_seq(window) -> int:
+    return PART_S_LONG if window else PART_S
+
+
+def part_config(tag: str, archs: dict, reduced):
+    """The reduced config of a case (``reduced`` and ``archs`` the side's
+    own ``configs.base.reduced`` and registry)."""
+    name, fields = PART_VARIANTS.get(tag, (tag, {}))
+    return dataclasses.replace(reduced(archs[name]), **fields)
+
+
+def part_inputs(paths_shapes, vocab: int, window, seed: int) -> dict:
+    """The operands of one config's partitioned step, the same on both
+    sides, from ``numpy.random.RandomState(seed)``: each parameter leaf
+    (``paths_shapes``: (path, shape) in sorted-key order) normal with
+    the fan-in scale, the tokens, the decode tokens and the prompts."""
+    rs = np.random.RandomState(seed)
+    out = {}
+    for path, shape in paths_shapes:
+        fan = shape[-2] if len(shape) >= 2 else shape[-1]
+        out[f"params/{path}"] = (rs.standard_normal(shape)
+                                 / np.sqrt(max(fan, 1))).astype(np.float32)
+    s = part_seq(window)
+    out["tokens"] = rs.randint(0, vocab, (PART_B, s)).astype(np.int32)
+    out["decode_tokens"] = rs.randint(0, vocab, (PART_B, PART_DECODE)
+                                      ).astype(np.int32)
+    for uid, n in enumerate(PART_PROMPTS):
+        out[f"prompt{uid}"] = rs.randint(0, vocab, n).astype(np.int32)
+    return out

@@ -4,6 +4,7 @@
     python tests/_dist_ranks_torch.py moe IN.npz OUT.npz   # 8 ranks
     python tests/_dist_ranks_torch.py gpipe IN.npz OUT.npz # 2 ranks
     python tests/_dist_ranks_torch.py dryrun - OUT.npz     # 8 ranks
+    python tests/_dist_ranks_torch.py part - OUT.npz       # 8 ranks
 
 Spawns the ranks on a TCP store at a free port of 127.0.0.1 (each with
 one thread: the suite runs under ``pytest -n``), reads the operands the
@@ -12,10 +13,13 @@ JAX script wrote, runs the port's counterpart of every case through a
 every rank's routing) under the reference's keys.  ``dryrun`` needs no
 input: it counts rank 0's train and decode steps of ``R.DRY_ARCHS``
 (``launch.dryrun.count``) and runs ``loss_fn`` under each remat policy,
-for ``test_torch_dryrun.py``.
+for ``test_torch_dryrun.py``.  ``part`` runs the partitioned step of
+``R.PART_ARCHS`` on each rank's share of ``R.part_inputs`` and writes the
+results gathered whole, for ``test_torch_partition.py``.
 """
 
 import os
+import shutil
 import socket
 import sys
 
@@ -36,6 +40,8 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
 from repro_torch.dist import collectives, pipeline  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import serve as serve_lib  # noqa: E402
+from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch.mesh import (Mesh, make_host_mesh,  # noqa: E402
                                      make_production_mesh)
 from repro_torch.models import lm  # noqa: E402
@@ -211,22 +217,48 @@ def _meshes() -> dict:
             "out/coords/errors": np.array([g[5] for g in got])}
 
 
+def _paths_shapes(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _paths_shapes(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tuple(tree.shape))]
+
+
+def _rows_of(t: torch.Tensor, plan) -> torch.Tensor:
+    """This rank's rows of a global (B, ...) tensor."""
+    return module.block(t, (plan.dp,) if plan.dp else (), plan.mesh)
+
+
+def _all_rows(t: torch.Tensor, plan) -> torch.Tensor:
+    """The global (B, ...) tensor from every rank's rows."""
+    return collectives.all_gather(t.detach(), plan.mesh, plan.dp, 0)
+
+
+def _rows_of_tree(tree: dict, plan) -> dict:
+    return {k: _rows_of(v, plan) for k, v in tree.items()}
+
+
 def _lm_cases(z, mesh, arch, ckpt_dir) -> dict:
     """The LM through the mesh on this rank's blocks of the parameters
-    (``local_params``); gradients and stepped parameters gathered whole.
-    Then the elastic path: the blocks of a (1, 8) layout gathered and
-    saved, restored on the (2, 4) mesh, through ``forward``."""
+    (``local_params``) and its rows of the batch; the rows of every rank
+    gathered for the comparison, gradients and stepped parameters
+    gathered whole.  Then the elastic path: the blocks of a (1, 8)
+    layout gathered and saved, restored on the (2, 4) mesh, through
+    ``forward``."""
     cfg = base.reduced(configs.ARCHS[arch])
     rules = cfg.sharding_overrides
     specs = lm.param_specs(cfg)
     layout = module.param_layout(specs, mesh, rules)
     full = _tree(z, f"in/{arch}/params")
     params = module.local_params(full, specs, mesh, rules)
-    batch = {"tokens": torch.from_numpy(z[f"in/{arch}/tokens"])}
-    dec = torch.from_numpy(z[f"in/{arch}/decode_tokens"])
+    plan = module.plan(mesh, rules, batch=R.LM_B)
+    batch = _rows_of_tree(
+        {"tokens": torch.from_numpy(z[f"in/{arch}/tokens"])}, plan)
+    dec = _rows_of(torch.from_numpy(z[f"in/{arch}/decode_tokens"]), plan)
     out = {}
     logits, aux = lm.forward(params, batch, cfg, mesh=mesh)
-    out[f"out/{arch}/logits"], out[f"out/{arch}/aux"] = logits, aux
+    out[f"out/{arch}/logits"] = _all_rows(logits, plan)
+    out[f"out/{arch}/aux"] = aux
     live = module.tree_map(lambda t: t.clone().requires_grad_(), params)
     loss, parts = lm.loss_fn(live, batch, cfg, mesh=mesh)
     loss.backward()
@@ -236,13 +268,14 @@ def _lm_cases(z, mesh, arch, ckpt_dir) -> dict:
     out[f"out/{arch}/experts_held"] = np.int64(
         params["layers"]["b0"]["moe"]["w_in"].shape[1])
     last, _, cache = lm.forward(params, batch, cfg, prefill=True, mesh=mesh)
-    out[f"out/{arch}/prefill_logits"] = last
-    cache = lm.pad_cache(cache, cfg, R.LM_S + R.LM_DECODE)
+    out[f"out/{arch}/prefill_logits"] = _all_rows(last, plan)
+    s_max = R.LM_S + R.LM_DECODE
+    cache = lm.pad_cache(cache, cfg, s_max, mesh=mesh, seq=R.LM_S)
     for i in range(R.LM_DECODE):
-        pos = torch.full((R.LM_B,), R.LM_S + i, dtype=torch.int64)
+        pos = torch.full((dec.shape[0],), R.LM_S + i, dtype=torch.int64)
         lg, cache = lm.decode_step(params, cache, dec[:, i:i + 1], pos, cfg,
-                                   mesh=mesh)
-        out[f"out/{arch}/decode{i}"] = lg
+                                   mesh=module.plan(plan, cache_len=s_max))
+        out[f"out/{arch}/decode{i}"] = _all_rows(lg, plan)
     eng = engine.BatchedEngine(cfg, params, batch_slots=len(R.ENGINE_PROMPTS),
                                s_max=R.ENGINE_S_MAX, mesh=mesh, device="cpu")
     for uid in range(len(R.ENGINE_PROMPTS)):
@@ -284,11 +317,133 @@ def _lm_cases(z, mesh, arch, ckpt_dir) -> dict:
     out[f"out/{arch}/restored_blocks_equal"] = np.array(all(
         torch.equal(a, b) for a, b in zip(module.leaves(restored),
                                           module.leaves(params))))
-    out[f"out/{arch}/restored_logits"] = lm.forward(restored, batch, cfg,
-                                                    mesh=mesh)[0]
+    out[f"out/{arch}/restored_logits"] = _all_rows(
+        lm.forward(restored, batch, cfg, mesh=mesh)[0], plan)
     dist.barrier()
     return {k: v.detach().numpy() if torch.is_tensor(v) else v
             for k, v in out.items()}
+
+
+def _flops_share(cfg, params, full, batch, local, mesh) -> dict:
+    """Counted FLOPs of one train step (AdamW, one microbatch) on this
+    rank's share against the same step at world 1 on the whole batch."""
+    step, args, _, _ = dryrun.build(cfg, "train_4k", mesh, "cpu", n_micro=1,
+                                    batch=R.PART_B, seq=R.PART_S,
+                                    params=params)
+    share, _ = dryrun.count(step, params, args[1], train_loop.microbatch(
+        local, 1))
+    step, args, _, _ = dryrun.build(cfg, "train_4k", None, "cpu", n_micro=1,
+                                    batch=R.PART_B, seq=R.PART_S,
+                                    params=full)
+    whole, _ = dryrun.count(step, full, args[1], train_loop.microbatch(
+        batch, 1))
+    return {"share": share["flops"], "whole": whole["flops"]}
+
+
+def _part_cases(mesh, arch: str, seed: int) -> dict:
+    """The partitioned step of the reduced config on this rank's share:
+    its blocks of the parameters, its rows of the batch (``blocks_like``
+    of ``batch_axes`` under ``input_rules``) and its block of the cache;
+    every result gathered whole for the comparison (rows over "data",
+    gradient and parameter blocks by their layout)."""
+    cfg = R.part_config(arch, configs.ARCHS, base.reduced)
+    rules = cfg.sharding_overrides
+    s = R.part_seq(cfg.window)
+    specs = lm.param_specs(cfg)
+    layout = module.param_layout(specs, mesh, rules)
+    ops = R.part_inputs(_paths_shapes(specs), cfg.vocab_size, cfg.window,
+                        seed)
+    full = module.unflatten(specs, [torch.from_numpy(ops[f"params/{k}"])
+                                    for k, _ in _paths_shapes(specs)])
+    params = module.local_params(full, specs, mesh, rules)
+    batch = {"tokens": torch.from_numpy(ops["tokens"]).long()}
+    plan = module.plan(mesh, rules, batch=R.PART_B)
+    local = module.blocks_like(batch, lm.batch_axes(cfg, "train_4k"), mesh,
+                               lm.input_rules(cfg))
+    tag = f"part/{arch}"
+    out = {f"out/{tag}/rows": np.int64(local["tokens"].shape[0])}
+    logits, aux = lm.forward(params, local, cfg, mesh=mesh)
+    out[f"out/{tag}/logits"] = _all_rows(logits, plan)
+    out[f"out/{tag}/aux"] = aux
+    live = module.tree_map(lambda t: t.clone().requires_grad_(), params)
+    loss, parts = lm.loss_fn(live, local, cfg, mesh=mesh)
+    flat = module.leaves(live)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = module.unflatten(params, [torch.zeros_like(p) if g is None
+                                      else g for p, g in zip(flat, grads)])
+    out[f"out/{tag}/loss"], out[f"out/{tag}/ce"] = loss, parts["ce"]
+    out.update(_flat(_gathered(grads, layout, mesh), f"out/{tag}/grads"))
+    opt = optim.AdamWConfig()
+    step = train_loop.build_train_step(cfg, mesh, opt_cfg=opt)
+    stepped, _, metrics = step(params, optim.adamw_init(params, opt),
+                               train_loop.microbatch(local, 1))
+    out.update(_flat(_gathered(stepped, layout, mesh), f"out/{tag}/stepped"))
+    out[f"out/{tag}/grad_norm"] = metrics["grad_norm"]
+    out[f"out/{tag}/eval_loss"] = train_loop.build_eval_step(cfg, mesh)(
+        params, local)["loss"]
+    last, _, cache = lm.forward(params, local, cfg, prefill=True, mesh=mesh)
+    out[f"out/{tag}/prefill_logits"] = _all_rows(last, plan)
+    k0 = cache["b0"].get("k")
+    if k0 is not None:
+        out[f"out/{tag}/prefill_slots"] = np.int64(k0.shape[2])
+    s_max = s + R.PART_PAD
+    cache = lm.pad_cache(cache, cfg, s_max, mesh=mesh, seq=s)
+    dplan = module.plan(plan, cache_len=s_max)
+    dec = torch.from_numpy(ops["decode_tokens"]).long()
+    for i in range(R.PART_DECODE):
+        pos = torch.full((R.PART_B,), s + i, dtype=torch.int64)
+        lg, cache = lm.decode_step(params, cache,
+                                   _rows_of(dec[:, i:i + 1], plan),
+                                   _rows_of(pos, plan), cfg, mesh=dplan)
+        out[f"out/{tag}/decode{i}"] = _all_rows(lg, plan)
+    if k0 is not None:
+        out[f"out/{tag}/decode_slots"] = np.int64(cache["b0"]["k"].shape[2])
+    eng = engine.BatchedEngine(cfg, params, batch_slots=R.PART_SLOTS,
+                               s_max=R.PART_S_MAX, mesh=mesh, device="cpu")
+    for uid in range(len(R.PART_PROMPTS)):
+        eng.submit(engine.Request(uid, ops[f"prompt{uid}"].tolist(),
+                                  R.PART_NEW))
+    for req in eng.run():
+        out[f"out/{tag}/engine{req.uid}"] = np.array(req.generated)
+    out[f"out/{tag}/engine_rows"] = np.int64(
+        next(iter(eng.cache["b0"].values())).shape[1])
+    if arch == "qwen2.5-32b":
+        flops = _flops_share(cfg, params, full, batch, local, mesh)
+        out[f"out/{tag}/flops_share"] = np.int64(flops["share"])
+        out[f"out/{tag}/flops_whole"] = np.int64(flops["whole"])
+    return {k: v.detach().numpy() if torch.is_tensor(v) else v
+            for k, v in out.items()}
+
+
+def _launch_cases(mesh, tmp: str) -> dict:
+    """``launch.train.main`` and ``launch.serve.main`` (reduced smollm,
+    on the CPU) with ``mesh=``, beside the same runs at world 1 on this
+    rank: the losses, and the served tokens.  The mesh run checkpoints
+    at its second step and a second call resumes from it."""
+    train = ["--smoke", "--device", "cpu", "--steps", "3",
+             "--global-batch", "8", "--seq-len", "16", "--n-micro", "2",
+             "--ckpt-every", "2"]
+    out = {}
+    rank = dist.get_rank()
+    mine = os.path.join(tmp, "mesh_ckpt")
+    hist = train_lib.main(train + ["--ckpt-dir", mine], mesh=mesh)
+    out["out/launch/train_mesh"] = np.array([h["loss"] for h in hist])
+    # the third step again, resumed from the step-2 checkpoint
+    if rank == 0:
+        shutil.rmtree(os.path.join(mine, "step_3"))
+    dist.barrier()
+    again = train_lib.main(train + ["--ckpt-dir", mine], mesh=mesh)
+    out["out/launch/train_resumed"] = np.array([h["loss"] for h in again])
+    one = os.path.join(tmp, f"one_ckpt_{rank}")
+    out["out/launch/train_one"] = np.array([
+        h["loss"] for h in train_lib.main(train + ["--ckpt-dir", one])])
+    serve = ["--smoke", "--device", "cpu", "--requests", "4", "--slots",
+             "4", "--max-new", "3"]
+    for tag, m in (("mesh", mesh), ("one", None)):
+        done = serve_lib.main(serve, mesh=m)
+        out[f"out/launch/serve_{tag}"] = np.array(
+            [r.generated for r in sorted(done, key=lambda r: r.uid)])
+    return out
 
 
 def dry_config(arch: str, policy: str = "nothing"):
@@ -305,33 +460,42 @@ def _tally_keys(prefix: str, tally) -> dict:
 
 def _dry_cases(mesh) -> dict:
     """Rank 0's counts of a train step and a decode step of each reduced
-    config on its blocks of seeded parameters; ``loss_fn``'s loss and
-    gradient blocks under each remat policy, and the collectives of its
-    forward and backward."""
+    config on its blocks of seeded parameters and its rows of the batch;
+    ``loss_fn``'s loss and gradient blocks under each remat policy, and
+    the collectives of its forward and backward."""
     out = {}
     g = torch.Generator().manual_seed(0)
-    tokens = torch.randint(0, 100, (R.DRY_B, R.DRY_S), generator=g)
-    dec = torch.randint(0, 100, (R.DRY_B, 1), generator=g)
-    pos = torch.full((R.DRY_B,), R.DRY_S, dtype=torch.int64)
+    plan = module.plan(mesh, batch=R.DRY_B)
+    tokens = _rows_of(torch.randint(0, 100, (R.DRY_B, R.DRY_S),
+                                    generator=g), plan).clone()
+    dec = _rows_of(torch.randint(0, 100, (R.DRY_B, 1), generator=g),
+                   plan).clone()
+    pos = torch.full((dec.shape[0],), R.DRY_S, dtype=torch.int64)
     for arch in R.DRY_ARCHS:
         cfg = dry_config(arch)
         specs = lm.param_specs(cfg)
         full = module.materialize(specs, torch.Generator().manual_seed(1),
                                   device="cpu")
-        params = module.local_params(full, specs, mesh,
-                                     cfg.sharding_overrides)
+        # the blocks copied out of the whole leaves (which the views of
+        # ``local_params`` would keep alive, and count)
+        params = module.tree_map(torch.clone, module.local_params(
+            full, specs, mesh, cfg.sharding_overrides))
         step, args, _, _ = dryrun.build(cfg, "train_4k", mesh, "cpu",
                                         n_micro=1, batch=R.DRY_B,
                                         seq=R.DRY_S, params=params)
         counts, _ = dryrun.count(step, params, args[1],
                                  {"tokens": tokens[None]})
         out[f"train/{arch}/flops"] = np.int64(counts["flops"])
+        out[f"train/{arch}/argument_bytes"] = np.int64(
+            counts["argument_size_in_bytes"])
         out.update(_tally_keys(f"train/{arch}", counts["tally"]))
         step, args, _, _ = dryrun.build(cfg, "decode_32k", mesh, "cpu",
                                         batch=R.DRY_B, seq=R.DRY_S_MAX,
                                         params=params)
         counts, _ = dryrun.count(step, params, args[1], dec, pos)
         out[f"decode/{arch}/flops"] = np.int64(counts["flops"])
+        out[f"decode/{arch}/argument_bytes"] = np.int64(
+            counts["argument_size_in_bytes"])
         out.update(_tally_keys(f"decode/{arch}", counts["tally"]))
         first = None
         for policy in R.POLICIES:
@@ -382,6 +546,16 @@ def _worker(rank: int, world: int, port: int, what: str, src: str,
                 np.savez(dst, **res)
             dist.barrier()
             return
+        if what == "part":
+            mesh = Mesh((2, R.TP), ("data", "model"))
+            res = {}
+            for i, arch in enumerate(R.PART_ARCHS):
+                res.update(_part_cases(mesh, arch, R.PART_SEED + i))
+            res.update(_launch_cases(mesh, os.path.dirname(dst)))
+            if rank == 0:
+                np.savez(dst, **res)
+            dist.barrier()
+            return
         z = np.load(src)
         if what == "moe":
             mesh = Mesh((2, R.TP), ("data", "model"))
@@ -410,7 +584,7 @@ def _worker(rank: int, world: int, port: int, what: str, src: str,
 
 
 def main(what: str, src: str, dst: str) -> None:
-    world = 8 if what in ("moe", "dryrun") else 2
+    world = 8 if what in ("moe", "dryrun", "part") else 2
     mp.start_processes(_worker, args=(world, _free_port(), what, src, dst),
                        nprocs=world, join=True, start_method="spawn")
 

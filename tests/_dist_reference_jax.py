@@ -13,6 +13,11 @@ and kept assignments of ``moe_a2a`` and ``moe_2d`` (the reference's
 ``loss_fn`` with its gradients, a prefill with three decode steps and
 a two-slot ``BatchedEngine``, all through the mesh.  Keys are ``in/...`` and ``out/...``, nested
 trees flattened with "/".
+
+    python tests/_dist_reference_jax.py OUT.npz part
+
+writes the partitioned step of ``PART_ARCHS`` instead (``part_results``)
+for ``test_torch_partition.py``.
 """
 
 import os
@@ -29,12 +34,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from _dist_cases import (B, CASES, D, E, ENGINE_NEW,  # noqa: E402
                          ENGINE_PROMPTS, ENGINE_S_MAX, F, K, LM_ARCHS, LM_B,
-                         LM_DECODE, LM_S, S, TP)
+                         LM_DECODE, LM_S, PART_ARCHS, PART_B, PART_DECODE,
+                         PART_NEW, PART_PAD, PART_PROMPTS, PART_S_MAX,
+                         PART_SEED, PART_SLOTS, S, TP,
+                         part_config, part_inputs, part_seq)
 from repro import compat, configs  # noqa: E402
 from repro.configs import base  # noqa: E402
 from repro.models import lm  # noqa: E402
 from repro.nn import module, moe  # noqa: E402
 from repro.serve import engine  # noqa: E402
+from repro.train import optim  # noqa: E402
 
 
 def flatten(tree, prefix: str) -> dict:
@@ -133,6 +142,97 @@ def lm_results(arch, mesh, rs) -> dict:
     return out
 
 
+def _paths_shapes(tree, prefix=""):
+    """(path, shape) of every leaf of a nested dict, sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _paths_shapes(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tuple(tree.shape))]
+
+
+def _unflat(flat: dict, prefix: str) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix):
+            continue
+        node = out
+        parts = key[len(prefix):].split("/")
+        for q in parts[:-1]:
+            node = node.setdefault(q, {})
+        node[parts[-1]] = jnp.asarray(v)
+    return out
+
+
+def part_results(arch, mesh, seed) -> dict:
+    """The partitioned step of the reduced config on ``part_inputs``: its
+    own ``forward``, ``loss_fn`` (with ``jax.grad``), a prefill and
+    ``PART_DECODE`` decode steps, each jitted with ``in_shardings`` from
+    ``module.shardings`` (the parameters) and ``shardings_like`` of
+    ``batch_axes`` / ``cache_axes`` under the config's overrides; one
+    AdamW step (``optim.adamw_update``, its train step's update) on the
+    gradients; then a ``BatchedEngine`` over the mesh."""
+    cfg = part_config(arch, configs.ARCHS, base.reduced)
+    rules = cfg.sharding_overrides
+    s = part_seq(cfg.window)
+    specs = lm.param_specs(cfg)
+    ops = part_inputs(_paths_shapes(specs), cfg.vocab_size, cfg.window,
+                      seed)
+    params = _unflat(ops, "params/")
+    p_sh = module.shardings(specs, mesh, rules)
+    tokens, dec = ops["tokens"], ops["decode_tokens"]
+    batch = {"tokens": jnp.asarray(tokens)}
+    b_sh = module.shardings_like(batch, {"tokens": ("batch", "seq")}, mesh,
+                                 rules)
+    tag = f"part/{arch}"
+    out = {}
+    fwd = jax.jit(lambda p, b: lm.forward(p, b, cfg, mesh),
+                  in_shardings=(p_sh, b_sh))
+    out[f"out/{tag}/logits"], out[f"out/{tag}/aux"] = fwd(params, batch)
+    (loss, parts), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: lm.loss_fn(p, b, cfg, mesh), has_aux=True),
+        in_shardings=(p_sh, b_sh))(params, batch)
+    out[f"out/{tag}/loss"], out[f"out/{tag}/ce"] = loss, parts["ce"]
+    out.update(flatten(grads, f"out/{tag}/grads"))
+    opt = optim.AdamWConfig()
+    stepped, _, stats = optim.adamw_update(grads, optim.adamw_init(
+        params, opt), params, opt)
+    out.update(flatten(stepped, f"out/{tag}/stepped"))
+    out[f"out/{tag}/grad_norm"] = stats["grad_norm"]
+    last, _, cache = jax.jit(lambda p, b: lm.forward(p, b, cfg, mesh,
+                                                     prefill=True),
+                             in_shardings=(p_sh, b_sh))(params, batch)
+    out[f"out/{tag}/prefill_logits"] = last
+    cache = lm.pad_cache(cache, cfg, s + PART_PAD)
+    c_sh = module.shardings_like(cache, lm.cache_axes(cfg), mesh, rules)
+    d_sh = module.shardings_like(
+        {"tokens": dec[:, :1], "pos": dec[:, 0]},
+        {"tokens": ("batch", None), "pos": ("batch",)}, mesh, rules)
+    dstep = jax.jit(lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg,
+                                                        mesh),
+                    in_shardings=(p_sh, c_sh, d_sh["tokens"], d_sh["pos"]))
+    for i in range(PART_DECODE):
+        pos = jnp.full((PART_B,), s + i, jnp.int32)
+        lg, cache = dstep(params, jax.device_put(cache, c_sh),
+                          jnp.asarray(dec[:, i:i + 1]), pos)
+        out[f"out/{tag}/decode{i}"] = lg
+    eng = engine.BatchedEngine(cfg, params, batch_slots=PART_SLOTS,
+                               s_max=PART_S_MAX, mesh=mesh)
+    for uid in range(len(PART_PROMPTS)):
+        eng.submit(engine.Request(uid, [int(t) for t in ops[f"prompt{uid}"]],
+                                  PART_NEW))
+    for req in eng.run():
+        out[f"out/{tag}/engine{req.uid}"] = np.array(req.generated)
+    return out
+
+
+def main_part(path: str) -> None:
+    mesh = compat.make_mesh((2, TP), ("data", "model"))
+    res = {}
+    for i, arch in enumerate(PART_ARCHS):
+        res.update(part_results(arch, mesh, PART_SEED + i))
+    np.savez(path, **{k: np.asarray(v) for k, v in res.items()})
+
+
 def main(path: str) -> None:
     mesh = compat.make_mesh((2, TP), ("data", "model"))
     rs = np.random.RandomState(0)
@@ -159,4 +259,7 @@ def main(path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[2:] == ["part"]:
+        main_part(sys.argv[1])
+    else:
+        main(sys.argv[1])

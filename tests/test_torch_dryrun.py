@@ -89,8 +89,13 @@ def fake_counts():
 @pytest.mark.parametrize("what", ["train", "decode"])
 @pytest.mark.parametrize("arch", C.DRY_ARCHS)
 def test_fake_rank_counts_equal_real_rank(ranks, fake_counts, arch, what):
+    """The fake rank's share (its rows of the batch, its block of the
+    cache) counts what the real rank 0 counts on its share: FLOPs, the
+    wire kind by kind, and the bytes of its state."""
     fake = fake_counts[what, arch]
     assert fake["flops"] == int(ranks[f"{what}/{arch}/flops"]) > 0
+    assert fake["argument_size_in_bytes"] == \
+        int(ranks[f"{what}/{arch}/argument_bytes"])
     for kind in KINDS:
         assert fake["tally"].bytes[kind] == \
             int(ranks[f"{what}/{arch}/{kind}_bytes"]), kind
@@ -208,9 +213,16 @@ def test_lower_cell_full_width_decode(multi):
     assert res["device"] == dryrun.fake_device() or \
         res["device"] == "cuda (fake)"
     cfg = configs.get_config("smollm-135m")
-    # every rank holds the whole cache of 128 x 32768 slots
-    cache = cfg.n_layers * 128 * 32768 * cfg.n_kv * cfg.hd * 2 * 2
-    assert res["argument_size_in_bytes"] > cache
+    # each rank holds its block of the cache of 128 x 32768 slots: its
+    # rows over the "batch" axes (16 or 32 ranks), its 2048 slots over
+    # "model"
+    rows = 128 // (32 if multi else 16)
+    assert res["batch_block"] == {
+        "rows": rows, "axes": ["pod", "data"] if multi else ["data"]}
+    assert res["cache_slots"] == 32768 // 16
+    block = cfg.n_layers * rows * 2048 * cfg.n_kv * cfg.hd * 2 * 2
+    whole = cfg.n_layers * 128 * 32768 * cfg.n_kv * cfg.hd * 2 * 2
+    assert block < res["argument_size_in_bytes"] < whole // 100
     assert res["bytes_per_device"] == res["argument_size_in_bytes"] + \
         res["temp_size_in_bytes"]
     assert res["flops"] > 0 and res["bytes_accessed"] > 0
@@ -235,8 +247,10 @@ def test_reduced_prefill_counts_flash_with_no_launch_and_no_plain_version(
     res = dryrun.lower_cell("smollm-135m", "prefill_32k", False)
     assert flash_attention.flash_attention_fwd.launches == before
     flash = res["flops_by_op"]["repro_torch.flash_attention"]
+    # the rank's 32 / 16 rows, every head (smollm's heads stay whole)
+    assert res["batch_block"]["rows"] == 2
     assert flash == cfg.n_layers * flash_attention.kernel_flops(
-        32 * cfg.n_heads, 32768, cfg.hd, True, cfg.compute_dtype)
+        2 * cfg.n_heads, 32768, cfg.hd, True, cfg.compute_dtype)
 
 
 def test_kernel_flops_counts_the_causal_tiles_visited():
