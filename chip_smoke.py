@@ -211,15 +211,15 @@ Phases (any failure raises, so the exit code is non-zero):
    width (``lm_train_phase``): f32 parameters and moments, bf16
    activations, global batch 8 x 2048 in two microbatches, lr 3e-3,
    warmup 5, through ``python -m repro_torch.launch.train`` in processes
-   of its own: run A 12 steps, run B exiting hard at step 8 after its
-   checkpoint of step 6 and started again; B's losses of steps 6-11
+   of its own: run A 6 steps, run B exiting hard at step 4 after its
+   checkpoint of step 3 and started again; B's losses of steps 3-5
    and its final checkpoint equal A's bit for bit, A's loss falls; in
    this process, from A's final checkpoint, train steps that launch no
    kernel (one timed, one under ``torch.profiler``: device idle share,
    top device ops, peak memory), and ``build_eval_step`` on a held-out
    batch launching #9 once a layer (30), its loss within 2e-3 of
    ``loss_fn``'s through the blockwise attention; the median step ms
-   over steps 2-11, tokens/s and the model-FLOPs share of the bf16 peak
+   over steps 2-5, tokens/s and the model-FLOPs share of the bf16 peak
    (``roofline.model_flops`` over step time x ``PEAK_FLOPS``);
 9. the tile-plan tuner and the plan cache (``tuner_phase``): kernel #1
    under every candidate plan of ``autotune.enumerate_candidates`` for
@@ -266,8 +266,10 @@ Phases (any failure raises, so the exit code is non-zero):
 11. the mesh path (``mesh_phase``): a one-rank process group
    (``cpu:gloo,cuda:nccl`` on a free TCP port of 127.0.0.1, destroyed at
    the end) and ``make_host_mesh()``; reduced kimi-k2, arctic and
-   qwen2.5 (f32) through the partitioned entry points (the rank's rows
-   of the batch by ``blocks_like``, ``pad_cache(mesh=)``, decode under
+   qwen2.5 (f32) through the partitioned entry points (the rank's block
+   of the batch by ``blocks_like`` under the config's overrides: at
+   world 1 its rows whole, so sequence parallelism cuts nothing;
+   ``pad_cache(mesh=)``, decode under
    the rank's ``nn.module.plan``): ``lm.forward`` (logits, aux, every
    router's experts), ``loss_fn`` with its gradients, a prefill, three
    decode steps and a two-slot ``BatchedEngine(mesh=)`` on the card
@@ -299,18 +301,28 @@ Phases (any failure raises, so the exit code is non-zero):
    the bf16 peak; a prefill of 1 x 4096 launching #9 once a layer (the
    counters zeroed around it), its counted FLOPs and #9's share (the
    custom op's FLOP formula) equal on the card, fake CUDA and ``meta``;
-   and the part that needs no card, run in a subprocess started after
-   the build (``roofline_host``): the dry run of the partitioned step
-   (each rank its rows of the batch, its heads, FFN units, vocabulary
-   and cache slots) of kimi-k2-1t-a32b x decode_32k, smollm-135m x
-   train_4k, and qwen2.5-32b and nemotron-4-340b x train_4k (in one
-   microbatch) on rank 0 of the 16 x 16 fake mesh, each cell's counted
-   FLOPs, wire and bytes beside the model's; smollm's and kimi's share
-   within ``ROOF_LIMITS`` (printed beside ``ROOF_WHOLE``, their counts
-   when every rank held the whole batch and cache), qwen2.5's and
-   nemotron's FLOPs within ``ROOF_MODEL_BAND`` of the model's; the
-   three ladders analytically and ``run_cell("qwen")`` with each
-   variant's dry run (``chiprun_out/perf_results_torch/``).
+   and the part that needs no card, run in four subprocesses started
+   after the build (``roofline_host``): the dry run of the partitioned
+   step (each rank its rows of the batch, its heads, FFN units,
+   vocabulary and cache slots, and its block of the sequence where the
+   overrides put it over "model": Megatron sequence parallelism) of
+   kimi-k2-1t-a32b x decode_32k and x prefill_32k, smollm-135m x
+   train_4k, and qwen2.5-32b and nemotron-4-340b x train_4k (two of
+   the cell's eight microbatches: the same microbatch shapes and 2/8 of
+   its products, in a quarter of the count's time; their peak bytes
+   fall short of the whole step's, whose live storages grow microbatch
+   by microbatch) on
+   rank 0 of the 16 x 16 fake mesh, each cell's counted FLOPs, wire by
+   kind and bytes beside the model's; smollm's and kimi-k2 decode's
+   share within ``ROOF_LIMITS`` (printed beside ``ROOF_WHOLE``, their
+   counts when every rank held the whole batch and cache), the
+   sequence-parallel cells' FLOPs (the train cells' 8/2 of the two
+   microbatches') and bytes a rank at or under their counts with the
+   sequence whole on every rank of "model" (``SEQ_WHOLE``, counted in
+   the same run),
+   qwen2.5's and nemotron's FLOPs within ``ROOF_MODEL_BAND`` of the
+   model's; the three ladders analytically and ``run_cell("qwen")``
+   with each variant's dry run (``chiprun_out/perf_results_torch/``).
 
 The second-to-last line of standard output is the ``kernels`` JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  A longer record goes
@@ -2165,23 +2177,47 @@ def _kernel_name(key: str) -> str:
     return re.sub(r"^(void )?(\w+::)*", "", head).strip()
 
 
+# host seconds of idle padding around the profiled calls, one entry per
+# try: the profiler keeps only the device events that fall inside its
+# window on the host's clock, and late in a long run a short window has
+# been seen to keep none of them (no kernel at all among 20 calls of
+# 0.5 ms each, minutes after the same calls were seen whole)
+PROFILE_PADS_S = (0.05, 0.5, 2.0)
+# ``split``'s key when the profiler saw no device event in any try
+CUDA_EVENTS_KEY = "(CUDA events, the whole call)"
+
+
 def _device_ms_per_launch(fn, reps: int, split: dict | None = None) -> float:
     """Device time per call of ``fn`` under ``torch.profiler`` (every
     device event of ``reps`` calls, over ``reps``): the kernel's own time,
     without the host's launch gaps that CUDA events include.  ``split``,
-    when given, receives the ms per call of each device kernel by name."""
+    when given, receives the ms per call of each device kernel by name.
+    The calls sit in the middle of the profiler's window, padded by
+    ``PROFILE_PADS_S``; a window that kept no device event is profiled
+    again with the next padding, and after the last, the calls are timed
+    with CUDA events (``split`` then holds ``CUDA_EVENTS_KEY`` alone)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    events = [(_kernel_name(e.key), _device_us(e) / 1e3 / reps)
-              for e in prof.key_averages() if e.device_type == cuda]
+    for pad in PROFILE_PADS_S:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        events = [(_kernel_name(e.key), _device_us(e) / 1e3 / reps)
+                  for e in prof.key_averages() if e.device_type == cuda]
+        if events:
+            break
+        log(f"profiler: no device event in {reps} calls padded by {pad} s")
+    else:
+        events = [(CUDA_EVENTS_KEY, _time_ms(fn, reps))]
+        log(f"profiler: no device event in {len(PROFILE_PADS_S)} tries; "
+            f"CUDA events instead, {events[0][1]:.4f} ms a call")
     if split is not None:
         for name, ms in events:
             split[name] = split.get(name, 0.0) + ms
@@ -3794,9 +3830,9 @@ LM_TRAIN_SEQ = 64       # positions of a reduced training batch
 LOSS_RTOL, LEAF_TOL = 1e-5, 1e-4
 # the full-width run: smollm-135m on launch.train's defaults (global
 # batch 8, two microbatches, lr 3e-3, warmup 5) at SmolLM's 2048-token
-# context, 12 steps with a checkpoint every 6; run B exits hard at step
-# 8 and resumes from step 6
-LM_TRAIN_STEPS, LM_TRAIN_CRASH, LM_TRAIN_EVERY = 12, 8, 6
+# context, 6 steps with a checkpoint every 3; run B exits hard at step
+# 4 and resumes from step 3
+LM_TRAIN_STEPS, LM_TRAIN_CRASH, LM_TRAIN_EVERY = 6, 4, 3
 LM_TRAIN_ARGS = ("--arch", LM_ARCH, "--steps", str(LM_TRAIN_STEPS),
                  "--global-batch", str(PREFILL_BATCH), "--seq-len",
                  str(PREFILL_LEN), "--n-micro", "2", "--lr", "3e-3",
@@ -3952,10 +3988,11 @@ def _npz_bytes(path: Path) -> dict:
 def lm_train_phase(dev) -> dict:
     """Phase 8's full-width run: smollm-135m (f32 parameters and
     moments, bf16 activations) through ``launch.train`` in processes of
-    its own: run A 20 steps uninterrupted; run B exits hard at step 12
-    (``--crash-at-step``) after its checkpoint of step 10 and is started
-    again.  B's losses of steps 10-19 and its final checkpoint must be
-    A's bit for bit, and A's loss at step 19 below its first.  In this
+    its own: run A ``LM_TRAIN_STEPS`` steps uninterrupted; run B exits
+    hard at step ``LM_TRAIN_CRASH`` (``--crash-at-step``) after its
+    checkpoint of step ``LM_TRAIN_EVERY`` and is started again.  B's
+    losses from that step on and its final checkpoint must be A's bit
+    for bit, and A's last loss below its first.  In this
     process, from A's final checkpoint (deterministic algorithms on, as
     the runs): a train step (no kernel launch), another timed, a third
     under ``torch.profiler`` (device idle share, top device ops, peak
@@ -4295,14 +4332,17 @@ def plans_phase(dev) -> dict:
 
 def _plan_device_ms(cell, blocks, operands) -> float:
     """#1's own device time (its head and LIF under ``torch.profiler``)
-    per launch of the tuner's serving-configuration call on ``blocks``."""
+    per launch of the tuner's serving-configuration call on ``blocks``;
+    the whole call's by CUDA events where the profiler saw no device
+    event (``_device_ms_per_launch``)."""
     x, msb, lsb, cb, scale, v = operands
     run = functools.partial(autotune._runner(cell, blocks), device=x.device)
     split: dict = {}
     _device_ms_per_launch(
         lambda: run(x, msb, lsb, cb.boundaries, cb.levels, scale, v), 20,
         split)
-    ms = sum(t for name, t in split.items() if name.startswith("kwn_"))
+    ms = sum(t for name, t in split.items() if name.startswith("kwn_")) \
+        or split.get(CUDA_EVENTS_KEY, 0.0)
     if not ms > 0.0:
         raise AssertionError(f"no #1 kernel under the profiler: {split}")
     return ms
@@ -4842,7 +4882,7 @@ def _mesh_reduced(arch: str, mesh, dev) -> dict:
         params = nn_module.tree_map(lambda t: t.to(d), p_cpu)
         batch = nn_module.blocks_like(
             {"tokens": torch.from_numpy(toks).to(d)},
-            lm.batch_axes(cfg, "train_4k"), mesh, lm.input_rules(cfg))
+            lm.batch_axes(cfg, "train_4k"), mesh, cfg.sharding_overrides)
         routes: list = []
         with _Routing(routes):
             logits, aux = lm.forward(params, batch, cfg, mesh=mesh)
@@ -4943,10 +4983,12 @@ def _device_ms_by_label(fns: dict) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PADS_S[0])
         for name, fn in fns.items():
             with record_function(f"mesh_phase::{name}"):
                 fn()
                 torch.cuda.synchronize()
+        time.sleep(PROFILE_PADS_S[0])
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == cuda]
@@ -5122,22 +5164,37 @@ def mesh_phase(dev, smi: str) -> dict:
 
 # --- phase 12: the roofline model, the dry run and the ladders ---------------
 
-# the dry run's cells on the single-pod fake mesh, on the host, with the
-# microbatches of a train cell (None: the cell's own); the card's train
-# step (phase 8's 8 x 2048) and prefill at world 1.  A FLOP count does
-# not depend on the microbatches, so qwen2.5 and nemotron are counted in
-# one.
-ROOF_CELLS = (("kimi-k2-1t-a32b", "decode_32k", None),
-              ("smollm-135m", "train_4k", None),
-              ("qwen2.5-32b", "train_4k", 1),
-              ("nemotron-4-340b", "train_4k", 1))
+# the dry run's cells on the single-pod fake mesh, on the host, one
+# process for each part, with the microbatches of a train cell counted
+# (None: all of the cell's own; 2: two of them, the same microbatch
+# shapes in a quarter of the count's time; their peak bytes fall short of
+# the whole step's), and whether the sequence is kept whole on every
+# rank of "model" (the rules' "seq" laid to None: the step without
+# sequence parallelism, which the same count holds the sequence-parallel
+# cells to); the card's train step (phase 8's 8 x 2048) and prefill at
+# world 1.
+ROOF_CELLS = ((("kimi-k2-1t-a32b", "decode_32k", None, False),
+               ("kimi-k2-1t-a32b", "prefill_32k", None, False),
+               ("kimi-k2-1t-a32b", "prefill_32k", None, True),
+               ("smollm-135m", "train_4k", None, False)),
+              (("qwen2.5-32b", "train_4k", 2, False),
+               ("qwen2.5-32b", "train_4k", 2, True)),
+              (("nemotron-4-340b", "train_4k", 2, False),),
+              (("nemotron-4-340b", "train_4k", 2, True),))
+SEQ_WHOLE = "__seq_whole"       # the tag of a cell counted without SP
 # what one rank of the partitioned step may count (FLOPs, bytes a device),
 # and what it counted when every rank held the whole batch and the whole
-# cache (the same dry run of the step before it was partitioned)
+# cache (the same dry run of the step before it was partitioned, whose
+# bytes were counted before the count followed a storage at a reused
+# address: printed, not held)
 ROOF_LIMITS = {"smollm-135m__train_4k": (1.134e14, 6.5e9),
                "kimi-k2-1t-a32b__decode_32k": (1.4e12, 80e9)}
 ROOF_WHOLE = {"smollm-135m__train_4k": (1.81461e15, 52.2e9),
               "kimi-k2-1t-a32b__decode_32k": (1.12067e13, 1.01e12)}
+# the sequence-parallel cells, whose FLOPs of the whole step and bytes a
+# device may not exceed their count with the sequence whole
+ROOF_SP = ("kimi-k2-1t-a32b__prefill_32k", "qwen2.5-32b__train_4k",
+           "nemotron-4-340b__train_4k")
 # the counted FLOPs of these cells against the model's per device
 ROOF_MODEL_BAND = {"qwen2.5-32b__train_4k": (0.5, 2.5),
                    "nemotron-4-340b__train_4k": (0.5, 2.5)}
@@ -5147,22 +5204,28 @@ ROOF_BAND = (0.65, 1.5)         # the model against counted FLOPs
 ROOF_ARG_REL = 0.01             # argument bytes against the card's
 
 
-def roofline_host(out: str) -> None:
+def roofline_host(out: str, part: int) -> None:
     """Phase 12's part that needs no card, in a process of its own (it
     sets up a fake process group of 256 ranks, which no other group may
-    share): the dry run of ``ROOF_CELLS`` on rank 0 of the 16 x 16 fake
-    mesh, the three ladders analytically, and ``run_cell("qwen")`` with
-    ``compile_variants`` (each variant's dry run); the results as JSON
-    to ``out``, the ladders' files under ``chiprun_out/``."""
+    share): the dry run of ``ROOF_CELLS[part]`` on rank 0 of the 16 x 16
+    fake mesh, and in part 0 the three ladders analytically and
+    ``run_cell("qwen")`` with ``compile_variants`` (each variant's dry
+    run); the results as JSON to ``out``, the ladders' files under
+    ``chiprun_out/``."""
     from repro_torch.launch import dryrun, hillclimb
     torch.set_num_threads(1)
     res: dict = {"cells": {}, "ladders": {}}
-    for arch, shape, n_micro in ROOF_CELLS:
+    for arch, shape, micro, whole in ROOF_CELLS[part]:
         t0 = time.perf_counter()
-        r = dryrun.lower_cell(arch, shape, False, n_micro=n_micro)
+        r = dryrun.lower_cell(arch, shape, False, microbatches=micro,
+                              overrides={"seq": None} if whole else None)
         r["seconds"] = time.perf_counter() - t0
-        res["cells"][f"{arch}__{shape}"] = r
-        print(f"dry run {arch} x {shape}: {r['seconds']:.1f} s", flush=True)
+        tag = f"{arch}__{shape}" + (SEQ_WHOLE if whole else "")
+        res["cells"][tag] = r
+        print(f"dry run {tag}: {r['seconds']:.1f} s", flush=True)
+    if part:
+        Path(out).write_text(json.dumps(res, default=str))
+        return
     hillclimb.OUT_DIR = str(ROOT / "chiprun_out" / "perf_results_torch")
     for cell in sorted(hillclimb.LADDERS):
         t0 = time.perf_counter()
@@ -5176,23 +5239,27 @@ def roofline_host(out: str) -> None:
     Path(out).write_text(json.dumps(res, default=str))
 
 
-def start_roofline_host() -> tuple[subprocess.Popen, Path, Path]:
-    """``roofline_host`` in a subprocess, started early so that it runs
-    beside the card's phases (one host core, at a lower priority than
-    this process's)."""
+def start_roofline_host() -> list[tuple[subprocess.Popen, Path, Path]]:
+    """``roofline_host``'s parts, each in a subprocess, started early so
+    that they run beside the card's phases (one host core each, at a
+    lower priority than this process's)."""
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    out, log_path = out_dir / "roofline_host.json", \
-        out_dir / "roofline_host.log"
-    out.unlink(missing_ok=True)
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
-            "import chip_smoke; chip_smoke.roofline_host(sys.argv[2])")
-    with open(log_path, "w") as f:
-        proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT),
-                                 str(out)], stdout=f,
-                                stderr=subprocess.STDOUT,
-                                preexec_fn=lambda: os.nice(10))
-    return proc, out, log_path
+            "import chip_smoke; chip_smoke.roofline_host(sys.argv[2], "
+            "int(sys.argv[3]))")
+    parts = []
+    for part in range(len(ROOF_CELLS)):
+        out, log_path = out_dir / f"roofline_host{part}.json", \
+            out_dir / f"roofline_host{part}.log"
+        out.unlink(missing_ok=True)
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT),
+                                     str(out), str(part)], stdout=f,
+                                    stderr=subprocess.STDOUT,
+                                    preexec_fn=lambda: os.nice(10))
+        parts.append((proc, out, log_path))
+    return parts
 
 
 def _roof_count(cfg, shape, dev, batch, seq, **kw):
@@ -5342,25 +5409,64 @@ def roofline_phase(dev, smi: str, host) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     # the host part
-    proc, out_path, log_path = host
+    hostres: dict = {"cells": {}, "ladders": {}}
     try:
-        rc = proc.wait(timeout=max(1.0, ROOF_HOST_TIMEOUT_S
-                                   - (time.perf_counter() - t_phase)))
+        for proc, out_path, log_path in host:
+            rc = proc.wait(timeout=max(1.0, ROOF_HOST_TIMEOUT_S
+                                       - (time.perf_counter() - t_phase)))
+            if rc != 0:
+                raise AssertionError(f"phase 12: the host part exited "
+                                     f"{rc}:\n"
+                                     f"{log_path.read_text()[-4000:]}")
+            got = json.loads(out_path.read_text())
+            for key in hostres:
+                hostres[key].update(got[key])
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    if rc != 0:
-        raise AssertionError(f"phase 12: the host part exited {rc}:\n"
-                             f"{log_path.read_text()[-4000:]}")
-    hostres = json.loads(out_path.read_text())
+        for proc, _, _ in host:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     res["host"] = hostres
     for tag, c in hostres["cells"].items():
         m, cr = c["roofline"], c["roofline_counted"]
         if not (c["flops"] > 0 and c["argument_size_in_bytes"] > 0
                 and c["n_devices"] == 256 and "collectives_counted" in c):
             raise AssertionError(f"phase 12: dry run {tag}: {c}")
-        ratio = c["flops"] / m["flops_per_device"]
+        # the whole step's FLOPs from some of its microbatches (each
+        # counts the same products; the optimizer's adds count none)
+        own = c.get("n_micro_own", 1)
+        counted = c["n_micro"] if "n_micro_own" in c else 1
+        flops_step = c["flops"] * own // counted
+        ratio = flops_step / m["flops_per_device"]
+        wire = c["collectives_counted"]
+        log(f"phase 12, dry run {tag}: wire a rank by kind (bytes, "
+            f"count): " + ", ".join(
+                f"{k} {wire[k + '_bytes']:.6g} ({wire[k + '_count']})"
+                for k in ("all-reduce", "reduce-scatter", "all-gather",
+                          "all-to-all", "broadcast"))
+            + f"; the residual stream's positions a rank "
+            f"{c.get('seq_block', '-')}")
+        if tag in ROOF_SP:
+            w = hostres["cells"][tag + SEQ_WHOLE]
+            w_flops = w["flops"] * w.get("n_micro_own", 1) // (
+                w["n_micro"] if "n_micro_own" in w else 1)
+            seq = lm.SHAPES[c["shape"]]["seq"]
+            log(f"phase 12, dry run {tag}, sequence parallel: "
+                f"{flops_step:.6g} FLOPs a step ({own} / {counted} of the "
+                f"{counted} microbatches counted; the sequence "
+                f"whole: {w_flops:.6g}), {c['bytes_per_device'] / 1e9:.4g} "
+                f"GB a device (the sequence whole: "
+                f"{w['bytes_per_device'] / 1e9:.4g})")
+            if not (flops_step <= w_flops
+                    and c["bytes_per_device"] <= w["bytes_per_device"]
+                    and c.get("seq_block") == seq // 16
+                    and w.get("seq_block") == seq):
+                raise AssertionError(
+                    f"phase 12: dry run {tag} over its count with the "
+                    f"sequence whole: {flops_step} / {w_flops} FLOPs, "
+                    f"{c['bytes_per_device']} / {w['bytes_per_device']} B,"
+                    f" {c.get('seq_block')} / {w.get('seq_block')} "
+                    f"positions")
         if tag in ROOF_LIMITS:
             flops, nbytes = ROOF_LIMITS[tag]
             whole_f, whole_b = ROOF_WHOLE[tag]
@@ -5379,7 +5485,7 @@ def roofline_phase(dev, smi: str, host) -> dict:
                                      f"{c['bytes_per_device']} B")
         if tag in ROOF_MODEL_BAND:
             lo, hi = ROOF_MODEL_BAND[tag]
-            log(f"phase 12, dry run {tag}: counted {c['flops']:.6g} FLOPs "
+            log(f"phase 12, dry run {tag}: counted {flops_step:.6g} FLOPs "
                 f"a rank, {ratio:.4f} x the model's "
                 f"{m['flops_per_device']:.6g} (band {lo}-{hi}); heads "
                 f"whole on every rank of \"model\": {c.get('heads_whole')}")
@@ -5466,9 +5572,10 @@ def main() -> None:
         _main(t0, kind, smi, dev, build_s, flash_build, split_build,
               stage_build, host)
     finally:
-        if host[0].poll() is None:
-            host[0].kill()
-            host[0].wait()
+        for proc, _, _ in host:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def _main(t0, kind, smi, dev, build_s, flash_build, split_build,

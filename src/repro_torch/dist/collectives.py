@@ -284,6 +284,24 @@ def split_to(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return _SplitTo.apply(x, mesh, axes, dim % x.ndim)
 
 
+# Megatron sequence parallelism's pair, for an activation whose sequence
+# (``dim``) each rank of ``axes`` holds a block of: ``gather_seq`` enters
+# a tensor-parallel region with the whole sequence (an all-gather; its
+# backward reduce-scatters the ranks' partial cotangents), and
+# ``scatter_seq`` leaves one with this rank's block of the sum of the
+# ranks' parts (a reduce-scatter; its backward all-gathers the blocks'
+# cotangents).  They take the place of ``copy_to`` / ``reduce_from`` on
+# a sequence cut over the axis, and the wire tally counts them as an
+# all-gather and a reduce-scatter.
+
+def gather_seq(x: torch.Tensor, mesh, axes, dim: int = 1) -> torch.Tensor:
+    return all_gather(x, mesh, _live(mesh, axes), dim)
+
+
+def scatter_seq(x: torch.Tensor, mesh, axes, dim: int = 1) -> torch.Tensor:
+    return psum_scatter(x, mesh, _live(mesh, axes), dim)
+
+
 def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The elementwise max over the ranks of ``axes``, outside autograd
     (a softmax's shift, whose gradient cancels)."""

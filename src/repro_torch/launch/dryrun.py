@@ -18,20 +18,22 @@ over it, and runs the step the card would run:
 The state is this rank's, as the reference's ``in_shardings`` give each
 device its share: its block of every parameter leaf under the config's
 sharding rules (``nn.module.param_layout``) in the compute dtype, the
-AdamW moments of those blocks (``opt_profile``), its rows of the batch
-(``models.lm.batch_axes``: the rows over the mesh's "batch" axes where
-the global batch divides over them, the sequence whole, as
-``lm.input_rules`` has it) and its block of the decode cache
-(``models.lm.cache_axes``: the rows likewise, the slots over "model").
-The step is the port's partitioned step on them (``models.lm``'s
-``mesh=``: each rank computes its share of the batch, heads, FFN,
-vocabulary and cache).  The record says how the cell was cut:
-``batch_block`` (the rows a rank holds and the axes they split over;
-none where the batch does not divide, and every rank then holds it
-whole), ``cache_slots`` (a rank's slots of the cache) and
-``heads_whole`` (true where every rank of "model" computes every head:
-the q projection's block over "model" cuts a head, or the rules leave
-the heads whole; none without attention).  The tensors
+AdamW moments of those blocks (``opt_profile``), its block of the batch
+(``models.lm.batch_axes`` under the config's overrides: the rows over
+the mesh's "batch" axes where the global batch divides over them, and
+the sequence over "model" where the overrides put it there and it
+divides: Megatron sequence parallelism) and its block of the decode
+cache (``models.lm.cache_axes``: the rows likewise, the slots over
+"model").  The step is the port's partitioned step on them
+(``models.lm``'s ``mesh=``: each rank computes its share of the batch,
+heads, FFN, vocabulary, sequence and cache).  The record says how the
+cell was cut: ``batch_block`` (the rows a rank holds and the axes they
+split over; none where the batch does not divide, and every rank then
+holds it whole), ``seq_block`` (the positions of the residual stream a
+rank holds between the blocks), ``cache_slots`` (a rank's slots of the
+cache) and ``heads_whole`` (true where every rank of "model" computes
+every head: the q projection's block over "model" cuts a head, or the
+rules leave the heads whole; none without attention).  The tensors
 are fake CUDA tensors (``FakeTensorMode``) where torch is built with
 CUDA: they hold no data, allocate nothing, and every kernel wrapper on
 the path takes them as the card's (#9's custom op runs its fake
@@ -78,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -203,6 +206,7 @@ def _cut(cfg: lm.LMConfig, plan, b: int, s: int) -> dict:
     slots = module.partition_spec((b, s), ("batch", "cache_seq"),
                                   plan.mesh, cfg.sharding_overrides)
     return {"batch_block": {"rows": b // n_dp, "axes": list(plan.dp)},
+            "seq_block": s // tp if plan.cuts_seq(s) else s,
             "cache_slots": s // tp if len(slots) > 1 and slots[1] else s,
             "heads_whole": (not (q_cut and cfg.n_heads % tp == 0)
                             if attends else None)}
@@ -221,11 +225,21 @@ def build(cfg: lm.LMConfig, shape: str, mesh, device, *,
     b, s = batch or sh["batch"], seq or sh["seq"]
     if params is None:
         params = abstract_params(cfg, mesh, device)
-    plan = module.plan(mesh, cfg.sharding_overrides, batch=b,
-                       cache_len=s if sh["kind"] == "decode" else None)
-    b_loc = b // (mesh.axis_size(plan.dp) if plan and plan.dp else 1)
-    data = lm.batch_specs(cfg, shape, b_loc, s, device=device)
+    rules = cfg.sharding_overrides
+    data = lm.batch_specs(cfg, shape, b, s)
+    decode = sh["kind"] == "decode"
+    key = "frames" if cfg.frontend == "audio_frames" else "tokens"
+    plan = module.plan(mesh, rules, batch=b,
+                       cache_len=s if decode else None,
+                       seq_len=None if decode else data[key].shape[1])
+    if mesh is not None:
+        data = module.blocks_like(data, lm.batch_axes(cfg, shape), mesh,
+                                  rules)
+    data = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+            for k, v in data.items()}
     extra = _cut(cfg, plan, b, s)
+    if decode:
+        extra.pop("seq_block", None)
     if sh["kind"] == "train":
         ocfg, grad_dtype = opt_profile(cfg)
         nm = n_micro or n_micro_for(cfg, shape, mesh)
@@ -273,14 +287,17 @@ class _Bytes(TorchDispatchMode):
     storages it creates that are alive at once.  A storage is followed
     from the op that first returns it until Python frees it (a finalizer
     on the storage, whose Python object lives as long as the storage);
-    the ``known`` storages (the arguments) are not counted."""
+    the ``known`` storages (the arguments) are not counted.  A storage is
+    known by its address only while it lives: a new storage often takes
+    the address of one just freed."""
 
     def __init__(self, known):
         super().__init__()
         self._seen = set(known)
         self.live = self.peak = self.accessed = 0
 
-    def _free(self, n: int) -> None:
+    def _free(self, key: int, n: int) -> None:
+        self._seen.discard(key)
         self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -300,7 +317,7 @@ class _Bytes(TorchDispatchMode):
             n = st.nbytes()
             self.live += n
             self.peak = max(self.peak, self.live)
-            weakref.finalize(st, self._free, n)
+            weakref.finalize(st, self._free, st._cdata, n)
         return out
 
 
@@ -330,20 +347,38 @@ def count(step, *args) -> tuple[dict, object]:
 
 
 def lower_cell(arch: str, shape: str, multi_pod: bool,
-               do_compile: bool = True, *, n_micro: int | None = None):
+               do_compile: bool = True, *, n_micro: int | None = None,
+               microbatches: int | None = None,
+               overrides: dict | None = None):
     """One cell on rank 0 of the fake production mesh (256 ranks, or 512
     with ``multi_pod``): its state, and with ``do_compile`` its step
-    counted.  ``n_micro`` overrides ``n_micro_for`` in a train cell.
-    Returns the result dict (module doc)."""
+    counted.  ``n_micro`` overrides ``n_micro_for`` in a train cell;
+    ``microbatches`` counts only that many of the cell's own
+    microbatches (the global batch cut to them): the same microbatch
+    shapes in a fraction of the count's time (its peak bytes fall short
+    of the whole step's, whose live storages grow microbatch by
+    microbatch); the record's ``n_micro_own`` is the cell's own count.
+    ``overrides`` are laid over the config's sharding rules (``{"seq":
+    None}``: the sequence whole on every rank of "model", as without
+    sequence parallelism).  Returns the result dict (module doc)."""
     cfg = configs.get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, sharding_overrides={
+            **cfg.sharding_overrides, **overrides})
     n_dev = 512 if multi_pod else 256
     sh = lm.SHAPES[shape]
     kind = sh["kind"]
     dev = fake_device()
     with fake_world(n_dev), no_data(dev):
         mesh = make_production_mesh(multi_pod=multi_pod)
+        batch = own = None
+        if microbatches is not None and kind == "train":
+            own = n_micro or n_micro_for(cfg, shape, mesh)
+            n_micro, batch = microbatches, sh["batch"] // own * microbatches
         step, args, extra, n_tokens = build(cfg, shape, mesh, dev,
-                                            n_micro=n_micro)
+                                            n_micro=n_micro, batch=batch)
+        if own is not None:
+            extra["n_micro_own"] = own
         result = {
             "arch": arch, "shape": shape,
             "mesh": "2x16x16" if multi_pod else "16x16",
@@ -351,6 +386,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
             "device": f"{dev} (fake)" if dev == "cuda" else dev,
             "params_total": cfg.param_count(),
             "params_active": cfg.active_param_count(),
+            **({"overrides": overrides} if overrides else {}),
             **extra,
         }
         if not do_compile:
@@ -368,7 +404,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool,
     ocfg, grad_dtype = opt_profile(cfg)
     result["roofline"] = flops_model.analyze(
         cfg, shape, flops_model.mesh_for(multi_pod),
-        n_micro=extra.get("n_micro", 1),
+        n_micro=extra.get("n_micro_own", extra.get("n_micro", 1)),
         grad_bytes=2 if grad_dtype == torch.bfloat16 else 4,
         moment_bytes=2 if ocfg.moment_dtype == "bfloat16" else 4)
     return result

@@ -39,8 +39,9 @@ deterministic path; cuBLAS takes the fixed workspace.
 mesh (``launch.mesh``, over a process group the caller set up, e.g.
 under ``torchrun``) makes the call with the same flags; each draws the
 same weights, keeps its blocks of them (``nn.module.local_params``) and
-their AdamW moments, and steps on its rows of each microbatch (the
-microbatch's rows over the mesh's "batch" axes).  A checkpoint holds the
+their AdamW moments, and steps on its block of each microbatch (the
+microbatch's rows over the mesh's "batch" axes, and its sequence over
+"model" where the config's overrides put it there).  A checkpoint holds the
 whole leaves, gathered from the blocks and written by rank 0; a resume
 reads them whole and cuts each rank's blocks.
 """
@@ -104,25 +105,32 @@ def main(argv=None, *, mesh=None):
 
 class _Shares:
     """The rank's share of the training state under a mesh: its blocks
-    of the parameter leaves (and so of their moments), its rows of each
-    microbatch, and the whole leaves for a checkpoint."""
+    of the parameter leaves (and so of their moments), its block of each
+    microbatch (``lm.batch_axes`` under the config's overrides: its rows,
+    and its block of the sequence where they put it over "model"), and
+    the whole leaves for a checkpoint."""
 
-    def __init__(self, cfg, mesh, n_micro: int, global_batch: int):
+    def __init__(self, cfg, mesh, n_micro: int, global_batch: int,
+                 seq_len: int):
         rules = cfg.sharding_overrides
         self.specs = lm.param_specs(cfg)
         self.mesh, self.rules = mesh, rules
+        self.axes = lm.batch_axes(cfg, "train_4k")
         self.layout = module.param_layout(self.specs, mesh, rules)
         self.plan = module.plan(mesh, rules,
-                                batch=global_batch // n_micro)
+                                batch=global_batch // n_micro,
+                                seq_len=seq_len)
 
     def blocks(self, tree):
         return module.tree_map(torch.clone, module.local_params(
             tree, self.specs, self.mesh, self.rules))
 
     def rows(self, batch: dict) -> dict:
-        spec = (None, self.plan.dp) if self.plan.dp else ()
-        return {k: module.block(v, spec, self.mesh) for k, v in
-                batch.items()}
+        """This rank's block of each leaf (n_micro, mb, ...) of a
+        microbatched batch."""
+        return module.blocks_like(
+            batch, {k: (None,) + self.axes[k] for k in batch}, self.mesh,
+            self.rules)
 
     def whole(self, tree):
         with torch.no_grad():
@@ -153,7 +161,8 @@ def _train(args, dev: torch.device, mesh=None) -> list[dict]:
                                 torch.Generator(dev).manual_seed(args.seed),
                                 dtype=dtype, device=dev)
     opt_state = optim.adamw_init(params, ocfg)
-    shares = mesh and _Shares(cfg, mesh, args.n_micro, args.global_batch)
+    shares = mesh and _Shares(cfg, mesh, args.n_micro, args.global_batch,
+                              args.seq_len)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq_len,
                                   global_batch=args.global_batch,

@@ -24,22 +24,34 @@ reference's expert-parallel paths (``_moe_apply``).
 Under a mesh each rank computes its share of the partitioned step, as
 the reference's sharding rules lay it out (``nn.module.DEFAULT_RULES``
 under the config's ``sharding_overrides``): it holds its blocks of the
-parameters (``nn.module.param_layout``), takes its rows of the batch
-(the "batch" axes, ``batch_axes`` under ``input_rules``) and its block
-of the decode cache (``cache_axes``: rows likewise, slots over "model"),
-and splits the heads, FFN units and vocabulary over "model" (Megatron's
-column- and row-parallel products with a sum over "model" after each
-row-parallel one; ``nn.attention`` gathers a projection whose block
-cuts a head, and ``nn.layers``' vocabulary-parallel embedding and the
-cross entropy's max, sum and target combine over "model").  Each block
-gathers its FSDP leaves over the other axes inside the block
-(``_take``), and the gradient goes back reduce-scattered onto the
-blocks, summed over the ranks of the batch.  The recurrent cells run
-whole on each rank of "model" on its rows.  The MoE blocks take their
-expert blocks as held and the rank's tokens as they arrive.  The
-modality frontends are the reference's stubs: precomputed audio frames
-or ViT patch embeddings through a learned projector.  An encoder-only
-model has no decode step, here as in the reference.
+parameters (``nn.module.param_layout``), takes its block of the batch
+(``batch_axes`` under the overrides: the rows over the "batch" axes,
+and the sequence over "model" where the overrides put it there) and
+its block of the decode cache (``cache_axes``: rows likewise, slots
+over "model"), and splits the heads, FFN units and vocabulary over
+"model" (Megatron's column- and row-parallel products with a sum over
+"model" after each row-parallel one; ``nn.attention`` gathers a
+projection whose block cuts a head, and ``nn.layers``' vocabulary-
+parallel embedding and the cross entropy's max, sum and target combine
+over "model").  Where the overrides put ``seq`` over "model" (qwen2.5,
+nemotron, kimi-k2, arctic, internvl2) and the sequence divides over it,
+the residual stream between the blocks is each rank's block (B, S / tp,
+D) of the sequence (Megatron sequence parallelism, the layout of the
+reference's ``_constrain_acts``): the norms, the residual adds and the
+MoE router run on it, each tensor-parallel layer gathers the sequence
+at its entry and reduce-scatters it at its exit (``nn.layers``'
+``seq``), and the head gathers it before the vocabulary; such a call
+takes the global length of its inputs' sequence in its plan
+(``nn.module.plan(..., seq_len=)``).  Each block gathers its FSDP
+leaves over the other axes inside the block (``_take``), and the
+gradient goes back reduce-scattered onto the blocks, summed over the
+ranks of the batch (and over "model" for the norms' scales, which see
+the rank's block of the sequence).  The recurrent cells run whole on
+each rank of "model" on its rows.  The MoE blocks take their expert
+blocks as held and the rank's tokens as they arrive.  The modality
+frontends are the reference's stubs: precomputed audio frames or ViT
+patch embeddings through a learned projector.  An encoder-only model
+has no decode step, here as in the reference.
 
 Training (``features``, ``loss_fn``) runs under autograd: attention
 takes the plain ``blockwise_attention`` there (the flash kernel has no
@@ -242,14 +254,17 @@ def param_specs(cfg: LMConfig) -> dict:
 # ===========================================================================
 
 def _ffn_apply(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
-               width: int | None = None) -> torch.Tensor:
+               width: int | None = None, seq: bool = False) -> torch.Tensor:
     """The (gated) FFN of ``width`` units (``cfg.d_ff``).  With a
     ``plan`` whose tensor-parallel axis cuts the units, ``p`` holds this
     rank's block of them: w_in / w_gate column-parallel, w_out
     row-parallel with its sum over the axis; KWN-FFN's threshold is
     taken over the units gathered from every rank.  CIM mode takes its
     leaves whole (``_take``) and sizes its NLQ codebook over every row of
-    the batch."""
+    the batch.  With ``seq`` x is this rank's block of the sequence, and
+    so is the result: the sequence gathered at the column-parallel entry
+    and reduce-scattered at the row-parallel exit, or, for units whole on
+    every rank, gathered and cut again."""
     if cfg.cim_linear:
         lin = layers.cim_linear if plan is None else functools.partial(
             layers.cim_linear, mesh=plan.mesh, axes=plan.dp_live)
@@ -258,7 +273,12 @@ def _ffn_apply(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
     act = layers.ACTIVATIONS[cfg.activation]
     cut = plan is not None and plan.tp is not None and \
         p["w_in"]["w"].shape[1] != (width or cfg.d_ff)
-    xin = collectives.copy_to(x, plan.mesh, plan.tp) if cut else x
+    if cut:
+        xin = collectives.gather_seq(x, plan.mesh, plan.tp) if seq else \
+            collectives.copy_to(x, plan.mesh, plan.tp)
+    else:
+        xin = collectives.gather_from(x, plan.mesh, plan.tp, 1) if seq \
+            else x
     h = act(lin(p["w_in"], xin))
     if cfg.gated_ffn:
         h = h * lin(p["w_gate"], xin)
@@ -271,12 +291,13 @@ def _ffn_apply(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
         thresh = torch.topk(every, cfg.kwn_ffn_k, dim=-1).values[..., -1:]
         h = torch.where(mag >= thresh, h, torch.zeros_like(h))
     if cut:
-        return layers.row_linear(p["w_out"], h, plan.mesh, plan.tp)
-    return lin(p["w_out"], h)
+        return layers.row_linear(p["w_out"], h, plan.mesh, plan.tp, seq)
+    y = lin(p["w_out"], h)
+    return collectives.split_to(y, plan.mesh, plan.tp, 1) if seq else y
 
 
 def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
-               decode: bool = False):
+               decode: bool = False, seq: bool = False):
     """The MoE FFN: the experts, then arctic's dense residual FFN, then
     kimi's shared experts, added in that order.  Returns (y, aux, or None
     in a decode step, whose aux the reference discards).
@@ -288,7 +309,10 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
     "model") or ``moe_dense_ep`` to decode.  Under a ``plan`` ``x`` is
     this rank's rows, split over the batch's axes, which must be the
     path's token axes (the "batch" rule's, ``nn.module.shard`` raises
-    where they differ: a batch that does not divide over them)."""
+    where they differ: a batch that does not divide over them).  With
+    ``seq`` x is this rank's block of the sequence too: ``moe_2d`` takes
+    it so (``split_seq``: its edges neither cut nor gather it), the other
+    paths gather it and their output is cut again."""
     overrides = cfg.sharding_overrides or {}
     experts_rule = overrides.get("experts", "model")
     is_2d = experts_rule not in (None, "model")   # experts over DP rows
@@ -300,70 +324,88 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
         kw["specs"] = module.param_layout(
             moe.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts), mesh,
             overrides)
+        xin, cut = x, False
         if is_2d:
             rows = tuple(experts_rule)
             fn = functools.partial(
                 moe.moe_dense_ep_2d, expert_axes=rows) if decode else \
                 functools.partial(moe.moe_2d, expert_axes=rows,
                                   capacity_factor=cfg.moe_capacity_factor,
-                                  wire_dtype=cfg.moe_wire_dtype)
+                                  wire_dtype=cfg.moe_wire_dtype,
+                                  split_seq=(plan.tp,) if seq else ())
         else:
             fn = moe.moe_dense_ep if decode else functools.partial(
                 moe.moe_a2a, seq_sharded=overrides.get("seq") == "model")
-        y, aux = fn(p["moe"], x, mesh=mesh, split=plan.dp, **kw)
+            if seq:
+                xin, cut = collectives.gather_from(x, mesh, plan.tp, 1), True
+        y, aux = fn(p["moe"], xin, mesh=mesh, split=plan.dp, **kw)
+        if cut:
+            y = collectives.split_to(y, mesh, plan.tp, 1)
     if decode:
         aux = None
     if cfg.moe_dense_residual:
-        y = y + _ffn_apply(p["ffn"], x, cfg, plan)
+        y = y + _ffn_apply(p["ffn"], x, cfg, plan, seq=seq)
     if cfg.n_shared_experts:
         y = y + _ffn_apply(p["shared"], x, cfg, plan,
-                           cfg.d_ff * cfg.n_shared_experts)
+                           cfg.d_ff * cfg.n_shared_experts, seq)
     return y, aux
 
 
 def _ffn_residual(p: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
-                  decode: bool = False):
+                  decode: bool = False, seq: bool = False):
     """The block's FFN half: (x + FFN(norm2(x)), aux loss f32, or None
-    without MoE or in a decode step)."""
+    without MoE or in a decode step); ``seq`` as in ``_block_apply``."""
     aux = None
     if "norm2" not in p:
         return x, aux
     h = layers.rmsnorm(p["norm2"], x)
     if cfg.moe:
-        h, aux = _moe_apply(p, h, cfg, plan, decode)
+        h, aux = _moe_apply(p, h, cfg, plan, decode, seq)
     else:
-        h = _ffn_apply(p["ffn"], h, cfg, plan)
+        h = _ffn_apply(p["ffn"], h, cfg, plan, seq=seq)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm2_post"], h)
     return x + h, aux
 
 
-def _take(p: dict, lay, cfg: LMConfig, plan) -> dict:
+# The leaves applied to the residual stream itself: under sequence
+# parallelism to this rank's block of the sequence.
+_ON_STREAM = frozenset({"norm1", "norm2", "norm1_post", "norm2_post",
+                        "final_norm"})
+
+
+def _take(p: dict, lay, cfg: LMConfig, plan, seq: bool = False) -> dict:
     """A block's dense leaves for this rank's compute from the blocks it
     holds (``nn.module.take_params``: gathered over the FSDP axes, inside
     the block, so a remat recompute gathers them again): the recurrent
     cells and CIM-mode FFNs whole over "model" too (they run whole on
-    each of its ranks), the ``moe`` subtree as held.  No ``plan``: ``p``
-    as it is."""
+    each of its ranks), the ``moe`` subtree as held.  With ``seq`` the
+    norms' gradients are summed over "model" too (each rank applied them
+    to its block of the sequence).  No ``plan``: ``p`` as it is."""
     if plan is None:
         return p
     return {k: v if k == "moe" else module.take_params(
         v, lay[k], plan,
-        whole=k == "cell" or (cfg.cim_linear and k in ("ffn", "shared")))
+        whole=k == "cell" or (cfg.cim_linear and k in ("ffn", "shared")),
+        sliced=seq and k in _ON_STREAM)
         for k, v in p.items()}
 
 
 def _block_apply(kind: str, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, cfg: LMConfig,
-                 prefill: bool = False, plan=None, lay=None):
+                 prefill: bool = False, plan=None, lay=None,
+                 seq: bool = False):
     """One block.  Returns (x, aux loss or None, cache entry or None): K/V
     (ring-ordered with ``slot_pos`` for a local layer over a prompt longer
     than its window, quantized for a global one under ``kv_quant``) or the
     recurrent state.  Attention is causal unless the model is
     encoder-only.  Under a ``plan`` ``p`` is this rank's blocks laid out
     by ``lay`` (``_take``), ``x`` its rows, and the cache entry its block
-    under ``cache_axes``."""
-    p = _take(p, lay, cfg, plan)
+    under ``cache_axes``.  With ``seq`` (sequence parallelism) ``x`` is
+    this rank's block of the rows' sequence and so is the result;
+    ``positions`` are the whole sequence's, and the cache entry is made
+    from the whole sequence."""
+    p = _take(p, lay, cfg, plan, seq)
     h = layers.rmsnorm(p["norm1"], x)
     cache = None
     if kind in ("attn", "attn_local"):
@@ -372,7 +414,7 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
             attention.mha, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
             head_dim=cfg.hd, causal=not cfg.encoder_only, window=window,
             attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
-            chunk=cfg.attn_chunk, return_kv=prefill, plan=plan)
+            chunk=cfg.attn_chunk, return_kv=prefill, plan=plan, seq=seq)
         if cfg.remat and cfg.remat_mode == "attn_only":
             attn = _remat(attn)
         h = attn(p["attn"], h, positions)
@@ -383,22 +425,28 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
                 kq, ks = kvq.quantize(cache["k"], cfg.kv_quant)
                 vq, vs = kvq.quantize(cache["v"], cfg.kv_quant)
                 cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-    elif kind == "mlstm":
-        h = recurrent.mlstm_forward(p["cell"], h, cfg.n_heads,
-                                    return_state=prefill)
-    elif kind == "slstm":
-        h = recurrent.slstm_forward(p["cell"], h, cfg.n_heads,
-                                    return_state=prefill)
-    elif kind == "rglru":
-        h = recurrent.rglru_forward(p["cell"], h, return_state=prefill)
-    if prefill and cache is None:
-        h, st = h
-        cache = st._asdict()
+    else:
+        # the cells run whole over the sequence on each rank of "model"
+        if seq:
+            h = collectives.gather_from(h, plan.mesh, plan.tp, 1)
+        if kind == "mlstm":
+            h = recurrent.mlstm_forward(p["cell"], h, cfg.n_heads,
+                                        return_state=prefill)
+        elif kind == "slstm":
+            h = recurrent.slstm_forward(p["cell"], h, cfg.n_heads,
+                                        return_state=prefill)
+        elif kind == "rglru":
+            h = recurrent.rglru_forward(p["cell"], h, return_state=prefill)
+        if prefill:
+            h, st = h
+            cache = st._asdict()
+        if seq:
+            h = collectives.split_to(h, plan.mesh, plan.tp, 1)
     if prefill and plan is not None:
         cache = _cache_block(cache, _entry_axes(kind, cfg), plan)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
-    x, aux = _ffn_residual(p, x + h, cfg, plan)
+    x, aux = _ffn_residual(p, x + h, cfg, plan, seq=seq)
     return x, aux, cache
 
 
@@ -460,20 +508,66 @@ def _remat(fn, policy: str = "nothing"):
     return run
 
 
+def _seq_lens(batch: dict, cfg: LMConfig, plan) -> tuple[int, int]:
+    """(the global length of the inputs' sequence: the tokens, or the
+    audio frames; that of the residual stream: the VLM's patches, then
+    its tokens).  A rank's block of the inputs does not say whether
+    sequence parallelism cut it: a plan that may cut it (``sp``) carries
+    the global length (``nn.module.plan(..., seq_len=)``), and a block of
+    another length than the one it gives raises ``ValueError``."""
+    key = "frames" if cfg.frontend == "audio_frames" else "tokens"
+    n = local = batch[key].shape[1]
+    if plan is not None and plan.sp:
+        if plan.seq_len is None:
+            raise ValueError(
+                f"{cfg.name} under a mesh that cuts the sequence over "
+                f"{plan.tp!r} (its overrides' \"seq\"): the call needs the "
+                "global length of its inputs' sequence, "
+                "nn.module.plan(mesh, rules, batch=, seq_len=)")
+        n = plan.seq_len
+        want = n // plan.tp_size if plan.cuts_seq(n) else n
+        if local != want:
+            raise ValueError(f"{key} of {local} positions a rank: this "
+                             f"rank's block of {n} has {want}")
+    prefix = cfg.n_patches if cfg.frontend == "vision_patches" else 0
+    return n, n + prefix
+
+
+def _sp(plan, n: int) -> bool:
+    """Whether sequence parallelism cuts a sequence of ``n`` positions
+    under ``plan``."""
+    return plan is not None and plan.cuts_seq(n)
+
+
+def _seq_whole(t: torch.Tensor, plan, cut: bool) -> torch.Tensor:
+    """A (B, S, ...) input leaf whole over its sequence: gathered over
+    "model" where sequence parallelism ``cut`` it (the tokens without a
+    graph)."""
+    return collectives.gather_seq(t, plan.mesh, plan.tp) if cut else t
+
+
 def _embed_inputs(params: dict, batch: dict, cfg: LMConfig, plan=None,
-                  lay=None) -> torch.Tensor:
+                  lay=None, s_in: int = 0) -> torch.Tensor:
     """The model's input sequence (B, S, D): audio frames (B, S,
     frontend_dim) through ``frontend_proj``; else the token embeddings,
     after the ViT patches (B, n_patches, frontend_dim) through
     ``patch_proj`` for the VLM.  Under a ``plan`` the rank's rows, the
-    table vocabulary-parallel where "model" cuts it."""
+    table vocabulary-parallel where "model" cuts it.  Where sequence
+    parallelism cuts the inputs' ``s_in`` positions, the rank's block of
+    them is gathered first; a text model's vocabulary-parallel lookup
+    then ends in a reduce-scatter along the sequence, so the result is
+    this rank's block of it, and is whole over it elsewhere (cut by
+    ``_constrain_acts``)."""
     p = _take({k: params[k] for k in ("frontend_proj", "patch_proj",
                                       "embed") if k in params},
               lay, cfg, plan)
+    cut = _sp(plan, s_in)
     if cfg.frontend == "audio_frames":
+        frames = _seq_whole(batch["frames"], plan, cut)
         return layers.linear(p["frontend_proj"],
-                             batch["frames"].to(cfg.compute_dtype))
-    x = _embed(p["embed"], batch["tokens"], cfg, plan)
+                             frames.to(cfg.compute_dtype))
+    x = _embed(p["embed"], _seq_whole(batch["tokens"], plan, cut), cfg,
+               plan, seq=cut and cfg.frontend is None)
     if cfg.frontend == "vision_patches":
         patches = layers.linear(p["patch_proj"],
                                 batch["patches"].to(cfg.compute_dtype))
@@ -486,10 +580,11 @@ def _vocab_cut(table: torch.Tensor, cfg: LMConfig, plan) -> bool:
         table.shape[0] != cfg.padded_vocab
 
 
-def _embed(p: dict, tokens: torch.Tensor, cfg: LMConfig, plan):
+def _embed(p: dict, tokens: torch.Tensor, cfg: LMConfig, plan,
+           seq: bool = False):
     if _vocab_cut(p["table"], cfg, plan):
         x = layers.embed_vocab(p, tokens, plan.mesh, plan.tp,
-                               scale_by_dim=cfg.scale_embed)
+                               scale_by_dim=cfg.scale_embed, seq=seq)
     else:
         x = layers.embed(p, tokens, scale_by_dim=cfg.scale_embed)
     return x.to(cfg.compute_dtype)
@@ -500,39 +595,48 @@ def _group(tree: dict, g: int) -> dict:
     return tree_map(lambda t: t[g], tree)
 
 
-def _head_logits(params: dict, x: torch.Tensor, cfg: LMConfig, plan=None):
+def _head_logits(params: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
+                 seq: bool = False):
     """(f32 logits after the final softcap: the padded vocabulary, or an
     encoder-only model's ``vocab_size`` classes; the first column of this
     rank's block of them, or None where they are whole).  ``x`` has
     passed ``final_norm``; ``params`` hold the rank's blocks of the head
     or the tied table, gathered here (``_take``), the vocabulary
-    column-parallel where "model" cuts it."""
+    column-parallel where "model" cuts it.  With ``seq`` x is this
+    rank's block of the sequence, gathered here (Megatron's exit from
+    sequence parallelism): the logits are over the whole sequence."""
     mesh = plan.mesh if plan is not None else None
+
+    def enter(x, cut):
+        if cut:
+            return collectives.gather_seq(x, mesh, plan.tp) if seq else \
+                collectives.copy_to(x, mesh, plan.tp)
+        return collectives.gather_from(x, mesh, plan.tp, 1) if seq else x
+
     if cfg.tie_embeddings and not cfg.encoder_only:
         w = params["embed"]["table"]
         cut = _vocab_cut(w, cfg, plan)
-        xin = collectives.copy_to(x, mesh, plan.tp) if cut else x
-        logits = layers.unembed(params["embed"], xin)
+        logits = layers.unembed(params["embed"], enter(x, cut))
     else:
         full = cfg.vocab_size if cfg.encoder_only else cfg.padded_vocab
         cut = plan is not None and plan.tp is not None and \
             params["head"]["w"].shape[1] != full
-        xin = collectives.copy_to(x, mesh, plan.tp) if cut else x
-        logits = layers.linear(params["head"], xin)
+        logits = layers.linear(params["head"], enter(x, cut))
     first = layers.vocab_block(logits.shape[-1], mesh, plan.tp) if cut \
         else None
     return layers.softcap(logits.float(), cfg.final_softcap), first
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: LMConfig, plan=None,
-            lay=None) -> torch.Tensor:
+            lay=None, seq: bool = False) -> torch.Tensor:
     """f32 logits: the vocabulary padded to ``padded_vocab``, or an
     encoder-only model's ``vocab_size`` classes; under a ``plan`` the
-    rank's rows, gathered whole over the vocabulary."""
+    rank's rows, gathered whole over the vocabulary (and, from its block
+    of the sequence with ``seq``, over the sequence)."""
     head = _take({k: params[k] for k in ("final_norm", "head", "embed")
-                  if k in params}, lay, cfg, plan)
+                  if k in params}, lay, cfg, plan, seq)
     x = layers.rmsnorm(head["final_norm"], x)
-    logits, first = _head_logits(head, x, cfg, plan)
+    logits, first = _head_logits(head, x, cfg, plan, seq)
     if first is not None:
         logits = collectives.gather_from(logits, plan.mesh, plan.tp, -1)
     return logits
@@ -566,14 +670,21 @@ def _plan(cfg: LMConfig, mesh):
     return module.plan(mesh, cfg.sharding_overrides)
 
 
-def _constrain_acts(x: torch.Tensor, cfg: LMConfig, plan) -> torch.Tensor:
-    """The identity.  The reference's ``_constrain_acts`` is a sharding
-    constraint (Megatron sequence parallelism of the residual stream over
-    "model" where a config's overrides put ``seq`` there), a layout that
-    changes no number; here each rank holds its rows' activations whole
-    over the sequence and the same on every rank of "model" (sequence
-    parallelism is not ported)."""
-    return x
+def _constrain_acts(x: torch.Tensor, cfg: LMConfig, plan,
+                    s: int) -> torch.Tensor:
+    """The residual stream (B, S, D) of ``s`` positions in the layout of
+    the reference's ``_constrain_acts`` (a sharding constraint to
+    ("batch", "seq", None) under the config's rules): where its
+    overrides put ``seq`` over "model" and ``s`` divides over it
+    (``_sp``), each rank's block (B, S / tp, D) of the sequence (Megatron
+    sequence parallelism), else its rows whole over the sequence and the
+    same on every rank of "model".  A whole stream (the embedding's
+    output where it does not end in a reduce-scatter) is cut
+    (``split_to``, whose backward gathers the blocks' cotangents); the
+    blocks leave it cut."""
+    if not _sp(plan, s) or x.shape[1] != s:
+        return x
+    return collectives.split_to(x, plan.mesh, plan.tp, 1)
 
 
 @torch.no_grad()
@@ -598,20 +709,27 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False,
     is this rank's share of the partitioned step, as the reference's
     sharding rules lay it out; every rank of the mesh must make it.
     ``params`` are this rank's blocks (``param_layout``), ``batch`` its
-    rows (``blocks_like`` under ``input_rules``: the rows over the mesh's
-    "batch" axes, the sequence whole), and the results its own: the
-    logits of its rows, whole over the vocabulary; the aux loss, global
-    and the same on every rank; the cache its block under
-    ``cache_axes``.  The heads, FFN units and vocabulary split over
-    "model" (Megatron's column- and row-parallel products), FSDP's leaves
-    are gathered block by block, and the MoE blocks take the reference's
-    expert-parallel paths (``_moe_apply``).
+    block (``blocks_like`` of ``batch_axes`` under the config's
+    overrides: the rows over the mesh's "batch" axes, and the sequence
+    over "model" where the overrides put it there and it divides; such a
+    call's plan carries the inputs' global length, ``nn.module.plan(...,
+    seq_len=)``), and the results its own: the logits of its rows, whole
+    over the sequence and the vocabulary; the aux loss, global and the
+    same on every rank; the cache its block under ``cache_axes``.  The
+    heads, FFN units and vocabulary split over "model" (Megatron's
+    column- and row-parallel products), the residual stream is each
+    rank's block of the sequence under sequence parallelism
+    (``_constrain_acts``), FSDP's leaves are gathered block by block, and
+    the MoE blocks take the reference's expert-parallel paths
+    (``_moe_apply``).
     """
     plan = _plan(cfg, mesh)
     lay = _layout(cfg, plan)
-    x = _constrain_acts(_embed_inputs(params, batch, cfg, plan, lay), cfg,
-                        plan)
-    b, s, _ = x.shape
+    s_in, s = _seq_lens(batch, cfg, plan)
+    sp = _sp(plan, s)
+    x = _constrain_acts(_embed_inputs(params, batch, cfg, plan, lay, s_in),
+                        cfg, plan, s)
+    b = x.shape[0]
     positions = torch.arange(s, device=x.device).expand(b, s)
     caches: dict[str, list] = {f"b{j}": [] for j in range(len(cfg.pattern))}
     aux = None
@@ -621,8 +739,8 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False,
         for j, kind in enumerate(cfg.pattern):
             x, aux_b, c = _block_apply(
                 kind, gp[f"b{j}"], x, positions, cfg, prefill, plan,
-                lay and _grouped(lay["layers"][f"b{j}"]))
-            x = _constrain_acts(x, cfg, plan)
+                lay and _grouped(lay["layers"][f"b{j}"]), sp)
+            x = _constrain_acts(x, cfg, plan, s)
             aux_g = _add_aux(aux_g, aux_b)
             if prefill:
                 caches[f"b{j}"].append(c)
@@ -635,15 +753,20 @@ def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False,
     for j, kind in enumerate(cfg.tail_pattern):
         x, aux_t, c = _block_apply(kind, params[f"tail{j}"], x, positions,
                                    cfg, prefill, plan,
-                                   lay and lay[f"tail{j}"])
+                                   lay and lay[f"tail{j}"], sp)
         aux = _add_aux(aux, aux_t)
         if prefill:
             cache[f"tail{j}"] = c
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if prefill:
-        return _logits(params, x[:, -1:], cfg, plan, lay)[:, 0], aux, cache
-    return _logits(params, x, cfg, plan, lay), aux
+        last = x[:, -1:]
+        if sp:
+            # the last position of the gathered sequence: the last rank's
+            last = collectives.gather_from(last, plan.mesh, plan.tp,
+                                           1)[:, -1:]
+        return _logits(params, last, cfg, plan, lay)[:, 0], aux, cache
+    return _logits(params, x, cfg, plan, lay, sp), aux
 
 
 # ===========================================================================
@@ -663,18 +786,22 @@ def features(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
     ``final_norm`` (B, S, D), the aux loss f32, summed as ``forward``
     sums it).  Each layer group is recomputed in the backward under
     ``remat`` with ``remat_mode`` "group".  ``mesh`` as in ``forward``:
-    x is this rank's rows (the same on every rank of "model"); the
+    x is this rank's rows (the same on every rank of "model", or under
+    sequence parallelism its block (B, S / tp, D) of the sequence); the
     gradient of each block this rank holds is that block of the global
     function's gradient."""
     plan = _plan(cfg, mesh)
-    return _features(params, batch, cfg, plan, _layout(cfg, plan))
+    return _features(params, batch, cfg, plan, _layout(cfg, plan))[:2]
 
 
 def _features(params: dict, batch: dict, cfg: LMConfig, plan, lay):
-    """``features`` under a plan and its layout."""
-    x = _constrain_acts(_embed_inputs(params, batch, cfg, plan, lay), cfg,
-                        plan)
-    b, s, _ = x.shape
+    """``features`` under a plan and its layout, and whether sequence
+    parallelism cut x."""
+    s_in, s = _seq_lens(batch, cfg, plan)
+    sp = _sp(plan, s)
+    x = _constrain_acts(_embed_inputs(params, batch, cfg, plan, lay, s_in),
+                        cfg, plan, s)
+    b = x.shape[0]
     positions = torch.arange(s, device=x.device).expand(b, s)
     group_lay = {f"b{j}": lay and _grouped(lay["layers"][f"b{j}"])
                  for j in range(len(cfg.pattern))}
@@ -683,8 +810,9 @@ def _features(params: dict, batch: dict, cfg: LMConfig, plan, lay):
         aux_g = None
         for j, kind in enumerate(cfg.pattern):
             x, aux_b, _ = _block_apply(kind, gp[f"b{j}"], x, positions, cfg,
-                                       plan=plan, lay=group_lay[f"b{j}"])
-            x = _constrain_acts(x, cfg, plan)
+                                       plan=plan, lay=group_lay[f"b{j}"],
+                                       seq=sp)
+            x = _constrain_acts(x, cfg, plan, s)
             aux_g = _add_aux(aux_g, aux_b)
         return x, aux_g
 
@@ -696,12 +824,13 @@ def _features(params: dict, batch: dict, cfg: LMConfig, plan, lay):
         aux = _add_aux(aux, aux_g)
     for j, kind in enumerate(cfg.tail_pattern):
         x, aux_t, _ = _block_apply(kind, params[f"tail{j}"], x, positions,
-                                   cfg, plan=plan, lay=lay and lay[f"tail{j}"])
+                                   cfg, plan=plan, lay=lay and lay[f"tail{j}"],
+                                   seq=sp)
         aux = _add_aux(aux, aux_t)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    norm = _take({"final_norm": params["final_norm"]}, lay, cfg, plan)
-    return layers.rmsnorm(norm["final_norm"], x), aux
+    norm = _take({"final_norm": params["final_norm"]}, lay, cfg, plan, sp)
+    return layers.rmsnorm(norm["final_norm"], x), aux, sp
 
 
 def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -746,23 +875,34 @@ def _masked_mean(ce: torch.Tensor, mask: torch.Tensor | None,
 
 
 def _head_and_ce(params: dict, x: torch.Tensor, batch: dict,
-                 cfg: LMConfig, plan=None, lay=None) -> torch.Tensor:
+                 cfg: LMConfig, plan=None, lay=None,
+                 seq: bool = False) -> torch.Tensor:
     """Unembedding and cross-entropy, f32.  A decoder predicts each next
     token over the padded vocabulary (the logits of the VLM's patch
     prefix dropped), averaged over the positions, or over those
     ``loss_mask`` keeps; an encoder-only model its ``targets`` over its
     classes where ``loss_mask`` is set.  Under a ``plan`` vocabulary-
-    parallel where "model" cuts it, the mean global (``_masked_mean``)."""
+    parallel where "model" cuts it, the mean global (``_masked_mean``);
+    with ``seq`` x is this rank's block of the sequence, gathered before
+    the head, and the batch's leaves cut along the sequence are gathered
+    too, so each position is scored against the next token across the
+    blocks' boundaries."""
     params = _take(params, lay, cfg, plan)
-    logits, first = _head_logits(params, x, cfg, plan)
+    logits, first = _head_logits(params, x, cfg, plan, seq)
+    cut = _sp(plan, _seq_lens(batch, cfg, plan)[0])
+
+    def whole(key):
+        t = batch.get(key)
+        return None if t is None else _seq_whole(t, plan, cut)
+
     if cfg.encoder_only:
-        return _masked_mean(_cross_entropy(logits, batch["targets"], plan,
-                                           first), batch["loss_mask"], plan)
+        return _masked_mean(_cross_entropy(logits, whole("targets"), plan,
+                                           first), whole("loss_mask"), plan)
     n_prefix = cfg.n_patches if cfg.frontend == "vision_patches" else 0
-    tokens = batch["tokens"]
+    tokens = whole("tokens")
     ce = _cross_entropy(logits[:, n_prefix:][:, :-1], tokens[:, 1:], plan,
                         first)
-    mask = batch.get("loss_mask")
+    mask = whole("loss_mask")
     return _masked_mean(ce, None if mask is None else mask[:, 1:], plan)
 
 
@@ -775,11 +915,11 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
     gradient."""
     plan = _plan(cfg, mesh)
     lay = _layout(cfg, plan)
-    x, aux = _features(params, batch, cfg, plan, lay)
+    x, aux, sp = _features(params, batch, cfg, plan, lay)
     keys = [k for k in ("head", "embed") if k in params]
     head = {k: params[k] for k in keys}
     ce = _remat(_head_and_ce)(head, x, batch, cfg, plan,
-                              lay and {k: lay[k] for k in keys})
+                              lay and {k: lay[k] for k in keys}, sp)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -1136,16 +1276,11 @@ def batch_specs(cfg: LMConfig, shape_name: str,
     return {"tokens": empty((b, 1), tok), "pos": empty((b,), tok)}
 
 
-def input_rules(cfg: LMConfig) -> dict:
-    """The rules under which a rank takes its share of the inputs of the
-    mesh entry points (``nn.module.blocks_like`` of ``batch_axes``): the
-    config's overrides with the sequence whole, where five configs put it
-    over "model" (sequence parallelism is not ported)."""
-    return {**(cfg.sharding_overrides or {}), "seq": None}
-
-
 def batch_axes(cfg: LMConfig, shape_name: str) -> dict:
-    """The logical axes of each ``batch_specs`` leaf."""
+    """The logical axes of each ``batch_specs`` leaf: a rank of a mesh
+    takes its block of each (``nn.module.blocks_like``) under the
+    config's ``sharding_overrides``, the sequence over "model" where they
+    put it there (Megatron sequence parallelism) and it divides."""
     sh = SHAPES[shape_name]
     if sh["kind"] in ("train", "prefill"):
         if cfg.frontend == "audio_frames":

@@ -192,20 +192,25 @@ def mha(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: int,
         n_kv: int, head_dim: int, causal: bool = True,
         window: int | None = None, attn_softcap: float | None = None,
         rope_theta: float = 10000.0, chunk: int = 1024,
-        use_rope: bool = True, return_kv: bool = False, plan=None):
+        use_rope: bool = True, return_kv: bool = False, plan=None,
+        seq: bool = False):
     """Full-sequence attention layer, x (B, S, D); with ``return_kv`` also
     the roped, unrepeated (k, v), (B, S, n_kv, hd) each.  The flash kernel
     where ``uses_flash`` and autograd records nothing (a forward under
     ``torch.no_grad()``, or of tensors that require no grad), else
     ``blockwise_attention``.  With a ``plan`` (``nn.module.Plan``) whose
     tensor-parallel axis cuts the projections, ``p`` holds this rank's
-    blocks and the heads split over the ranks (``_heads_tp``)."""
+    blocks and the heads split over the ranks (``_heads_tp``); with
+    ``seq`` (sequence parallelism) x is this rank's block (B, S / tp, D)
+    of the sequence, ``positions`` the whole sequence's, the sequence is
+    gathered before the projections, and the output is this rank's block
+    again (K/V whole over the sequence)."""
     if plan is not None and plan.tp is not None:
         return _mha_tp(p, x, positions, n_heads=n_heads, n_kv=n_kv,
                        head_dim=head_dim, causal=causal, window=window,
                        attn_softcap=attn_softcap, rope_theta=rope_theta,
                        chunk=chunk, use_rope=use_rope, return_kv=return_kv,
-                       plan=plan)
+                       plan=plan, seq=seq)
     q = _split_heads(layers.linear(p["wq"], x), n_heads, head_dim)
     k = _split_heads(layers.linear(p["wk"], x), n_kv, head_dim)
     v = _split_heads(layers.linear(p["wv"], x), n_kv, head_dim)
@@ -243,7 +248,7 @@ def heads_local(n_heads: int, cols: int, head_dim: int, tp: int) -> bool:
     return cols != n_heads * head_dim and n_heads % tp == 0
 
 
-def _heads_tp(p, x, n_heads, n_kv, head_dim, plan):
+def _heads_tp(p, x, n_heads, n_kv, head_dim, plan, seq=False):
     """The projections under tensor parallelism: (q (B, S, h1 - h0, hd)
     of heads [h0, h1), k, v (B, S, n_kv_l, hd) of kv heads [kv0, kv0 +
     n_kv_l), h0, h1, kv0, whether the heads are this rank's).
@@ -253,14 +258,25 @@ def _heads_tp(p, x, n_heads, n_kv, head_dim, plan):
     divide too, else the kv projection gathered whole over the axis
     (GSPMD's reshard: its backward sums the ranks' parts).  Where the
     block cuts a head (qwen2.5's 40 heads over 16) q and kv are gathered
-    whole and every rank of the axis computes every head alike."""
+    whole and every rank of the axis computes every head alike.
+
+    With ``seq`` x is this rank's block of the sequence, gathered first:
+    where every projection is cut, by ``gather_seq`` (the backward
+    reduce-scatters the ranks' partial cotangents); where one runs whole
+    on every rank, by ``gather_from``, the cut ones entering through
+    ``copy_to`` as without ``seq``."""
     mesh, ax, tp, r = plan.mesh, plan.tp, plan.tp_size, plan.tp_index
     q_cut = p["wq"]["w"].shape[1] != n_heads * head_dim
     kv_cut = p["wk"]["w"].shape[1] != n_kv * head_dim
     mine = heads_local(n_heads, p["wq"]["w"].shape[1], head_dim, tp)
     kv_mine = mine and heads_local(n_kv, p["wk"]["w"].shape[1], head_dim,
                                    tp)
-    xin = collectives.copy_to(x, mesh, ax)
+    if seq and q_cut and kv_cut:
+        x = xin = collectives.gather_seq(x, mesh, ax)
+    else:
+        if seq:
+            x = collectives.gather_from(x, mesh, ax, 1)
+        xin = collectives.copy_to(x, mesh, ax)
     q = layers.linear(p["wq"], xin if q_cut else x)
     k = layers.linear(p["wk"], xin if kv_cut else x)
     v = layers.linear(p["wv"], xin if kv_cut else x)
@@ -289,24 +305,29 @@ def _kv_for(k, h0, h1, kv0, n_rep):
 
 
 def out_proj(p: dict, o: torch.Tensor, n_heads: int, head_dim: int,
-             mine: bool, plan) -> torch.Tensor:
+             mine: bool, plan, seq: bool = False) -> torch.Tensor:
     """``wo`` on o (B, S, h * hd): this rank's heads (``mine``) or every
     head alike on each rank.  A cut ``wo`` takes this rank's block of
-    its rows, the products summed over the axis."""
+    its rows, the products summed over the axis.  With ``seq`` the
+    result is this rank's block of the sequence: the sum
+    reduce-scattered along it, or a whole ``wo``'s output cut
+    (``split_to``)."""
     mesh, ax = plan.mesh, plan.tp
     if p["w"].shape[0] == n_heads * head_dim:
         if mine:
             o = collectives.gather_from(o, mesh, ax, -1)
-        return layers.linear(p, o)
+        y = layers.linear(p, o)
+        return collectives.split_to(y, mesh, ax, 1) if seq else y
     if not mine:
         o = collectives.split_to(o, mesh, ax, -1)
-    return layers.row_linear(p, o, mesh, ax)
+    return layers.row_linear(p, o, mesh, ax, seq)
 
 
 def _mha_tp(p, x, positions, *, n_heads, n_kv, head_dim, causal, window,
-            attn_softcap, rope_theta, chunk, use_rope, return_kv, plan):
+            attn_softcap, rope_theta, chunk, use_rope, return_kv, plan,
+            seq=False):
     q, k, v, h0, h1, kv0, mine = _heads_tp(p, x, n_heads, n_kv, head_dim,
-                                           plan)
+                                           plan, seq)
     if use_rope:
         q = layers.rope(q, positions, rope_theta)
         k = layers.rope(k, positions, rope_theta)
@@ -314,9 +335,9 @@ def _mha_tp(p, x, positions, *, n_heads, n_kv, head_dim, causal, window,
     o = _core(q, _kv_for(k, h0, h1, kv0, n_rep), _kv_for(v, h0, h1, kv0,
                                                          n_rep),
               causal, window, attn_softcap, chunk)
-    b, s = x.shape[:2]
+    b, s = q.shape[:2]
     out = out_proj(p["wo"], o.reshape(b, s, (h1 - h0) * head_dim), n_heads,
-                   head_dim, mine, plan)
+                   head_dim, mine, plan, seq)
     if return_kv:
         # the cache holds every kv head (``cache_heads`` is whole)
         if k.shape[-2] != n_kv:

@@ -56,13 +56,20 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 # activations) and so is its cotangent; a column-parallel product (``x``
 # through ``collectives.copy_to``, then ``linear`` on this rank's block of
 # the columns) makes this rank's block of the output columns, a
-# row-parallel one its part of the output, summed over the axis.
+# row-parallel one its part of the output, summed over the axis.  Under
+# sequence parallelism (``seq``) the sum leaves each rank its block of
+# the sequence (``collectives.scatter_seq``), where the column-parallel
+# product took the sequence gathered (``collectives.gather_seq``).
 
-def row_linear(p: dict, x: torch.Tensor, mesh, axis) -> torch.Tensor:
+def row_linear(p: dict, x: torch.Tensor, mesh, axis,
+               seq: bool = False) -> torch.Tensor:
     """x (..., F_local), this rank's block of the input features, times
-    its block of ``p``'s rows, summed over ``axis``; the bias (whole)
-    added once, after the sum."""
-    y = collectives.reduce_from(x @ p["w"].to(x.dtype), mesh, axis)
+    its block of ``p``'s rows, summed over ``axis`` (with ``seq``,
+    reduce-scattered along the sequence, dim 1 of x (B, S, F_local));
+    the bias (whole) added once, after the sum."""
+    y = x @ p["w"].to(x.dtype)
+    y = collectives.scatter_seq(y, mesh, axis) if seq else \
+        collectives.reduce_from(y, mesh, axis)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -75,17 +82,21 @@ def vocab_block(n_local: int, mesh, axis) -> int:
 
 
 def embed_vocab(p: dict, ids: torch.Tensor, mesh, axis,
-                scale_by_dim: bool = False) -> torch.Tensor:
+                scale_by_dim: bool = False,
+                seq: bool = False) -> torch.Tensor:
     """``embed`` from this rank's block of the table's rows (the
     vocabulary over ``axis``): each rank looks up the ids in its block,
-    zero elsewhere, and the rows are summed over the axis."""
+    zero elsewhere, and the rows are summed over the axis; with ``seq``
+    (ids (B, S) whole, sequence parallelism) reduce-scattered along the
+    sequence, each rank keeping its block of it."""
     table = p["table"]
     v0 = vocab_block(table.shape[0], mesh, axis)
     local = ids - v0
     mine = (local >= 0) & (local < table.shape[0])
     y = table[torch.where(mine, local, torch.zeros_like(local))]
     y = y * mine[..., None].to(y.dtype)
-    y = collectives.reduce_from(y, mesh, axis)
+    y = collectives.scatter_seq(y, mesh, axis) if seq else \
+        collectives.reduce_from(y, mesh, axis)
     if scale_by_dim:
         y = y * torch.sqrt(torch.tensor(float(table.shape[-1]),
                                         dtype=y.dtype, device=y.device))

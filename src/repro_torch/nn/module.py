@@ -27,10 +27,12 @@ function that wants another block of it.
 The partitioned step gives each rank its share of the inputs too:
 ``blocks_like`` cuts a batch or a cache by its logical axes (the layout
 of ``shardings_like``), a :class:`Plan` says how a call splits its work
-(the batch's axes, the tensor-parallel axis, the cache's slots), and
-``take_param`` gathers a dense leaf over its FSDP axes for one block's
-compute, its backward reduce-scattering the gradient onto the block,
-summed over the ranks of the batch.
+(the batch's axes, the tensor-parallel axis, the cache's slots, and
+whether the sequence is cut over the tensor-parallel axis: Megatron
+sequence parallelism), and ``take_param`` gathers a dense leaf over its
+FSDP axes for one block's compute, its backward reduce-scattering the
+gradient onto the block, summed over the ranks of the batch (and over
+"model" for a leaf applied to the rank's block of the sequence).
 """
 
 from __future__ import annotations
@@ -326,40 +328,51 @@ class _Unshard(torch.autograd.Function):
         return (g / n if n != 1 else g.clone()), None, None, None
 
 
-def _edge(spec: tuple, mesh, split: tuple) -> tuple[tuple, tuple]:
+def _dim_axes(spec: tuple, d: int) -> tuple[str, ...]:
+    part = spec[d] if len(spec) > d else None
+    return () if part is None else (
+        (part,) if isinstance(part, str) else tuple(part))
+
+
+def _edge(spec: tuple, mesh, split: tuple,
+          split_seq: tuple = ()) -> tuple[tuple, tuple]:
     """(the spec left to cut, the axes whose ranks hold the same block)
     of an edge whose input rows are already this rank's block over
-    ``split``: dim 0's axes must be ``split``'s."""
-    spec, split = tuple(spec), tuple(split)
-    if split:
-        head = spec[0] if spec else None
-        head = () if head is None else (
-            (head,) if isinstance(head, str) else tuple(head))
-        if head != split:
-            raise ValueError(f"rows split over {split}, the edge wants "
-                             f"{head}")
-        spec = (None,) + spec[1:]
-    rest = tuple(a for a in _unmentioned(spec, mesh) if a not in split)
+    ``split`` and its sequence (dim 1) over ``split_seq``: dim 0's axes
+    must be ``split``'s, dim 1's ``split_seq``'s."""
+    spec = tuple(spec)
+    for d, axes in ((0, tuple(split)), (1, tuple(split_seq))):
+        if not axes:
+            continue
+        have = _dim_axes(spec, d)
+        if have != axes:
+            raise ValueError(f"dim {d} split over {axes}, the edge wants "
+                             f"{have}")
+        spec = spec[:d] + (None,) + spec[d + 1:]
+    rest = tuple(a for a in _unmentioned(spec, mesh)
+                 if a not in split and a not in split_seq)
     return spec, rest
 
 
-def shard(x: torch.Tensor, spec: tuple, mesh,
-          split: tuple = ()) -> torch.Tensor:
+def shard(x: torch.Tensor, spec: tuple, mesh, split: tuple = (),
+          split_seq: tuple = ()) -> torch.Tensor:
     """``shard_map``'s input edge: this rank's block of the full ``x``.
     The backward gathers the full cotangent on every rank.  ``split``:
     the axes over which ``x``'s rows are this rank's block already (a
-    data-parallel row's tokens); they are neither cut nor summed."""
-    spec, rest = _edge(spec, mesh, split)
+    data-parallel row's tokens), ``split_seq`` those over which its
+    sequence (dim 1) is (sequence parallelism); they are neither cut nor
+    summed."""
+    spec, rest = _edge(spec, mesh, split, split_seq)
     return _Shard.apply(x, spec, mesh, rest)
 
 
-def unshard(local: torch.Tensor, spec: tuple, mesh,
-            split: tuple = ()) -> torch.Tensor:
+def unshard(local: torch.Tensor, spec: tuple, mesh, split: tuple = (),
+            split_seq: tuple = ()) -> torch.Tensor:
     """``shard_map``'s output edge: the full tensor from every rank's
     block (all-gathered over the spec's axes).  The backward takes this
     rank's block of the cotangent; it does not reduce-scatter.
-    ``split`` as in ``shard``."""
-    spec, rest = _edge(spec, mesh, split)
+    ``split`` and ``split_seq`` as in ``shard``."""
+    spec, rest = _edge(spec, mesh, split, split_seq)
     return _Unshard.apply(local, spec, mesh, rest)
 
 
@@ -468,12 +481,17 @@ class Plan:
     the global batch divides over); the tensor-parallel layers (heads,
     FFN, vocabulary, the decode cache's slots) split over ``tp``
     ("model", None where the mesh has no such axis or it has one rank);
-    ``cache_len`` is the global slot count of a decode cache (the
-    rank's block does not say whether it was cut)."""
+    ``cache_len`` is the global slot count of a decode cache and
+    ``seq_len`` the global length of the inputs' sequence (the rank's
+    block says neither whether it was cut).  ``sp``: the rules lay the
+    sequence over ``tp`` (Megatron sequence parallelism), which then
+    cuts every sequence that ``cuts_seq``."""
     mesh: Any
     dp: tuple[str, ...]
     tp: str | None
     cache_len: int | None = None
+    seq_len: int | None = None
+    sp: bool = False
 
     @property
     def tp_size(self) -> int:
@@ -488,17 +506,29 @@ class Plan:
         """``dp`` without its axes of one rank."""
         return tuple(a for a in self.dp if self.mesh.shape[a] > 1)
 
+    def cuts_seq(self, n: int) -> bool:
+        """Whether a sequence of ``n`` positions is cut over ``tp``, as
+        ``partition_spec`` cuts a (B, S, D) activation laid out by
+        ("batch", "seq", None): the rules lay it there, and ``n`` is
+        longer than one and divides."""
+        return self.sp and n > 1 and n % self.tp_size == 0
+
 
 def plan(mesh, rules: dict | None = None, *, batch: int | None = None,
-         cache_len: int | None = None) -> Plan | None:
+         cache_len: int | None = None,
+         seq_len: int | None = None) -> Plan | None:
     """The :class:`Plan` of a call under ``mesh`` (a ``Mesh``, or a
-    ``Plan`` returned as it is, ``None`` for no mesh).  ``batch``: the
-    global batch, whose rows split over the "batch" rule's axes that
-    divide it; without it, over all of them (a rank's share of a batch
-    that divides)."""
+    ``Plan`` returned as it is but for the counts given, ``None`` for no
+    mesh).  ``batch``: the global batch, whose rows split over the
+    "batch" rule's axes that divide it; without it, over all of them (a
+    rank's share of a batch that divides).  ``seq_len``: the global
+    length of the inputs' sequence (tokens or frames), which a
+    sequence-parallel call needs (``Plan.sp``)."""
     if mesh is None or isinstance(mesh, Plan):
-        if isinstance(mesh, Plan) and cache_len is not None:
-            return dataclasses.replace(mesh, cache_len=cache_len)
+        counts = {k: v for k, v in (("cache_len", cache_len),
+                                    ("seq_len", seq_len)) if v is not None}
+        if isinstance(mesh, Plan) and counts:
+            return dataclasses.replace(mesh, **counts)
         return mesh
     rules = {**DEFAULT_RULES, **(rules or {})}
     if batch is None:
@@ -508,7 +538,12 @@ def plan(mesh, rules: dict | None = None, *, batch: int | None = None,
         dp = () if not spec else (
             (spec[0],) if isinstance(spec[0], str) else tuple(spec[0]))
     tp = "model" if mesh.shape.get("model", 1) > 1 else None
-    return Plan(mesh, tuple(dp), tp, cache_len)
+    seq = tuple(a for a in _mesh_axes_for("seq", rules, mesh)
+                if mesh.shape[a] > 1 and a not in dp)
+    if seq and seq != (tp,):
+        raise ValueError(f"the sequence over {seq}: only over the "
+                         f"tensor-parallel axis {tp!r} is supported")
+    return Plan(mesh, tuple(dp), tp, cache_len, seq_len, bool(seq))
 
 
 class _Take(torch.autograd.Function):
@@ -535,7 +570,7 @@ class _Take(torch.autograd.Function):
 
 
 def take_param(local: torch.Tensor, spec: tuple, plan_: Plan,
-               whole: bool = False) -> torch.Tensor:
+               whole: bool = False, sliced: bool = False) -> torch.Tensor:
     """A dense parameter leaf for this rank's compute, from the block it
     holds laid out by ``spec``: gathered over every axis but the
     tensor-parallel one (FSDP's per-layer gather), or with ``whole``
@@ -543,7 +578,10 @@ def take_param(local: torch.Tensor, spec: tuple, plan_: Plan,
     The backward leaves the block the gradient summed over the ranks of
     ``plan_.dp``, each of which computed its rows' part:
     reduce-scattered over the axes it was gathered over, summed over the
-    others."""
+    others.  ``sliced``: the leaf is applied to this rank's block of the
+    sequence (a norm under sequence parallelism), so the ranks of
+    ``plan_.tp`` each computed a part of its gradient too, summed over
+    them."""
     mesh = plan_.mesh
     gathered = []
     for d, axes in _spec_parts(tuple(spec), local.ndim):
@@ -558,7 +596,8 @@ def take_param(local: torch.Tensor, spec: tuple, plan_: Plan,
         gathered.append((d, live))
     dp = set(plan_.dp_live)
     scatter = tuple(axes for _, axes in gathered if set(axes) <= dp)
-    summed = tuple(a for a in plan_.dp_live
+    parts = plan_.dp_live + ((plan_.tp,) if sliced and plan_.tp else ())
+    summed = tuple(a for a in parts
                    if not any(a in axes for axes in scatter))
     if not gathered and not summed:
         return local
@@ -570,7 +609,7 @@ def take_param(local: torch.Tensor, spec: tuple, plan_: Plan,
 
 
 def take_params(tree: Tree, layout: Tree, plan_: Plan,
-                whole: bool = False) -> Tree:
+                whole: bool = False, sliced: bool = False) -> Tree:
     """``take_param`` over a tree and its layout."""
-    return tree_map(lambda t, spec: take_param(t, spec, plan_, whole),
-                    tree, layout)
+    return tree_map(lambda t, spec: take_param(t, spec, plan_, whole,
+                                               sliced), tree, layout)

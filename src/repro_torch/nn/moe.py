@@ -25,9 +25,10 @@ and a scalar ``aux`` out, on every rank (``nn.module.shard`` /
 ``unshard`` at the edges), and inside a function of the rank's block
 with the collectives of ``dist.collectives``, under autograd.  In the
 LM's partitioned step ``x`` arrives as this rank's rows, already split
-over the token axes (``split=``, the batch's axes): the edges then cut
-and gather only over the other axes, and the output is this rank's
-rows.  The
+over the token axes (``split=``, the batch's axes), and into ``moe_2d``
+under sequence parallelism as its block of the sequence too
+(``split_seq=``): the edges then cut and gather only over the other
+axes, and the output is this rank's block.  The
 parameters come as the rank holds them: ``specs`` names each leaf's
 layout (``nn.module.param_layout``, the blocks ``local_params`` and
 ``checkpoint.restore(shardings=)`` give), or ``None`` for whole leaves
@@ -398,7 +399,8 @@ def moe_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
            expert_axes=("pod", "data"), tp_axis: str = "model",
            wire_dtype: str = "bfloat16", snl_rescue: float = 0.0,
            gumbel: torch.Tensor | None = None, stats: dict | None = None,
-           specs: dict | None = None, split: tuple = ()):
+           specs: dict | None = None, split: tuple = (),
+           split_seq: tuple = ()):
     """2D expert + tensor parallelism: experts over ``expert_axes`` (the
     DP rows), each expert's FFN width over ``tp_axis``; ``p`` held in
     the layout ``specs``.
@@ -409,19 +411,24 @@ def moe_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
     GEMMs, summed back with ``psum_scatter`` and returned with the
     reverse ``all_to_all``.  ``wire_dtype="int8"`` quantises both
     exchanges (and the gather) per (expert, slot); any other value sends
-    the compute dtype as it is."""
+    the compute dtype as it is.  ``split_seq`` = ``(tp_axis,)``: x's
+    sequence is this rank's block over it already (the LM's sequence
+    parallelism), and so is the output's."""
     b, s, d = x.shape
     n_experts = p["router"].shape[-1]
     eaxes = tuple(a for a in expert_axes if a in mesh.shape)
     tp = mesh.shape[tp_axis]
-    seq_ok = s % tp == 0
+    if split_seq and tuple(split_seq) != (tp_axis,):
+        raise ValueError(f"moe_2d: the sequence split over {split_seq}, "
+                         f"its tensor-parallel axis is {tp_axis!r}")
+    seq_ok = bool(split_seq) or s % tp == 0
     row_spec = _spec(eaxes)
     x_spec = (row_spec, tp_axis if seq_ok else None, None)
     router = _held(p, specs, "router", (), mesh)
     w_in = _held(p, specs, "w_in", (row_spec, None, tp_axis), mesh)
     w_gate = _held(p, specs, "w_gate", (row_spec, None, tp_axis), mesh)
     w_out = _held(p, specs, "w_out", (row_spec, tp_axis, None), mesh)
-    xl = shard(x, x_spec, mesh, split)
+    xl = shard(x, x_spec, mesh, split, split_seq)
 
     bl, sl, dl = xl.shape
     xs = xl.reshape(bl * sl, dl)
@@ -458,7 +465,7 @@ def moe_2d(p: dict, x: torch.Tensor, *, k: int, mesh,
         ys = col.replicate(ys, mesh, tp_axis)
     aux = aux_load_balance_loss(probs, idx, n_experts, k)
     aux = col.pmean(aux, mesh, eaxes + (tp_axis,))
-    return (unshard(ys.reshape(bl, sl, dl), x_spec, mesh, split),
+    return (unshard(ys.reshape(bl, sl, dl), x_spec, mesh, split, split_seq),
             unshard(aux, (), mesh))
 
 

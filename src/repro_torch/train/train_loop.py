@@ -19,7 +19,10 @@ on the card its attention is the flash kernel.  With a ``mesh``
 step on its blocks of the parameters and optimizer state
 (``nn.module.param_layout``) and its share of the batch: each
 microbatch's rows of this rank, (n_micro, mb / dp, ...), the global
-microbatch cut over the mesh's "batch" axes.  ``lm.loss_fn(mesh=)``
+microbatch cut over the mesh's "batch" axes, and its block of the
+sequence where the config's overrides put it over "model" (then the
+``mesh`` is a ``Plan`` with the sequence's global length,
+``nn.module.plan(..., seq_len=)``).  ``lm.loss_fn(mesh=)``
 gives each rank its blocks of the global gradient (summed over the ranks
 of the batch's axes: reduce-scattered onto FSDP's blocks, summed where
 a leaf is whole over them), the clipping norm is the whole gradient's

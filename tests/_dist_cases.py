@@ -52,31 +52,46 @@ POLICIES = ("nothing", "dots", "save_moe_recv")
 
 # The partitioned step (test_torch_partition.py): reduced configs on the
 # (2, 4) mesh, the rows of a PART_B batch over "data", the heads, FFN,
-# vocabulary and cache slots over "model": qwen2.5 (GQA, FSDP, a kv head
-# cut over "model"), smollm (heads whole, tied embeddings), gemma2
-# (local layers, softcaps, the ring decode), kimi-k2 (2D EP) and
-# recurrentgemma (RG-LRU, MQA).  A config with a window takes PART_S_LONG
+# vocabulary and cache slots over "model", and the sequence over "model"
+# where the overrides put it there (sequence parallelism: qwen2.5, kimi-k2,
+# arctic, internvl2): qwen2.5 (GQA, FSDP, a kv head cut over "model"),
+# smollm (heads whole, tied embeddings), gemma2 (local layers, softcaps,
+# the ring decode), kimi-k2 (2D EP), recurrentgemma (RG-LRU, MQA), arctic
+# (2D EP beside a dense residual FFN) and internvl2 (4 patches before 8
+# tokens: 12 positions over 4).  A config with a window takes PART_S_LONG
 # positions (a prompt longer than its window, as the ring decode needs);
 # the prefill's cache is padded by PART_PAD slots (so that the slots
 # split over "model") for PART_DECODE decode steps; the engine has
 # PART_SLOTS slots over "data" and the prompts PART_PROMPTS.
 PART_ARCHS = ("qwen2.5-32b", "smollm-135m", "gemma2-2b", "kimi-k2-1t-a32b",
-              "recurrentgemma-9b", "qwen2.5-32b+6heads", "qwen2.5-32b+int8")
+              "recurrentgemma-9b", "qwen2.5-32b+6heads", "qwen2.5-32b+int8",
+              "arctic-480b", "internvl2-26b", "qwen2.5-32b+seq6")
 # a variant of a config: its tag -> (the registry's name, the fields it
 # changes on the reduced config): qwen2.5 with 6 heads of 16 and 2 kv
 # heads, whose q and kv blocks over the 4 ranks of "model" cut a head,
-# as the full qwen2.5's 40 heads over 16 do; and its int8 KV cache, the
-# payload and scales split over the slots
+# as the full qwen2.5's 40 heads over 16 do; its int8 KV cache, the
+# payload and scales split over the slots; and qwen2.5 on 6 positions
+# (PART_SEQ), which do not divide over "model": the sequence stays whole
 PART_VARIANTS = {"qwen2.5-32b+6heads": ("qwen2.5-32b", {
     "n_heads": 6, "n_kv": 2, "head_dim": 16}),
-    "qwen2.5-32b+int8": ("qwen2.5-32b", {"kv_quant": "int8"})}
+    "qwen2.5-32b+int8": ("qwen2.5-32b", {"kv_quant": "int8"}),
+    "qwen2.5-32b+seq6": ("qwen2.5-32b", {})}
+PART_SEQ = {"qwen2.5-32b+seq6": 6}
 PART_B, PART_S, PART_S_LONG, PART_PAD, PART_DECODE = 4, 8, 64, 8, 3
 PART_SLOTS, PART_PROMPTS, PART_NEW, PART_S_MAX = 4, (3, 5, 4), 3, 16
 PART_SEED = 11
 
 
-def part_seq(window) -> int:
-    return PART_S_LONG if window else PART_S
+def part_seq(tag: str, window) -> int:
+    """The tokens of a case's batch."""
+    return PART_SEQ.get(tag, PART_S_LONG if window else PART_S)
+
+
+def part_patches(cfg):
+    """The shape of a VLM case's patches, or None."""
+    if cfg.frontend != "vision_patches":
+        return None
+    return (PART_B, cfg.n_patches, cfg.frontend_dim)
 
 
 def part_config(tag: str, archs: dict, reduced):
@@ -86,21 +101,24 @@ def part_config(tag: str, archs: dict, reduced):
     return dataclasses.replace(reduced(archs[name]), **fields)
 
 
-def part_inputs(paths_shapes, vocab: int, window, seed: int) -> dict:
+def part_inputs(paths_shapes, vocab: int, s: int, seed: int,
+                patches=None) -> dict:
     """The operands of one config's partitioned step, the same on both
     sides, from ``numpy.random.RandomState(seed)``: each parameter leaf
     (``paths_shapes``: (path, shape) in sorted-key order) normal with
-    the fan-in scale, the tokens, the decode tokens and the prompts."""
+    the fan-in scale, ``s`` tokens a row, the decode tokens, the prompts,
+    and a VLM's ``patches`` (their shape) standard normal."""
     rs = np.random.RandomState(seed)
     out = {}
     for path, shape in paths_shapes:
         fan = shape[-2] if len(shape) >= 2 else shape[-1]
         out[f"params/{path}"] = (rs.standard_normal(shape)
                                  / np.sqrt(max(fan, 1))).astype(np.float32)
-    s = part_seq(window)
     out["tokens"] = rs.randint(0, vocab, (PART_B, s)).astype(np.int32)
     out["decode_tokens"] = rs.randint(0, vocab, (PART_B, PART_DECODE)
                                       ).astype(np.int32)
     for uid, n in enumerate(PART_PROMPTS):
         out[f"prompt{uid}"] = rs.randint(0, vocab, n).astype(np.int32)
+    if patches is not None:
+        out["patches"] = rs.standard_normal(patches).astype(np.float32)
     return out

@@ -234,40 +234,38 @@ def _all_rows(t: torch.Tensor, plan) -> torch.Tensor:
     return collectives.all_gather(t.detach(), plan.mesh, plan.dp, 0)
 
 
-def _rows_of_tree(tree: dict, plan) -> dict:
-    return {k: _rows_of(v, plan) for k, v in tree.items()}
-
-
 def _lm_cases(z, mesh, arch, ckpt_dir) -> dict:
     """The LM through the mesh on this rank's blocks of the parameters
-    (``local_params``) and its rows of the batch; the rows of every rank
-    gathered for the comparison, gradients and stepped parameters
-    gathered whole.  Then the elastic path: the blocks of a (1, 8)
-    layout gathered and saved, restored on the (2, 4) mesh, through
-    ``forward``."""
+    (``local_params``) and its block of the batch (its rows, and its
+    block of the sequence: kimi-k2's and arctic's overrides put it over
+    "model"); the rows of every rank gathered for the comparison,
+    gradients and stepped parameters gathered whole.  Then the elastic
+    path: the blocks of a (1, 8) layout gathered and saved, restored on
+    the (2, 4) mesh, through ``forward``."""
     cfg = base.reduced(configs.ARCHS[arch])
     rules = cfg.sharding_overrides
     specs = lm.param_specs(cfg)
     layout = module.param_layout(specs, mesh, rules)
     full = _tree(z, f"in/{arch}/params")
     params = module.local_params(full, specs, mesh, rules)
-    plan = module.plan(mesh, rules, batch=R.LM_B)
-    batch = _rows_of_tree(
-        {"tokens": torch.from_numpy(z[f"in/{arch}/tokens"])}, plan)
+    plan = module.plan(mesh, rules, batch=R.LM_B, seq_len=R.LM_S)
+    batch = module.blocks_like(
+        {"tokens": torch.from_numpy(z[f"in/{arch}/tokens"])},
+        lm.batch_axes(cfg, "train_4k"), mesh, rules)
     dec = _rows_of(torch.from_numpy(z[f"in/{arch}/decode_tokens"]), plan)
     out = {}
-    logits, aux = lm.forward(params, batch, cfg, mesh=mesh)
+    logits, aux = lm.forward(params, batch, cfg, mesh=plan)
     out[f"out/{arch}/logits"] = _all_rows(logits, plan)
     out[f"out/{arch}/aux"] = aux
     live = module.tree_map(lambda t: t.clone().requires_grad_(), params)
-    loss, parts = lm.loss_fn(live, batch, cfg, mesh=mesh)
+    loss, parts = lm.loss_fn(live, batch, cfg, mesh=plan)
     loss.backward()
     out[f"out/{arch}/loss"], out[f"out/{arch}/ce"] = loss, parts["ce"]
     grads = module.tree_map(lambda t: t.grad, live)
     out.update(_flat(_gathered(grads, layout, mesh), f"out/{arch}/grads"))
     out[f"out/{arch}/experts_held"] = np.int64(
         params["layers"]["b0"]["moe"]["w_in"].shape[1])
-    last, _, cache = lm.forward(params, batch, cfg, prefill=True, mesh=mesh)
+    last, _, cache = lm.forward(params, batch, cfg, prefill=True, mesh=plan)
     out[f"out/{arch}/prefill_logits"] = _all_rows(last, plan)
     s_max = R.LM_S + R.LM_DECODE
     cache = lm.pad_cache(cache, cfg, s_max, mesh=mesh, seq=R.LM_S)
@@ -283,12 +281,12 @@ def _lm_cases(z, mesh, arch, ckpt_dir) -> dict:
                                   R.ENGINE_NEW))
     for req in eng.run():
         out[f"out/{arch}/engine{req.uid}"] = np.array(req.generated)
-    out[f"out/{arch}/eval_loss"] = train_loop.build_eval_step(cfg, mesh)(
+    out[f"out/{arch}/eval_loss"] = train_loop.build_eval_step(cfg, plan)(
         params, batch)["loss"]
     # one train step through the mesh is AdamW on the mesh's gradients,
     # clipped by the whole gradient's norm
     opt = optim.AdamWConfig()
-    step = train_loop.build_train_step(cfg, mesh, opt_cfg=opt)
+    step = train_loop.build_train_step(cfg, plan, opt_cfg=opt)
     stepped, _, metrics = step(params, optim.adamw_init(params, opt),
                                train_loop.microbatch(batch, 1))
     gnorm = train_loop.block_norm(grads, cfg, mesh)
@@ -318,7 +316,7 @@ def _lm_cases(z, mesh, arch, ckpt_dir) -> dict:
         torch.equal(a, b) for a, b in zip(module.leaves(restored),
                                           module.leaves(params))))
     out[f"out/{arch}/restored_logits"] = _all_rows(
-        lm.forward(restored, batch, cfg, mesh=mesh)[0], plan)
+        lm.forward(restored, batch, cfg, mesh=plan)[0], plan)
     dist.barrier()
     return {k: v.detach().numpy() if torch.is_tensor(v) else v
             for k, v in out.items()}
@@ -340,33 +338,59 @@ def _flops_share(cfg, params, full, batch, local, mesh) -> dict:
     return {"share": share["flops"], "whole": whole["flops"]}
 
 
+def _stream_shapes(run) -> list:
+    """The shapes of the residual stream between the blocks (each output
+    of ``lm._constrain_acts``) while ``run()`` runs."""
+    seen, orig = [], lm._constrain_acts
+
+    def spy(*args):
+        x = orig(*args)
+        seen.append(tuple(x.shape))
+        return x
+
+    lm._constrain_acts = spy
+    try:
+        return run(), sorted(set(seen))
+    finally:
+        lm._constrain_acts = orig
+
+
 def _part_cases(mesh, arch: str, seed: int) -> dict:
     """The partitioned step of the reduced config on this rank's share:
-    its blocks of the parameters, its rows of the batch (``blocks_like``
-    of ``batch_axes`` under ``input_rules``) and its block of the cache;
-    every result gathered whole for the comparison (rows over "data",
-    gradient and parameter blocks by their layout)."""
+    its blocks of the parameters, its block of the batch (``blocks_like``
+    of ``batch_axes`` under the config's overrides: the sequence over
+    "model" where they put it there and it divides, the plan carrying its
+    global length) and its block of the cache; every result gathered
+    whole for the comparison (rows over "data", gradient and parameter
+    blocks by their layout), and the residual stream's shapes between
+    the blocks."""
     cfg = R.part_config(arch, configs.ARCHS, base.reduced)
     rules = cfg.sharding_overrides
-    s = R.part_seq(cfg.window)
+    s = R.part_seq(arch, cfg.window)
     specs = lm.param_specs(cfg)
     layout = module.param_layout(specs, mesh, rules)
-    ops = R.part_inputs(_paths_shapes(specs), cfg.vocab_size, cfg.window,
-                        seed)
+    ops = R.part_inputs(_paths_shapes(specs), cfg.vocab_size, s, seed,
+                        R.part_patches(cfg))
     full = module.unflatten(specs, [torch.from_numpy(ops[f"params/{k}"])
                                     for k, _ in _paths_shapes(specs)])
     params = module.local_params(full, specs, mesh, rules)
     batch = {"tokens": torch.from_numpy(ops["tokens"]).long()}
-    plan = module.plan(mesh, rules, batch=R.PART_B)
-    local = module.blocks_like(batch, lm.batch_axes(cfg, "train_4k"), mesh,
-                               lm.input_rules(cfg))
+    if "patches" in ops:
+        batch["patches"] = torch.from_numpy(ops["patches"])
+    plan = module.plan(mesh, rules, batch=R.PART_B, seq_len=s)
+    axes = lm.batch_axes(cfg, "train_4k")
+    local = module.blocks_like(batch, {k: axes[k] for k in batch}, mesh,
+                               rules)
     tag = f"part/{arch}"
-    out = {f"out/{tag}/rows": np.int64(local["tokens"].shape[0])}
-    logits, aux = lm.forward(params, local, cfg, mesh=mesh)
+    out = {f"out/{tag}/rows": np.int64(local["tokens"].shape[0]),
+           f"out/{tag}/tokens_held": np.int64(local["tokens"].shape[1])}
+    (logits, aux), stream = _stream_shapes(
+        lambda: lm.forward(params, local, cfg, mesh=plan))
+    out[f"out/{tag}/stream_shapes"] = np.array(stream, np.int64)
     out[f"out/{tag}/logits"] = _all_rows(logits, plan)
     out[f"out/{tag}/aux"] = aux
     live = module.tree_map(lambda t: t.clone().requires_grad_(), params)
-    loss, parts = lm.loss_fn(live, local, cfg, mesh=mesh)
+    loss, parts = lm.loss_fn(live, local, cfg, mesh=plan)
     flat = module.leaves(live)
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = module.unflatten(params, [torch.zeros_like(p) if g is None
@@ -374,18 +398,20 @@ def _part_cases(mesh, arch: str, seed: int) -> dict:
     out[f"out/{tag}/loss"], out[f"out/{tag}/ce"] = loss, parts["ce"]
     out.update(_flat(_gathered(grads, layout, mesh), f"out/{tag}/grads"))
     opt = optim.AdamWConfig()
-    step = train_loop.build_train_step(cfg, mesh, opt_cfg=opt)
+    step = train_loop.build_train_step(cfg, plan, opt_cfg=opt)
     stepped, _, metrics = step(params, optim.adamw_init(params, opt),
                                train_loop.microbatch(local, 1))
     out.update(_flat(_gathered(stepped, layout, mesh), f"out/{tag}/stepped"))
     out[f"out/{tag}/grad_norm"] = metrics["grad_norm"]
-    out[f"out/{tag}/eval_loss"] = train_loop.build_eval_step(cfg, mesh)(
+    out[f"out/{tag}/eval_loss"] = train_loop.build_eval_step(cfg, plan)(
         params, local)["loss"]
-    last, _, cache = lm.forward(params, local, cfg, prefill=True, mesh=mesh)
+    last, _, cache = lm.forward(params, local, cfg, prefill=True, mesh=plan)
     out[f"out/{tag}/prefill_logits"] = _all_rows(last, plan)
     k0 = cache["b0"].get("k")
     if k0 is not None:
         out[f"out/{tag}/prefill_slots"] = np.int64(k0.shape[2])
+    # the cache holds the VLM's patches before its tokens
+    s += cfg.n_patches
     s_max = s + R.PART_PAD
     cache = lm.pad_cache(cache, cfg, s_max, mesh=mesh, seq=s)
     dplan = module.plan(plan, cache_len=s_max)
@@ -466,13 +492,18 @@ def _dry_cases(mesh) -> dict:
     out = {}
     g = torch.Generator().manual_seed(0)
     plan = module.plan(mesh, batch=R.DRY_B)
-    tokens = _rows_of(torch.randint(0, 100, (R.DRY_B, R.DRY_S),
-                                    generator=g), plan).clone()
+    whole = torch.randint(0, 100, (R.DRY_B, R.DRY_S), generator=g)
     dec = _rows_of(torch.randint(0, 100, (R.DRY_B, 1), generator=g),
                    plan).clone()
     pos = torch.full((dec.shape[0],), R.DRY_S, dtype=torch.int64)
     for arch in R.DRY_ARCHS:
         cfg = dry_config(arch)
+        # the rank's block of the batch: its rows, and its block of the
+        # sequence where the overrides put it over "model"
+        tokens = module.block_like(whole, ("batch", "seq"), mesh,
+                                   cfg.sharding_overrides).clone()
+        sp_plan = module.plan(mesh, cfg.sharding_overrides, batch=R.DRY_B,
+                              seq_len=R.DRY_S)
         specs = lm.param_specs(cfg)
         full = module.materialize(specs, torch.Generator().manual_seed(1),
                                   device="cpu")
@@ -505,7 +536,7 @@ def _dry_cases(mesh) -> dict:
             flat = module.leaves(live)
             with collectives.wire_tally() as tally:
                 loss, _ = lm.loss_fn(live, {"tokens": tokens}, pcfg,
-                                     mesh=mesh)
+                                     mesh=sp_plan)
                 grads = torch.autograd.grad(loss, flat, allow_unused=True)
             got = [loss.detach()] + [torch.zeros(()) if t is None else t
                                      for t in grads]

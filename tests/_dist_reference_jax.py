@@ -23,7 +23,12 @@ for ``test_torch_partition.py``.
 import os
 import sys
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+# On a loaded host (the suite under ``pytest -n``, the gloo ranks beside
+# this process) a simulated device's thread can reach a collective's
+# rendezvous later than XLA's default 40 s, which aborts the process.
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                           "--xla_cpu_collective_call_terminate_timeout_"
+                           "seconds=600")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -37,7 +42,7 @@ from _dist_cases import (B, CASES, D, E, ENGINE_NEW,  # noqa: E402
                          LM_DECODE, LM_S, PART_ARCHS, PART_B, PART_DECODE,
                          PART_NEW, PART_PAD, PART_PROMPTS, PART_S_MAX,
                          PART_SEED, PART_SLOTS, S, TP,
-                         part_config, part_inputs, part_seq)
+                         part_config, part_inputs, part_patches, part_seq)
 from repro import compat, configs  # noqa: E402
 from repro.configs import base  # noqa: E402
 from repro.models import lm  # noqa: E402
@@ -168,39 +173,49 @@ def part_results(arch, mesh, seed) -> dict:
     own ``forward``, ``loss_fn`` (with ``jax.grad``), a prefill and
     ``PART_DECODE`` decode steps, each jitted with ``in_shardings`` from
     ``module.shardings`` (the parameters) and ``shardings_like`` of
-    ``batch_axes`` / ``cache_axes`` under the config's overrides; one
+    ``batch_axes`` / ``cache_axes`` under the config's overrides (the
+    sequence over "model" where they put it there and it divides); one
     AdamW step (``optim.adamw_update``, its train step's update) on the
     gradients; then a ``BatchedEngine`` over the mesh."""
     cfg = part_config(arch, configs.ARCHS, base.reduced)
     rules = cfg.sharding_overrides
-    s = part_seq(cfg.window)
+    s = part_seq(arch, cfg.window)
     specs = lm.param_specs(cfg)
-    ops = part_inputs(_paths_shapes(specs), cfg.vocab_size, cfg.window,
-                      seed)
+    ops = part_inputs(_paths_shapes(specs), cfg.vocab_size, s, seed,
+                      part_patches(cfg))
     params = _unflat(ops, "params/")
     p_sh = module.shardings(specs, mesh, rules)
     tokens, dec = ops["tokens"], ops["decode_tokens"]
     batch = {"tokens": jnp.asarray(tokens)}
-    b_sh = module.shardings_like(batch, {"tokens": ("batch", "seq")}, mesh,
+    if "patches" in ops:
+        batch["patches"] = jnp.asarray(ops["patches"])
+    axes = lm.batch_axes(cfg, "train_4k")
+    b_sh = module.shardings_like(batch, {k: axes[k] for k in batch}, mesh,
                                  rules)
+    # the cache holds the VLM's patches before its tokens
+    s += cfg.n_patches
     tag = f"part/{arch}"
     out = {}
+    # each step finished before the next is dispatched: one program's
+    # collectives in flight at a time
+    done = jax.block_until_ready
     fwd = jax.jit(lambda p, b: lm.forward(p, b, cfg, mesh),
                   in_shardings=(p_sh, b_sh))
-    out[f"out/{tag}/logits"], out[f"out/{tag}/aux"] = fwd(params, batch)
-    (loss, parts), grads = jax.jit(jax.value_and_grad(
+    out[f"out/{tag}/logits"], out[f"out/{tag}/aux"] = done(fwd(params,
+                                                               batch))
+    (loss, parts), grads = done(jax.jit(jax.value_and_grad(
         lambda p, b: lm.loss_fn(p, b, cfg, mesh), has_aux=True),
-        in_shardings=(p_sh, b_sh))(params, batch)
+        in_shardings=(p_sh, b_sh))(params, batch))
     out[f"out/{tag}/loss"], out[f"out/{tag}/ce"] = loss, parts["ce"]
     out.update(flatten(grads, f"out/{tag}/grads"))
     opt = optim.AdamWConfig()
-    stepped, _, stats = optim.adamw_update(grads, optim.adamw_init(
-        params, opt), params, opt)
+    stepped, _, stats = done(jax.jit(lambda g, p: optim.adamw_update(
+        g, optim.adamw_init(p, opt), p, opt))(grads, params))
     out.update(flatten(stepped, f"out/{tag}/stepped"))
     out[f"out/{tag}/grad_norm"] = stats["grad_norm"]
-    last, _, cache = jax.jit(lambda p, b: lm.forward(p, b, cfg, mesh,
-                                                     prefill=True),
-                             in_shardings=(p_sh, b_sh))(params, batch)
+    last, _, cache = done(jax.jit(lambda p, b: lm.forward(p, b, cfg, mesh,
+                                                          prefill=True),
+                                  in_shardings=(p_sh, b_sh))(params, batch))
     out[f"out/{tag}/prefill_logits"] = last
     cache = lm.pad_cache(cache, cfg, s + PART_PAD)
     c_sh = module.shardings_like(cache, lm.cache_axes(cfg), mesh, rules)
@@ -212,8 +227,8 @@ def part_results(arch, mesh, seed) -> dict:
                     in_shardings=(p_sh, c_sh, d_sh["tokens"], d_sh["pos"]))
     for i in range(PART_DECODE):
         pos = jnp.full((PART_B,), s + i, jnp.int32)
-        lg, cache = dstep(params, jax.device_put(cache, c_sh),
-                          jnp.asarray(dec[:, i:i + 1]), pos)
+        lg, cache = done(dstep(params, jax.device_put(cache, c_sh),
+                               jnp.asarray(dec[:, i:i + 1]), pos))
         out[f"out/{tag}/decode{i}"] = lg
     eng = engine.BatchedEngine(cfg, params, batch_slots=PART_SLOTS,
                                s_max=PART_S_MAX, mesh=mesh)

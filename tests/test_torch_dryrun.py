@@ -253,6 +253,29 @@ def test_reduced_prefill_counts_flash_with_no_launch_and_no_plain_version(
         2 * cfg.n_heads, 32768, cfg.hd, True, cfg.compute_dtype)
 
 
+def test_peak_bytes_count_a_storage_at_a_freed_address():
+    """A storage that takes the address of one freed before it is a new
+    storage (the allocator hands addresses out again): ``n`` results
+    kept alive at once peak at ``n`` times their bytes, each allocated
+    after a temporary was freed."""
+    n = 64
+
+    def step(x):
+        keep = []
+        for i in range(n):
+            tmp = x * 2.0
+            del tmp
+            keep.append(x + float(i))
+        return keep
+
+    x = torch.ones(256)
+    counts, out = dryrun.count(step, x)
+    assert len(out) == n
+    assert counts["argument_size_in_bytes"] == x.nbytes
+    assert counts["temp_size_in_bytes"] == n * x.nbytes
+    assert counts["bytes_per_device"] == (n + 1) * x.nbytes
+
+
 def test_kernel_flops_counts_the_causal_tiles_visited():
     # bf16, D 64: CTAs of 128 rows over kv tiles of 64; CTA i sees 2i + 2
     s = 2048

@@ -2,8 +2,12 @@
 
 Each rank computes its share: its rows of the batch (over "data"), its
 heads, FFN units and vocabulary (over "model", Megatron's column- and
-row-parallel products), its block of the decode cache (rows over "data",
-slots over "model", split-KV), FSDP's leaves gathered block by block.
+row-parallel products), its block of the sequence where the config's
+overrides put it over "model" and it divides (Megatron sequence
+parallelism: the residual stream between the blocks is the rank's
+block, the tokens come cut as ``batch_axes`` lays them out), its block
+of the decode cache (rows over "data", slots over "model", split-KV),
+FSDP's leaves gathered block by block.
 
 The reference side runs in one subprocess on 8 simulated host devices, a
 (2, 4) ("data", "model") mesh: its own ``lm.forward`` / ``loss_fn`` /
@@ -16,8 +20,10 @@ part``), each rank on its share, the results gathered whole.  Both draw
 the same operands from ``numpy.random.RandomState``
 (``_dist_cases.part_inputs``), for reduced qwen2.5-32b, smollm-135m,
 gemma2-2b, kimi-k2 and recurrentgemma-9b, qwen2.5 with 6 heads (whose q
-block over "model" cuts a head, as qwen2.5's 40 over 16) and qwen2.5
-with the int8 KV cache:
+block over "model" cuts a head, as qwen2.5's 40 over 16), qwen2.5 with
+the int8 KV cache, arctic-480b, internvl2-26b (4 patches before 8
+tokens) and qwen2.5 on 6 positions (which do not divide over "model":
+the sequence stays whole):
 
 * logits, the aux loss and the loss within rtol / atol 1e-5, every
   gradient leaf within 1e-4, one AdamW step's parameters within 1e-5;
@@ -25,7 +31,10 @@ with the int8 KV cache:
   decode within two bf16 ULPs of the largest logit), the cache's slots
   split over "model"; ``BatchedEngine``'s tokens equal;
 * each rank held its rows only, and a train step on one rank of reduced
-  qwen2.5 counts at most 1.2 x the world-1 count / 8 FLOPs.
+  qwen2.5 counts at most 1.2 x the world-1 count / 8 FLOPs;
+* the residual stream between the blocks, and the tokens, are each
+  rank's block of the sequence where the reference's ``partition_spec``
+  cuts ("batch", "seq", None), whole elsewhere.
 
 In process: ``lm.cache_axes`` equal to the reference's for every
 registry config, and the blocks of a batch and of a cache
@@ -156,11 +165,13 @@ def test_prefill_and_decode_match_reference_partitioned(results, arch):
                                    **tol)
     if f"{tag}/decode_slots" in got:
         # the first pattern block's K/V: the rank's slots over "model"
-        s = C.part_seq(cfg.window)
+        # where they divide (the cache holds the VLM's patches too)
+        s = C.part_seq(arch, cfg.window) + cfg.n_patches
         first = cfg.pattern[0]
         whole = (min(cfg.window, s) if first == "attn_local"
                  else s + C.PART_PAD)
-        assert int(got[f"{tag}/decode_slots"]) == whole // C.TP
+        want = whole // C.TP if whole % C.TP == 0 else whole
+        assert int(got[f"{tag}/decode_slots"]) == want
 
 
 @pytest.mark.parametrize("arch", C.PART_ARCHS)
@@ -174,6 +185,44 @@ def test_engine_tokens_equal_reference_partitioned(results, arch):
                                       want[f"{tag}/engine{uid}"])
         assert len(got[f"{tag}/engine{uid}"]) == C.PART_NEW
     assert int(got[f"{tag}/engine_rows"]) == C.PART_SLOTS // 2
+
+
+def _ref_seq_block(arch: str, n: int, d: int) -> int:
+    """The positions of a (PART_B, n, d) activation laid out by ("batch",
+    "seq", None) that one device of the (2, 4) mesh holds under the
+    reference's ``partition_spec`` and the config's overrides."""
+    jc = j_base.reduced(j_configs.ARCHS[C.PART_VARIANTS.get(
+        arch, (arch,))[0]])
+    mesh = type("M", (), {"shape": {"data": 2, "model": C.TP}})()
+    spec = j_module.partition_spec((C.PART_B, n, d), ("batch", "seq", None),
+                                   mesh, jc.sharding_overrides)
+    return n // C.TP if len(spec) > 1 and spec[1] == "model" else n
+
+
+@pytest.mark.parametrize("arch", C.PART_ARCHS)
+def test_residual_stream_is_the_rank_block_of_the_sequence(results, arch):
+    """Between the blocks each rank holds (B / 2, S / 4, D) of the
+    residual stream where the reference's ``partition_spec`` cuts
+    ("batch", "seq", None) under the config's overrides (Megatron
+    sequence parallelism: reduced qwen2.5 and its variants, kimi-k2 and
+    arctic at S = 8, internvl2's 4 patches and 8 tokens), and its rows
+    whole over the sequence where it does not (smollm, gemma2,
+    recurrentgemma; qwen2.5 at S = 6); the tokens come cut by their own
+    length's rule."""
+    _, got = results
+    tag = f"out/part/{arch}"
+    cfg = _cfg(arch)
+    s_tok = C.part_seq(arch, cfg.window)
+    s = s_tok + cfg.n_patches
+    want = _ref_seq_block(arch, s, cfg.d_model)
+    if arch in ("qwen2.5-32b", "kimi-k2-1t-a32b"):
+        assert want == 2
+    if arch in ("smollm-135m", "gemma2-2b", "recurrentgemma-9b",
+                "qwen2.5-32b+seq6"):
+        assert want == s
+    assert got[f"{tag}/stream_shapes"].tolist() == [
+        [C.PART_B // 2, want, cfg.d_model]]
+    assert int(got[f"{tag}/tokens_held"]) == _ref_seq_block(arch, s_tok, 1)
 
 
 def test_launchers_feed_each_rank_its_share(results):
