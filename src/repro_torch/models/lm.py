@@ -46,8 +46,12 @@ takes the global length of its inputs' sequence in its plan
 leaves over the other axes inside the block (``_take``), and the
 gradient goes back reduce-scattered onto the blocks, summed over the
 ranks of the batch (and over "model" for the norms' scales, which see
-the rank's block of the sequence).  The recurrent cells run whole on
-each rank of "model" on its rows.  The MoE blocks take their expert
+the rank's block of the sequence).  The recurrent cells split over
+"model" as the reference lays them out (``nn.recurrent``): RG-LRU's
+``d_rnn`` channels, their state in the cache the rank's block of them;
+the xLSTM cells' heads where they divide over "model" (elsewhere, as
+xlstm's 4 heads over 16, the cell runs whole on every rank), their
+states whole in the cache.  The MoE blocks take their expert
 blocks as held and the rank's tokens as they arrive.  The modality
 frontends are the reference's stubs: precomputed audio frames or ViT
 patch embeddings through a learned projector.  An encoder-only model
@@ -374,21 +378,59 @@ _ON_STREAM = frozenset({"norm1", "norm2", "norm1_post", "norm2_post",
                         "final_norm"})
 
 
-def _take(p: dict, lay, cfg: LMConfig, plan, seq: bool = False) -> dict:
+def _take(p: dict, lay, cfg: LMConfig, plan, seq: bool = False,
+          cut: bool = False) -> dict:
     """A block's dense leaves for this rank's compute from the blocks it
     holds (``nn.module.take_params``: gathered over the FSDP axes, inside
-    the block, so a remat recompute gathers them again): the recurrent
-    cells and CIM-mode FFNs whole over "model" too (they run whole on
-    each of its ranks), the ``moe`` subtree as held.  With ``seq`` the
-    norms' gradients are summed over "model" too (each rank applied them
-    to its block of the sequence).  No ``plan``: ``p`` as it is."""
+    the block, so a remat recompute gathers them again): a recurrent
+    cell that runs on the rank's share (``cut``, ``_cell_cut``) as held
+    over "model", its whole leaves used on a block (``lam``, ``wi``,
+    ``wf``, ``r``) with their gradients summed over "model"; a cell that
+    does not, and CIM-mode FFNs, whole over "model" too (they run whole
+    on each of its ranks); the ``moe`` subtree as held.  With ``seq``
+    the norms' gradients are summed over "model" too (each rank applied
+    them to its block of the sequence).  No ``plan``: ``p`` as it is."""
     if plan is None:
         return p
-    return {k: v if k == "moe" else module.take_params(
-        v, lay[k], plan,
-        whole=k == "cell" or (cfg.cim_linear and k in ("ffn", "shared")),
-        sliced=seq and k in _ON_STREAM)
-        for k, v in p.items()}
+    out = {}
+    for k, v in p.items():
+        if k == "moe":
+            out[k] = v
+        elif k == "cell" and cut:
+            out[k] = tree_map(lambda t, spec: module.take_param(
+                t, spec, plan, sliced=not _over(spec, plan.tp)), v, lay[k])
+        else:
+            out[k] = module.take_params(
+                v, lay[k], plan,
+                whole=k == "cell" or (cfg.cim_linear
+                                      and k in ("ffn", "shared")),
+                sliced=seq and k in _ON_STREAM)
+    return out
+
+
+def _over(spec: tuple, axis: str) -> bool:
+    """Whether a leaf laid out by ``spec`` is cut over ``axis``."""
+    return any(part == axis or (isinstance(part, tuple) and axis in part)
+               for part in spec)
+
+
+# The leaf of each recurrent cell whose layout says whether "model" cuts
+# the cell: RG-LRU's channels, the xLSTM cells' heads.
+_CELL_PROBE = {"rglru": "w_in", "mlstm": "wq", "slstm": "wx"}
+
+
+def _cell_cut(kind: str, cfg: LMConfig, plan, lay) -> bool:
+    """Whether a recurrent block's cell runs on this rank's share over
+    "model", as the reference lays it out: RG-LRU on its block of the
+    channels where the layout cuts ``d_rnn``, an xLSTM cell on its block
+    of the heads where the layout cuts the projections and the heads
+    divide over the axis (the condition of ``attention.heads_local``).
+    Elsewhere the cell runs whole on every rank."""
+    if plan is None or plan.tp is None or kind not in _CELL_PROBE:
+        return False
+    if not _over(lay["cell"][_CELL_PROBE[kind]]["w"], plan.tp):
+        return False
+    return kind == "rglru" or cfg.n_heads % plan.tp_size == 0
 
 
 def _block_apply(kind: str, p: dict, x: torch.Tensor,
@@ -404,8 +446,12 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
     under ``cache_axes``.  With ``seq`` (sequence parallelism) ``x`` is
     this rank's block of the rows' sequence and so is the result;
     ``positions`` are the whole sequence's, and the cache entry is made
-    from the whole sequence."""
-    p = _take(p, lay, cfg, plan, seq)
+    from the whole sequence.  A recurrent cell runs on the rank's share
+    where the layout cuts it (``_cell_cut``); its state comes out in the
+    cache's layout (RG-LRU's the rank's block of its channels where they
+    are cut, the xLSTM states whole)."""
+    cut = _cell_cut(kind, cfg, plan, lay)
+    p = _take(p, lay, cfg, plan, seq, cut)
     h = layers.rmsnorm(p["norm1"], x)
     cache = None
     if kind in ("attn", "attn_local"):
@@ -425,25 +471,26 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor,
                 kq, ks = kvq.quantize(cache["k"], cfg.kv_quant)
                 vq, vs = kvq.quantize(cache["v"], cfg.kv_quant)
                 cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+            if plan is not None:
+                cache = _cache_block(cache, _entry_axes(kind, cfg), plan)
     else:
-        # the cells run whole over the sequence on each rank of "model"
+        # the cells run over the whole sequence
         if seq:
             h = collectives.gather_from(h, plan.mesh, plan.tp, 1)
         if kind == "mlstm":
             h = recurrent.mlstm_forward(p["cell"], h, cfg.n_heads,
-                                        return_state=prefill)
+                                        return_state=prefill, plan=plan)
         elif kind == "slstm":
             h = recurrent.slstm_forward(p["cell"], h, cfg.n_heads,
-                                        return_state=prefill)
+                                        return_state=prefill, plan=plan)
         elif kind == "rglru":
-            h = recurrent.rglru_forward(p["cell"], h, return_state=prefill)
+            h = recurrent.rglru_forward(p["cell"], h, return_state=prefill,
+                                        plan=plan)
         if prefill:
             h, st = h
             cache = st._asdict()
         if seq:
             h = collectives.split_to(h, plan.mesh, plan.tp, 1)
-    if prefill and plan is not None:
-        cache = _cache_block(cache, _entry_axes(kind, cfg), plan)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
     x, aux = _ffn_residual(p, x + h, cfg, plan, seq=seq)
@@ -1146,10 +1193,13 @@ def _block_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
                   lay=None) -> torch.Tensor:
     """One block's decode step; its cache entry is updated in place.
     Under a ``plan`` ``p`` is this rank's blocks laid out by ``lay``,
-    ``x`` its rows and ``cache`` its block of the entry; a recurrent
-    state cut over "model" is gathered for the step (the cell runs
-    whole on each rank) and the rank keeps its block of the new one."""
-    p = _take(p, lay, cfg, plan)
+    ``x`` its rows and ``cache`` its block of the entry.  A recurrent
+    cell steps its state as the cache holds it, the layout that cuts the
+    cell's leaves cutting its state alike (RG-LRU's the rank's channels
+    where they are cut; the xLSTM states whole, a cell cut by head
+    writing the same whole state on every rank)."""
+    cut = _cell_cut(kind, cfg, plan, lay)
+    p = _take(p, lay, cfg, plan, cut=cut)
     h = layers.rmsnorm(p["norm1"], x)
     if kind == "attn" and cfg.kv_quant:
         h, _ = attention.mha_decode_quant(
@@ -1167,38 +1217,16 @@ def _block_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
         h = _ring_decode(p["attn"], h, cache, pos, cfg, plan)
     else:
         state_cls, step = _STATES[kind]
-        axes = _entry_axes(kind, cfg)
-        st = state_cls(**_state_whole(kind, cache, axes, cfg, plan))
         if kind == "rglru":
-            h, st = step(p["cell"], h, st)
+            h, st = step(p["cell"], h, state_cls(**cache), plan=plan)
         else:
-            h, st = step(p["cell"], h, st, cfg.n_heads)
+            h, st = step(p["cell"], h, state_cls(**cache), cfg.n_heads,
+                         plan=plan)
         for key, t in st._asdict().items():
-            if plan is not None:
-                t = module.block_like(t, axes[key], plan.mesh, _ROWS)
             cache[key].copy_(t)
     if cfg.post_norms:
         h = layers.rmsnorm(p["norm1_post"], h)
     return _ffn_residual(p, x + h, cfg, plan, decode=True)[0]
-
-
-def _state_whole(kind: str, cache: dict, axes: dict, cfg: LMConfig,
-                 plan) -> dict:
-    """A recurrent block's state of this rank's rows, each leaf gathered
-    whole over "model" where its layout cuts it (RG-LRU's width over
-    ``ffn``)."""
-    if plan is None or plan.tp is None:
-        return dict(cache)
-    whole = _cache_spec_for(kind, cfg, 1, 1, "meta")
-    out = {}
-    for key, t in cache.items():
-        spec = module.partition_spec(tuple(whole[key].shape), axes[key],
-                                     plan.mesh, _ROWS)
-        for d, part in enumerate(spec):
-            if part is not None:
-                t = collectives.gather_from(t, plan.mesh, part, d)
-        out[key] = t
-    return out
 
 
 @torch.no_grad()

@@ -17,6 +17,23 @@ log-depth doubling scan (``_linear_scan``): the same function, its
 products and sums taken in another order.
 
 Every cell has a single-step form for decode.
+
+Under a ``plan`` (``nn.module.Plan``) whose tensor-parallel axis cuts a
+cell's leaves, each rank of "model" computes its share, as the
+reference's layout (``*_specs``) puts the cell over that axis: RG-LRU
+its block of the ``d_rnn`` channels, the xLSTM cells their block of the
+heads (where the heads divide over the axis; elsewhere the caller takes
+the leaves whole and the cell runs whole on every rank).  The input
+enters the column-parallel products through ``collectives.copy_to`` and
+the row-parallel output projection is summed over the axis
+(``layers.row_linear``).  A whole leaf the cell uses a block of
+(RG-LRU's ``lam``, xLSTM's ``wi`` / ``wf``, sLSTM's ``r``) is sliced
+here, and its gradient is summed over the axis by the caller
+(``nn.module.take_param(..., sliced=True)``).  The states keep the
+decode cache's layout (``models.lm.cache_axes``): RG-LRU's the rank's
+block of its channels, the xLSTM cells' whole over the axis (a cut
+cell's decode step reads its heads from the whole state and gathers the
+new one whole again).
 """
 
 from __future__ import annotations
@@ -27,6 +44,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives
 from repro_torch.nn import layers
 from repro_torch.nn.module import ParamSpec
 
@@ -36,6 +54,54 @@ MLSTM_CHUNK = 256
 
 def _zeros(shape, device):
     return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def _cut(cols: int, whole: int, plan) -> bool:
+    """Whether a leaf of ``cols`` columns, ``whole`` in the whole leaf,
+    is this rank's block over ``plan``'s tensor-parallel axis."""
+    return plan is not None and plan.tp is not None and cols != whole
+
+
+def _heads_of(cols: int, whole: int, n_heads: int, plan) -> tuple[int, int]:
+    """(first head, heads) of an xLSTM cell's share on this rank: its
+    block of the heads where the projection (``cols`` of ``whole``
+    columns) is cut, else every head."""
+    if not _cut(cols, whole, plan):
+        return 0, n_heads
+    if n_heads % plan.tp_size:
+        raise ValueError(f"{n_heads} heads do not divide over the "
+                         f"{plan.tp_size} ranks of {plan.tp!r}: take the "
+                         "cell's leaves whole")
+    n = n_heads // plan.tp_size
+    return plan.tp_index * n, n
+
+
+def _head_cols(p: dict, h0: int, n: int) -> dict:
+    """Columns [h0, h0 + n) of a whole (D, n_heads) projection (the
+    cells' projections have no bias)."""
+    return {"w": p["w"][:, h0:h0 + n]}
+
+
+def _entry(x: torch.Tensor, plan, cut: bool) -> torch.Tensor:
+    """The input of a cut cell's column-parallel products."""
+    return collectives.copy_to(x, plan.mesh, plan.tp) if cut else x
+
+
+def _exit(p: dict, h: torch.Tensor, plan, cut: bool) -> torch.Tensor:
+    """The output projection: row-parallel, summed over the axis, where
+    the cell is cut."""
+    if cut:
+        return layers.row_linear(p, h, plan.mesh, plan.tp)
+    return layers.linear(p, h)
+
+
+def _gathered(state, plan, cut: bool):
+    """An xLSTM state of this rank's heads gathered whole over the axis
+    (dim 1, the heads), or the state as it is."""
+    if not cut:
+        return state
+    return type(state)(*(collectives.gather_from(t, plan.mesh, plan.tp, 1)
+                         for t in state))
 
 
 # ===========================================================================
@@ -139,54 +205,77 @@ def _mlstm_chunk(q, k, v, log_f, log_i, state: MLSTMState):
     return h_out, MLSTMState(c_new, n_new, m_new)
 
 
-def _mlstm_gates(p: dict, x: torch.Tensor):
-    """(log_f, log_i) (B, S, H) f32 from x (B, S, D)."""
-    log_i = layers.linear(p["wi"], x).float()
-    log_f = F.logsigmoid(layers.linear(p["wf"], x).float())
+def _mlstm_gates(p: dict, x: torch.Tensor, h0: int, n: int):
+    """(log_f, log_i) (B, S, n) f32 of heads [h0, h0 + n) from x (B, S,
+    D)."""
+    wi, wf = p["wi"], p["wf"]
+    if n != wi["w"].shape[1]:
+        wi, wf = _head_cols(wi, h0, n), _head_cols(wf, h0, n)
+    log_i = layers.linear(wi, x).float()
+    log_f = F.logsigmoid(layers.linear(wf, x).float())
     return log_f, log_i
 
 
-def _mlstm_qkv(p: dict, x: torch.Tensor, n_heads: int):
-    b, s, d = x.shape
-    return [layers.linear(p[name], x).reshape(b, s, n_heads, d // n_heads)
-            .float() for name in ("wq", "wk", "wv")]
+def _mlstm_qkv(p: dict, x: torch.Tensor, n: int):
+    """q, k, v (B, S, n, hd) f32 of the ``n`` heads ``p`` holds."""
+    b, s = x.shape[:2]
+    return [layers.linear(p[name], x).reshape(b, s, n, -1).float()
+            for name in ("wq", "wk", "wv")]
+
+
+def _mlstm_share(p: dict, x: torch.Tensor, n_heads: int, plan):
+    """(the input of the products, first head, heads, cut) of this
+    rank's share of an mLSTM cell (module doc)."""
+    h0, n = _heads_of(p["wq"]["w"].shape[1], x.shape[-1], n_heads, plan)
+    cut = n != n_heads
+    return _entry(x, plan, cut), h0, n, cut
 
 
 def mlstm_forward(p: dict, x: torch.Tensor, n_heads: int,
-                  chunk: int = MLSTM_CHUNK, return_state: bool = False):
-    """x (B, S, D) -> (B, S, D) [, final MLSTMState]."""
+                  chunk: int = MLSTM_CHUNK, return_state: bool = False,
+                  plan=None):
+    """x (B, S, D) -> (B, S, D) [, final MLSTMState, whole over the
+    heads]; under a ``plan`` that cuts the cell, this rank's heads
+    (module doc)."""
     b, s, d = x.shape
-    q, k, v = _mlstm_qkv(p, x, n_heads)
-    log_f, log_i = _mlstm_gates(p, x)
+    xin, h0, n, cut = _mlstm_share(p, x, n_heads, plan)
+    q, k, v = _mlstm_qkv(p, xin, n)
+    log_f, log_i = _mlstm_gates(p, xin, h0, n)
     w = min(chunk, s)
     if s % w:
         raise ValueError(f"mLSTM over {s} positions needs a multiple of its "
                          f"chunk {w} (the reference asserts it)")
-    state = mlstm_init_state(b, n_heads, d // n_heads, device=x.device)
+    state = mlstm_init_state(b, n, d // n_heads, device=x.device)
     hs = []
     for c0 in range(0, s, w):
         sl = slice(c0, c0 + w)
         h, state = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], log_f[:, sl],
                                 log_i[:, sl], state)
         hs.append(h)
-    h = torch.cat(hs, dim=1).reshape(b, s, d).to(x.dtype)
-    o = torch.sigmoid(layers.linear(p["wo_gate"], x))
-    out = layers.linear(p["wo"], h * o)
+    h = torch.cat(hs, dim=1).reshape(b, s, -1).to(x.dtype)
+    o = torch.sigmoid(layers.linear(p["wo_gate"], xin))
+    out = _exit(p["wo"], h * o, plan, cut)
     if return_state:
-        return out, state
+        return out, _gathered(state, plan, cut)
     return out
 
 
 def mlstm_decode_step(p: dict, x: torch.Tensor, state: MLSTMState,
-                      n_heads: int) -> tuple[torch.Tensor, MLSTMState]:
-    """x (B, 1, D): a chunk of one."""
-    b, _, d = x.shape
-    log_f, log_i = _mlstm_gates(p, x)
-    out, new_state = _mlstm_chunk(*_mlstm_qkv(p, x, n_heads), log_f, log_i,
+                      n_heads: int, plan=None
+                      ) -> tuple[torch.Tensor, MLSTMState]:
+    """x (B, 1, D): a chunk of one.  ``state`` whole over the heads, and
+    so is the new one; under a ``plan`` that cuts the cell this rank
+    steps its heads and gathers the new state."""
+    b = x.shape[0]
+    xin, h0, n, cut = _mlstm_share(p, x, n_heads, plan)
+    if cut:
+        state = MLSTMState(*(t[:, h0:h0 + n] for t in state))
+    log_f, log_i = _mlstm_gates(p, xin, h0, n)
+    out, new_state = _mlstm_chunk(*_mlstm_qkv(p, xin, n), log_f, log_i,
                                   state)
-    h = out.reshape(b, 1, d).to(x.dtype)
-    o = torch.sigmoid(layers.linear(p["wo_gate"], x))
-    return layers.linear(p["wo"], h * o), new_state
+    h = out.reshape(b, 1, -1).to(x.dtype)
+    o = torch.sigmoid(layers.linear(p["wo_gate"], xin))
+    return _exit(p["wo"], h * o, plan, cut), _gathered(new_state, plan, cut)
 
 
 # ===========================================================================
@@ -235,36 +324,49 @@ def _slstm_cell(state: SLSTMState, gates_x, r):
     return SLSTMState(c, n, h, m_new)
 
 
-def _slstm_gates_x(p: dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
+def _slstm_share(p: dict, x: torch.Tensor, n_heads: int, plan):
+    """(the pre-activations from x (B, S, n, hd, 4) f32 and the
+    recurrence (n, hd, 4 hd) f32 of this rank's heads, first head,
+    heads, cut): ``wx``'s columns are laid out (H, hd, 4), so its block
+    over the axis is the rank's heads (module doc)."""
     b, s, d = x.shape
-    return layers.linear(p["wx"], x).float().reshape(b, s, n_heads,
-                                                     d // n_heads, 4)
+    h0, n = _heads_of(p["wx"]["w"].shape[1], 4 * d, n_heads, plan)
+    cut = n != n_heads
+    gx = layers.linear(p["wx"], _entry(x, plan, cut)).float()
+    r = p["r"][h0:h0 + n] if cut else p["r"]
+    return (gx.reshape(b, s, n, d // n_heads, 4), r.float(), h0, n, cut)
 
 
 def slstm_forward(p: dict, x: torch.Tensor, n_heads: int,
-                  return_state: bool = False):
+                  return_state: bool = False, plan=None):
+    """x (B, S, D) -> (B, S, D) [, final SLSTMState, whole over the
+    heads]; under a ``plan`` that cuts the cell, this rank's heads
+    (module doc)."""
     b, s, d = x.shape
-    gx = _slstm_gates_x(p, x, n_heads)
-    r = p["r"].float()
-    state = slstm_init_state(b, n_heads, d // n_heads, device=x.device)
+    gx, r, _, n, cut = _slstm_share(p, x, n_heads, plan)
+    state = slstm_init_state(b, n, d // n_heads, device=x.device)
     hs = []
     for t in range(s):
         state = _slstm_cell(state, gx[:, t], r)
         hs.append(state.h)
-    h = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
-    out = layers.linear(p["wo"], h)
+    h = torch.stack(hs, dim=1).reshape(b, s, -1).to(x.dtype)
+    out = _exit(p["wo"], h, plan, cut)
     if return_state:
-        return out, state
+        return out, _gathered(state, plan, cut)
     return out
 
 
 def slstm_decode_step(p: dict, x: torch.Tensor, state: SLSTMState,
-                      n_heads: int):
-    b, _, d = x.shape
-    state = _slstm_cell(state, _slstm_gates_x(p, x, n_heads)[:, 0],
-                        p["r"].float())
-    h = state.h.reshape(b, 1, d).to(x.dtype)
-    return layers.linear(p["wo"], h), state
+                      n_heads: int, plan=None):
+    """x (B, 1, D); ``state`` whole over the heads, as in
+    ``mlstm_decode_step``."""
+    b = x.shape[0]
+    gx, r, h0, n, cut = _slstm_share(p, x, n_heads, plan)
+    if cut:
+        state = SLSTMState(*(t[:, h0:h0 + n] for t in state))
+    state = _slstm_cell(state, gx[:, 0], r)
+    h = state.h.reshape(b, 1, -1).to(x.dtype)
+    return _exit(p["wo"], h, plan, cut), _gathered(state, plan, cut)
 
 
 # ===========================================================================
@@ -301,10 +403,26 @@ def rglru_init_state(b: int, d_rnn: int, conv_width: int = 4, device=None):
 _C_RGLRU = 8.0
 
 
-def _rglru_gates(p: dict, u: torch.Tensor):
-    r = torch.sigmoid(layers.linear(p["w_a"], u).float())
-    i = torch.sigmoid(layers.linear(p["w_x"], u).float())
-    log_a = -_C_RGLRU * F.softplus(p["lam"].float()) * r
+def _gate(p: dict, u: torch.Tensor, plan, cut: bool) -> torch.Tensor:
+    """``sigmoid(u @ w)`` f32; where the cell is cut ``u`` is this
+    rank's block of the channels and ``w``'s rows its block: the partial
+    products reduce-scattered over the axis along the channels (the
+    backward all-gathers), each rank keeping its block of the gate."""
+    if not cut:
+        return torch.sigmoid(layers.linear(p, u).float())
+    y = collectives.psum_scatter(u @ p["w"].to(u.dtype), plan.mesh, plan.tp,
+                                 -1)
+    return torch.sigmoid(y.float())
+
+
+def _rglru_gates(p: dict, u: torch.Tensor, plan=None, cut: bool = False):
+    r = _gate(p["w_a"], u, plan, cut)
+    i = _gate(p["w_x"], u, plan, cut)
+    lam = p["lam"]
+    if cut:
+        n = u.shape[-1]
+        lam = lam[plan.tp_index * n:(plan.tp_index + 1) * n]
+    log_a = -_C_RGLRU * F.softplus(lam.float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * u.float())
     return a, gated
@@ -339,25 +457,37 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_forward(p: dict, x: torch.Tensor, return_state: bool = False):
+def _rglru_in(p: dict, x: torch.Tensor, plan):
+    """(the input of the column-parallel products, cut): the cell is cut
+    where ``w_in`` holds a block of the ``lam``'s channels."""
+    cut = _cut(p["w_in"]["w"].shape[1], p["lam"].shape[0], plan)
+    return _entry(x, plan, cut), cut
+
+
+def rglru_forward(p: dict, x: torch.Tensor, return_state: bool = False,
+                  plan=None):
     """Griffin's recurrent block: in-projection, causal conv, RG-LRU, and
-    the gated merge with a GELU branch."""
-    u, tail = _causal_conv(p, layers.linear(p["w_in"], x))
-    a, gated = _rglru_gates(p, u)
+    the gated merge with a GELU branch.  Under a ``plan`` that cuts the
+    cell, on this rank's channels, its state theirs (module doc)."""
+    xin, cut = _rglru_in(p, x, plan)
+    u, tail = _causal_conv(p, layers.linear(p["w_in"], xin))
+    a, gated = _rglru_gates(p, u, plan, cut)
     h = _linear_scan(a, gated)
-    branch = layers.gelu(layers.linear(p["w_gate_branch"], x))
-    out = layers.linear(p["w_out"], h.to(x.dtype) * branch)
+    branch = layers.gelu(layers.linear(p["w_gate_branch"], xin))
+    out = _exit(p["w_out"], h.to(x.dtype) * branch, plan, cut)
     if return_state:
         return out, RGLRUState(h[:, -1], tail.float())
     return out
 
 
-def rglru_decode_step(p: dict, x: torch.Tensor, state: RGLRUState
-                      ) -> tuple[torch.Tensor, RGLRUState]:
-    """x (B, 1, D)."""
-    u, tail = _causal_conv(p, layers.linear(p["w_in"], x), state.conv)
-    a, gated = _rglru_gates(p, u)
+def rglru_decode_step(p: dict, x: torch.Tensor, state: RGLRUState,
+                      plan=None) -> tuple[torch.Tensor, RGLRUState]:
+    """x (B, 1, D); ``state`` and the new one this rank's channels under
+    a ``plan`` that cuts the cell."""
+    xin, cut = _rglru_in(p, x, plan)
+    u, tail = _causal_conv(p, layers.linear(p["w_in"], xin), state.conv)
+    a, gated = _rglru_gates(p, u, plan, cut)
     h = a[:, 0] * state.h + gated[:, 0]
-    branch = layers.gelu(layers.linear(p["w_gate_branch"], x))
-    out = layers.linear(p["w_out"], h[:, None].to(x.dtype) * branch)
+    branch = layers.gelu(layers.linear(p["w_gate_branch"], xin))
+    out = _exit(p["w_out"], h[:, None].to(x.dtype) * branch, plan, cut)
     return out, RGLRUState(h, tail.float())

@@ -57,25 +57,32 @@ POLICIES = ("nothing", "dots", "save_moe_recv")
 # arctic, internvl2): qwen2.5 (GQA, FSDP, a kv head cut over "model"),
 # smollm (heads whole, tied embeddings), gemma2 (local layers, softcaps,
 # the ring decode), kimi-k2 (2D EP), recurrentgemma (RG-LRU, MQA), arctic
-# (2D EP beside a dense residual FFN) and internvl2 (4 patches before 8
-# tokens: 12 positions over 4).  A config with a window takes PART_S_LONG
+# (2D EP beside a dense residual FFN), internvl2 (4 patches before 8
+# tokens: 12 positions over 4) and xlstm (mLSTM and sLSTM, one head of 4
+# a rank).  recurrentgemma's RG-LRU runs on 16 of its 64 channels a rank.  A config with a window takes PART_S_LONG
 # positions (a prompt longer than its window, as the ring decode needs);
 # the prefill's cache is padded by PART_PAD slots (so that the slots
 # split over "model") for PART_DECODE decode steps; the engine has
 # PART_SLOTS slots over "data" and the prompts PART_PROMPTS.
 PART_ARCHS = ("qwen2.5-32b", "smollm-135m", "gemma2-2b", "kimi-k2-1t-a32b",
               "recurrentgemma-9b", "qwen2.5-32b+6heads", "qwen2.5-32b+int8",
-              "arctic-480b", "internvl2-26b", "qwen2.5-32b+seq6")
+              "arctic-480b", "internvl2-26b", "qwen2.5-32b+seq6",
+              "xlstm-350m", "xlstm-350m+3heads")
 # a variant of a config: its tag -> (the registry's name, the fields it
 # changes on the reduced config): qwen2.5 with 6 heads of 16 and 2 kv
 # heads, whose q and kv blocks over the 4 ranks of "model" cut a head,
 # as the full qwen2.5's 40 heads over 16 do; its int8 KV cache, the
 # payload and scales split over the slots; and qwen2.5 on 6 positions
-# (PART_SEQ), which do not divide over "model": the sequence stays whole
+# (PART_SEQ), which do not divide over "model": the sequence stays whole;
+# xlstm with 3 heads of 16 (d_model 48), which do not divide over the 4
+# ranks of "model": its cells run whole on every rank, as xlstm's 4 heads
+# over 16 do
 PART_VARIANTS = {"qwen2.5-32b+6heads": ("qwen2.5-32b", {
     "n_heads": 6, "n_kv": 2, "head_dim": 16}),
     "qwen2.5-32b+int8": ("qwen2.5-32b", {"kv_quant": "int8"}),
-    "qwen2.5-32b+seq6": ("qwen2.5-32b", {})}
+    "qwen2.5-32b+seq6": ("qwen2.5-32b", {}),
+    "xlstm-350m+3heads": ("xlstm-350m", {
+        "n_heads": 3, "n_kv": 3, "d_model": 48})}
 PART_SEQ = {"qwen2.5-32b+seq6": 6}
 PART_B, PART_S, PART_S_LONG, PART_PAD, PART_DECODE = 4, 8, 64, 8, 3
 PART_SLOTS, PART_PROMPTS, PART_NEW, PART_S_MAX = 4, (3, 5, 4), 3, 16

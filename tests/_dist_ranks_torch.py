@@ -45,7 +45,7 @@ from repro_torch.launch import train as train_lib  # noqa: E402
 from repro_torch.launch.mesh import (Mesh, make_host_mesh,  # noqa: E402
                                      make_production_mesh)
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.nn import moe, module  # noqa: E402
+from repro_torch.nn import moe, module, recurrent  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 from repro_torch.train import checkpoint, optim, train_loop  # noqa: E402
 
@@ -322,17 +322,21 @@ def _lm_cases(z, mesh, arch, ckpt_dir) -> dict:
             for k, v in out.items()}
 
 
-def _flops_share(cfg, params, full, batch, local, mesh) -> dict:
+# the configs whose train step's FLOPs a rank are counted against the
+# world-1 step's
+FLOPS_ARCHS = ("qwen2.5-32b", "recurrentgemma-9b")
+
+
+def _flops_share(cfg, params, full, batch, local, mesh, s) -> dict:
     """Counted FLOPs of one train step (AdamW, one microbatch) on this
-    rank's share against the same step at world 1 on the whole batch."""
+    rank's share against the same step at world 1 on the whole batch of
+    ``s`` positions."""
     step, args, _, _ = dryrun.build(cfg, "train_4k", mesh, "cpu", n_micro=1,
-                                    batch=R.PART_B, seq=R.PART_S,
-                                    params=params)
+                                    batch=R.PART_B, seq=s, params=params)
     share, _ = dryrun.count(step, params, args[1], train_loop.microbatch(
         local, 1))
     step, args, _, _ = dryrun.build(cfg, "train_4k", None, "cpu", n_micro=1,
-                                    batch=R.PART_B, seq=R.PART_S,
-                                    params=full)
+                                    batch=R.PART_B, seq=s, params=full)
     whole, _ = dryrun.count(step, full, args[1], train_loop.microbatch(
         batch, 1))
     return {"share": share["flops"], "whole": whole["flops"]}
@@ -353,6 +357,53 @@ def _stream_shapes(run) -> list:
         return run(), sorted(set(seen))
     finally:
         lm._constrain_acts = orig
+
+
+def _spied(module_, name: str, run):
+    """(``run()``, what each call of ``module_.name`` returned while it
+    ran)."""
+    seen, orig = [], getattr(module_, name)
+
+    def spy(*args, **kwargs):
+        y = orig(*args, **kwargs)
+        seen.append(y)
+        return y
+
+    setattr(module_, name, spy)
+    try:
+        return run(), seen
+    finally:
+        setattr(module_, name, orig)
+
+
+def _rglru_share(params, local, cfg, plan, cache, dplan, dec, s) -> dict:
+    """Reduced recurrentgemma's RG-LRU on this rank: the shapes of its
+    scan's states in the forward, its first block's state in the cache
+    after the prefill and the decode steps, and one more decode step (on
+    a copy of the cache) under ``wire_tally``: its all-gather bytes, and
+    the shape and bytes of each tensor it gathered."""
+    _, scans = _spied(recurrent, "_linear_scan",
+                      lambda: lm.forward(params, local, cfg, mesh=plan))
+    cache = module.tree_map(torch.clone, cache)
+    pos = torch.full((R.PART_B,), s + R.PART_DECODE, dtype=torch.int64)
+
+    def step():
+        with collectives.wire_tally() as tally:
+            lm.decode_step(params, cache, _rows_of(dec[:, :1], plan),
+                           _rows_of(pos, plan), cfg, mesh=dplan)
+        return tally
+
+    tally, gathered = _spied(collectives, "_gather", step)
+    return {"scan_shapes": np.array(sorted({tuple(h.shape) for h in scans}),
+                                    np.int64),
+            "state_h": np.array(cache["b0"]["h"].shape, np.int64),
+            "state_conv": np.array(cache["b0"]["conv"].shape, np.int64),
+            "decode_gather_bytes": np.int64(tally.bytes["all-gather"]),
+            "decode_gathered_bytes": np.array(
+                [g.numel() * g.element_size() for g in gathered], np.int64),
+            "decode_gathered_shapes": np.array(
+                [list(g.shape) + [0] * (5 - g.ndim) for g in gathered],
+                np.int64).reshape(-1, 5)}
 
 
 def _part_cases(mesh, arch: str, seed: int) -> dict:
@@ -424,6 +475,10 @@ def _part_cases(mesh, arch: str, seed: int) -> dict:
         out[f"out/{tag}/decode{i}"] = _all_rows(lg, plan)
     if k0 is not None:
         out[f"out/{tag}/decode_slots"] = np.int64(cache["b0"]["k"].shape[2])
+    if arch == "recurrentgemma-9b":
+        for k, v in _rglru_share(params, local, cfg, plan, cache, dplan, dec,
+                                 s).items():
+            out[f"out/{tag}/rglru/{k}"] = v
     eng = engine.BatchedEngine(cfg, params, batch_slots=R.PART_SLOTS,
                                s_max=R.PART_S_MAX, mesh=mesh, device="cpu")
     for uid in range(len(R.PART_PROMPTS)):
@@ -433,8 +488,9 @@ def _part_cases(mesh, arch: str, seed: int) -> dict:
         out[f"out/{tag}/engine{req.uid}"] = np.array(req.generated)
     out[f"out/{tag}/engine_rows"] = np.int64(
         next(iter(eng.cache["b0"].values())).shape[1])
-    if arch == "qwen2.5-32b":
-        flops = _flops_share(cfg, params, full, batch, local, mesh)
+    if arch in FLOPS_ARCHS:
+        flops = _flops_share(cfg, params, full, batch, local, mesh,
+                             R.part_seq(arch, cfg.window))
         out[f"out/{tag}/flops_share"] = np.int64(flops["share"])
         out[f"out/{tag}/flops_whole"] = np.int64(flops["whole"])
     return {k: v.detach().numpy() if torch.is_tensor(v) else v

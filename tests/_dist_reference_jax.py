@@ -168,6 +168,16 @@ def _unflat(flat: dict, prefix: str) -> dict:
     return out
 
 
+def _ulp_moved(params: dict) -> dict:
+    """``params`` with the embedding table moved by one ULP, each element
+    up or down (``test_torch_lm_families._tol``'s draw)."""
+    rs = np.random.RandomState(99)
+    table = np.asarray(params["embed"]["table"])
+    return dict(params, embed={"table": jnp.asarray(np.nextafter(
+        table, np.where(rs.rand(*table.shape) < 0.5, np.inf, -np.inf)
+        .astype(np.float32)))})
+
+
 def part_results(arch, mesh, seed) -> dict:
     """The partitioned step of the reduced config on ``part_inputs``: its
     own ``forward``, ``loss_fn`` (with ``jax.grad``), a prefill and
@@ -176,7 +186,11 @@ def part_results(arch, mesh, seed) -> dict:
     ``batch_axes`` / ``cache_axes`` under the config's overrides (the
     sequence over "model" where they put it there and it divides); one
     AdamW step (``optim.adamw_update``, its train step's update) on the
-    gradients; then a ``BatchedEngine`` over the mesh."""
+    gradients; then a ``BatchedEngine`` over the mesh.  For a config
+    with mLSTM blocks also the reference's own change (``noise/...``)
+    when its embedding table moves by one ULP: the largest change of
+    the logits, the gradient's norm, any gradient leaf, the prefill's
+    and each decode step's logits."""
     cfg = part_config(arch, configs.ARCHS, base.reduced)
     rules = cfg.sharding_overrides
     s = part_seq(arch, cfg.window)
@@ -195,41 +209,62 @@ def part_results(arch, mesh, seed) -> dict:
     # the cache holds the VLM's patches before its tokens
     s += cfg.n_patches
     tag = f"part/{arch}"
-    out = {}
     # each step finished before the next is dispatched: one program's
     # collectives in flight at a time
     done = jax.block_until_ready
     fwd = jax.jit(lambda p, b: lm.forward(p, b, cfg, mesh),
                   in_shardings=(p_sh, b_sh))
-    out[f"out/{tag}/logits"], out[f"out/{tag}/aux"] = done(fwd(params,
-                                                               batch))
-    (loss, parts), grads = done(jax.jit(jax.value_and_grad(
+    loss_grad = jax.jit(jax.value_and_grad(
         lambda p, b: lm.loss_fn(p, b, cfg, mesh), has_aux=True),
-        in_shardings=(p_sh, b_sh))(params, batch))
-    out[f"out/{tag}/loss"], out[f"out/{tag}/ce"] = loss, parts["ce"]
-    out.update(flatten(grads, f"out/{tag}/grads"))
+        in_shardings=(p_sh, b_sh))
     opt = optim.AdamWConfig()
-    stepped, _, stats = done(jax.jit(lambda g, p: optim.adamw_update(
-        g, optim.adamw_init(p, opt), p, opt))(grads, params))
-    out.update(flatten(stepped, f"out/{tag}/stepped"))
-    out[f"out/{tag}/grad_norm"] = stats["grad_norm"]
-    last, _, cache = done(jax.jit(lambda p, b: lm.forward(p, b, cfg, mesh,
-                                                          prefill=True),
-                                  in_shardings=(p_sh, b_sh))(params, batch))
-    out[f"out/{tag}/prefill_logits"] = last
-    cache = lm.pad_cache(cache, cfg, s + PART_PAD)
-    c_sh = module.shardings_like(cache, lm.cache_axes(cfg), mesh, rules)
-    d_sh = module.shardings_like(
-        {"tokens": dec[:, :1], "pos": dec[:, 0]},
-        {"tokens": ("batch", None), "pos": ("batch",)}, mesh, rules)
-    dstep = jax.jit(lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg,
-                                                        mesh),
-                    in_shardings=(p_sh, c_sh, d_sh["tokens"], d_sh["pos"]))
-    for i in range(PART_DECODE):
-        pos = jnp.full((PART_B,), s + i, jnp.int32)
-        lg, cache = done(dstep(params, jax.device_put(cache, c_sh),
-                               jnp.asarray(dec[:, i:i + 1]), pos))
-        out[f"out/{tag}/decode{i}"] = lg
+    adamw = jax.jit(lambda g, p: optim.adamw_update(
+        g, optim.adamw_init(p, opt), p, opt))
+    prefill = jax.jit(lambda p, b: lm.forward(p, b, cfg, mesh, prefill=True),
+                      in_shardings=(p_sh, b_sh))
+    dstep = None
+
+    def run(params) -> dict:
+        nonlocal dstep
+        out = {}
+        out[f"out/{tag}/logits"], out[f"out/{tag}/aux"] = done(
+            fwd(params, batch))
+        (loss, parts), grads = done(loss_grad(params, batch))
+        out[f"out/{tag}/loss"], out[f"out/{tag}/ce"] = loss, parts["ce"]
+        out.update(flatten(grads, f"out/{tag}/grads"))
+        stepped, _, stats = done(adamw(grads, params))
+        out.update(flatten(stepped, f"out/{tag}/stepped"))
+        out[f"out/{tag}/grad_norm"] = stats["grad_norm"]
+        last, _, cache = done(prefill(params, batch))
+        out[f"out/{tag}/prefill_logits"] = last
+        cache = lm.pad_cache(cache, cfg, s + PART_PAD)
+        c_sh = module.shardings_like(cache, lm.cache_axes(cfg), mesh, rules)
+        if dstep is None:
+            d_sh = module.shardings_like(
+                {"tokens": dec[:, :1], "pos": dec[:, 0]},
+                {"tokens": ("batch", None), "pos": ("batch",)}, mesh, rules)
+            dstep = jax.jit(lambda p, c, t, pos: lm.decode_step(
+                p, c, t, pos, cfg, mesh), in_shardings=(
+                    p_sh, c_sh, d_sh["tokens"], d_sh["pos"]))
+        for i in range(PART_DECODE):
+            pos = jnp.full((PART_B,), s + i, jnp.int32)
+            lg, cache = done(dstep(params, jax.device_put(cache, c_sh),
+                                   jnp.asarray(dec[:, i:i + 1]), pos))
+            out[f"out/{tag}/decode{i}"] = lg
+        return out
+
+    out = run(params)
+    if "mlstm" in cfg.pattern:
+        moved = run(_ulp_moved(params))
+
+        def change(key):
+            return np.float64(np.abs(np.asarray(moved[key], np.float64)
+                                     - np.asarray(out[key])).max())
+        for key in ["logits", "grad_norm", "prefill_logits"] + [
+                f"decode{i}" for i in range(PART_DECODE)]:
+            out[f"out/{tag}/noise/{key}"] = change(f"out/{tag}/{key}")
+        out[f"out/{tag}/noise/grads"] = max(
+            change(k) for k in out if k.startswith(f"out/{tag}/grads/"))
     eng = engine.BatchedEngine(cfg, params, batch_slots=PART_SLOTS,
                                s_max=PART_S_MAX, mesh=mesh)
     for uid in range(len(PART_PROMPTS)):

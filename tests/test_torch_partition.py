@@ -19,19 +19,30 @@ in another subprocess on 8 gloo ranks (``tests/_dist_ranks_torch.py
 part``), each rank on its share, the results gathered whole.  Both draw
 the same operands from ``numpy.random.RandomState``
 (``_dist_cases.part_inputs``), for reduced qwen2.5-32b, smollm-135m,
-gemma2-2b, kimi-k2 and recurrentgemma-9b, qwen2.5 with 6 heads (whose q
-block over "model" cuts a head, as qwen2.5's 40 over 16), qwen2.5 with
-the int8 KV cache, arctic-480b, internvl2-26b (4 patches before 8
-tokens) and qwen2.5 on 6 positions (which do not divide over "model":
-the sequence stays whole):
+gemma2-2b, kimi-k2 and recurrentgemma-9b (its RG-LRU on 16 of 64
+channels a rank), qwen2.5 with 6 heads (whose q block over "model" cuts
+a head, as qwen2.5's 40 over 16), qwen2.5 with the int8 KV cache,
+arctic-480b, internvl2-26b (4 patches before 8 tokens), qwen2.5 on 6
+positions (which do not divide over "model": the sequence stays whole),
+xlstm-350m (its mLSTM and sLSTM cells one head a rank) and xlstm with 3
+heads (which do not divide over "model": the cells run whole):
 
 * logits, the aux loss and the loss within rtol / atol 1e-5, every
-  gradient leaf within 1e-4, one AdamW step's parameters within 1e-5;
+  gradient leaf within 1e-4, one AdamW step's parameters within 1e-5
+  (xlstm's logits, gradient leaves and gradient norm, prefill and decode
+  within four times the reference's own change when its embedding table
+  moves by one ULP, and never tighter than those: its mLSTM divides by
+  a normaliser that cancels, so the reference's own sharded and
+  unsharded steps differ by more than 1e-5, the rule of
+  ``test_torch_lm_families.py`` and ``test_torch_lm_train.py``);
 * a prefill and three decode steps within 1e-5 (the int8 cache's
   decode within two bf16 ULPs of the largest logit), the cache's slots
   split over "model"; ``BatchedEngine``'s tokens equal;
 * each rank held its rows only, and a train step on one rank of reduced
-  qwen2.5 counts at most 1.2 x the world-1 count / 8 FLOPs;
+  qwen2.5 or recurrentgemma counts at most 1.2 x the world-1 count / 8
+  FLOPs;
+* recurrentgemma's RG-LRU scans and keeps in its cache the rank's block
+  of the channels, and its decode step gathers no recurrent state;
 * the residual stream between the blocks, and the tokens, are each
   rank's block of the sequence where the reference's ``partition_spec``
   cuts ("batch", "seq", None), whole elsewhere.
@@ -97,6 +108,18 @@ def results(tmp_path_factory):
         yield dict(r), dict(t)
 
 
+def _tol(want, tag: str, key: str, tol=TOL) -> dict:
+    """``tol``, or for a config with mLSTM blocks four times the
+    reference's own change of ``key`` under a one-ULP move of its
+    embedding table (``_dist_reference_jax.part_results``'s
+    ``noise/...``), where that is looser."""
+    noise = want.get(f"{tag}/noise/{key}")
+    if noise is None:
+        return tol
+    t = max(tol["atol"], 4 * float(noise))
+    return dict(rtol=t, atol=t)
+
+
 def _cfg(tag: str):
     return C.part_config(tag, t_configs.ARCHS, t_base.reduced)
 
@@ -108,9 +131,11 @@ def _keys(want, arch, part):
 @pytest.mark.parametrize("arch", C.PART_ARCHS)
 def test_forward_matches_reference_partitioned(results, arch):
     want, got = results
+    tag = f"out/part/{arch}"
     for key in ("logits", "aux"):
-        k = f"out/part/{arch}/{key}"
-        np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+        k = f"{tag}/{key}"
+        np.testing.assert_allclose(got[k], want[k], err_msg=k,
+                                   **_tol(want, tag, key))
     # each rank computed its rows of the batch only
     assert int(got[f"out/part/{arch}/rows"]) == C.PART_B // 2
 
@@ -123,8 +148,9 @@ def test_loss_and_gradients_match_reference_partitioned(results, arch):
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
     keys = _keys(want, arch, "grads/")
     assert len(keys) == len(t_module.leaves(t_lm.param_specs(_cfg(arch))))
+    tol = _tol(want, f"out/part/{arch}", "grads", GRAD_TOL)
     for k in keys:
-        np.testing.assert_allclose(got[k], want[k], err_msg=k, **GRAD_TOL)
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
     assert max(np.abs(got[k]).max() for k in keys) > 0
 
 
@@ -137,7 +163,8 @@ def test_adamw_step_matches_reference_partitioned(results, arch):
     want, got = results
     tag = f"out/part/{arch}"
     np.testing.assert_allclose(got[f"{tag}/grad_norm"],
-                               want[f"{tag}/grad_norm"], **TOL)
+                               want[f"{tag}/grad_norm"],
+                               **_tol(want, tag, "grad_norm"))
     keys = _keys(want, arch, "stepped/")
     assert keys
     for k in keys:
@@ -160,7 +187,8 @@ def test_prefill_and_decode_match_reference_partitioned(results, arch):
                                      for i in range(C.PART_DECODE)]:
         w = want[f"{tag}/{key}"]
         tol = dict(rtol=0, atol=2 * 2.0 ** -7 * np.abs(w).max()) \
-            if cfg.kv_quant and key != "prefill_logits" else TOL
+            if cfg.kv_quant and key != "prefill_logits" else \
+            _tol(want, tag, key)
         np.testing.assert_allclose(got[f"{tag}/{key}"], w, err_msg=key,
                                    **tol)
     if f"{tag}/decode_slots" in got:
@@ -248,6 +276,42 @@ def test_train_step_counts_the_rank_share_of_flops(results):
     share = int(got["out/part/qwen2.5-32b/flops_share"])
     whole = int(got["out/part/qwen2.5-32b/flops_whole"])
     assert 0 < share <= 1.2 * whole / 8, (share, whole)
+
+
+def test_recurrent_train_step_counts_the_rank_share_of_flops(results):
+    """Reduced recurrentgemma (its RG-LRU cut by channel, 4 heads over 4
+    ranks of "model"): one rank's train step counts at most 1.2 x the
+    world-1 step's FLOPs / 8, as qwen2.5's does."""
+    _, got = results
+    share = int(got["out/part/recurrentgemma-9b/flops_share"])
+    whole = int(got["out/part/recurrentgemma-9b/flops_whole"])
+    assert 0 < share <= 1.2 * whole / 8, (share, whole)
+
+
+def test_rglru_runs_on_the_rank_block_of_its_channels(results):
+    """Reduced recurrentgemma (d_rnn 64 over the 4 ranks of "model"):
+    the forward's scans run on the rank's rows and its 16 channels, the
+    cache holds that block of each RG-LRU state (``cache_axes``: over
+    ``ffn``), and a decode step gathers neither state whole: the
+    all-gathers it issues (every byte ``wire_tally`` counts) are of
+    other tensors."""
+    _, got = results
+    tag = "out/part/recurrentgemma-9b/rglru"
+    cfg = _cfg("recurrentgemma-9b")
+    rows, block = C.PART_B // 2, cfg.d_rnn // C.TP
+    assert block == 16
+    assert got[f"{tag}/scan_shapes"].tolist() == [
+        [rows, C.part_seq("recurrentgemma-9b", cfg.window), block]]
+    assert got[f"{tag}/state_h"].tolist() == [cfg.n_groups, rows, block]
+    assert got[f"{tag}/state_conv"].tolist() == [cfg.n_groups, rows, 3,
+                                                 block]
+    gathered = got[f"{tag}/decode_gathered_bytes"]
+    assert int(gathered.sum()) == int(got[f"{tag}/decode_gather_bytes"])
+    shapes = [[d for d in row if d] for row in
+              got[f"{tag}/decode_gathered_shapes"].tolist()]
+    assert len(shapes) == len(gathered)
+    for whole in ([rows, cfg.d_rnn], [rows, 3, cfg.d_rnn]):
+        assert whole not in shapes, shapes
 
 
 # ---------------------------------------------------------------------------
