@@ -70,6 +70,14 @@ Phases (any failure raises, so the exit code is non-zero):
      atol = 2e-5, bf16 within one bf16 ULP of the plain version's f32
      result rounded; the large-logit case (inputs x30, integer-valued so
      that the scores are exact in any sum order) at D = 16, 21, 64, 256;
+   - the kernel-level step ``fused_macro.fused_macro_step`` (the T=1
+     case of #1 in KWN mode and of #2 in NLD mode) at the serving shape
+     (64 slots, K=512, N=128; NLD J=2), clean and with the counter
+     noise, against ``ref.fused_macro_step_ref`` and
+     ``ref.fused_macro_tiled_ref`` at 256 x 128 and 96 x 40 tiles on the
+     same card tensors, every output bit for bit; and the step iterated
+     over T=30 with ``step_offset=t`` against one sequence launch of the
+     same kernel, bit for bit;
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    - KWN: ``SNNEventEngine`` serves 96 event-stream requests of the
@@ -78,6 +86,13 @@ Phases (any failure raises, so the exit code is non-zero):
      step that is not a round boundary; every request must equal a
      one-shot batch-1 ``forward_silicon`` bit for bit, and the kernel's
      launch counter must equal the rounds run;
+   - the per-call mode and MAC telemetry: ``forward_silicon(mode="nld")``
+     on the KWN configuration with a parameter dict holding ``w_hid`` and
+     ``dend`` (64 streams of 30 steps), through ``"step"`` (30 launches
+     of #2) and ``"seq"`` (one), with and without ``mac_telemetry``,
+     equal to the same call on the configuration whose own mode is NLD,
+     and ``mac_telemetry=True`` in KWN mode (#1) equal to the call
+     without it, clean and noisy; no other kernel launched;
    - NLD: the same with the DVS-Gesture NLD configuration (J=2, relu,
      dend_range 4); the NLD kernel's counter must equal the rounds;
    - the stack: ``forward_silicon`` on the DVS-Gesture stack (64 streams
@@ -1022,6 +1037,200 @@ def compare_stack_phase(dev) -> dict:
                 raise AssertionError(f"{tag}: kernel != plain version")
     return {"max_abs_err": worst, "mismatches": total_mismatch,
             "cases": n_cases}
+
+
+# --- phase 3 (slice 21): the kernel-level step and its oracles -------------
+
+STEP_TILINGS = ((fused_macro.DEFAULT_BK, fused_macro.DEFAULT_BN), (96, 40))
+STEP_T = 30                     # the iterated step against one launch
+
+
+def _step_operands(mode, rs, m, noisy, dev):
+    """Padded card operands of one kernel-level step at the serving shape
+    (KWN: the DVS-Gesture layer; NLD: ``NLD_CFG``'s two branches), the
+    keywords it shares with its oracle and the plan's blocks."""
+    kdim = CFG.n_in
+    x = torch.from_numpy(rs.choice([-1, 0, 1], p=[0.05, 0.9, 0.05],
+                                   size=(m, kdim)).astype(np.int8)).to(dev)
+    if mode == "kwn":
+        args, nz, noise_kw = _operands(rs, 1, m, kdim, CFG.n_hidden, noisy,
+                                       dev)
+        _, msb, lsb, bounds, levels, scale, v = args
+        w_dend, nz = None, None if nz is None else nz[0]
+        kw = dict(k=CFG.k, drive_gain=CFG.drive_gain, **noise_kw)
+        n, nc = CFG.n_hidden, CFG.n_hidden
+    else:
+        fw, mcfg = _nld_weights(kdim, NLD_CFG.n_hidden, NLD_CFG.n_branches,
+                                NLD_CFG.activation, SEED + 21, dev)
+        msb, lsb, bounds, levels, scale, w_dend = (
+            fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, fw.w_dend)
+        v = torch.from_numpy(rs.uniform(-1, 1, (m, NLD_CFG.n_hidden))
+                             .astype(np.float32)).to(dev)
+        nz = None
+        kw = dict(drive_gain=NLD_CFG.drive_gain, ima_noise=(
+            macro_lib.fused_kernel_noise(fw, mcfg) if noisy else None))
+        n, nc = NLD_CFG.n_hidden, fw.msb.shape[1]
+    plan = fused_macro.plan_tiles(m, kdim, nc, n, 1, mode=mode,
+                                  n_branches=nc // n, device=dev)
+    if (plan.m_pad, plan.k_pad, plan.nc_pad) != (m, kdim, nc):
+        raise AssertionError(f"the serving shape needs padding: {plan}")
+    ops_ = (x, msb, lsb, bounds, levels, scale, v, nz, w_dend)
+    return ops_, dict(kw, mode=mode), plan
+
+
+def _check_step(got, want, tag) -> None:
+    """Every output of ``got`` equal to ``want``'s, membranes at 0 ULP."""
+    mism = int((got[2] != want[2]).sum() + (got[3] != want[3]).sum())
+    same = (torch.equal(got[0], want[0]) and torch.equal(got[4], want[4])
+            and _ulps(got[1], want[1]) == 0)
+    if mism or not same:
+        raise AssertionError(f"{tag}: kernel-level step != its oracle "
+                             f"({mism} spike/mask mismatches)")
+
+
+def compare_step_phase(dev) -> dict:
+    """The kernel-level ``fused_macro.fused_macro_step`` in both modes,
+    clean and with the counter noise, at the serving shape (64 slots of
+    the DVS-Gesture layer), one launch of #1 or #2 each, against
+    ``ref.fused_macro_step_ref`` and ``ref.fused_macro_tiled_ref`` at
+    two tilings (the macro's 256 x 128, and a ragged 96 x 40) on the same
+    card tensors, bit for bit; then the step iterated over T = 30 with
+    ``step_offset=t`` against one sequence launch of the same kernel."""
+    rs = np.random.RandomState(SEED + 21)
+    m, worst, cases, launches = SLOTS, 0.0, 0, {"kwn": 0, "nld": 0}
+    for mode in ("kwn", "nld"):
+        counter = fused_macro.fused_macro_seq if mode == "kwn" \
+            else fused_macro.fused_macro_seq_nld
+        for noisy in (False, True):
+            ops_, kw, plan = _step_operands(mode, rs, m, noisy, dev)
+            step = int(rs.randint(0, 50))
+            seed = int(rs.randint(0, 2 ** 31 - 1)) if noisy else 0
+            before = counter.launches
+            got = fused_macro.fused_macro_step(
+                *ops_, bm=plan.bm, bk=plan.bk, bn=plan.bn, seed=seed,
+                step_offset=step, device=dev, **kw)
+            torch.cuda.synchronize()
+            if counter.launches != before + 1:
+                raise AssertionError(f"{mode} step did not launch once")
+            launches[mode] += 1
+            oracle_kw = dict(kw, seed=seed, step=step)
+            tag = f"step {mode} {'noisy' if noisy else 'clean'} M={m}"
+            want = ref.fused_macro_step_ref(*ops_, **oracle_kw)
+            _check_step(got, want, tag)
+            for bk, bn in STEP_TILINGS:
+                _check_step(got, ref.fused_macro_tiled_ref(
+                    *ops_, bk=bk, bn=bn, **oracle_kw), f"{tag} {bk}x{bn}")
+            worst = max(worst, (got[1] - want[1]).abs().max().item())
+            cases += 1
+            log(f"compare {tag}: MAC, membrane (0 ulp), spikes "
+                f"({int(got[2].sum())}), mask and ADC steps equal to the "
+                f"step oracle and the tiled oracle at "
+                f"{', '.join(f'{a}x{b}' for a, b in STEP_TILINGS)}")
+        # the step iterated over T against one launch of the sequence
+        ops_, kw, plan = _step_operands(mode, rs, m, True, dev)
+        x, msb, lsb, bounds, levels, scale, v0, _, w_dend = ops_
+        xs = _events(rs, STEP_T, m, CFG.n_in, dev).to(torch.int8)
+        seed = int(rs.randint(0, 2 ** 31 - 1))
+        blocks = dict(bm=plan.bm, bk=plan.bk)
+        before = counter.launches
+        v, outs = v0, []
+        for t in range(STEP_T):
+            out = fused_macro.fused_macro_step(
+                xs[t], msb, lsb, bounds, levels, scale, v, None, w_dend,
+                seed=seed, step_offset=t, device=dev, **blocks, **kw)
+            outs.append(out)
+            v = out[1]
+        lif = {k: kw[k] for k in ("drive_gain", "ima_noise")}
+        if mode == "kwn":
+            seq = fused_macro.fused_macro_seq(
+                xs, msb, lsb, bounds, levels, scale, v0, k=kw["k"],
+                snl_amp=kw["snl_amp"], seed=seed, **blocks, **lif)
+        else:
+            seq = fused_macro.fused_macro_seq_nld(
+                xs, msb, lsb, bounds, levels, scale, w_dend, v0, seed=seed,
+                **blocks, **lif)
+        torch.cuda.synchronize()
+        if counter.launches != before + STEP_T + 1:
+            raise AssertionError(f"{mode}: {counter.launches - before} "
+                                 f"launches, not {STEP_T + 1}")
+        launches[mode] += STEP_T + 1
+        stacked = [torch.stack([o[i] for o in outs]) for i in (0, 2, 3, 4)]
+        if not (all(torch.equal(a, b) for a, b in
+                    zip(stacked, (seq[0], seq[2], seq[3], seq[4])))
+                and _ulps(v, seq[1]) == 0):
+            raise AssertionError(f"{mode}: {STEP_T} steps != one sequence "
+                                 f"launch")
+        log(f"compare step {mode} x {STEP_T} with step_offset=t: MAC, "
+            f"spikes ({int(stacked[1].sum())}), mask, ADC steps and the "
+            f"final membrane (0 ulp) equal to one sequence launch")
+    return {"max_abs_err": worst, "mismatches": 0, "cases": cases,
+            "iterated_steps": STEP_T, "compare_launches": launches}
+
+
+# --- phase 4 (slice 21): forward_silicon's per-call mode and MAC telemetry ---
+
+def mode_path_phase(params, dev) -> dict:
+    """``forward_silicon`` with the keywords of slice 21 on the KWN
+    configuration, 64 streams of 30 steps at 5 % events, each call with
+    every launch counter set to 0 just before and read just after:
+    ``mode="nld"`` through ``"step"`` (30 launches of #2) and ``"seq"``
+    (one), on a parameter dict that holds ``w_hid`` and ``dend``, equal
+    to the same call on the configuration whose own mode is NLD; and
+    ``mac_telemetry=True`` in both modes, equal to the call without it;
+    clean and noisy."""
+    rs = np.random.RandomState(SEED + 22)
+    b, t = STACK_BATCH, CFG.n_steps
+    u = rs.random_sample((b, t, CFG.n_in))
+    ev = torch.from_numpy((u > 0.975).astype(np.float32)
+                          - (u < 0.025)).to(dev)
+    both = dict(params, dend=dendrite_lib.dendrite_init(
+        torch.Generator().manual_seed(SEED + 22), CFG.n_in, CFG.n_hidden,
+        CFG.n_branches, device=dev))
+    native = dataclasses.replace(CFG, mode="nld")
+    launches = {"fused_macro_seq_kwn": 0, "fused_macro_seq_nld": 0}
+    res = {}
+    for fused in ("step", "seq"):
+        for noise in (None, ima_lib.IMANoiseModel()):
+            kw = dict(seed=SEED + 5, noise=noise, fused=fused, device=dev)
+            for mode, cfg_want in (("nld", native), ("kwn", CFG)):
+                want = snn.forward_silicon(both, ev, cfg_want, **kw)
+                for tele in ((False, True) if mode == "nld" else (True,)):
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    got = snn.forward_silicon(both, ev, CFG, mode=mode,
+                                              mac_telemetry=tele, **kw)
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                    name = PATH_KERNEL[mode]
+                    n = counts.pop(name)
+                    if n != (t if fused == "step" else 1) \
+                            or any(counts.values()):
+                        raise AssertionError(f"{mode} {fused}: {n} launches"
+                                             f" of {name}, others {counts}")
+                    launches[name] += n
+                    tag = (f"{fused} mode={mode} mac_telemetry={tele} "
+                           f"{'noisy' if noise else 'clean'}")
+                    if not torch.equal(got[0], want[0]) or any(
+                            not torch.equal(got[1][k], want[1][k])
+                            for k in want[1]):
+                        raise AssertionError(f"{tag}: != the call on the "
+                                             f"config's own mode")
+                    if not torch.isfinite(got[0]).all():
+                        raise AssertionError(f"{tag}: non-finite logits")
+                    res[tag] = {"launches": n,
+                                "mean_adc_steps":
+                                    float(got[1]["adc_steps"].mean())}
+        log(f"mode path {fused}: mode=\"nld\" on the KWN config (with and "
+            f"without mac_telemetry) equal to the NLD config's call, and "
+            f"mac_telemetry=True in KWN mode equal to the call without it, "
+            f"clean and noisy")
+    # the override reached the other head: NLD runs the full ramp
+    nld_steps = res["seq mode=nld mac_telemetry=False clean"][
+        "mean_adc_steps"]
+    if nld_steps != float(2 ** CFG.code_bits - 1):
+        raise AssertionError(f"mode=\"nld\" ran {nld_steps} ADC steps")
+    log(f"mode path: launches {launches}")
+    return {"launches": launches, "cases": res}
 
 
 # --- phase 4 (NLD and the stack): the main paths ----------------------------
@@ -5638,9 +5847,11 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
            "stack": compare_stack_phase(dev),
            "train": compare_train_phase(dev),
            "stage": compare_stage_phase(dev),
-           "flash": compare_flash_phase(dev)}
+           "flash": compare_flash_phase(dev),
+           "step": compare_step_phase(dev)}
     log(f"phase 3 done at {time.perf_counter() - t0:.1f} s")
     params, main_res = main_path_phase(dev)
+    mode_res = mode_path_phase(params, dev)
     nld_params, nld_res = nld_path_phase(dev)
     _, stack_res = stack_path_phase(dev)
     train_params, train_res = train_path_phase(dev)
@@ -5836,6 +6047,7 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
                       + roof["flash_launches"])
     kwn_launches = (main_res["clean"]["launches"]
                     + main_res["noisy"]["launches"]
+                    + mode_res["launches"]["fused_macro_seq_kwn"]
                     + train_res["forward_launches"]
                     + sum(train_res["step_path_launches"].values())
                     + p9["fused_macro_seq_kwn"] + p10["fused_macro_seq_kwn"])
@@ -5844,6 +6056,8 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
                      cmp["kwn"], timing["kwn"]),
              launches_phase9=p9["fused_macro_seq_kwn"],
              launches_phase10=p10["fused_macro_seq_kwn"],
+             launches_mode_path=mode_res["launches"]["fused_macro_seq_kwn"],
+             step_compare_launches=cmp["step"]["compare_launches"]["kwn"],
              k_sweep_cases=experiments["kwn"]["cases"],
              plans_held=tuner["plans"]["plans"],
              device_ms=timing["kwn"]["device_ms"],
@@ -5854,11 +6068,14 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
         dict(_record("fused_macro_seq_nld", f"{path}:583",
                      nld_res["clean"]["launches"]
                      + nld_res["noisy"]["launches"]
+                     + mode_res["launches"]["fused_macro_seq_nld"]
                      + p9["fused_macro_seq_nld"]
                      + p10["fused_macro_seq_nld"],
                      cmp["nld"], timing["nld"]),
              launches_phase9=p9["fused_macro_seq_nld"],
              launches_phase10=p10["fused_macro_seq_nld"],
+             launches_mode_path=mode_res["launches"]["fused_macro_seq_nld"],
+             step_compare_launches=cmp["step"]["compare_launches"]["nld"],
              dataset_cases=experiments["nld"]["cases"],
              device_ms=timing["nld"]["device_ms"]),
         dict(_record("fused_macro_multi_seq_kwn", f"{path}:896",
@@ -5912,7 +6129,8 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
         {"device": smi, "build_s": build_s, "flash_build": flash_build,
          "split_build": split_build, "stage_build": stage_build,
          "compare": cmp,
-         "main_path": {"kwn": main_res, "nld": nld_res, "stack": stack_res,
+         "main_path": {"kwn": main_res, "mode": mode_res, "nld": nld_res,
+                       "stack": stack_res,
                        "train": train_res, "composed": composed_res,
                        "lm": lm_res, "families": families,
                        "moe_frontends": moe_frontends,

@@ -26,8 +26,9 @@ def _put(a, dtype, dev) -> torch.Tensor:
 
 
 def snn_params_from_jax(p: dict, device=None) -> dict:
-    """The port's SNN params from the reference's: ``w_out`` and either
-    ``w_hid`` (an array, or a list for a stack) or ``dend`` (NLD), f32."""
+    """The port's SNN params from the reference's: ``w_out``, and ``w_hid``
+    (an array, or a list for a stack) and ``dend`` (NLD) where present
+    (a dict may hold both, for ``forward_silicon``'s per-call mode), f32."""
     dev = device_lib.resolve(device)
     out = {"w_out": _put(p["w_out"], np.float32, dev)}
     if "dend" in p:
@@ -35,9 +36,9 @@ def snn_params_from_jax(p: dict, device=None) -> dict:
         out["dend"] = dendrite_lib.DendriteParams(
             *(_put(getattr(d, name), np.float32, dev)
               for name in ("w_syn", "w_dend", "mask")))
-    elif isinstance(p["w_hid"], (list, tuple)):
+    if isinstance(p.get("w_hid"), (list, tuple)):
         out["w_hid"] = [_put(w, np.float32, dev) for w in p["w_hid"]]
-    else:
+    elif "w_hid" in p:
         out["w_hid"] = _put(p["w_hid"], np.float32, dev)
     return out
 

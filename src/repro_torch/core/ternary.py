@@ -4,7 +4,8 @@ A twin 9T bit-cell stores a ternary value; two cells in banks with a 2:1
 current ratio compose a signed 3-bit weight ``W = 2*W_msb + W_lsb`` in
 [-3, 3].  Counterpart of ``repro.core.ternary`` (inference, the
 current-ratio variation model, the weight fake-quantizer of
-quantization-aware training, and Fig. 3d's weight-implementation cost).
+quantization-aware training, the hard ternarizer with its clipped
+straight-through gradient, and Fig. 3d's weight-implementation cost).
 """
 
 from __future__ import annotations
@@ -14,6 +15,44 @@ import torch
 from repro_torch.core import f32math
 
 CURRENT_RATIO = 2.0  # I_MSB / I_LSB
+
+
+def ternary_quantize(x: torch.Tensor, scale=1.0,
+                     threshold: float = 0.5) -> torch.Tensor:
+    """Hard ternarization: ``sign(x / scale)`` where ``|x / scale| >
+    threshold`` (strictly), else 0; ``scale`` a number or a tensor that
+    broadcasts against ``x`` (a per-channel scale)."""
+    xs = f32math.div(x, scale)
+    return torch.where(torch.abs(xs) > threshold, torch.sign(xs),
+                       torch.zeros_like(xs))
+
+
+class _TernarySTE(torch.autograd.Function):
+    """``ternary_quantize(x, scale)`` forward; backward the clipped
+    straight-through gradient ``g * (|x / scale| <= 1.5)`` for ``x`` and
+    a zero gradient for a tensor ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x)
+        ctx.scale = scale.detach() if isinstance(scale, torch.Tensor) \
+            else scale
+        return ternary_quantize(x, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        scale = ctx.scale
+        mask = (torch.abs(f32math.div(x, scale)) <= 1.5).to(g.dtype)
+        return g * mask, (torch.zeros_like(scale)
+                          if isinstance(scale, torch.Tensor) else None)
+
+
+def ternary_ste(x: torch.Tensor, scale) -> torch.Tensor:
+    """Hard ternarization (threshold 0.5) with the clipped
+    straight-through gradient: it passes inside the representable range
+    ``|x / scale| <= 1.5`` and nothing reaches ``scale``."""
+    return _TernarySTE.apply(x, scale)
 
 
 def ternary_input_encode(spikes: torch.Tensor) -> torch.Tensor:
@@ -79,6 +118,11 @@ def quantize_weights_3bit(w: torch.Tensor, per_channel: bool = True
 def pack_ternary(x: torch.Tensor) -> torch.Tensor:
     """Ternary {-1, 0, 1} values as int8."""
     return torch.round(x).to(torch.int8)
+
+
+def unpack_ternary(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Inverse of ``pack_ternary``: the int8 values as ``dtype``."""
+    return x.to(dtype)
 
 
 def weight_implementation_cost(bits: int, scheme: str

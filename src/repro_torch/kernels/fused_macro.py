@@ -1,10 +1,10 @@
 """The fused macro kernels: tile planning and the kernel wrappers.
 
 Counterpart of ``repro.kernels.fused_macro`` (``TilePlan``,
-``plan_tiles``, ``fused_macro_seq`` in both modes, ``LayerSpec`` and
-``fused_macro_multi_seq``).  Three hand-written CUDA kernels for Hopper
-replace the Pallas kernels (the backward of the first is in
-``kernels.fused_macro_grad``):
+``plan_tiles``, ``fused_macro_seq`` in both modes, its T=1 case
+``fused_macro_step``, ``LayerSpec`` and ``fused_macro_multi_seq``).
+Three hand-written CUDA kernels for Hopper replace the Pallas kernels
+(the backward of the first is in ``kernels.fused_macro_grad``):
 
 * ``csrc/fused_macro_seq_kwn.cu`` (``_seq_kwn_kernel``): two kernels on
   one stream.  The head runs over every (step, row) pair at once: the
@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.kernels import build, ref
 
 DEFAULT_BM = 128
@@ -492,6 +493,80 @@ def fused_macro_seq_nld(x, msb, lsb, boundaries, levels, scale, w_dend, v,
 
 
 fused_macro_seq_nld.launches = 0
+
+
+def fused_macro_step(x, msb, lsb, boundaries, levels, scale, v, noise=None,
+                     w_dend=None, activity=None, *, mode: str = "kwn",
+                     k: int = 12, ratio: float = 2.0,
+                     drive_gain: float = 1.0, beta: float = 0.9,
+                     v_th1: float = 1.0, v_th2: float = 0.6,
+                     v_reset: float = 0.0, v_lim: float = 8.0,
+                     use_snl: bool = True, bm: int = DEFAULT_BM,
+                     bk: int = DEFAULT_BK, bn: int | None = None,
+                     n_valid: int | None = None, ima_noise=None,
+                     snl_amp: float = 0.0, logical_n: int | None = None,
+                     mac_telemetry: bool = True, seed=0, step_offset=0,
+                     device=None):
+    """One fused macro time step on padded operands: the T=1 case of
+    ``fused_macro_seq`` (KWN, kernel #1) or ``fused_macro_seq_nld`` (NLD,
+    kernel #2), one launch on the card.
+
+    x (M, K), v (M, N), noise (M, N) or None (KWN; the NLD head has no
+    SNL), w_dend (J, N) (NLD), activity (M/bm, K/bk) or None; M a
+    multiple of ``bm``, K of ``bk`` and NC of ``bn`` (the kernels' heads
+    take a whole row, so ``bn`` only checks the plan).  The operands are
+    moved to ``device`` (default ``cuda``; ``"cpu"`` runs the plain
+    version).  With counter noise, pass the step index as
+    ``step_offset``: a loop over T then draws the stream of one sequence
+    launch bit for bit.
+
+    Returns (mac (M, NC) or None, v_out (M, N), spikes (M, N), mask
+    (M, N), adc_steps (M, 1) int32).
+    """
+    dev = device_lib.resolve(device)
+    f32 = torch.float32
+    m, k_dim = x.shape
+    nc = msb.shape[1]
+    bn = nc if bn is None else bn
+    if m % bm or k_dim % bk or nc % bn:
+        raise ValueError(f"operands are not padded to the plan: M={m} "
+                         f"K={k_dim} NC={nc}, bm={bm} bk={bk} bn={bn}")
+    n = v.shape[-1]
+    if mode == "kwn" and nc != n or mode == "nld" and (
+            w_dend is None or nc != w_dend.shape[0] * n):
+        raise ValueError(f"{mode} planes of {nc} columns do not fit a "
+                         f"membrane of {n}")
+
+    def put(a, dtype):
+        return None if a is None else \
+            torch.as_tensor(a).to(dev, dtype).contiguous()
+
+    args = (put(x, torch.int8)[None], put(msb, torch.int8),
+            put(lsb, torch.int8), put(boundaries, f32), put(levels, f32),
+            put(scale, f32).reshape(-1))
+    v = put(v, f32)
+    act = put(activity, torch.int32)
+    act = None if act is None else act[None]
+    if mode == "kwn":
+        out = fused_macro_seq(
+            *args, v, None if noise is None else put(noise, f32)[None], act,
+            k=k, ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
+            v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
+            bm=bm, bk=bk, n_valid=n_valid, ima_noise=ima_noise,
+            snl_amp=snl_amp, mac_telemetry=mac_telemetry, seed=seed,
+            step_offset=step_offset)
+    elif mode == "nld":
+        out = fused_macro_seq_nld(
+            *args, put(w_dend, f32), v, act, ratio=ratio,
+            drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_reset=v_reset,
+            v_lim=v_lim, bm=bm, bk=bk, logical_n=logical_n,
+            ima_noise=ima_noise, mac_telemetry=mac_telemetry, seed=seed,
+            step_offset=step_offset)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    mac, v_out, spikes, mask, steps = out
+    return (None if mac is None else mac[0], v_out, spikes[0], mask[0],
+            steps[0])
 
 
 def _check_stack(specs, k0):

@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the fused macro kernels.
 
-Counterparts of ``repro.kernels.ref``: ``fused_macro_seq_ref`` (KWN mode,
-``fused_head_ref`` / ``fused_macro_step_ref`` folded left over T, with
-``counter_snl_noise`` for the in-kernel SNL stream),
-``fused_macro_seq_nld_ref`` (the NLD head) and
-``fused_macro_multi_seq_ref`` (the KWN stack, layer by layer), and the
+Counterparts of ``repro.kernels.ref``: one fused step in both modes
+(``fused_macro_step_ref``: the MAC, then ``fused_head_ref``, with
+``counter_snl_noise`` for the in-kernel SNL stream), the same step with
+the MAC a (bk, bn) tile at a time (``tiled_ternary_mac_ref``,
+``fused_macro_tiled_ref``), the step folded over T
+(``fused_macro_seq_ref`` in KWN mode, ``fused_macro_seq_nld_ref`` in NLD
+mode), ``fused_macro_multi_seq_ref`` (the KWN stack, layer by layer), and the
 four single-stage kernels of the composed chain: ``ternary_mac_ref``,
 ``nlq_convert_ref``, ``kwn_topk_ref`` and ``lif_step_ref``, and the LM
 stack's attention forward ``flash_attention_ref``.  Each is the
@@ -106,6 +108,189 @@ def lif_step_ref(v, drive, mask, noise, *, beta: float = 0.9,
     return v_out, spike
 
 
+def counter_snl_noise(shape, seed, step, amp: float, *, rows=None,
+                      device=None) -> torch.Tensor:
+    """The in-kernel SNL sign-noise stream of an (M, N) plane: ``amp *
+    counter_sign(seed, step, row, column)``.  ``seed`` and ``step`` are
+    ints or (M, 1) tensors; ``rows`` (M, 1) replaces the absolute row
+    ``0..M-1`` of the counter (``row_ctl``'s third word)."""
+    m, n = shape
+    if rows is None:
+        rows = torch.arange(m, device=device, dtype=torch.int64)[:, None]
+    cols = torch.arange(n, device=rows.device, dtype=torch.int64)[None, :]
+    sign = ctrprng.counter_sign(seed, step, rows, cols, ctrprng.TAG_SNL)
+    return torch.tensor(amp, dtype=torch.float32) * sign
+
+
+def fused_head_ref(mac, boundaries, levels, scale, v, noise=None,
+                   w_dend=None, *, mode: str = "kwn", k: int = 12,
+                   drive_gain: float = 1.0, beta: float = 0.9,
+                   v_th1: float = 1.0, v_th2: float = 0.6,
+                   v_reset: float = 0.0, v_lim: float = 8.0,
+                   use_snl: bool = True, ima_noise=None,
+                   snl_amp: float = 0.0, seed=0, step=0, rows=None,
+                   n_valid: int | None = None,
+                   logical_n: int | None = None, train_trace: bool = False):
+    """The stages after the MAC of one fused step: the ramp conversion
+    (with the Fig. 7 counter noise at ``ima_noise``), the mode head and
+    the LIF update.
+
+    ``mode="kwn"``: mac (M, N) in integer units, its codes (columns at
+    and past ``n_valid`` take code -1 and never win), the descending
+    priority sweep, the drive ``LUT * scale * mask * drive_gain``, the
+    LIF with SNL (``noise`` (M, N), or None for the counter stream at
+    ``snl_amp``).  ``mode="nld"``: mac (M, J*N) branch-major, ``mac *
+    scale`` through the activation ramp (the noise on the logical column
+    ``j * logical_n + p``), the LUT, the soma sum over J as a chain of
+    fused multiply-adds in branch order, ``* drive_gain``, a dense LIF
+    without SNL.  The counters of row ``i`` are ``(seed, step, rows[i],
+    column)``: ``seed`` / ``step`` ints or (M, 1) tensors, ``rows``
+    (M, 1) or the absolute rows.
+
+    Returns (v_out, spikes, mask, adc_steps (M, 1) int32), and with
+    ``train_trace`` (KWN) also the saturated membrane before the reset.
+    """
+    dev = mac.device
+    m, nc = mac.shape
+    n_codes = levels.shape[0]
+    bounds = boundaries.float().to(dev)
+    levels = levels.float().to(dev)
+    scale = scale.float().reshape(-1).to(dev)
+    if rows is None:
+        rows = torch.arange(m, device=dev, dtype=torch.int64)[:, None]
+    col = torch.arange(nc, device=dev, dtype=torch.int64)[None, :]
+    v = v.float()
+    if mode == "kwn":
+        codes = ramp_codes(mac, bounds)
+        if ima_noise is not None:
+            codes = ctrprng.noisy_ima_codes(codes, mac, rows, col, seed,
+                                            step, ima_noise, n_codes)
+        if n_valid is not None and n_valid < nc:
+            codes = torch.where(col >= n_valid, torch.full_like(codes, -1),
+                                codes)
+        mask, steps = kwn_select(codes, k, n_codes)
+        recon = torch.where(codes >= 0, levels[codes.clamp(min=0).long()],
+                            torch.zeros_like(mac))
+        drive = recon * scale * mask * drive_gain
+        if noise is not None:
+            nz = noise.float()
+        elif use_snl and snl_amp != 0.0:
+            nz = counter_snl_noise(v.shape, seed, step, snl_amp, rows=rows)
+        else:
+            nz = torch.zeros_like(v)
+        v_out, spikes, v_clip = lif_update(
+            v, drive, mask, nz, beta=beta, v_th1=v_th1, v_th2=v_th2,
+            v_reset=v_reset, v_lim=v_lim, use_snl=use_snl)
+        out = (v_out, spikes, mask, steps)
+        return out + (v_clip,) if train_trace else out
+    if mode != "nld":
+        raise ValueError(f"unknown mode {mode!r}")
+    if train_trace:
+        raise ValueError("train_trace is KWN-only (silicon training)")
+    n_branches, n = w_dend.shape
+    logical_n = n if logical_n is None else logical_n
+    w_dend = w_dend.float().to(dev)
+    mac_f = mac * scale
+    codes = ramp_codes(mac_f, bounds)
+    if ima_noise is not None:
+        lcol = (col // n) * logical_n + col % n
+        codes = ctrprng.noisy_ima_codes(codes, mac_f, rows, lcol, seed,
+                                        step, ima_noise, n_codes)
+    act = levels[codes.long()].reshape(m, n_branches, n)
+    drive = act[:, 0] * w_dend[0]
+    for j in range(1, n_branches):
+        drive = f32math.fma(act[:, j], w_dend[j], drive)
+    ones = torch.ones_like(v)
+    v_out, spikes, _ = lif_update(v, drive * drive_gain, ones,
+                                  torch.zeros_like(v), beta=beta,
+                                  v_th1=v_th1, v_th2=v_th1, v_reset=v_reset,
+                                  v_lim=v_lim, use_snl=False)
+    return (v_out, spikes, ones,
+            torch.full((m, 1), n_codes - 1, dtype=torch.int32, device=dev))
+
+
+def _twin_mac(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in f32: small exact integers for ternary x and an
+    integral current ratio, so in any order of the sum."""
+    return x.float() @ w
+
+
+def _twin_weights(msb, lsb, ratio: float) -> torch.Tensor:
+    return ratio * msb.float() + lsb.float()
+
+
+def fused_macro_step_ref(x, msb, lsb, boundaries, levels, scale, v,
+                         noise=None, w_dend=None, *, mode: str = "kwn",
+                         k: int = 12, ratio: float = 2.0,
+                         drive_gain: float = 1.0, beta: float = 0.9,
+                         v_th1: float = 1.0, v_th2: float = 0.6,
+                         v_reset: float = 0.0, v_lim: float = 8.0,
+                         use_snl: bool = True, ima_noise=None,
+                         snl_amp: float = 0.0, seed=0, step=0, rows=None,
+                         n_valid: int | None = None,
+                         logical_n: int | None = None,
+                         train_trace: bool = False):
+    """One fused step: the twin-cell MAC ``x @ (ratio * msb + lsb)`` of x
+    (M, K) against the (K, NC) planes, then ``fused_head_ref`` (its
+    keywords).  Returns (mac (M, NC), v_out, spikes, mask, adc_steps
+    (M, 1)), and with ``train_trace`` also the membrane trace."""
+    mac = _twin_mac(x, _twin_weights(msb, lsb, ratio))
+    return (mac,) + fused_head_ref(
+        mac, boundaries, levels, scale, v, noise, w_dend, mode=mode, k=k,
+        drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_th2=v_th2,
+        v_reset=v_reset, v_lim=v_lim, use_snl=use_snl, ima_noise=ima_noise,
+        snl_amp=snl_amp, seed=seed, step=step, rows=rows, n_valid=n_valid,
+        logical_n=logical_n, train_trace=train_trace)
+
+
+def tiled_ternary_mac_ref(x, msb, lsb, ratio: float = 2.0, *,
+                          bk: int = 256, bn: int = 128) -> torch.Tensor:
+    """The twin-cell MAC a (bk, bn) weight tile at a time: for each column
+    tile, f32 partial sums added over the K tiles in order (the last
+    tiles ragged where bk or bn does not divide K or NC).  Every partial
+    is a small exact integer, so any tiling equals the untiled MAC."""
+    k_dim, nc = msb.shape
+    w = _twin_weights(msb, lsb, ratio)
+    xf = x.float()
+    cols = []
+    for j0 in range(0, nc, bn):
+        acc = None
+        for k0 in range(0, k_dim, bk):
+            part = xf[..., k0:k0 + bk] @ w[k0:k0 + bk, j0:j0 + bn]
+            acc = part if acc is None else acc + part
+        cols.append(acc)
+    return torch.cat(cols, dim=-1)
+
+
+def fused_macro_tiled_ref(x, msb, lsb, boundaries, levels, scale, v,
+                          noise=None, w_dend=None, *, bk: int = 256,
+                          bn: int = 128, mode: str = "kwn", k: int = 12,
+                          ratio: float = 2.0, drive_gain: float = 1.0,
+                          beta: float = 0.9, v_th1: float = 1.0,
+                          v_th2: float = 0.6, v_reset: float = 0.0,
+                          v_lim: float = 8.0, use_snl: bool = True,
+                          ima_noise=None, snl_amp: float = 0.0, seed=0,
+                          step=0, rows=None, n_valid: int | None = None,
+                          logical_n: int | None = None):
+    """``tiled_ternary_mac_ref`` and the same head as
+    ``fused_macro_step_ref``: equal to it for every (bk, bn), the noise
+    streams being keyed on whole-plane coordinates."""
+    mac = tiled_ternary_mac_ref(x, msb, lsb, ratio=ratio, bk=bk, bn=bn)
+    return (mac,) + fused_head_ref(
+        mac, boundaries, levels, scale, v, noise, w_dend, mode=mode, k=k,
+        drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_th2=v_th2,
+        v_reset=v_reset, v_lim=v_lim, use_snl=use_snl, ima_noise=ima_noise,
+        snl_amp=snl_amp, seed=seed, step=step, rows=rows, n_valid=n_valid,
+        logical_n=logical_n)
+
+
+def _stream_words(row_ctl, dev):
+    """(seed, step offset, row) columns, each (M, 1) int64, of a
+    ``row_ctl``."""
+    rc = row_ctl.to(dev, torch.int64)
+    return rc[:, 0:1], rc[:, 1:2], rc[:, 2:3]
+
+
 def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
                         noise=None, *, row_ctl, k: int = 12,
                         ratio: float = 2.0, drive_gain: float = 1.0,
@@ -116,7 +301,7 @@ def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
                         n_valid: int | None = None,
                         mac_telemetry: bool = True,
                         train_trace: bool = False):
-    """A whole KWN event sequence, step by step.
+    """A whole KWN event sequence: ``fused_macro_step_ref`` folded over T.
 
     x (T, M, K) ternary, msb/lsb (K, N) int8 planes, boundaries
     (n_codes - 1,), levels (n_codes,), scale (N,), v (M, N) initial
@@ -129,52 +314,23 @@ def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
     mask (T, M, N), adc_steps (T, M, 1) int32), and with ``train_trace``
     also vtrace (T, M, N): the saturated membrane before the reset.
     """
-    t_steps = x.shape[0]
-    n = msb.shape[-1]
-    dev = x.device
-    n_codes = levels.shape[0]
-    n_valid = n if n_valid is None else n_valid
-    w = ratio * msb.float() + lsb.float()
-    bounds = boundaries.float().to(dev)
-    levels = levels.float().to(dev)
-    scale = scale.float().reshape(-1).to(dev)
-    rc = row_ctl.to(dev, torch.int64)
-    seeds, steps0, rows = rc[:, 0:1], rc[:, 1:2], rc[:, 2:3]
-    cols = torch.arange(n, device=dev, dtype=torch.int64)[None, :]
-    pad_col = cols >= n_valid
-    lif = dict(beta=beta, v_th1=v_th1, v_th2=v_th2, v_reset=v_reset,
-               v_lim=v_lim, use_snl=use_snl)
+    seeds, steps0, rows = _stream_words(row_ctl, x.device)
+    w = _twin_weights(msb, lsb, ratio)
     v = v.float()
-    macs, spikes, masks, steps, trace = [], [], [], [], []
-    for t in range(t_steps):
-        mac = x[t].float() @ w
-        codes = ramp_codes(mac, bounds)
-        if ima_noise is not None:
-            codes = ctrprng.noisy_ima_codes(codes, mac, rows, cols, seeds,
-                                            steps0 + t, ima_noise, n_codes)
-        codes = torch.where(pad_col, torch.full_like(codes, -1), codes)
-        maskf, st = kwn_select(codes, k, n_codes)
-        recon = torch.where(codes >= 0, levels[codes.clamp(min=0).long()],
-                            torch.zeros_like(mac))
-        drive = recon * scale * maskf * drive_gain
-        if noise is not None:
-            nz = noise[t].float()
-        elif use_snl and snl_amp != 0.0:
-            sign = ctrprng.counter_sign(seeds, steps0 + t, rows, cols,
-                                        ctrprng.TAG_SNL)
-            nz = torch.tensor(snl_amp, dtype=torch.float32) * sign
-        else:
-            nz = torch.zeros_like(v)
-        v, spk, v_clip = lif_update(v, drive, maskf, nz, **lif)
-        if mac_telemetry:
-            macs.append(mac)
-        spikes.append(spk)
-        masks.append(maskf)
-        steps.append(st)
-        trace.append(v_clip)
-    out = (torch.stack(macs) if mac_telemetry else None, v,
-           torch.stack(spikes), torch.stack(masks), torch.stack(steps))
-    return out + (torch.stack(trace),) if train_trace else out
+    outs = []
+    for t in range(x.shape[0]):
+        mac = _twin_mac(x[t], w)
+        v, *rest = fused_head_ref(
+            mac, boundaries, levels, scale, v,
+            None if noise is None else noise[t], k=k, drive_gain=drive_gain,
+            beta=beta, v_th1=v_th1, v_th2=v_th2, v_reset=v_reset,
+            v_lim=v_lim, use_snl=use_snl, ima_noise=ima_noise,
+            snl_amp=snl_amp, seed=seeds, step=steps0 + t, rows=rows,
+            n_valid=n_valid, train_trace=True)
+        outs.append([mac] + rest)
+    mac, spikes, masks, steps, trace = (torch.stack(a) for a in zip(*outs))
+    out = (mac if mac_telemetry else None, v, spikes, masks, steps)
+    return out + (trace,) if train_trace else out
 
 
 def fused_macro_seq_nld_ref(x, msb, lsb, boundaries, levels, scale, w_dend,
@@ -183,58 +339,30 @@ def fused_macro_seq_nld_ref(x, msb, lsb, boundaries, levels, scale, w_dend,
                             v_th1: float = 1.0, v_reset: float = 0.0,
                             v_lim: float = 8.0, logical_n: int | None = None,
                             ima_noise=None, mac_telemetry: bool = True):
-    """A whole NLD event sequence, step by step.
+    """A whole NLD event sequence: ``fused_macro_step_ref(mode="nld")``
+    folded over T.
 
     x (T, M, K) ternary, msb/lsb (K, J*N) int8 branch-major planes, scale
-    (J*N,), w_dend (J, N), v (M, N).  Per step: ``mac * scale``, the
-    activation ramp's codes (plus the counter noise on the logical column
-    ``j * logical_n + p``), the LUT, the soma sum ``sum_j act_j *
-    w_dend_j`` as a fused multiply-add chain in branch order, ``*
-    drive_gain``, then a dense LIF update without SNL.
+    (J*N,), w_dend (J, N), v (M, N); ``logical_n`` the unpadded branch
+    width, the counter noise's column basis.
 
     Returns (mac (T, M, J*N) or None, v_out (M, N), spikes (T, M, N),
     mask (T, M, N) all ones, adc_steps (T, M, 1) all ``n_codes - 1``).
     """
-    t_steps, m = x.shape[0], x.shape[1]
-    n_branches, n = w_dend.shape
-    dev = x.device
-    n_codes = levels.shape[0]
-    logical_n = n if logical_n is None else logical_n
-    w = ratio * msb.float() + lsb.float()
-    bounds = boundaries.float().to(dev)
-    levels = levels.float().to(dev)
-    scale = scale.float().reshape(-1).to(dev)
-    w_dend = w_dend.float().to(dev)
-    rc = row_ctl.to(dev, torch.int64)
-    seeds, steps0, rows = rc[:, 0:1], rc[:, 1:2], rc[:, 2:3]
-    col = torch.arange(n_branches * n, device=dev, dtype=torch.int64)
-    lcol = ((col // n) * logical_n + col % n)[None, :]
-    ones = torch.ones((m, n), dtype=torch.float32, device=dev)
-    zeros = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    seeds, steps0, rows = _stream_words(row_ctl, x.device)
+    w = _twin_weights(msb, lsb, ratio)
     v = v.float()
-    macs, spikes = [], []
-    for t in range(t_steps):
-        mac = x[t].float() @ w
-        mac_f = mac * scale
-        codes = ramp_codes(mac_f, bounds)
-        if ima_noise is not None:
-            codes = ctrprng.noisy_ima_codes(codes, mac_f, rows, lcol, seeds,
-                                            steps0 + t, ima_noise, n_codes)
-        act = levels[codes.long()].reshape(m, n_branches, n)
-        drive = act[:, 0] * w_dend[0]
-        for j in range(1, n_branches):
-            drive = f32math.fma(act[:, j], w_dend[j], drive)
-        v, spk, _ = lif_update(v, drive * drive_gain, ones, zeros, beta=beta,
-                               v_th1=v_th1, v_th2=v_th1, v_reset=v_reset,
-                               v_lim=v_lim, use_snl=False)
-        if mac_telemetry:
-            macs.append(mac)
-        spikes.append(spk)
-    spikes = torch.stack(spikes)
-    return (torch.stack(macs) if mac_telemetry else None, v, spikes,
-            torch.ones_like(spikes),
-            torch.full((t_steps, m, 1), n_codes - 1, dtype=torch.int32,
-                       device=dev))
+    outs = []
+    for t in range(x.shape[0]):
+        mac = _twin_mac(x[t], w)
+        v, *rest = fused_head_ref(
+            mac, boundaries, levels, scale, v, None, w_dend, mode="nld",
+            drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_reset=v_reset,
+            v_lim=v_lim, ima_noise=ima_noise, seed=seeds, step=steps0 + t,
+            rows=rows, logical_n=logical_n)
+        outs.append([mac] + rest)
+    mac, spikes, masks, steps = (torch.stack(a) for a in zip(*outs))
+    return (mac if mac_telemetry else None, v, spikes, masks, steps)
 
 
 def _tile_occupancy(x: torch.Tensor, bm: int, bk: int) -> torch.Tensor:

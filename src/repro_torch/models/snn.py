@@ -210,7 +210,9 @@ def _skip_ratio(occupied: torch.Tensor, blocks: int) -> torch.Tensor:
 def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
                     noise: ima_lib.IMANoiseModel | None = None,
                     fused: bool | str = "seq", device=None, seeds=None, *,
-                    k: int | None = None, use_snl: bool | None = None):
+                    mode: str | None = None, k: int | None = None,
+                    use_snl: bool | None = None,
+                    mac_telemetry: bool = False):
     """Inference through the macro: events (B, T, N_in) -> (logits (B,
     classes), telemetry).
 
@@ -234,10 +236,17 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     per-request means over the actual sequence length of ADC steps, LIF
     updates and SOPs, plus the activity plan's skipped-block ratio.
 
-    Per-call overrides, with the reference's meaning: ``k or cfg.k`` (so
-    0 means ``cfg.k``; a stack without ``cfg.k_layers`` runs ``k`` in
-    every layer) and ``cfg.use_snl`` where ``use_snl`` is None.  With
+    Per-call overrides, with the reference's meaning: ``mode or
+    cfg.mode`` (the call runs on ``cfg`` with that mode: ``p`` needs
+    ``w_hid`` for KWN and ``dend`` for NLD; a stack is KWN only, and
+    another mode raises ``ValueError``), ``k or cfg.k`` (so 0 means
+    ``cfg.k``; a stack without ``cfg.k_layers`` runs ``k`` in every
+    layer) and ``cfg.use_snl`` where ``use_snl`` is None.  With
     ``use_snl=False`` no SNL stream (PRBS or counter) reaches the LIF.
+    ``mac_telemetry=True`` has the single-layer kernels write their MAC
+    stack, which is dropped, as the reference drops it: logits and
+    telemetry are the same; a stack's kernel writes none, and ``"seq"`` /
+    ``"step"`` on a stack raise ``ValueError``.
 
     The default differs from the reference's: ``fused="seq"`` here (the
     port's main path, the kernels), ``fused=False`` there (the composed
@@ -250,6 +259,14 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     if fused not in (False, True, "seq", "step"):
         raise ValueError(f"unknown fused={fused!r}; expected False, True, "
                          f"'step' or 'seq'")
+    mode = mode or cfg.mode
+    if _is_stack(cfg) and mode != "kwn":
+        raise ValueError("multi-layer stacks are KWN-only")
+    if _is_stack(cfg) and mac_telemetry and fused is not False:
+        raise ValueError("mac_telemetry is single-layer only: the stacked "
+                         "kernel never writes MACs to HBM")
+    if mode != cfg.mode:
+        cfg = dataclasses.replace(cfg, mode=mode)
     k = k or cfg.k
     use_snl = cfg.use_snl if use_snl is None else bool(use_snl)
     dev = device_lib.resolve(device)
@@ -276,8 +293,8 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     v0 = lif_lib.lif_init((b, cfg.n_hidden), device=dev).v_mem
     prbs_amp = noise_amp if snl_active and not noisy else None
     lif = dict(_lif(cfg), use_snl=snl_active, k=k, ima_noise=ima_kn,
-               snl_amp=noise_amp if noisy else 0.0, mac_telemetry=False,
-               seed=int(seed) if noisy else 0)
+               snl_amp=noise_amp if noisy else 0.0,
+               mac_telemetry=mac_telemetry, seed=int(seed) if noisy else 0)
     if fused == "step":
         spk_t, steps_t = _forward_steps(ev_t, fw, v0, lif, prbs_amp)
     else:

@@ -484,6 +484,46 @@ def test_step_path_on_card_equals_seq(cuda, mode, noisy):
         assert torch.equal(ts[key], tq[key]), key
 
 
+@pytest.mark.parametrize("noisy", [False, True], ids=["clean", "noisy"])
+@pytest.mark.parametrize("mode", ["kwn", "nld"])
+def test_kernel_level_step_equals_its_oracles(cuda, mode, noisy):
+    """``fused_macro.fused_macro_step`` launches #1 / #2 once and equals
+    ``ref.fused_macro_step_ref`` and ``ref.fused_macro_tiled_ref`` (a
+    ragged 96 x 40 tiling) on the same card tensors, bit for bit."""
+    rs = np.random.RandomState(21)
+    m, kdim, n = 16, 256, 40
+    if mode == "kwn":
+        fw, cfg = _weights(rs, kdim, n)
+        w_dend, kw = None, dict(k=6)
+    else:
+        cfg = macro_lib.CIMMacroConfig(code_bits=5, mac_range=4.0,
+                                       ima_noise=ima_lib.IMANoiseModel())
+        fw = macro_lib.pack_nld_weights(dendrite_lib.dendrite_init(
+            torch.Generator().manual_seed(2), kdim, n, 3, device=cuda), cfg,
+            "relu")
+        w_dend, kw = fw.w_dend.to(cuda), {}
+    if noisy:
+        kw.update(ima_noise=macro_lib.fused_kernel_noise(fw, cfg),
+                  snl_amp=0.05, seed=99)
+    x = torch.from_numpy(rs.choice([-1, 0, 1], p=[0.1, 0.8, 0.1],
+                                   size=(m, kdim)).astype(np.int8))
+    v = torch.from_numpy(rs.uniform(-1, 1.2, (m, n)).astype(np.float32))
+    args = [a.to(cuda) for a in (x, fw.msb, fw.lsb, fw.boundaries,
+                                 fw.levels, fw.scale, v)]
+    kw.update(mode=mode, drive_gain=0.25)
+    counter = (fused_macro.fused_macro_seq if mode == "kwn"
+               else fused_macro.fused_macro_seq_nld)
+    before = counter.launches
+    got = fused_macro.fused_macro_step(*args, None, w_dend, bm=16, bk=128,
+                                       step_offset=4, device=cuda, **kw)
+    assert counter.launches == before + 1
+    for want in (ref.fused_macro_step_ref(*args, None, w_dend, step=4, **kw),
+                 ref.fused_macro_tiled_ref(*args, None, w_dend, bk=96,
+                                           bn=40, step=4, **kw)):
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 # --- the composed chain: the four single-stage kernels ------------------------
 
 STAGE_SHAPES = [(64, 512, 128), (128, 256, 128), (37, 300, 100)]
