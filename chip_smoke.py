@@ -77,7 +77,9 @@ Phases (any failure raises, so the exit code is non-zero):
      ``ref.fused_macro_tiled_ref`` at 256 x 128 and 96 x 40 tiles on the
      same card tensors, every output bit for bit; and the step iterated
      over T=30 with ``step_offset=t`` against one sequence launch of the
-     same kernel, bit for bit;
+     same kernel through ``fused_macro.fused_macro_seq(mode=...)`` (NLD
+     too), bit for bit, and that launch against the reference-convention
+     oracle ``ref.fused_macro_seq_ref``;
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    - KWN: ``SNNEventEngine`` serves 96 event-stream requests of the
@@ -95,6 +97,12 @@ Phases (any failure raises, so the exit code is non-zero):
      without it, clean and noisy; no other kernel launched;
    - NLD: the same with the DVS-Gesture NLD configuration (J=2, relu,
      dend_range 4); the NLD kernel's counter must equal the rounds;
+   - the per-step cadence: ``SNNEventEngine(time_major=False,
+     continuous=False)`` at 64 slots serves 48 requests of 10, 20 and 30
+     steps (one drain batch each) of the KWN and the NLD configuration,
+     clean and noisy, through ``forward_silicon(fused="step")``: 60
+     launches of #1 or #2 a run, against the time-major drain path's 3,
+     every request's logits and telemetry equal bit for bit;
    - the stack: ``forward_silicon`` on the DVS-Gesture stack (64 streams
      of 30 steps) on the card, clean and noisy, must equal the same call
      on the CPU (the plain version);
@@ -722,7 +730,7 @@ def compare_phase(dev) -> dict:
         if fused_macro.fused_macro_seq.launches != before + 1:
             raise AssertionError("ops.fused_macro_seq did not launch the "
                                  "kernel once")
-        want = ref.fused_macro_seq_ref(*args, nz, row_ctl=rc, **kw)
+        want = ref.fused_macro_seq_kwn_ref(*args, nz, row_ctl=rc, **kw)
         mac_w, v_w, spk_w, mask_w, st_w = want[:5]
         st_w = st_w[..., 0]
         mac_g, v_g, spk_g, mask_g, st_g = got[:5]
@@ -990,7 +998,7 @@ def _stack_call(rs, t, m, kdim, widths, ks, noisy, dev):
 
 def compare_stack_phase(dev) -> dict:
     """The stacked kernel's wrapper against the plain version
-    ``ref.fused_macro_multi_seq_ref`` on the same padded card operands.
+    ``ref.fused_macro_multi_seq_kwn_ref`` on the same padded card operands.
     Exact: every output equal, membranes 0 ULP."""
     rs = np.random.RandomState(SEED + 5)
     worst, total_mismatch, n_cases = 0.0, 0, 0
@@ -1013,7 +1021,7 @@ def compare_stack_phase(dev) -> dict:
             if fused_macro.fused_macro_multi_seq.launches != before + 1:
                 raise AssertionError("the stacked wrapper did not launch "
                                      "the kernel once")
-            want = ref.fused_macro_multi_seq_ref(*args, **kw)
+            want = ref.fused_macro_multi_seq_kwn_ref(*args, **kw)
             v_g, spk_g, mask_g, st_g, cnt_g, occ_g = got
             v_w, spk_w, mask_w, st_w, cnt_w, occ_w = want
             mism = int((spk_g != spk_w).sum() + (mask_g != mask_w).sum())
@@ -1095,7 +1103,10 @@ def compare_step_phase(dev) -> dict:
     ``ref.fused_macro_step_ref`` and ``ref.fused_macro_tiled_ref`` at
     two tilings (the macro's 256 x 128, and a ragged 96 x 40) on the same
     card tensors, bit for bit; then the step iterated over T = 30 with
-    ``step_offset=t`` against one sequence launch of the same kernel."""
+    ``step_offset=t`` against one launch of the same kernel through
+    ``fused_macro.fused_macro_seq(mode=...)`` (slice 22: NLD through the
+    same entry), and that launch against the reference-convention oracle
+    ``ref.fused_macro_seq_ref``."""
     rs = np.random.RandomState(SEED + 21)
     m, worst, cases, launches = SLOTS, 0.0, 0, {"kwn": 0, "nld": 0}
     for mode in ("kwn", "nld"):
@@ -1140,15 +1151,10 @@ def compare_step_phase(dev) -> dict:
                 seed=seed, step_offset=t, device=dev, **blocks, **kw)
             outs.append(out)
             v = out[1]
-        lif = {k: kw[k] for k in ("drive_gain", "ima_noise")}
-        if mode == "kwn":
-            seq = fused_macro.fused_macro_seq(
-                xs, msb, lsb, bounds, levels, scale, v0, k=kw["k"],
-                snl_amp=kw["snl_amp"], seed=seed, **blocks, **lif)
-        else:
-            seq = fused_macro.fused_macro_seq_nld(
-                xs, msb, lsb, bounds, levels, scale, w_dend, v0, seed=seed,
-                **blocks, **lif)
+        # the sequence through the reference's entry, in either mode
+        seq = fused_macro.fused_macro_seq(xs, msb, lsb, bounds, levels,
+                                          scale, v0, None, w_dend, seed=seed,
+                                          **blocks, **kw)
         torch.cuda.synchronize()
         if counter.launches != before + STEP_T + 1:
             raise AssertionError(f"{mode}: {counter.launches - before} "
@@ -1160,9 +1166,15 @@ def compare_step_phase(dev) -> dict:
                 and _ulps(v, seq[1]) == 0):
             raise AssertionError(f"{mode}: {STEP_T} steps != one sequence "
                                  f"launch")
+        # and against the reference-convention oracle on the same tensors
+        want = ref.fused_macro_seq_ref(xs, msb, lsb, bounds, levels, scale,
+                                       v0, None, w_dend, seed=seed, **kw)
+        _check_step(seq, want, f"fused_macro_seq(mode={mode!r}) x {STEP_T}")
         log(f"compare step {mode} x {STEP_T} with step_offset=t: MAC, "
             f"spikes ({int(stacked[1].sum())}), mask, ADC steps and the "
-            f"final membrane (0 ulp) equal to one sequence launch")
+            f"final membrane (0 ulp) equal to one launch of "
+            f"fused_macro_seq(mode={mode!r}), itself equal to "
+            f"ref.fused_macro_seq_ref")
     return {"max_abs_err": worst, "mismatches": 0, "cases": cases,
             "iterated_steps": STEP_T, "compare_launches": launches}
 
@@ -1230,6 +1242,91 @@ def mode_path_phase(params, dev) -> dict:
     if nld_steps != float(2 ** CFG.code_bits - 1):
         raise AssertionError(f"mode=\"nld\" ran {nld_steps} ADC steps")
     log(f"mode path: launches {launches}")
+    return {"launches": launches, "cases": res}
+
+
+# --- phase 4 (slice 22): the engine's per-step cadence ----------------------
+
+PER_STEP_LENGTHS = (10, 20, 30)     # stream lengths: one drain batch each
+PER_STEP_REQUESTS = 48
+
+
+def _drain_serve(cfg, params, traffic, noise, time_major: bool, dev):
+    """``traffic`` through the engine's drain path at ``time_major``, every
+    launch counter set to 0 just before and read just after."""
+    eng = engine_lib.SNNEventEngine(cfg, params, batch_slots=SLOTS,
+                                    seed=SEED, time_major=time_major,
+                                    continuous=False, noise=noise,
+                                    device=dev)
+    reqs = [eng.submit(engine_lib.EventRequest(uid=i, events=ev))
+            for i, ev in enumerate(traffic)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if any(r.state != lifecycle.COMPLETED for r in reqs):
+        raise AssertionError("not every request completed")
+    return reqs, counts, wall
+
+
+def per_step_engine_phase(params, nld_params, dev) -> dict:
+    """``SNNEventEngine(time_major=False, continuous=False)`` at 64 slots:
+    the drain path through ``forward_silicon(fused="step")``, one T=1
+    launch of #1 (KWN) or #2 (NLD) per step of each batch, with the step
+    counter words ``step_offset=t``; against ``time_major=True`` (one
+    launch per batch) on the same 48 requests of 10, 20 and 30 steps,
+    clean and noisy: every request's logits and telemetry bit for bit."""
+    rs = np.random.RandomState(SEED + 23)
+    traffic = []
+    for i in range(PER_STEP_REQUESTS):
+        u = rs.random_sample((PER_STEP_LENGTHS[i % 3], CFG.n_in))
+        d = (0.02, 0.05, 0.2)[i % 3]
+        traffic.append((u > 1 - d / 2).astype(np.float32) - (u < d / 2))
+    launches = {"per_step": {"fused_macro_seq_kwn": 0,
+                             "fused_macro_seq_nld": 0},
+                "time_major": {"fused_macro_seq_kwn": 0,
+                               "fused_macro_seq_nld": 0}}
+    res = {}
+    for cfg, p in ((CFG, params), (NLD_CFG, nld_params)):
+        name = PATH_KERNEL[cfg.mode]
+        for noise in (None, ima_lib.IMANoiseModel()):
+            tag = f"{cfg.mode} {'noisy' if noise else 'clean'}"
+            runs = {}
+            for cadence, time_major, want_n in (
+                    ("per_step", False, sum(PER_STEP_LENGTHS)),
+                    ("time_major", True, len(PER_STEP_LENGTHS))):
+                reqs, counts, wall = _drain_serve(cfg, p, traffic, noise,
+                                                  time_major, dev)
+                n = counts.pop(name)
+                if n != want_n or any(counts.values()):
+                    raise AssertionError(f"{tag} {cadence}: {n} launches of "
+                                         f"{name}, not {want_n}; others "
+                                         f"{counts}")
+                launches[cadence][name] += n
+                runs[cadence] = {"reqs": reqs, "launches": n, "wall_s": wall}
+            for a, b in zip(runs["per_step"]["reqs"],
+                            runs["time_major"]["reqs"]):
+                if not torch.equal(a.logits, b.logits) or (
+                        a.pred, a.adc_steps, a.sops, a.skipped_block_ratio
+                ) != (b.pred, b.adc_steps, b.sops, b.skipped_block_ratio):
+                    raise AssertionError(f"{tag} request {a.uid}: per-step "
+                                         f"!= time-major")
+                if not np.isfinite(a.logits.numpy()).all():
+                    raise AssertionError(f"{tag} request {a.uid}: "
+                                         f"non-finite logits")
+            res[tag] = {c: {"launches": r["launches"], "wall_s": r["wall_s"],
+                            "requests_per_s": len(r["reqs"]) / r["wall_s"]}
+                        for c, r in runs.items()}
+            log(f"per-step engine {tag}: {len(traffic)} requests at "
+                f"{SLOTS} slots equal to the time-major drain path bit for "
+                f"bit; {runs['per_step']['launches']} launches of {name} "
+                f"against {runs['time_major']['launches']}; "
+                f"{res[tag]['per_step']['requests_per_s']:.1f} against "
+                f"{res[tag]['time_major']['requests_per_s']:.1f} req/s")
+    log(f"per-step engine: launches {launches}")
     return {"launches": launches, "cases": res}
 
 
@@ -1340,9 +1437,10 @@ def timing_phase(dev) -> dict:
     act = ops.fused_activity_map(x, plan)
     kw = dict(k=12, drive_gain=0.25, mac_telemetry=False)
     launch = lambda: fused_macro.fused_macro_seq(
-        x, *args[1:], nz, act, rc, bm=plan.bm, bk=plan.bk, **kw)
-    plain = lambda: ref.fused_macro_seq_ref(x, *args[1:], nz, row_ctl=rc,
-                                            **kw)
+        x, *args[1:], nz, activity=act, row_ctl=rc, bm=plan.bm, bk=plan.bk,
+        **kw)
+    plain = lambda: ref.fused_macro_seq_kwn_ref(x, *args[1:], nz,
+                                                row_ctl=rc, **kw)
     kernel_ms = [_time_ms(launch, 200) for _ in range(2)]
     plain_ms = [_time_ms(plain, 5) for _ in range(2)]
     kernel_ms += [_time_ms(launch, 200)]
@@ -1439,7 +1537,7 @@ def stack_timing_phase(dev) -> dict:
     args, kw = _stack_call(rs, t, m, kdim, widths, STACK_CFG.k_layers,
                            False, dev)
     launch = lambda: fused_macro.fused_macro_multi_seq(*args, **kw)
-    plain = lambda: ref.fused_macro_multi_seq_ref(*args, **kw)
+    plain = lambda: ref.fused_macro_multi_seq_kwn_ref(*args, **kw)
     kernel_ms = [_time_ms(launch, 50) for _ in range(3)]
     plain_ms = [_time_ms(plain, 2) for _ in range(2)]
     split: dict = {}
@@ -1584,7 +1682,7 @@ def _train_forward(rs, t, m, kdim, n, noisy, dev):
     kw = dict(k=CFG.k, drive_gain=CFG.drive_gain, train_trace=True,
               **noise_kw)
     got = ops.fused_macro_seq(*args, nz, device=dev, **stream_kw, **kw)
-    want = ref.fused_macro_seq_ref(*args, nz, row_ctl=rc, **kw)
+    want = ref.fused_macro_seq_kwn_ref(*args, nz, row_ctl=rc, **kw)
     w = 2.0 * args[1].float() + args[2].float()
     g_spk = torch.randn((t, m, n), device=dev)
     g_vfin = torch.randn((m, n), device=dev)
@@ -1792,19 +1890,21 @@ def train_timing_phase(params, dev) -> dict:
                   ima_noise=kn, snl_amp=CFG.noise_amp, bm=plan.bm,
                   bk=plan.bk)
     fwd_ops = (xi, fw.msb, fw.lsb, fw.boundaries, fw.levels, fw.scale, v0,
-               None, act, rc)
+               None)
     fwd_ms = {}
     for trace in (False, True):
         launch = lambda trace=trace: fused_macro.fused_macro_seq(
-            *fwd_ops, mac_telemetry=trace, train_trace=trace, **fwd_kw)
+            *fwd_ops, activity=act, row_ctl=rc, mac_telemetry=trace,
+            train_trace=trace, **fwd_kw)
         fwd_ms[trace] = [_time_ms(launch, 100) for _ in range(3)]
     fwd_split: dict = {}   # with the trace
     fwd_device_ms = _device_ms_per_launch(launch, 50, fwd_split)
-    out = fused_macro.fused_macro_seq(*fwd_ops, mac_telemetry=True,
+    out = fused_macro.fused_macro_seq(*fwd_ops, activity=act, row_ctl=rc,
+                                      mac_telemetry=True,
                                       train_trace=True, **fwd_kw)
     ref_kw = {k: v for k, v in fwd_kw.items() if k not in ("bm", "bk")}
-    fwd_plain_ms = [_time_ms(lambda: ref.fused_macro_seq_ref(
-        *fwd_ops[:8], row_ctl=rc, mac_telemetry=True, train_trace=True,
+    fwd_plain_ms = [_time_ms(lambda: ref.fused_macro_seq_kwn_ref(
+        *fwd_ops, row_ctl=rc, mac_telemetry=True, train_trace=True,
         **ref_kw), 2) for _ in range(2)]
     # #1 with its trace: each operand read once (x, planes, codebook,
     # scale, v0, activity, row_ctl), each output written once (v_out; MAC,
@@ -4420,8 +4520,8 @@ def plans_phase(dev) -> dict:
             seed, off = SEED + 17 * ci + 1, 3 * ci
             rc = torch.stack([torch.full_like(rows, seed),
                               torch.full_like(rows, off), rows], -1)
-            want = list(ref.fused_macro_seq_ref(*args, None, row_ctl=rc,
-                                                **kw))
+            want = list(ref.fused_macro_seq_kwn_ref(*args, None, row_ctl=rc,
+                                                    **kw))
             want[4] = want[4][..., 0]
             base = None
             for blocks in [heur] + [b for b in cands if b != heur]:
@@ -4526,8 +4626,8 @@ def plans_phase(dev) -> dict:
                   snl_amp=0.05)
         got = fused_macro.fused_macro_multi_seq(xm, planes, vs_p, None, act,
                                                 ctl, **kw)
-        want = ref.fused_macro_multi_seq_ref(xm, planes, vs_p, None, act,
-                                             ctl, **kw)
+        want = ref.fused_macro_multi_seq_kwn_ref(xm, planes, vs_p, None,
+                                                 act, ctl, **kw)
         n_launch += 1
         tag = f"#4 plan {plan or 'heuristic'} gate={gate}"
         for i, (a, b) in enumerate(zip(got, want)):
@@ -4800,7 +4900,7 @@ def _k_sweep_compare(dev) -> dict:
                 kw = dict(k=k, drive_gain=0.25, **noise_kw)
                 got = ops.fused_macro_seq(*args, nz, device=dev,
                                           **stream_kw, **kw)
-                want = ref.fused_macro_seq_ref(*args, nz, row_ctl=rc, **kw)
+                want = ref.fused_macro_seq_kwn_ref(*args, nz, row_ctl=rc, **kw)
                 torch.cuda.synchronize()
                 mac_g, v_g, spk_g, mask_g, st_g = got[:5]
                 mac_w, v_w, spk_w, mask_w, st_w = want[:5]
@@ -5853,6 +5953,7 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
     params, main_res = main_path_phase(dev)
     mode_res = mode_path_phase(params, dev)
     nld_params, nld_res = nld_path_phase(dev)
+    per_step_res = per_step_engine_phase(params, nld_params, dev)
     _, stack_res = stack_path_phase(dev)
     train_params, train_res = train_path_phase(dev)
     composed_res = composed_path_phase(dev)
@@ -6045,9 +6146,13 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
                       + lt8["eval"]["flash_launches"]
                       + mesh_res["flash_launches"]
                       + roof["flash_launches"])
+    per_step = {name: per_step_res["launches"]["per_step"][name]
+                + per_step_res["launches"]["time_major"][name]
+                for name in ("fused_macro_seq_kwn", "fused_macro_seq_nld")}
     kwn_launches = (main_res["clean"]["launches"]
                     + main_res["noisy"]["launches"]
                     + mode_res["launches"]["fused_macro_seq_kwn"]
+                    + per_step["fused_macro_seq_kwn"]
                     + train_res["forward_launches"]
                     + sum(train_res["step_path_launches"].values())
                     + p9["fused_macro_seq_kwn"] + p10["fused_macro_seq_kwn"])
@@ -6057,6 +6162,10 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
              launches_phase9=p9["fused_macro_seq_kwn"],
              launches_phase10=p10["fused_macro_seq_kwn"],
              launches_mode_path=mode_res["launches"]["fused_macro_seq_kwn"],
+             launches_per_step_engine=per_step_res["launches"]["per_step"][
+                 "fused_macro_seq_kwn"],
+             launches_time_major_drain=per_step_res["launches"][
+                 "time_major"]["fused_macro_seq_kwn"],
              step_compare_launches=cmp["step"]["compare_launches"]["kwn"],
              k_sweep_cases=experiments["kwn"]["cases"],
              plans_held=tuner["plans"]["plans"],
@@ -6069,12 +6178,17 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
                      nld_res["clean"]["launches"]
                      + nld_res["noisy"]["launches"]
                      + mode_res["launches"]["fused_macro_seq_nld"]
+                     + per_step["fused_macro_seq_nld"]
                      + p9["fused_macro_seq_nld"]
                      + p10["fused_macro_seq_nld"],
                      cmp["nld"], timing["nld"]),
              launches_phase9=p9["fused_macro_seq_nld"],
              launches_phase10=p10["fused_macro_seq_nld"],
              launches_mode_path=mode_res["launches"]["fused_macro_seq_nld"],
+             launches_per_step_engine=per_step_res["launches"]["per_step"][
+                 "fused_macro_seq_nld"],
+             launches_time_major_drain=per_step_res["launches"][
+                 "time_major"]["fused_macro_seq_nld"],
              step_compare_launches=cmp["step"]["compare_launches"]["nld"],
              dataset_cases=experiments["nld"]["cases"],
              device_ms=timing["nld"]["device_ms"]),
@@ -6130,6 +6244,7 @@ def _main(t0, kind, smi, dev, build_s, flash_build, split_build,
          "split_build": split_build, "stage_build": stage_build,
          "compare": cmp,
          "main_path": {"kwn": main_res, "mode": mode_res, "nld": nld_res,
+                       "per_step_engine": per_step_res,
                        "stack": stack_res,
                        "train": train_res, "composed": composed_res,
                        "lm": lm_res, "families": families,

@@ -61,23 +61,24 @@ TRAIN_ACTIVATIONS = {
 }
 
 
-def dendrite_mac(params: DendriteParams, spikes: torch.Tensor,
+def dendrite_mac(params: DendriteParams, spikes: torch.Tensor, f=None,
                  nl_cb: ima_lib.RampCodebook | None = None,
-                 f=None) -> torch.Tensor:
+                 quantize: bool = False) -> torch.Tensor:
     """Eq. (2) drive term ``sum_j W^d_j f(branch_mac_j)`` in float weights.
 
-    spikes (..., I) ternary inputs.  With ``nl_cb`` the branch MACs go
-    through the quantized NL-IMA ramp (convert + LUT); its gradient is
-    ``f'`` when the activation ``f`` (a ``TRAIN_ACTIVATIONS`` entry) is
-    given, else straight through inside the ramp.  Without ``nl_cb`` the
-    branch MACs pass through ``f``, or as they are.  Returns (..., N).
+    spikes (..., I) ternary inputs, ``f`` the ideal activation (a
+    ``TRAIN_ACTIVATIONS`` entry).  With ``quantize`` and ``nl_cb`` the
+    branch MACs go through the quantized NL-IMA ramp (convert + LUT); its
+    gradient is ``f'`` when ``f`` is given, else straight through inside
+    the ramp.  Otherwise the branch MACs pass through ``f``, or as they
+    are (``nl_cb`` without ``quantize`` is not read).  Returns (..., N).
     """
     w = params.w_syn * params.mask
     mac = torch.einsum("...i,jin->...jn", spikes.float(), w)
-    if nl_cb is not None and f is not None:
+    if quantize and nl_cb is not None and f is not None:
         act_f = f(mac)
         act = act_f + (ima_lib.ima_quantize(mac, nl_cb) - act_f).detach()
-    elif nl_cb is not None:
+    elif quantize and nl_cb is not None:
         act = ima_lib.ima_quantize_ste(mac, nl_cb)
     else:
         act = mac if f is None else f(mac)

@@ -135,8 +135,8 @@ def nld_forward(spikes: torch.Tensor,
         cfg.code_bits, ima_lib.DENDRITE_ACTIVATIONS[activation],
         -cfg.mac_range, cfg.mac_range).to(spikes.device)
     return dendrite_lib.dendrite_mac(
-        dendrite_params, spikes, nl_cb=cb if quantize else None,
-        f=dendrite_lib.TRAIN_ACTIVATIONS[activation])
+        dendrite_params, spikes, dendrite_lib.TRAIN_ACTIVATIONS[activation],
+        cb, quantize)
 
 
 def tiled_cim_mac(spikes: torch.Tensor, w_int: torch.Tensor,
@@ -376,7 +376,8 @@ def fused_seq_vjp(spikes: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   v_reset: float = 0.0, v_lim: float = 8.0,
                   use_snl: bool = True, noise: torch.Tensor | None = None,
                   snl_amp: float = 0.0, kwn_relax: float = 0.0,
-                  remat: bool = False, gate: bool = True, seed: int = 0):
+                  surrogate_beta: float = 4.0, remat: bool = False,
+                  gate: bool = True, seed: int = 0):
     """Differentiable fused KWN sequence, on ``spikes``' device: the
     silicon-in-the-loop training forward, with the surrogate backward
     kernel behind it.
@@ -390,7 +391,8 @@ def fused_seq_vjp(spikes: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     clean path's streamed SNL noise, None for the counter SNL stream at
     ``snl_amp`` (or none when ``use_snl`` is off).  The ramp's
     straight-through window is ``+-(cfg.mac_range + 0.5)``; ``kwn_relax``,
-    ``remat`` and ``gate`` as in ``kernels.ops.SeqVJPSpec``.
+    ``surrogate_beta`` (the SuperSpike sharpness), ``remat`` and ``gate``
+    as in ``kernels.ops.SeqVJPSpec``.
 
     Returns (spikes_out (T, ..., N), v_out (..., N)), both differentiable.
     """
@@ -402,7 +404,7 @@ def fused_seq_vjp(spikes: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     spec = ops.SeqVJPSpec(
         k=k, drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_th2=v_th2,
         v_reset=v_reset, v_lim=v_lim, use_snl=use_snl, ima_noise=ima_kn,
-        snl_amp=snl_amp, kwn_relax=kwn_relax,
+        snl_amp=snl_amp, kwn_relax=kwn_relax, surrogate_beta=surrogate_beta,
         ste_lo=float(-cfg.mac_range - 0.5), ste_hi=float(cfg.mac_range + 0.5),
         remat=remat, gate=gate)
     dev = spikes.device

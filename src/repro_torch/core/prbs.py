@@ -119,8 +119,8 @@ def prbs_bits(state, n: int, width: int = WIDTH, device=None
             torch.tensor(bits, dtype=torch.int32, device=s.device))
 
 
-def prbs_noise(state, shape, amplitude: float, device=None,
-               width: int = WIDTH) -> tuple[torch.Tensor, torch.Tensor]:
+def prbs_noise(state, shape, amplitude: float, width: int = WIDTH,
+               device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric two-level noise in {-amplitude, +amplitude} of ``shape``:
     ``prod(shape)`` bits from the one LFSR in ``state`` (an int, or a
     one-element int64 tensor, which fixes the device).  Returns

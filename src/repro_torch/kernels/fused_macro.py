@@ -27,8 +27,10 @@ Three hand-written CUDA kernels for Hopper replace the Pallas kernels
 
 The wrappers take operands already padded to a ``TilePlan``
 (``kernels.ops`` does the padding).  A CUDA tensor launches the kernel,
-and each wrapper's ``launches`` attribute counts its launches; a CPU
-tensor runs the plain version in ``kernels.ref``.
+and each wrapper's ``launches`` attribute counts its launches
+(``fused_macro_seq`` launches #1 itself and #2 through
+``fused_macro_seq_nld``, whose ``launches`` counts #2); a CPU tensor runs
+the plain version in ``kernels.ref``.
 """
 
 from __future__ import annotations
@@ -353,29 +355,49 @@ def _default_row_ctl(m, seed, step_offset, dev) -> torch.Tensor:
 
 
 def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
-                    activity=None, row_ctl=None, *, k: int = 12,
-                    ratio: float = 2.0, drive_gain: float = 1.0,
-                    beta: float = 0.9, v_th1: float = 1.0,
-                    v_th2: float = 0.6, v_reset: float = 0.0,
-                    v_lim: float = 8.0, use_snl: bool = True,
-                    bm: int = DEFAULT_BM, bk: int = DEFAULT_BK,
-                    n_valid: int | None = None, ima_noise=None,
-                    snl_amp: float = 0.0, mac_telemetry: bool = True,
-                    train_trace: bool = False, seed=0, step_offset=0):
-    """A whole fused KWN event sequence in one launch (padded operands).
+                    w_dend=None, activity=None, row_ctl=None, *,
+                    mode: str = "kwn", k: int = 12, ratio: float = 2.0,
+                    drive_gain: float = 1.0, beta: float = 0.9,
+                    v_th1: float = 1.0, v_th2: float = 0.6,
+                    v_reset: float = 0.0, v_lim: float = 8.0,
+                    use_snl: bool = True, bm: int = DEFAULT_BM,
+                    bk: int = DEFAULT_BK, n_valid: int | None = None,
+                    ima_noise=None, snl_amp: float = 0.0,
+                    logical_n: int | None = None,
+                    mac_telemetry: bool = True, train_trace: bool = False,
+                    seed=0, step_offset=0):
+    """A whole fused event sequence in one launch (padded operands): the
+    KWN head (``mode="kwn"``, kernel #1) or the NLD head (``mode="nld"``,
+    kernel #2 through ``fused_macro_seq_nld``).
 
-    x (T, M, K) int8, msb/lsb (K, N) int8, boundaries (n_codes - 1,),
-    levels (n_codes,), scale (N,), v (M, N) f32, noise (T, M, N) f32 or
-    None (counter streams), activity (T, M/bm, K/bk) int32 or None,
-    row_ctl (M, 3) int32 or None.  M is a multiple of ``bm`` and K of
-    ``bk``.  Without ``row_ctl`` each row uses ``[seed, step_offset,
-    absolute row]``: the stream of the reference's scalar path.
+    x (T, M, K) int8, msb/lsb (K, NC) int8 (NLD: branch-major, NC = J*N),
+    boundaries (n_codes - 1,), levels (n_codes,), scale (NC,), v (M, N)
+    f32, noise (T, M, N) f32 or None (counter streams; the NLD head has
+    no SNL and does not read it), w_dend (J, N) (NLD), activity (T, M/bm,
+    K/bk) int32 or None, row_ctl (M, 3) int32 or None.  M is a multiple
+    of ``bm`` and K of ``bk``.  Without ``row_ctl`` each row uses
+    ``[seed, step_offset, absolute row]``: the stream of the reference's
+    scalar path.  ``logical_n`` is the NLD branch width the counter noise
+    is keyed on (a KWN row is one branch, so KWN does not read it).
 
-    Returns (mac (T, M, N) or None, v_out (M, N), spikes (T, M, N),
+    Returns (mac (T, M, NC) or None, v_out (M, N), spikes (T, M, N),
     mask (T, M, N), adc_steps (T, M, 1) int32), and with ``train_trace``
-    also vtrace (T, M, N) f32, the saturated membrane before the reset
-    (the residual of the surrogate backward).
+    (KWN only) also vtrace (T, M, N) f32, the saturated membrane before
+    the reset (the residual of the surrogate backward).
     """
+    if mode == "nld":
+        if train_trace:
+            raise ValueError("train_trace is KWN-only (silicon training)")
+        if w_dend is None:
+            raise ValueError("mode='nld' needs w_dend")
+        return fused_macro_seq_nld(
+            x, msb, lsb, boundaries, levels, scale, w_dend, v, activity,
+            row_ctl, ratio=ratio, drive_gain=drive_gain, beta=beta,
+            v_th1=v_th1, v_reset=v_reset, v_lim=v_lim, bm=bm, bk=bk,
+            logical_n=logical_n, ima_noise=ima_noise,
+            mac_telemetry=mac_telemetry, seed=seed, step_offset=step_offset)
+    if mode != "kwn":
+        raise ValueError(f"unknown mode {mode!r}")
     m = x.shape[1]
     n = msb.shape[1]
     n_valid = n if n_valid is None else n_valid
@@ -393,9 +415,9 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
                        n_valid=n_valid, **kw)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
-    return ref.fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale,
-                                   v, noise, row_ctl=row_ctl,
-                                   n_valid=n_valid, **kw)
+    return ref.fused_macro_seq_kwn_ref(x, msb, lsb, boundaries, levels,
+                                       scale, v, noise, row_ctl=row_ctl,
+                                       n_valid=n_valid, **kw)
 
 
 fused_macro_seq.launches = 0
@@ -463,7 +485,9 @@ def fused_macro_seq_nld(x, msb, lsb, boundaries, levels, scale, w_dend, v,
                         bk: int = DEFAULT_BK, logical_n: int | None = None,
                         ima_noise=None, mac_telemetry: bool = True,
                         seed=0, step_offset=0):
-    """A whole fused NLD event sequence in one launch (padded operands).
+    """A whole fused NLD event sequence in one launch of kernel #2 (padded
+    operands): ``fused_macro_seq(mode="nld")``, and the wrapper that
+    counts #2's launches.
 
     x (T, M, K) int8, msb/lsb (K, J*N) int8 branch-major (column j*N + p
     is branch j of neuron p), scale (J*N,), w_dend (J, N), v (M, N);
@@ -508,8 +532,8 @@ def fused_macro_step(x, msb, lsb, boundaries, levels, scale, v, noise=None,
                      mac_telemetry: bool = True, seed=0, step_offset=0,
                      device=None):
     """One fused macro time step on padded operands: the T=1 case of
-    ``fused_macro_seq`` (KWN, kernel #1) or ``fused_macro_seq_nld`` (NLD,
-    kernel #2), one launch on the card.
+    ``fused_macro_seq`` (KWN, kernel #1, or NLD, kernel #2), one launch
+    on the card.
 
     x (M, K), v (M, N), noise (M, N) or None (KWN; the NLD head has no
     SNL), w_dend (J, N) (NLD), activity (M/bm, K/bk) or None; M a
@@ -547,23 +571,14 @@ def fused_macro_step(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     v = put(v, f32)
     act = put(activity, torch.int32)
     act = None if act is None else act[None]
-    if mode == "kwn":
-        out = fused_macro_seq(
-            *args, v, None if noise is None else put(noise, f32)[None], act,
-            k=k, ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
-            v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
-            bm=bm, bk=bk, n_valid=n_valid, ima_noise=ima_noise,
-            snl_amp=snl_amp, mac_telemetry=mac_telemetry, seed=seed,
-            step_offset=step_offset)
-    elif mode == "nld":
-        out = fused_macro_seq_nld(
-            *args, put(w_dend, f32), v, act, ratio=ratio,
-            drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_reset=v_reset,
-            v_lim=v_lim, bm=bm, bk=bk, logical_n=logical_n,
-            ima_noise=ima_noise, mac_telemetry=mac_telemetry, seed=seed,
-            step_offset=step_offset)
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
+    out = fused_macro_seq(
+        *args, v, None if noise is None else put(noise, f32)[None],
+        put(w_dend, f32), act, mode=mode, k=k, ratio=ratio,
+        drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_th2=v_th2,
+        v_reset=v_reset, v_lim=v_lim, use_snl=use_snl, bm=bm, bk=bk,
+        n_valid=n_valid, ima_noise=ima_noise, snl_amp=snl_amp,
+        logical_n=logical_n, mac_telemetry=mac_telemetry, seed=seed,
+        step_offset=step_offset)
     mac, v_out, spikes, mask, steps = out
     return (None if mac is None else mac[0], v_out, spikes[0], mask[0],
             steps[0])
@@ -673,8 +688,8 @@ def _launch_multi(x, planes, v0s, noises, activity, ctl, *, specs, ratio,
             outs["counts"], occ)
 
 
-def fused_macro_multi_seq(x, planes, v0s, noises, activity, ctl, *,
-                          specs: tuple, ratio: float = 2.0,
+def fused_macro_multi_seq(x, planes, v0s, noises=None, activity=None,
+                          ctl=None, *, specs: tuple, ratio: float = 2.0,
                           drive_gain: float = 1.0, beta: float = 0.9,
                           v_th1: float = 1.0, v_th2: float = 0.6,
                           v_reset: float = 0.0, v_lim: float = 8.0,
@@ -689,8 +704,9 @@ def fused_macro_multi_seq(x, planes, v0s, noises, activity, ctl, *,
     counter streams,
     activity (T, M/bm, K0/bk0) the layer-0 occupancy map or None (layer 0
     dense; every K tile of every layer reported occupied), ctl (L+1,)
-    int32: per-layer counter seeds, then the step offset; the counters of
-    row i at step t in layer l are ``(ctl[l], ctl[L] + t, i, column)``.
+    int32: per-layer counter seeds, then the step offset (None: all 0, as
+    the reference); the counters of row i at step t in layer l are
+    ``(ctl[l], ctl[L] + t, i, column)``.
 
     A stack of more than ``MAX_LAYERS`` layers or with a K tiling the
     occupancy bits cannot hold (``_check_stack``) raises ``ValueError`` on
@@ -703,6 +719,8 @@ def fused_macro_multi_seq(x, planes, v0s, noises, activity, ctl, *,
     if x.shape[1] % bm:
         raise ValueError(f"rows {x.shape[1]} are not a multiple of bm={bm}")
     _check_stack(specs, x.shape[2])
+    if ctl is None:
+        ctl = torch.zeros(len(specs) + 1, dtype=torch.int32, device=x.device)
     kw = dict(specs=tuple(specs), ratio=ratio, drive_gain=drive_gain,
               beta=beta, v_th1=v_th1, v_th2=v_th2, v_reset=v_reset,
               v_lim=v_lim, use_snl=use_snl, bm=bm, ima_noise=ima_noise,
@@ -711,8 +729,8 @@ def fused_macro_multi_seq(x, planes, v0s, noises, activity, ctl, *,
         return _launch_multi(x, planes, v0s, noises, activity, ctl, **kw)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
-    return ref.fused_macro_multi_seq_ref(x, planes, v0s, noises, activity,
-                                         ctl, **kw)
+    return ref.fused_macro_multi_seq_kwn_ref(x, planes, v0s, noises,
+                                             activity, ctl, **kw)
 
 
 fused_macro_multi_seq.launches = 0

@@ -244,13 +244,13 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     if mode == "nld":
         w_dend_p = F.pad(torch.as_tensor(w_dend).to(dev, torch.float32),
                          (0, plan.n_pad - n))
-        mac, v_out, spikes, mask, steps = _fused.fused_macro_seq_nld(
+        mac, v_out, spikes, mask, steps = _fused.fused_macro_seq(
             xm.contiguous(), msb_p, lsb_p, bounds, lut, scale_p,
-            w_dend_p.contiguous(), vm.contiguous(), activity, rc,
-            ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
-            v_reset=v_reset, v_lim=v_lim, bm=plan.bm, bk=plan.bk,
-            logical_n=n, ima_noise=ima_noise, mac_telemetry=mac_telemetry,
-            seed=seed, step_offset=step_offset)
+            vm.contiguous(), None, w_dend_p.contiguous(), activity, rc,
+            mode="nld", ratio=ratio, drive_gain=drive_gain, beta=beta,
+            v_th1=v_th1, v_reset=v_reset, v_lim=v_lim, bm=plan.bm,
+            bk=plan.bk, logical_n=n, ima_noise=ima_noise,
+            mac_telemetry=mac_telemetry, seed=seed, step_offset=step_offset)
         if mac is not None:
             mac = _unpad_cols(mac[:, :m0], n, plan.n_pad, n_branches)
             mac = mac.reshape(t, *lead, nc)
@@ -266,9 +266,9 @@ def fused_macro_seq(x, msb, lsb, boundaries, levels, scale, v, noise=None,
     outs = _fused.fused_macro_seq(
         xm.contiguous(), msb_p, lsb_p, bounds, lut, scale_p,
         vm.contiguous(), None if nm is None else nm.contiguous(),
-        activity, rc,
-        k=k, ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
-        v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
+        activity=activity, row_ctl=rc, k=k, ratio=ratio,
+        drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_th2=v_th2,
+        v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
         bm=plan.bm, bk=plan.bk, n_valid=plan.n_valid, ima_noise=ima_noise,
         snl_amp=snl_amp, mac_telemetry=mac_telemetry,
         train_trace=train_trace, seed=seed, step_offset=step_offset)

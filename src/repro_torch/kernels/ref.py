@@ -4,21 +4,25 @@ Counterparts of ``repro.kernels.ref``: one fused step in both modes
 (``fused_macro_step_ref``: the MAC, then ``fused_head_ref``, with
 ``counter_snl_noise`` for the in-kernel SNL stream), the same step with
 the MAC a (bk, bn) tile at a time (``tiled_ternary_mac_ref``,
-``fused_macro_tiled_ref``), the step folded over T
-(``fused_macro_seq_ref`` in KWN mode, ``fused_macro_seq_nld_ref`` in NLD
-mode), ``fused_macro_multi_seq_ref`` (the KWN stack, layer by layer), and the
-four single-stage kernels of the composed chain: ``ternary_mac_ref``,
-``nlq_convert_ref``, ``kwn_topk_ref`` and ``lif_step_ref``, and the LM
-stack's attention forward ``flash_attention_ref``.  Each is the
-function its wrapper in ``kernels`` computes for a CPU tensor, and the
-yardstick its CUDA kernel is held against on the card; it is never a
-fallback for a CUDA tensor.
+``fused_macro_tiled_ref``), the step folded over T in the reference's
+calling convention (``fused_macro_seq_ref``, either mode, any leading
+batch dims; ``fused_macro_multi_seq_ref``, the KWN stack layer by layer)
+and in the kernels' (``fused_macro_seq_kwn_ref``,
+``fused_macro_seq_nld_ref``, ``fused_macro_multi_seq_kwn_ref``: padded
+(T, M, K) operands and per-row stream words; the plain versions of
+kernels #1, #2 and #3), the four single-stage kernels of the composed
+chain: ``ternary_mac_ref``, ``nlq_convert_ref``, ``kwn_topk_ref`` and
+``lif_step_ref``, and the LM stack's attention forward
+``flash_attention_ref``.  Each of the kernels' convention is the function
+its wrapper in ``kernels`` computes for a CPU tensor, and the yardstick
+its CUDA kernel is held against on the card; it is never a fallback for
+a CUDA tensor.
 
-Beyond the JAX oracle it takes ``row_ctl`` ((M, 3) int32
-``[seed, step_offset, row_id]`` per row, replacing the scalar seed/step
-and the absolute row of the noise counters) and ``n_valid`` (columns at
-and past it are padding: they take code -1 and never win), so that it
-covers every operand the kernel accepts.
+Beyond the JAX oracles the kernels' convention takes ``row_ctl`` ((M, 3)
+int32 ``[seed, step_offset, row_id]`` per row, replacing the scalar
+seed/step and the absolute row of the noise counters) and ``n_valid``
+(columns at and past it are padding: they take code -1 and never win),
+so that it covers every operand the kernel accepts.
 
 Bitwise parity with the reference: MAC partials are small integers (exact
 in f32 in any order), KWN is compare/select, and the places where rounding
@@ -93,7 +97,7 @@ def kwn_topk_ref(mac: torch.Tensor, boundaries: torch.Tensor, k: int):
                       n_codes)
 
 
-def lif_step_ref(v, drive, mask, noise, *, beta: float = 0.9,
+def lif_step_ref(v, drive, mask, noise, beta: float = 0.9,
                  v_th1: float = 1.0, v_th2: float = 0.6,
                  v_reset: float = 0.0, v_lim: float = 8.0,
                  use_snl: bool = True):
@@ -291,17 +295,86 @@ def _stream_words(row_ctl, dev):
     return rc[:, 0:1], rc[:, 1:2], rc[:, 2:3]
 
 
+def _fold_steps(x, msb, lsb, boundaries, levels, scale, v, noise, w_dend,
+                row_ctl, **step_kw):
+    """``fused_macro_step_ref`` folded over the T steps of x (T, M, K), the
+    membrane carried from step to step; row ``i``'s counters at step ``t``
+    are ``(row_ctl[i, 0], row_ctl[i, 1] + t, row_ctl[i, 2], column)``.
+    Returns (v_out, [mac, spikes, mask, adc_steps, ...] each stacked over
+    T)."""
+    seeds, steps0, rows = _stream_words(row_ctl, x.device)
+    v = v.float()
+    outs = []
+    for t in range(x.shape[0]):
+        mac, v, *rest = fused_macro_step_ref(
+            x[t], msb, lsb, boundaries, levels, scale, v,
+            None if noise is None else noise[t], w_dend, seed=seeds,
+            step=steps0 + t, rows=rows, **step_kw)
+        outs.append([mac] + rest)
+    return v, [torch.stack(a) for a in zip(*outs)]
+
+
 def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
-                        noise=None, *, row_ctl, k: int = 12,
-                        ratio: float = 2.0, drive_gain: float = 1.0,
-                        beta: float = 0.9, v_th1: float = 1.0,
-                        v_th2: float = 0.6, v_reset: float = 0.0,
-                        v_lim: float = 8.0, use_snl: bool = True,
-                        ima_noise=None, snl_amp: float = 0.0,
-                        n_valid: int | None = None,
-                        mac_telemetry: bool = True,
-                        train_trace: bool = False):
-    """A whole KWN event sequence: ``fused_macro_step_ref`` folded over T.
+                        noise=None, w_dend=None, *, mode: str = "kwn",
+                        k: int = 12, ratio: float = 2.0,
+                        drive_gain: float = 1.0, beta: float = 0.9,
+                        v_th1: float = 1.0, v_th2: float = 0.6,
+                        v_reset: float = 0.0, v_lim: float = 8.0,
+                        use_snl: bool = True, ima_noise=None,
+                        snl_amp: float = 0.0, seed=0, step_offset=0):
+    """The reference's time-major oracle: ``fused_macro_step_ref`` folded
+    over T, in either mode, with the reference's operands and results.
+
+    x (T, ..., K) ternary, msb/lsb (K, NC) int8 planes (NLD: branch-major,
+    NC = J*N), v (..., N) initial membrane, noise (T, ..., N) pre-drawn
+    SNL noise or None for the counter streams (IMA error via
+    ``ima_noise``, SNL sign noise at ``snl_amp``) keyed on ``(seed,
+    step_offset + t, row, column)``, w_dend (J, N) (NLD).  The counter
+    streams need (M, N) operands (their rows are counter words; the
+    reference asserts it for ``ima_noise``): ``ValueError`` otherwise.
+    The NLD head has no SNL noise, so ``noise`` is not read there.
+
+    Returns (mac (T, ..., NC), v_out (..., N), spikes (T, ..., N), mask
+    (T, ..., N), adc_steps (T, ..., 1) int32).
+    """
+    t_steps, lead, n = x.shape[0], tuple(v.shape[:-1]), v.shape[-1]
+    counter = ima_noise is not None or (
+        mode == "kwn" and noise is None and use_snl and snl_amp != 0.0)
+    if counter and v.dim() != 2:
+        raise ValueError(f"the counter noise streams need (M, N) operands, "
+                         f"got a membrane of shape {tuple(v.shape)}")
+    xm = x.reshape(t_steps, -1, x.shape[-1])
+    m = xm.shape[1]
+    rows = torch.arange(m, dtype=torch.int64, device=x.device)
+    row_ctl = torch.stack([torch.full_like(rows, int(seed)),
+                           torch.full_like(rows, int(step_offset)), rows], -1)
+    kw = dict(mode=mode, k=k, ratio=ratio, drive_gain=drive_gain, beta=beta,
+              v_th1=v_th1, v_th2=v_th2, v_reset=v_reset, v_lim=v_lim,
+              use_snl=use_snl, ima_noise=ima_noise, snl_amp=snl_amp)
+    nm = None if noise is None or mode != "kwn" \
+        else noise.reshape(t_steps, m, n)
+    v_out, (mac, spikes, mask, steps) = _fold_steps(
+        xm, msb, lsb, boundaries, levels, scale, v.reshape(m, n), nm,
+        w_dend, row_ctl, **kw)
+    return (mac.reshape(t_steps, *lead, -1), v_out.reshape(*lead, n),
+            spikes.reshape(t_steps, *lead, n),
+            mask.reshape(t_steps, *lead, n),
+            steps.reshape(t_steps, *lead, 1))
+
+
+def fused_macro_seq_kwn_ref(x, msb, lsb, boundaries, levels, scale, v,
+                            noise=None, *, row_ctl, k: int = 12,
+                            ratio: float = 2.0, drive_gain: float = 1.0,
+                            beta: float = 0.9, v_th1: float = 1.0,
+                            v_th2: float = 0.6, v_reset: float = 0.0,
+                            v_lim: float = 8.0, use_snl: bool = True,
+                            ima_noise=None, snl_amp: float = 0.0,
+                            n_valid: int | None = None,
+                            mac_telemetry: bool = True,
+                            train_trace: bool = False):
+    """Kernel #1's plain version, in its calling convention: a whole KWN
+    event sequence on padded operands, ``fused_macro_step_ref`` folded
+    over T.
 
     x (T, M, K) ternary, msb/lsb (K, N) int8 planes, boundaries
     (n_codes - 1,), levels (n_codes,), scale (N,), v (M, N) initial
@@ -314,21 +387,12 @@ def fused_macro_seq_ref(x, msb, lsb, boundaries, levels, scale, v,
     mask (T, M, N), adc_steps (T, M, 1) int32), and with ``train_trace``
     also vtrace (T, M, N): the saturated membrane before the reset.
     """
-    seeds, steps0, rows = _stream_words(row_ctl, x.device)
-    w = _twin_weights(msb, lsb, ratio)
-    v = v.float()
-    outs = []
-    for t in range(x.shape[0]):
-        mac = _twin_mac(x[t], w)
-        v, *rest = fused_head_ref(
-            mac, boundaries, levels, scale, v,
-            None if noise is None else noise[t], k=k, drive_gain=drive_gain,
-            beta=beta, v_th1=v_th1, v_th2=v_th2, v_reset=v_reset,
-            v_lim=v_lim, use_snl=use_snl, ima_noise=ima_noise,
-            snl_amp=snl_amp, seed=seeds, step=steps0 + t, rows=rows,
-            n_valid=n_valid, train_trace=True)
-        outs.append([mac] + rest)
-    mac, spikes, masks, steps, trace = (torch.stack(a) for a in zip(*outs))
+    v, (mac, spikes, masks, steps, trace) = _fold_steps(
+        x, msb, lsb, boundaries, levels, scale, v, noise, None, row_ctl,
+        k=k, ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
+        v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
+        ima_noise=ima_noise, snl_amp=snl_amp, n_valid=n_valid,
+        train_trace=True)
     out = (mac if mac_telemetry else None, v, spikes, masks, steps)
     return out + (trace,) if train_trace else out
 
@@ -339,30 +403,61 @@ def fused_macro_seq_nld_ref(x, msb, lsb, boundaries, levels, scale, w_dend,
                             v_th1: float = 1.0, v_reset: float = 0.0,
                             v_lim: float = 8.0, logical_n: int | None = None,
                             ima_noise=None, mac_telemetry: bool = True):
-    """A whole NLD event sequence: ``fused_macro_step_ref(mode="nld")``
-    folded over T.
+    """Kernel #2's plain version, in its calling convention: a whole NLD
+    event sequence on padded operands, ``fused_macro_step_ref(mode=
+    "nld")`` folded over T.
 
     x (T, M, K) ternary, msb/lsb (K, J*N) int8 branch-major planes, scale
     (J*N,), w_dend (J, N), v (M, N); ``logical_n`` the unpadded branch
-    width, the counter noise's column basis.
+    width, the counter noise's column basis; ``row_ctl`` as in
+    ``fused_macro_seq_kwn_ref``.
 
     Returns (mac (T, M, J*N) or None, v_out (M, N), spikes (T, M, N),
     mask (T, M, N) all ones, adc_steps (T, M, 1) all ``n_codes - 1``).
     """
-    seeds, steps0, rows = _stream_words(row_ctl, x.device)
-    w = _twin_weights(msb, lsb, ratio)
-    v = v.float()
-    outs = []
-    for t in range(x.shape[0]):
-        mac = _twin_mac(x[t], w)
-        v, *rest = fused_head_ref(
-            mac, boundaries, levels, scale, v, None, w_dend, mode="nld",
-            drive_gain=drive_gain, beta=beta, v_th1=v_th1, v_reset=v_reset,
-            v_lim=v_lim, ima_noise=ima_noise, seed=seeds, step=steps0 + t,
-            rows=rows, logical_n=logical_n)
-        outs.append([mac] + rest)
-    mac, spikes, masks, steps = (torch.stack(a) for a in zip(*outs))
+    v, (mac, spikes, masks, steps) = _fold_steps(
+        x, msb, lsb, boundaries, levels, scale, v, None, w_dend, row_ctl,
+        mode="nld", ratio=ratio, drive_gain=drive_gain, beta=beta,
+        v_th1=v_th1, v_reset=v_reset, v_lim=v_lim, ima_noise=ima_noise,
+        logical_n=logical_n)
     return (mac if mac_telemetry else None, v, spikes, masks, steps)
+
+
+def fused_macro_multi_seq_ref(x, stack, vs, noises=None, *, ks, seeds=None,
+                              ratio: float = 2.0, drive_gain: float = 1.0,
+                              beta: float = 0.9, v_th1: float = 1.0,
+                              v_th2: float = 0.6, v_reset: float = 0.0,
+                              v_lim: float = 8.0, use_snl: bool = True,
+                              ima_noise=None, snl_amp: float = 0.0,
+                              step_offset=0):
+    """The reference's stack oracle (KWN): ``fused_macro_seq_ref`` layer by
+    layer, layer l's spike stack layer l+1's input sequence.
+
+    stack: per-layer (msb, lsb, boundaries, levels, scale); vs: per-layer
+    initial membranes (..., N_l); ks: per-layer winner counts; seeds:
+    per-layer counter seeds (0 for each when None); noises: per-layer
+    pre-drawn SNL noise (T, ..., N_l), or None for the counter streams.
+
+    Returns (v_outs (list, per layer), spikes (T, ..., N_L) and mask of
+    the last layer, adc_steps (list, per layer (T, ..., 1)), spike_counts
+    (list, per layer (T, ...) row totals of |spikes|)).
+    """
+    cur = x.float()
+    v_outs, steps, counts = [], [], []
+    spk = mask = None
+    for li, (msb, lsb, bounds, levels, scale) in enumerate(stack):
+        _, v_out, spk, mask, st = fused_macro_seq_ref(
+            cur, msb, lsb, bounds, levels, scale, vs[li],
+            None if noises is None else noises[li], mode="kwn", k=ks[li],
+            ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,
+            v_th2=v_th2, v_reset=v_reset, v_lim=v_lim, use_snl=use_snl,
+            ima_noise=ima_noise, snl_amp=snl_amp,
+            seed=0 if seeds is None else seeds[li], step_offset=step_offset)
+        v_outs.append(v_out)
+        steps.append(st)
+        counts.append(spk.abs().sum(-1))
+        cur = spk
+    return v_outs, spk, mask, steps, counts
 
 
 def _tile_occupancy(x: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
@@ -376,17 +471,18 @@ def _tile_occupancy(x: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
     return occ.sum(-1).to(torch.int32)
 
 
-def fused_macro_multi_seq_ref(x, planes, v0s, noises, activity, ctl, *,
-                              specs, ratio: float = 2.0,
-                              drive_gain: float = 1.0, beta: float = 0.9,
-                              v_th1: float = 1.0, v_th2: float = 0.6,
-                              v_reset: float = 0.0, v_lim: float = 8.0,
-                              use_snl: bool = True, bm: int = 128,
-                              ima_noise=None, snl_amp: float = 0.0):
-    """L stacked KWN layers, layer by layer: layer l's spike stack is layer
-    l+1's input sequence, which computes the same values as the kernel's
-    step-major order (layer l+1 at step t reads only its own membrane and
-    layer l's step-t spikes).  Layer l's counters are
+def fused_macro_multi_seq_kwn_ref(x, planes, v0s, noises, activity, ctl, *,
+                                  specs, ratio: float = 2.0,
+                                  drive_gain: float = 1.0, beta: float = 0.9,
+                                  v_th1: float = 1.0, v_th2: float = 0.6,
+                                  v_reset: float = 0.0, v_lim: float = 8.0,
+                                  use_snl: bool = True, bm: int = 128,
+                                  ima_noise=None, snl_amp: float = 0.0):
+    """Kernel #3's plain version, in its calling convention: L stacked KWN
+    layers on padded operands, layer by layer: layer l's spike stack is
+    layer l+1's input sequence, which computes the same values as the
+    kernel's step-major order (layer l+1 at step t reads only its own
+    membrane and layer l's step-t spikes).  Layer l's counters are
     ``(ctl[l], ctl[L] + t, absolute row, column)``.
 
     Returns what ``kernels.fused_macro.fused_macro_multi_seq`` returns:
@@ -406,7 +502,7 @@ def fused_macro_multi_seq_ref(x, planes, v0s, noises, activity, ctl, *,
             zip(specs, planes)):
         rc = torch.stack([torch.full_like(rows, ctl[li]),
                           torch.full_like(rows, ctl[n_layers]), rows], -1)
-        _, v_fin, spk, mask, st = fused_macro_seq_ref(
+        _, v_fin, spk, mask, st = fused_macro_seq_kwn_ref(
             cur, msb, lsb, bounds, levels, scale, v0s[li],
             None if noises is None else noises[li], row_ctl=rc, k=spec.k,
             ratio=ratio, drive_gain=drive_gain, beta=beta, v_th1=v_th1,

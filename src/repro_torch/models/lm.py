@@ -735,8 +735,8 @@ def _constrain_acts(x: torch.Tensor, cfg: LMConfig, plan,
 
 
 @torch.no_grad()
-def forward(params: dict, batch: dict, cfg: LMConfig, prefill: bool = False,
-            *, mesh=None):
+def forward(params: dict, batch: dict, cfg: LMConfig, mesh=None,
+            prefill: bool = False):
     """Returns (logits, aux_loss[, cache]).
 
     ``prefill=True`` is the serving prefill: logits of the LAST position
@@ -828,7 +828,7 @@ def _groups(tree: dict, n: int) -> list[dict]:
     return [tree_map(lambda ts: ts[g], parts) for g in range(n)]
 
 
-def features(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
+def features(params: dict, batch: dict, cfg: LMConfig, mesh=None):
     """The forward up to, not including, the unembedding: (x after
     ``final_norm`` (B, S, D), the aux loss f32, summed as ``forward``
     sums it).  Each layer group is recomputed in the backward under
@@ -953,7 +953,7 @@ def _head_and_ce(params: dict, x: torch.Tensor, batch: dict,
     return _masked_mean(ce, None if mask is None else mask[:, 1:], plan)
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig, *, mesh=None):
+def loss_fn(params: dict, batch: dict, cfg: LMConfig, mesh=None):
     """(ce + 0.01 * aux, {"ce", "aux"}), differentiable in ``params``.
     The head and cross-entropy are recomputed in the backward as one
     unit, so the (B, S, V) logits and their softmax are never kept.
@@ -1004,7 +1004,8 @@ def _cache_spec_for(kind: str, cfg: LMConfig, batch: int, s_max: int,
                 "slot_pos": _zeros((batch, w), torch.int32, device, -1)}
     hd_cell = cfg.d_model // cfg.n_heads
     if kind == "mlstm":
-        st = recurrent.mlstm_init_state(batch, cfg.n_heads, hd_cell, device)
+        st = recurrent.mlstm_init_state(batch, cfg.n_heads, hd_cell,
+                                        device=device)
     elif kind == "slstm":
         st = recurrent.slstm_init_state(batch, cfg.n_heads, hd_cell, device)
     elif kind == "rglru":
@@ -1231,7 +1232,7 @@ def _block_decode(kind: str, p: dict, x: torch.Tensor, cache: dict,
 
 @torch.no_grad()
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                pos: torch.Tensor, cfg: LMConfig, *, mesh=None):
+                pos: torch.Tensor, cfg: LMConfig, mesh=None):
     """One token: tokens (B, 1), pos (B,).  Returns (logits (B, V) f32,
     cache).  The cache is updated in place (the values of the reference's
     functional update); the same dict is returned.  An encoder-only model

@@ -208,11 +208,11 @@ def _skip_ratio(occupied: torch.Tensor, blocks: int) -> torch.Tensor:
 
 
 def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
-                    noise: ima_lib.IMANoiseModel | None = None,
-                    fused: bool | str = "seq", device=None, seeds=None, *,
                     mode: str | None = None, k: int | None = None,
                     use_snl: bool | None = None,
-                    mac_telemetry: bool = False):
+                    noise: ima_lib.IMANoiseModel | None = None,
+                    fused: bool | str = "seq", mac_telemetry: bool = False,
+                    device=None, seeds=None):
     """Inference through the macro: events (B, T, N_in) -> (logits (B,
     classes), telemetry).
 
@@ -248,13 +248,15 @@ def forward_silicon(p: dict, events, cfg: SNNConfig, seed: int = 0,
     telemetry are the same; a stack's kernel writes none, and ``"seq"`` /
     ``"step"`` on a stack raise ``ValueError``.
 
-    The default differs from the reference's: ``fused="seq"`` here (the
-    port's main path, the kernels), ``fused=False`` there (the composed
-    chain).  Clean KWN gives the same bits either way; NLD does not (the
-    kernel puts the branch weights on the twin-cell grid and draws the
-    Fig. 7 noise inside it), nor do noisy results (another stream).  To
-    compute what a reference caller that leaves ``fused`` out computes,
-    pass ``fused=False``.
+    The parameters are the reference's, in its order, with the int
+    ``seed`` in the place of its PRNG ``key``; ``device`` and ``seeds``
+    come after them.  The default differs from the reference's:
+    ``fused="seq"`` here (the port's main path, the kernels),
+    ``fused=False`` there (the composed chain).  Clean KWN gives the same
+    bits either way; NLD does not (the kernel puts the branch weights on
+    the twin-cell grid and draws the Fig. 7 noise inside it), nor do noisy
+    results (another stream).  To compute what a reference caller that
+    leaves ``fused`` out computes, pass ``fused=False``.
     """
     if fused not in (False, True, "seq", "step"):
         raise ValueError(f"unknown fused={fused!r}; expected False, True, "
@@ -751,7 +753,8 @@ def forward_train(p: dict, events: torch.Tensor,
         w_hid = [None]
 
         def drive_of(li, x):
-            return dendrite_lib.dendrite_mac(p["dend"], x, cb, f=f)
+            return dendrite_lib.dendrite_mac(p["dend"], x, f, cb,
+                                             quantize=cb is not None)
     else:
         nlq = _nlq_cb(cfg)
         w_hid = p["w_hid"] if _is_stack(cfg) else [p["w_hid"]]

@@ -131,10 +131,13 @@ class MLSTMState(NamedTuple):
     m: torch.Tensor   # (B, H) log-stabiliser
 
 
-def mlstm_init_state(b: int, n_heads: int, hd: int, device=None):
-    return MLSTMState(_zeros((b, n_heads, hd, hd), device),
-                      _zeros((b, n_heads, hd), device),
-                      torch.full((b, n_heads), -1e9, dtype=torch.float32,
+def mlstm_init_state(b: int, n_heads: int, hd: int,
+                     dtype=torch.float32, device=None):
+    return MLSTMState(torch.zeros((b, n_heads, hd, hd), dtype=dtype,
+                                  device=device),
+                      torch.zeros((b, n_heads, hd), dtype=dtype,
+                                  device=device),
+                      torch.full((b, n_heads), -1e9, dtype=dtype,
                                  device=device))
 
 

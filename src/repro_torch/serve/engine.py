@@ -169,12 +169,18 @@ class SNNEventEngine:
     per row-*tile*, shared across co-resident slots — survives batching.
     Results are unchanged either way; only the work moves.
 
-    **Legacy path** (``continuous=False``).  One
-    ``forward_silicon(fused="seq")`` call per fixed-size batch of whole
-    sequences, padded to ``batch_slots`` rows; batches are bucketed by
-    stream length.  ``noise`` draws then come from a per-batch seed word
-    derived from the engine seed.  Layer stacks are served only here
-    (the default for them; ``continuous=True`` raises ``ValueError``).
+    **Legacy path** (``continuous=False``).  One ``forward_silicon``
+    call per fixed-size batch of whole sequences, padded to
+    ``batch_slots`` rows; batches are bucketed by stream length.
+    ``noise`` draws then come from a per-batch seed word derived from the
+    engine seed.  ``time_major`` picks the cadence: True (the default)
+    runs each batch through ``fused="seq"``, one launch a sequence;
+    False through ``fused="step"``, one T=1 launch of the same kernel a
+    time step with the step index as the counter step word, whose results
+    equal the time-major ones bit for bit.  Layer stacks, and every
+    ``time_major=False`` engine, are served only here (the default for
+    them; ``continuous=True`` raises ``ValueError``).  A stack runs the
+    stacked kernel under either cadence, as ``forward_silicon`` does.
 
     Everything runs on ``device`` (default ``cuda``).  Counterpart of
     ``repro.serve.engine.SNNEventEngine``.
@@ -209,7 +215,7 @@ class SNNEventEngine:
     """
 
     def __init__(self, cfg: snn_lib.SNNConfig, params, batch_slots: int = 64,
-                 seed: int = 0, noise=None,
+                 seed: int = 0, time_major: bool = True, noise=None,
                  pack_by_density: bool = True,
                  continuous: bool | None = None, round_steps: int = 8,
                  max_pending: int | None = None, preemptive: bool = True,
@@ -221,16 +227,19 @@ class SNNEventEngine:
         self.device = device_lib.resolve(device)
         self.params = snn_lib.params_to(params, self.device)
         single = len(cfg.layer_widths) == 1
+        self.time_major = time_major
+        self._fused = "seq" if time_major else "step"
+        supported = time_major and single
         if continuous is None:
-            continuous = single
-        elif continuous and not single:
+            continuous = supported
+        elif continuous and not supported:
             raise ValueError(
-                "continuous batching needs a single-layer config; pass "
-                "continuous=False (or leave it None to auto-select) for "
-                "stacks")
+                "continuous batching needs the time-major fused kernel and "
+                "a single-layer config; pass continuous=False (or leave it "
+                "None to auto-select) for per-step cadence or stacks")
         # packed once for the continuous path; the drain path packs per call
         self._fw = snn_lib.pack_fused(self.params, cfg, noise) \
-            if single else None
+            if continuous else None
         self.b = batch_slots
         self.noise = noise
         self.pack_by_density = pack_by_density
@@ -395,7 +404,7 @@ class SNNEventEngine:
         self._batches += 1
         logits, tele = snn_lib.forward_silicon(
             self.params, torch.from_numpy(ev), self.cfg, seed,
-            noise=self.noise, device=self.device)
+            noise=self.noise, fused=self._fused, device=self.device)
         logits = logits.cpu()
         preds = logits.argmax(-1)
         adc, sops = tele["adc_steps"].cpu(), tele["sops"].cpu()

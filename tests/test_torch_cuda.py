@@ -116,7 +116,7 @@ def test_seq_kwn_kernel_bit_exact_to_plain_version(cuda, shape, variant):
     (K 300 -> 512: a ragged K tile; N = 200 -> 256 with 56 columns of code
     -1; N = 1024 = MAX_COLS, eight column tiles of staged planes; M = 132
     -> 256, two row tiles), with per-row ``row_ctl`` (distinct seeds, step
-    offsets and row ids), against ``ref.fused_macro_seq_ref`` on the same
+    offsets and row ids), against ``ref.fused_macro_seq_kwn_ref`` on the same
     card tensors: every output equal, membranes and the trace at 0 ULP."""
     t, m, n = shape
     noisy, gated, trace = variant
@@ -148,11 +148,12 @@ def test_seq_kwn_kernel_bit_exact_to_plain_version(cuda, shape, variant):
             pad(fw.scale, (0, np_ - n)).to(cuda), v0.to(cuda), nz)
     activity = ops.fused_activity_map(x, plan) if gated else None
     before = fused_macro.fused_macro_seq.launches
-    got = fused_macro.fused_macro_seq(*args, activity, rc.to(cuda),
+    got = fused_macro.fused_macro_seq(*args, activity=activity,
+                                      row_ctl=rc.to(cuda),
                                       bm=plan.bm, bk=plan.bk, **kw)
     torch.cuda.synchronize()
     assert fused_macro.fused_macro_seq.launches == before + 1
-    want = ref.fused_macro_seq_ref(*args, row_ctl=rc.to(cuda), **kw)
+    want = ref.fused_macro_seq_kwn_ref(*args, row_ctl=rc.to(cuda), **kw)
     names = ("mac", "v_out", "spikes", "mask", "steps", "vtrace")
     assert len(got) == len(want) == (6 if trace else 5)
     for name, a, b in zip(names, got, want):
@@ -1143,7 +1144,7 @@ def test_every_candidate_plan_equals_heuristic_and_plain(cuda, cell, noisy):
     rows = torch.arange(cell.m, dtype=torch.int32, device=cuda)
     rc = torch.stack([torch.full_like(rows, 9), torch.full_like(rows, 4),
                       rows], -1)
-    want = list(ref.fused_macro_seq_ref(
+    want = list(ref.fused_macro_seq_kwn_ref(
         *args, None, row_ctl=rc,
         **{k: a for k, a in kw.items() if k not in ("seed",
                                                      "step_offset")}))

@@ -222,8 +222,8 @@ def test_dendrite_mac_matches_reference():
     tp = convert.snn_params_from_jax({"dend": dp, "w_out": np.zeros(1)},
                                      "cpu")
     got = t_dend.dendrite_mac(tp["dend"], torch.from_numpy(s),
-                              t_ima.activation_codebook(5, t_ima.relu,
-                                                        -4.0, 4.0))
+                              nl_cb=t_ima.activation_codebook(
+                                  5, t_ima.relu, -4.0, 4.0), quantize=True)
     # float einsums: XLA and PyTorch sum the branches and inputs in
     # different orders, so equal to a few f32 ULPs of the drive
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
