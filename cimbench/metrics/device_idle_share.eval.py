@@ -1,0 +1,7 @@
+"""device_idle_share.eval: the share of the traced window with the card idle, in %."""
+
+from cimbench import layers
+
+
+def read(ctx):
+    return layers.device_idle_share(ctx, "eval")

@@ -1,0 +1,7 @@
+"""mfu.train: the call's products at the peak rates over the median call, in %."""
+
+from cimbench import layers
+
+
+def read(ctx):
+    return layers.mfu(ctx, "train")
